@@ -1,0 +1,62 @@
+"""Electronics noise N(t,x): frequency-shaped Gaussian noise per wire.
+
+A synthetic 1/f-plus-plateau amplitude spectrum with random Gaussian
+phases, inverse-FFT'd per wire. ``noise_spectrum`` scales it so the expected
+time-domain RMS is ``cfg.noise_rms_adc`` (Parseval, with the self-conjugate
+DC and even-n Nyquist bins carrying no imaginary part).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.config import LArTPCConfig
+from repro_torch.core import prng
+from repro_torch.device import resolve_device
+
+
+def _parseval_weights(num_ticks: int, device) -> torch.Tensor:
+    """Per-rfft-bin weight: 2 for interior bins, 0.5 for DC (and the
+    Nyquist bin when ``num_ticks`` is even)."""
+    w = torch.full((num_ticks // 2 + 1,), 2.0, dtype=torch.float32,
+                   device=device)
+    w[0] = 0.5
+    if num_ticks % 2 == 0:
+        w[-1] = 0.5
+    return w
+
+
+def noise_spectrum(cfg: LArTPCConfig, device="cuda") -> torch.Tensor:
+    """Amplitude spectrum (num_ticks//2+1,): 1/f + white, shaped."""
+    device = resolve_device(device)
+    n = cfg.num_ticks
+    nfreq = n // 2 + 1
+    f = torch.arange(nfreq, dtype=torch.float32, device=device) + 1.0
+    amp = 1.0 / torch.sqrt(f) + 0.3
+    r = f / nfreq
+    amp = amp * torch.exp(-(r * r) * 2.0)
+    w = _parseval_weights(n, device)
+    norm = cfg.noise_rms_adc * n / torch.sqrt(torch.sum(w * (amp * amp)) + 1e-30)
+    return amp * norm
+
+
+def sample_noise_rows(k: torch.Tensor, n_rows: int, amp: torch.Tensor,
+                      num_ticks: int) -> torch.Tensor:
+    """(n_rows, num_ticks) realisations of the amplitude spectrum ``amp``."""
+    nfreq = num_ticks // 2 + 1
+    k1, k2 = prng.split(k)
+    re = prng.normal(k1, (n_rows, nfreq), amp.device)
+    im = prng.normal(k2, (n_rows, nfreq), amp.device)
+    # a Hermitian spectrum has real DC (and, for even n, Nyquist) bins
+    im[:, 0] = 0.0
+    if num_ticks % 2 == 0:
+        im[:, -1] = 0.0
+    scale = 0.7071067811865476
+    spec = torch.complex(re * amp[None, :] * scale, im * amp[None, :] * scale)
+    return torch.fft.irfft(spec, n=num_ticks, dim=-1).to(torch.float32)
+
+
+def simulate_noise(k: torch.Tensor, cfg: LArTPCConfig,
+                   device="cuda") -> torch.Tensor:
+    """(num_wires, num_ticks) correlated noise realisation."""
+    return sample_noise_rows(k, cfg.num_wires, noise_spectrum(cfg, device),
+                             cfg.num_ticks)

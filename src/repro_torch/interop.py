@@ -1,0 +1,68 @@
+"""Carry the reference's values into the port, as numpy arrays and dicts.
+
+The simulation has no weights: its state is the config, the PRNG keys, the
+depos and the detector response. These helpers build the port's objects
+from the JAX package's values once those are turned into numpy (the caller
+does that; nothing here imports JAX), and turn a port ``SimOutput`` back
+into numpy for comparison.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+from repro_torch.config import LArTPCConfig
+from repro_torch.core.depo import DepoSet
+from repro_torch.core.drift import PhysicalDepoSet
+from repro_torch.core.response import DetectorResponse
+from repro_torch.core.stages import SimOutput
+
+
+def config_from_dict(d: Mapping[str, Any]) -> LArTPCConfig:
+    """``LArTPCConfig`` from ``dataclasses.asdict`` of the reference config
+    (tuples come back as lists from asdict and are restored)."""
+    fields = {f.name for f in dataclasses.fields(LArTPCConfig)}
+    unknown = set(d) - fields
+    if unknown:
+        raise KeyError(f"fields the port's config lacks: {sorted(unknown)}")
+    return LArTPCConfig(**{k: tuple(v) if isinstance(v, list) else v
+                           for k, v in d.items()})
+
+
+def key_from_data(data) -> torch.Tensor:
+    """A port key from the reference's ``key_data`` (two uint32 words)."""
+    words = np.asarray(data, dtype=np.uint32).reshape(-1)
+    if words.shape != (2,):
+        raise ValueError(f"expected 2 key words, got {words.shape}")
+    return torch.from_numpy(words.astype(np.int64))
+
+
+def _f32(x, device) -> torch.Tensor:
+    return torch.from_numpy(np.array(x, dtype=np.float32)).to(device)
+
+
+def depos_from_numpy(wire, tick, sigma_w, sigma_t, charge,
+                     device="cpu") -> DepoSet:
+    return DepoSet(*(_f32(a, device)
+                     for a in (wire, tick, sigma_w, sigma_t, charge)))
+
+
+def physical_depos_from_numpy(x, y, z, t, q, device="cpu") -> PhysicalDepoSet:
+    return PhysicalDepoSet(*(_f32(a, device) for a in (x, y, z, t, q)))
+
+
+def response_from_numpy(kernel, freq, pad_shape, plane: str = "induction",
+                        device="cpu") -> DetectorResponse:
+    freq = torch.from_numpy(np.array(freq, dtype=np.complex64))
+    return DetectorResponse(kernel=_f32(kernel, device), freq=freq.to(device),
+                            pad_shape=tuple(int(s) for s in pad_shape),
+                            plane=plane)
+
+
+def to_numpy(out: SimOutput) -> Dict[str, np.ndarray]:
+    """A port ``SimOutput`` as a dict of numpy arrays (None fields left out)."""
+    return {name: value.detach().cpu().numpy()
+            for name, value in out._asdict().items() if value is not None}

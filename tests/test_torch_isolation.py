@@ -1,0 +1,112 @@
+"""The port stands alone: no JAX and no reference module in its imports, no
+silent CPU fallback, and a config copy that matches the reference's."""
+import ast
+import dataclasses
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax  # noqa: F401  (the port's tests run beside the reference)
+import pytest
+import torch
+
+from repro.config import LArTPCConfig as JaxConfig
+from repro.config import get_config as jax_get_config
+from repro.config import plane_specs as jax_plane_specs
+from repro_torch import config as tconfig
+from repro_torch import interop
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
+def test_no_jax_or_reference_imports(path):
+    bad = [m for m in _imported_modules(path)
+           if m.split(".")[0] in ("jax", "jaxlib", "repro")]
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_import_leaves_jax_out_of_sys_modules():
+    code = ("import sys, repro_torch.core.pipeline, repro_torch.launch.sim, "
+            "repro_torch.interop, repro_torch.kernels.fused_sim.ops; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')]; print(bad); sys.exit(bool(bad))")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
+    res = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def _entry_points():
+    from repro_torch.core import prng
+    from repro_torch.core.depo import generate_depos
+    from repro_torch.core.pipeline import make_sim_fn, simulate_fig4
+    from repro_torch.launch.sim import run_events
+
+    cfg = tconfig.get_config("lartpc-uboone", smoke=True)
+    k = prng.key(0)
+    return {
+        "make_sim_fn": lambda **kw: make_sim_fn(cfg, **kw),
+        "simulate_fig4": lambda **kw: simulate_fig4(
+            k, generate_depos(k, cfg, device="cpu"), cfg=cfg, **kw),
+        "generate_depos": lambda **kw: generate_depos(k, cfg, **kw),
+        "run_events": lambda **kw: run_events(cfg, 1, **kw),
+    }
+
+
+@pytest.mark.parametrize("name", ["make_sim_fn", "simulate_fig4",
+                                  "generate_depos", "run_events"])
+def test_entry_points_default_to_the_card(name, monkeypatch):
+    """Without a card the default device raises; device="cpu" runs."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    fn = _entry_points()[name]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fn()
+    fn(device="cpu")
+
+
+def test_config_copy_has_reference_fields_and_defaults():
+    ref = {f.name: f.default for f in dataclasses.fields(JaxConfig)}
+    port = {f.name: f.default for f in dataclasses.fields(tconfig.LArTPCConfig)}
+    assert port == ref
+
+
+@pytest.mark.parametrize("smoke", [False, True])
+def test_config_registration_round_trips(smoke):
+    ref = jax_get_config("lartpc-uboone", smoke=smoke)
+    port = tconfig.get_config("lartpc-uboone", smoke=smoke)
+    assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+    assert interop.config_from_dict(dataclasses.asdict(ref)) == port
+
+
+@pytest.mark.parametrize("planes", [1, 2, 3])
+def test_plane_specs_match(planes):
+    ref = dataclasses.replace(JaxConfig(), num_planes=planes)
+    port = dataclasses.replace(tconfig.LArTPCConfig(), num_planes=planes)
+    assert tuple(map(tuple, tconfig.plane_specs(port))) == tuple(
+        map(tuple, jax_plane_specs(ref)))
+
+
+def test_apply_overrides_parses_like_reference():
+    from repro.config import apply_overrides as jax_apply
+
+    over = {"num_depos": "77", "fluctuate": "false", "tick_us": "0.25",
+            "charge_grid_strategy": "fused_pallas"}
+    port = tconfig.apply_overrides(tconfig.LArTPCConfig(), dict(over))
+    ref = jax_apply(JaxConfig(), dict(over))
+    assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+    with pytest.raises(KeyError):
+        tconfig.apply_overrides(tconfig.LArTPCConfig(), {"nope": "1"})
