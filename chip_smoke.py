@@ -6,25 +6,43 @@
 Phases (any failure exits non-zero before the result line):
 
   1. device   : the card's name and power limit (nvidia-smi), device count
-  2. build    : nvcc every CUDA source for sm_90a (timed as set-up)
-  3. kernels  : each fused charge-grid kernel against its plain PyTorch
-                version at full MicroBooNE width (2560 x 9592, 100k depos):
-                dense within the grid tolerance of the plain version,
-                compact == dense bit for bit, two runs bit-identical, no
-                dropped (depo, tile) entries; again at a tile-edge config,
-                with 32 x 128 tiles, and for single depos straddling tile
-                edges
-  4. main     : the launcher's event loop, 4 full-width events with
-                charge_grid_strategy=fused_pallas, then fused_pallas_compact
-                (launch counters reset just before and read just after
-                each); the ADC of every event must agree between the two;
+  2. build    : nvcc every CUDA source for sm_90a, in parallel (timed as
+                set-up)
+  3. kernels  : each kernel against its plain PyTorch version.
+                Fused (rows 1-2) at full MicroBooNE width (2560 x 9592, 100k
+                depos): dense within the grid tolerance of the plain
+                version, compact == dense bit for bit, two runs
+                bit-identical, no dropped (depo, tile) entries; again at a
+                tile-edge config, with 32 x 128 tiles, and for single depos
+                straddling tile edges.
+                Scatter-add (rows 5-6) on the unfused chain's fluctuated
+                patches at the same configs: kernel == plain bit for bit,
+                compact == dense bit for bit, two runs bit-identical, and
+                within the parity tolerance of index_put_(accumulate=True).
+                Multi-plane fused (rows 3-4) at full width with 3 planes:
+                within the grid tolerance of the plain version, compact ==
+                dense bit for bit, and plane p == the one-plane kernel (row
+                1) on plane p's depos with fold_in(kf, p), bit for bit
+  4. main     : the launcher's event loop (launch counters reset just
+                before and read just after each run): 4 full-width events
+                with charge_grid_strategy=fused_pallas, then
+                fused_pallas_compact (ADC equal between the two); one event
+                of the default unfused strategy; 4 full-width three-plane
+                events with fused_pallas_multiplane, then
+                fused_pallas_multiplane_compact (ADC equal between the two,
+                and equal to the per-plane loop of the one-plane kernel);
+                2 full-width events of unfused with scatter_strategy=pallas,
+                then pallas_compact (ADC equal between the two, launch
+                counters equal to the events served). Per plane:
                 int16 ADC at the 900 baseline, finite signal, non-zero max
-                dev; per-event time, depos/s, per-stage times, peak memory;
-                then one event of the default unfused strategy
+                dev; per-event time, depos/s, per-stage times, peak memory
   5. timing   : each kernel's wrapper (median of 5 rounds of 20 calls) and
-                its plain version timed with CUDA events at the main path's
-                shapes, beside the least time the card could take (bytes or
-                operations bound, from this run's inputs)
+                its plain version (3 calls; the three-plane plain versions
+                2 calls) timed with CUDA events at the main path's shapes,
+                beside the least time the card could take (bytes or
+                operations bound, from this run's inputs) and, for the
+                scatter-add kernels, the one PyTorch call that computes the
+                same function (index_put_ with accumulate=True)
   6. summary  : one JSON line {"kernels": [...]}
   7. result   : last line {"ok": true, "device": {...}}
 
@@ -60,7 +78,19 @@ OPS_PER_AXIS = 10
 #: fmix32, add)
 OPS_PER_ENTRY = 12
 EVENTS = 4
+#: full-width single-plane events per scatter-add strategy
+SCATTER_EVENTS = 2
+PLANES = 3
 STRATEGIES = ("fused_pallas", "fused_pallas_compact")
+MULTI_STRATEGIES = ("fused_pallas_multiplane",
+                    "fused_pallas_multiplane_compact")
+SCATTER_STRATEGIES = ("pallas", "pallas_compact")
+#: one depo per case, straddling an interior edge of the 64x256 tiles of a
+#: 96x768 grid or clipped at the detector edge
+ONE_DEPO_CASES = (("straddle wire edge", (63.7, 100.2, 1.1, 1.4, 4321.0)),
+                  ("straddle tick edge", (30.0, 255.4, 1.1, 1.4, 4321.0)),
+                  ("straddle corner", (63.7, 255.4, 1.1, 1.4, 4321.0)),
+                  ("detector edge", (0.4, 2.0, 0.8, 1.0, 999.0)))
 
 
 class PhaseError(RuntimeError):
@@ -100,11 +130,46 @@ def cuda_time(fn, iters: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / iters
 
 
+def wrapper_ms(fn):
+    """(median, sorted rounds) of 5 rounds of 20 calls, ms per call."""
+    rounds = sorted(cuda_time(fn, iters=20, warmup=2) for _ in range(5))
+    return statistics.median(rounds), rounds
+
+
+def bound_of(nbytes: float, ops: float):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    operations over the float32 rate."""
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = ops / PEAK_F32_OPS_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def list_work(ids, k_max: int, w0, t0, pw: int, pt: int, tiles_t: int,
+              tw: int, tt: int):
+    """(entries, in-tile patch pixels, in-tile patch rows + columns) of the
+    filled entries of dense per-tile lists: the work their data needs."""
+    import torch
+
+    pos = torch.nonzero(ids >= 0, as_tuple=True)[0]
+    tile = pos // k_max
+    d = ids[pos].long()
+    w0, t0 = w0.long()[d], t0.long()[d]
+    tw0 = (tile // tiles_t) * tw
+    tt0 = (tile % tiles_t) * tt
+    nr = (torch.minimum(w0 + pw, tw0 + tw)
+          - torch.maximum(w0, tw0)).clamp_min(0)
+    nc = (torch.minimum(t0 + pt, tt0 + tt)
+          - torch.maximum(t0, tt0)).clamp_min(0)
+    return int(pos.numel()), int((nr * nc).sum()), int((nr + nc).sum())
+
+
 class KernelCase:
     """One fused-kernel problem: depos (generated from ``key`` unless
-    given), binned lists and seed on the card."""
+    given), binned lists and seed (the charge-grid key's words unless
+    given) on the card."""
 
-    def __init__(self, cfg, key, tw: int, tt: int, device, depos=None):
+    def __init__(self, cfg, key, tw: int, tt: int, device, depos=None,
+                 seed=None):
         import torch
 
         from repro_torch.core import prng
@@ -116,17 +181,17 @@ class KernelCase:
             depos = generate_depos(key, cfg, device=device)
         w0, t0 = depo_patch_origin(depos, cfg)
         self.params = (*depos, w0, t0)
-        self.seed = tuple(int(v) for v in prng.key_data(prng.split(key)[0]))
+        self.seed = seed if seed is not None else tuple(
+            int(v) for v in prng.key_data(prng.split(key)[0]))
         self.k_max = binning.default_k_max(depos.n, cfg.num_wires,
                                            cfg.num_ticks, tw, tt)
-        bin_args = (w0, t0, cfg.patch_wires, cfg.patch_ticks, cfg.num_wires,
-                    cfg.num_ticks, tw, tt)
+        self.bin_args = (w0, t0, cfg.patch_wires, cfg.patch_ticks,
+                         cfg.num_wires, cfg.num_ticks, tw, tt)
         self.ids, self.n_tiles, dropped = binning.bin_depos_to_tiles(
-            *bin_args, self.k_max)
-        self.n_cap = binning.active_tile_cap(*bin_args[:1], *bin_args[2:],
-                                             t0=t0)
-        self.active, self.cids, cdropped = binning.bin_depos_to_tiles_compact(
-            *bin_args, self.k_max, self.n_cap)
+            *self.bin_args, self.k_max)
+        self.n_cap = binning.active_tile_cap(
+            *self.bin_args[:1], *self.bin_args[2:], t0=t0)
+        self.active, self.cids, cdropped = self.compact_lists(self.n_cap)
         check(int(dropped) == 0 and int(cdropped) == 0,
               f"binning dropped {int(dropped)}/{int(cdropped)} entries")
         self.tiles_w, self.tiles_t, _ = binning.tile_counts(
@@ -136,6 +201,12 @@ class KernelCase:
                        pt=cfg.patch_ticks, seed=self.seed, fluctuate=True)
         self._work = None
         torch.cuda.synchronize()
+
+    def compact_lists(self, n_cap: int):
+        from repro_torch.kernels.scatter_add import ops as binning
+
+        return binning.bin_depos_to_tiles_compact(*self.bin_args, self.k_max,
+                                                  n_cap)
 
     def dense(self):
         from repro_torch.kernels.fused_sim import kernel
@@ -175,41 +246,223 @@ class KernelCase:
         """(entries, in-support pixels, row+column weights) these lists
         need: the data-dependent work of the kernel."""
         if self._work is None:
-            import torch
-
-            pos = torch.nonzero(self.ids >= 0, as_tuple=True)[0]
-            tile = pos // self.k_max
-            d = self.ids[pos].long()
-            w0, t0 = self.params[5].long()[d], self.params[6].long()[d]
-            tw0 = (tile // self.tiles_t) * self.tw
-            tt0 = (tile % self.tiles_t) * self.tt
-            nr = (torch.minimum(w0 + self.cfg.patch_wires, tw0 + self.tw)
-                  - torch.maximum(w0, tw0)).clamp_min(0)
-            nc = (torch.minimum(t0 + self.cfg.patch_ticks, tt0 + self.tt)
-                  - torch.maximum(t0, tt0)).clamp_min(0)
-            self._work = (int(pos.numel()), int((nr * nc).sum()),
-                          int((nr + nc).sum()))
+            self._work = list_work(self.ids, self.k_max, self.params[5],
+                                   self.params[6], self.cfg.patch_wires,
+                                   self.cfg.patch_ticks, self.tiles_t,
+                                   self.tw, self.tt)
         return self._work
 
-    def bound(self, compact: bool):
-        """(bound_ms, bound_by): the larger of bytes over the memory rate
-        and operations over the float32 rate."""
+    def bytes_ops(self, n_cap: int = 0):
+        """(bytes, operations) of the fused kernel on these lists: inputs
+        read once, the grid written once; ``n_cap`` adds the compact
+        layout's active list."""
         entries, pixels, axes = self.work()
         n = self.params[0].numel()
         out_bytes = 4 * self.cfg.num_wires * self.cfg.num_ticks
-        list_bytes = 4 * entries + (4 * self.n_cap if compact else 0)
-        nbytes = 7 * 4 * n + list_bytes + out_bytes
+        nbytes = 7 * 4 * n + 4 * entries + 4 * n_cap + out_bytes
         ops = (OPS_PER_PIXEL * pixels + OPS_PER_AXIS * axes
                + OPS_PER_ENTRY * entries)
-        t_bytes = nbytes / PEAK_BYTES_S * 1e3
-        t_ops = ops / PEAK_F32_OPS_S * 1e3
-        return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes,
-                                                                 "bytes")
+        return nbytes, ops
+
+    def bound(self, compact: bool):
+        return bound_of(*self.bytes_ops(self.n_cap if compact else 0))
+
+
+class MultiPlaneCase:
+    """One three-plane fused-kernel problem: the event's physical depos
+    drifted onto every plane, one ``KernelCase`` per plane seeded with
+    ``fold_in(kf, p)``, and the plane-major lists of the multi-plane
+    launch (compact: one shared ``n_cap``)."""
+
+    def __init__(self, cfg, key, tw: int, tt: int, device):
+        import torch
+
+        from repro_torch.core import prng
+        from repro_torch.core.depo import generate_plane_depos
+        from repro_torch.core.stages import plane_fold_keys
+        from repro_torch.config import plane_specs
+
+        self.cfg = cfg
+        depos = generate_plane_depos(key, cfg, device=device)
+        keys = plane_fold_keys(prng.split(key)[0], plane_specs(cfg))
+        self.seeds = [tuple(row) for row in keys.tolist()]
+        self.planes = [KernelCase(cfg, None, tw, tt, device,
+                                  depos=type(depos)(*(x[p] for x in depos)),
+                                  seed=self.seeds[p])
+                       for p in range(cfg.num_planes)]
+        first = self.planes[0]
+        self.k_max, self.tiles_w, self.tiles_t = (first.k_max, first.tiles_w,
+                                                  first.tiles_t)
+        self.n_cap = max(c.n_cap for c in self.planes)
+        compact = [c.compact_lists(self.n_cap) for c in self.planes]
+        check(all(int(d) == 0 for _, _, d in compact),
+              "multi-plane compact binning dropped entries")
+        self.params = tuple(torch.stack([c.params[i] for c in self.planes])
+                            for i in range(7))
+        self.ids = torch.cat([c.ids for c in self.planes])
+        self.active = torch.cat([a for a, _, _ in compact])
+        self.cids = torch.cat([i for _, i, _ in compact])
+        self.kw = dict(num_planes=cfg.num_planes, num_wires=cfg.num_wires,
+                       num_ticks=cfg.num_ticks, tw=tw, tt=tt,
+                       k_max=self.k_max, pw=cfg.patch_wires,
+                       pt=cfg.patch_ticks, seeds=self.seeds, fluctuate=True)
+        self.geom = dict(tiles_t=self.tiles_t, tw=tw, tt=tt, k_max=self.k_max,
+                         pw=cfg.patch_wires, pt=cfg.patch_ticks)
+        torch.cuda.synchronize()
+
+    def dense(self):
+        from repro_torch.kernels.fused_sim import kernel
+
+        return kernel.fused_rasterize_scatter_multiplane(
+            *self.params, self.ids, **self.kw)
+
+    def compact(self):
+        from repro_torch.kernels.fused_sim import kernel
+
+        return kernel.fused_rasterize_scatter_multiplane_compact(
+            *self.params, self.active, self.cids, **self.kw)
+
+    def plain_dense(self):
+        from repro_torch.kernels.fused_sim import ref
+
+        out = ref.fused_rasterize_scatter_multiplane_ref(
+            self.params, self.ids, tiles_w=self.tiles_w, seeds=self.seeds,
+            fluctuate=True, **self.geom)
+        return out[:, :self.cfg.num_wires, :self.cfg.num_ticks]
+
+    def plain_compact(self):
+        from repro_torch.kernels.fused_sim import kernel, ref
+
+        blocks = ref.fused_rasterize_scatter_multiplane_compact_ref(
+            self.params, self.active, self.cids, seeds=self.seeds,
+            fluctuate=True, **self.geom)
+        return kernel.scatter_tiles_to_grid_planes(
+            blocks, self.active, self.cfg.num_planes, self.tiles_w,
+            self.tiles_t, self.geom["tw"], self.geom["tt"]
+        )[:, :self.cfg.num_wires, :self.cfg.num_ticks]
+
+    def bound(self, compact: bool):
+        """The one-plane bound's bytes and operations summed over the
+        planes' lists."""
+        parts = [c.bytes_ops(self.n_cap if compact else 0)
+                 for c in self.planes]
+        return bound_of(sum(b for b, _ in parts), sum(o for _, o in parts))
+
+    def work(self):
+        return tuple(sum(w) for w in zip(*(c.work() for c in self.planes)))
+
+
+class ScatterCase:
+    """One scatter-add problem: the unfused chain's fluctuated patches of
+    depos generated from ``key`` (or given), with the dense and compact
+    lists the ``pallas`` strategies bin them into."""
+
+    def __init__(self, cfg, key, tw: int, tt: int, device, depos=None):
+        import torch
+
+        from repro_torch.core import fluctuate as fl
+        from repro_torch.core import prng
+        from repro_torch.core.depo import generate_depos
+        from repro_torch.core.rasterize import rasterize
+        from repro_torch.kernels.scatter_add import ops as binning
+
+        self.cfg = cfg
+        if depos is None:
+            depos = generate_depos(key, cfg, device=device)
+        patches, self.w0, self.t0 = rasterize(depos, cfg)
+        self.patches = fl.fluctuate_counter(prng.split(key)[0], patches,
+                                            depos.charge)
+        _, pw, pt = self.patches.shape
+        self.tw, self.tt = max(tw, pw), max(tt, pt)
+        self.k_max = binning.default_k_max(depos.n, cfg.num_wires,
+                                           cfg.num_ticks, self.tw, self.tt)
+        args = (self.w0, self.t0, pw, pt, cfg.num_wires, cfg.num_ticks,
+                self.tw, self.tt)
+        self.ids, _, dropped = binning.bin_depos_to_tiles(*args, self.k_max)
+        self.n_cap = binning.active_tile_cap(*args[:1], *args[2:], t0=self.t0)
+        self.active, self.cids, cdropped = binning.bin_depos_to_tiles_compact(
+            *args, self.k_max, self.n_cap)
+        check(int(dropped) == 0 and int(cdropped) == 0,
+              f"scatter binning dropped {int(dropped)}/{int(cdropped)}")
+        self.tiles_w, self.tiles_t, _ = binning.tile_counts(
+            cfg.num_wires, cfg.num_ticks, self.tw, self.tt)
+        self.kw = dict(num_wires=cfg.num_wires, num_ticks=cfg.num_ticks,
+                       tw=self.tw, tt=self.tt, k_max=self.k_max)
+        from repro_torch.core.scatter import flat_pixel_indices
+
+        self.flat_idx = flat_pixel_indices(self.w0, self.t0, pw, pt,
+                                           cfg.num_ticks).reshape(-1)
+        torch.cuda.synchronize()
+
+    def _crop(self, grid):
+        return grid[:self.cfg.num_wires, :self.cfg.num_ticks]
+
+    def _place(self, blocks):
+        from repro_torch.kernels.fused_sim.kernel import scatter_tiles_to_grid
+
+        return self._crop(scatter_tiles_to_grid(
+            blocks, self.active, self.tiles_w, self.tiles_t, self.tw,
+            self.tt))
+
+    def dense(self):
+        from repro_torch.kernels.scatter_add import kernel
+
+        return self._crop(kernel.scatter_add_pallas(
+            self.patches, self.w0, self.t0, self.ids, **self.kw))
+
+    def compact(self):
+        from repro_torch.kernels.scatter_add import kernel
+
+        return self._place(kernel.scatter_add_pallas_compact(
+            self.patches, self.w0, self.t0, self.active, self.cids,
+            **self.kw))
+
+    def plain_dense(self):
+        from repro_torch.kernels.scatter_add import ref
+
+        return self._crop(ref.scatter_add_ref(
+            self.patches, self.w0, self.t0, self.ids, tiles_w=self.tiles_w,
+            tiles_t=self.tiles_t, tw=self.tw, tt=self.tt, k_max=self.k_max))
+
+    def plain_compact(self):
+        from repro_torch.kernels.scatter_add import ref
+
+        return self._place(ref.scatter_add_compact_ref(
+            self.patches, self.w0, self.t0, self.active, self.cids,
+            tiles_t=self.tiles_t, tw=self.tw, tt=self.tt, k_max=self.k_max))
+
+    def library(self):
+        """The one PyTorch call computing the same function:
+        index_put_(accumulate=True) of every patch pixel into a zeroed
+        grid."""
+        import torch
+
+        grid = torch.zeros(self.cfg.num_wires * self.cfg.num_ticks,
+                           dtype=torch.float32, device=self.patches.device)
+        grid.index_put_((self.flat_idx,), self.patches.reshape(-1),
+                        accumulate=True)
+        return grid.reshape(self.cfg.num_wires, self.cfg.num_ticks)
+
+    def work(self):
+        """(entries, in-tile patch pixels) these lists add."""
+        _, pw, pt = self.patches.shape
+        return list_work(self.ids, self.k_max, self.w0, self.t0, pw, pt,
+                         self.tiles_t, self.tw, self.tt)[:2]
+
+    def bound(self, compact: bool):
+        """Bytes: patches, origins and the filled list entries read once
+        (plus the compact active list), the grid written once;
+        operations: one add per in-tile patch pixel."""
+        entries, pixels = self.work()
+        nbytes = (self.patches.numel() * 4 + 8 * self.patches.shape[0]
+                  + 4 * entries + (4 * self.n_cap if compact else 0)
+                  + 4 * self.cfg.num_wires * self.cfg.num_ticks)
+        return bound_of(nbytes, pixels)
 
 
 def check_kernels(case, label: str):
-    """Phase 3 checks for one case; returns max |kernel - plain| of the
-    dense and of the compact kernel."""
+    """Phase 3 checks for one fused case; returns max |kernel - plain| of
+    the dense and of the compact kernel."""
     import torch
 
     from repro_torch.testing.parity import GRID_ATOL_FRAC, RTOL
@@ -243,6 +496,141 @@ def check_kernels(case, label: str):
     return err, err_c
 
 
+def check_scatter(case, label: str):
+    """Phase 3 checks for one scatter-add case; returns max |kernel -
+    plain| of the dense and of the compact kernel (0 when they pass)."""
+    import torch
+
+    from repro_torch.testing.parity import ATOL_FRAC, RTOL
+
+    dense1, dense2 = case.dense(), case.dense()
+    comp1, comp2 = case.compact(), case.compact()
+    plain, plain_c = case.plain_dense(), case.plain_compact()
+    lib = case.library()
+    torch.cuda.synchronize()
+    err = float((dense1 - plain).abs().max())
+    err_c = float((comp1 - plain_c).abs().max())
+    atol = ATOL_FRAC * float(lib.abs().max())
+    lib_err = float((dense1 - lib).abs().max())
+    print(f"{label}: grid {tuple(dense1.shape)}, max |kernel - plain| = "
+          f"{err:.6g} (compact {err_c:.6g}), max |kernel - index_put_| = "
+          f"{lib_err:.6g} (atol {atol:.6g}, rtol {RTOL}); max |grid| = "
+          f"{float(plain.abs().max()):.6g}; tiles {case.tw}x{case.tt}, "
+          f"n_cap {case.n_cap}, k_max {case.k_max}", flush=True)
+    check(float(dense1.sum()) > 0.0, f"{label}: empty grid")
+    check(torch.equal(dense1, plain), f"{label}: dense kernel != plain "
+          "version")
+    check(torch.equal(comp1, plain_c), f"{label}: compact kernel != plain "
+          "version")
+    check(torch.equal(dense1, dense2) and torch.equal(comp1, comp2),
+          f"{label}: kernel not bit-identical run to run")
+    check(torch.equal(comp1, dense1), f"{label}: compact kernel != dense "
+          "kernel")
+    check(torch.allclose(dense1, lib, rtol=RTOL, atol=atol),
+          f"{label}: kernel outside tolerance of index_put_")
+    return err, err_c
+
+
+def check_multiplane(case, label: str):
+    """Phase 3 checks for the three-plane fused case; returns max |kernel -
+    plain| of the dense and of the compact kernel."""
+    import torch
+
+    from repro_torch.testing.parity import GRID_ATOL_FRAC, RTOL
+
+    dense1, dense2 = case.dense(), case.dense()
+    comp = case.compact()
+    plain, plain_c = case.plain_dense(), case.plain_compact()
+    singles = [c.dense() for c in case.planes]
+    torch.cuda.synchronize()
+    atol = GRID_ATOL_FRAC * float(plain.abs().max())
+    err = float((dense1 - plain).abs().max())
+    err_c = float((comp - plain_c).abs().max())
+    print(f"{label}: grids {tuple(dense1.shape)}, max |kernel - plain| = "
+          f"{err:.6g} (compact {err_c:.6g}; atol {atol:.6g}, rtol {RTOL}); "
+          f"n_cap {case.n_cap} per plane, k_max {case.k_max}, entries per "
+          f"plane {[c.work()[0] for c in case.planes]}", flush=True)
+    check(torch.equal(dense1, dense2), f"{label}: not bit-identical run to "
+          "run")
+    check(torch.equal(comp, dense1), f"{label}: compact kernel != dense "
+          "kernel")
+    check(torch.equal(plain_c, plain), f"{label}: plain compact != plain "
+          "dense")
+    check(torch.allclose(dense1, plain, rtol=RTOL, atol=atol),
+          f"{label}: kernel outside tolerance of the plain version")
+    for p, single in enumerate(singles):
+        check(torch.equal(dense1[p], single),
+              f"{label}: plane {p} != the one-plane kernel with "
+              f"fold_in(kf, {p})")
+    print(f"{label}: plane p == one-plane kernel with fold_in(kf, p), bit "
+          f"for bit, p = 0..{len(singles) - 1}", flush=True)
+    return err, err_c
+
+
+def run_main(cfg, label: str, events: int, dev, counters):
+    """One launcher run of ``events`` events, every launch counter reset
+    just before and read just after; per-plane checks on every event.
+    Returns (the events' ADC, the counters read, the run's stats)."""
+    import torch
+
+    from repro_torch.config import plane_specs
+    from repro_torch.core.pipeline import make_sim_fn
+    from repro_torch.launch.sim import max_dev, run_events
+
+    sim = make_sim_fn(cfg, device=dev)
+    adcs, lines = [], []
+    n_planes = cfg.num_planes
+    shape = ((n_planes,) if n_planes > 1 else ()) + (cfg.num_wires,
+                                                     cfg.num_ticks)
+
+    def on_event(ev, out, dt):
+        check(out.adc.dtype == torch.int16, "ADC is not int16")
+        check(tuple(out.adc.shape) == shape,
+              f"ADC shape {tuple(out.adc.shape)} != {shape}")
+        check(bool(torch.isfinite(out.signal).all()), "non-finite signal")
+        planes = out.adc.reshape(-1, cfg.num_wires, cfg.num_ticks)
+        devs, medians = [], []
+        for p in range(planes.shape[0]):
+            medians.append(int(planes[p].flatten()[::97].median()))
+            devs.append(max_dev(planes[p], cfg))
+            check(medians[-1] == int(cfg.adc_baseline),
+                  f"plane {p}: ADC median {medians[-1]} != baseline "
+                  f"{cfg.adc_baseline}")
+            check(devs[-1] > 0, f"plane {p}: max dev is 0")
+        adcs.append(out.adc.clone())
+        n = cfg.num_depos * n_planes
+        lines.append(f"{label} event {ev}: {cfg.num_depos} depos x "
+                     f"{n_planes} plane(s) -> {tuple(out.adc.shape)} ADC in "
+                     f"{dt*1e3:.3f} ms ({n/dt:.4g} plane-depos/s), max dev "
+                     f"per plane {devs}, median per plane {medians}, "
+                     f"dropped {int(out.dropped)}")
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    for module in counters:
+        module.reset_launches()
+    stats = run_events(cfg, events, seed=0, device=dev, sim=sim,
+                       on_event=on_event)
+    launches = {name: n for module in counters
+                for name, n in module.LAUNCHES.items()}
+    peak = torch.cuda.max_memory_allocated(dev)
+    print("\n".join(lines))
+    print(f"{label} total: {stats['events']} events / {stats['depos']} "
+          f"depos x {n_planes} plane(s) in {stats['wall_s']:.4f} s (sim "
+          f"alone: median {statistics.median(stats['event_s'])*1e3:.3f} "
+          f"ms/event); launches {launches}; peak memory "
+          f"{peak / 2**20:.1f} MiB", flush=True)
+    return adcs, launches, sim
+
+
+def print_stages(label: str, sim, key, depos) -> None:
+    _, timings = sim.timed(key, depos, warmup=1, iters=5)
+    total = sum(timings.values())
+    print(f"{label} stages (CUDA events, median of 5): " + ", ".join(
+        f"{n} {s*1e3:.3f} ms ({100*s/total:.1f}%)"
+        for n, s in timings.items()) + f"; sum {total*1e3:.3f} ms",
+        flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -255,9 +643,10 @@ def main() -> int:
     from repro_torch import kernels
     from repro_torch.config import get_config
     from repro_torch.core import prng
-    from repro_torch.core.depo import DepoSet, generate_depos
-    from repro_torch.core.pipeline import make_sim_fn
+    from repro_torch.core.depo import (DepoSet, generate_depos,
+                                       generate_physical_depos)
     from repro_torch.kernels.fused_sim import kernel
+    from repro_torch.kernels.scatter_add import kernel as scatter_kernel
     from repro_torch.launch.sim import max_dev, run_events
 
     dev = torch.device("cuda", 0)
@@ -281,6 +670,7 @@ def main() -> int:
 
     phase("kernels vs plain")
     full = get_config("lartpc-uboone")
+    full3 = dataclasses.replace(full, num_planes=PLANES)
     key0 = prng.fold_in(prng.key(0), 0)
     main_case = KernelCase(full, key0, 64, 256, dev)
     errors = check_kernels(main_case, "full width 64x256 tiles")
@@ -290,65 +680,37 @@ def main() -> int:
                   "tile-edge 96x768, 32x128 tiles")
     check_kernels(KernelCase(full, prng.fold_in(prng.key(0), 1), 32, 128,
                              dev), "full width 32x128 tiles")
-    # one depo per case, straddling an interior edge of the 64x256 tiles of
-    # a 96x768 grid or clipped at the detector edge
     one = dataclasses.replace(edge_cfg, num_depos=1)
-    for label, values in (("straddle wire edge", (63.7, 100.2, 1.1, 1.4,
-                                                  4321.0)),
-                          ("straddle tick edge", (30.0, 255.4, 1.1, 1.4,
-                                                  4321.0)),
-                          ("straddle corner", (63.7, 255.4, 1.1, 1.4,
-                                               4321.0)),
-                          ("detector edge", (0.4, 2.0, 0.8, 1.0, 999.0))):
+    for label, values in ONE_DEPO_CASES:
         depos = DepoSet(*(torch.tensor([v], dtype=torch.float32, device=dev)
                           for v in values))
         check_kernels(KernelCase(one, prng.key(2), 64, 256, dev, depos),
                       f"one depo, {label}")
+
+    scatter_case = ScatterCase(full, key0, 64, 256, dev)
+    scatter_errors = check_scatter(scatter_case,
+                                   "scatter-add full width 64x256 tiles")
+    check_scatter(ScatterCase(edge_cfg, prng.key(1), 32, 128, dev),
+                  "scatter-add tile-edge 96x768, 32x128 tiles")
+    for label, values in ONE_DEPO_CASES:
+        depos = DepoSet(*(torch.tensor([v], dtype=torch.float32, device=dev)
+                          for v in values))
+        check_scatter(ScatterCase(one, prng.key(2), 64, 256, dev, depos),
+                      f"scatter-add one depo, {label}")
+
+    multi_case = MultiPlaneCase(full3, key0, 64, 256, dev)
+    multi_errors = check_multiplane(multi_case,
+                                    "three planes, full width 64x256 tiles")
 
     phase("main path")
     adcs = {}
     launches = {}
     for strategy in STRATEGIES:
         cfg = dataclasses.replace(full, charge_grid_strategy=strategy)
-        sim = make_sim_fn(cfg, device=dev)
-        digests = []
-        lines = []
-
-        def on_event(ev, out, dt, cfg=cfg, digests=digests, lines=lines):
-            check(out.adc.dtype == torch.int16, "ADC is not int16")
-            check(tuple(out.adc.shape) == (cfg.num_wires, cfg.num_ticks),
-                  f"ADC shape {tuple(out.adc.shape)}")
-            check(bool(torch.isfinite(out.signal).all()), "non-finite signal")
-            median = int(out.adc.flatten()[::97].median())
-            dev_max = max_dev(out.adc, cfg)
-            check(median == int(cfg.adc_baseline),
-                  f"ADC median {median} != baseline {cfg.adc_baseline}")
-            check(dev_max > 0, "max dev is 0")
-            digests.append(out.adc.clone())
-            lines.append(f"{strategy} event {ev}: {cfg.num_depos} depos -> "
-                         f"{tuple(out.adc.shape)} ADC in {dt*1e3:.3f} ms "
-                         f"({cfg.num_depos/dt:.4g} depos/s), max dev "
-                         f"{dev_max}, median {median}")
-
-        torch.cuda.reset_peak_memory_stats(dev)
-        kernel.reset_launches()
-        stats = run_events(cfg, EVENTS, seed=0, device=dev, sim=sim,
-                           on_event=on_event)
-        launches[strategy] = dict(kernel.LAUNCHES)
-        peak = torch.cuda.max_memory_allocated(dev)
-        print("\n".join(lines))
-        print(f"{strategy} total: {stats['events']} events / "
-              f"{stats['depos']} depos in {stats['wall_s']:.4f} s "
-              f"(sim alone: median {statistics.median(stats['event_s'])*1e3:.3f}"
-              f" ms/event); launches {launches[strategy]}; peak memory "
-              f"{peak / 2**20:.1f} MiB", flush=True)
-        adcs[strategy] = digests
-        _, timings = sim.timed(key0, generate_depos(key0, full, device=dev),
-                               warmup=1, iters=5)
-        total = sum(timings.values())
-        print(f"{strategy} stages (CUDA events, median of 5): " + ", ".join(
-            f"{n} {s*1e3:.3f} ms ({100*s/total:.1f}%)"
-            for n, s in timings.items()), flush=True)
+        adcs[strategy], launches[strategy], sim = run_main(
+            cfg, strategy, EVENTS, dev, [kernel])
+        print_stages(strategy, sim, key0, generate_depos(key0, full,
+                                                         device=dev))
     check(launches["fused_pallas"]["fused_rasterize_scatter"] == EVENTS,
           f"dense kernel launches {launches['fused_pallas']}")
     check(launches["fused_pallas_compact"]["fused_rasterize_scatter_compact"]
@@ -364,34 +726,98 @@ def main() -> int:
                                         f"ms, max dev {max_dev(out.adc, full)}"))
     check(unfused["events"] == 1, "unfused run")
 
+    for strategy in MULTI_STRATEGIES:
+        cfg = dataclasses.replace(full3, charge_grid_strategy=strategy)
+        adcs[strategy], launches[strategy], sim = run_main(
+            cfg, strategy, EVENTS, dev, [kernel])
+        print_stages(strategy, sim, key0, generate_physical_depos(
+            key0, full3, device=dev))
+        name = strategy.replace("fused_pallas", "fused_rasterize_scatter")
+        check(launches[strategy][name] == EVENTS,
+              f"{strategy}: kernel launches {launches[strategy]}")
+    for ev in range(EVENTS):
+        check(torch.equal(adcs[MULTI_STRATEGIES[0]][ev],
+                          adcs[MULTI_STRATEGIES[1]][ev]),
+              f"event {ev}: {MULTI_STRATEGIES} ADC differ")
+    print(f"ADC of all {EVENTS} three-plane events identical between "
+          f"{MULTI_STRATEGIES}")
+    loop_cfg = dataclasses.replace(full3, charge_grid_strategy="fused_pallas",
+                                   plane_batching="loop")
+    loop_adcs, loop_launches, _ = run_main(loop_cfg, "fused_pallas loop", 1,
+                                           dev, [kernel])
+    check(loop_launches["fused_rasterize_scatter"] == PLANES,
+          f"per-plane loop launches {loop_launches}")
+    check(torch.equal(loop_adcs[0], adcs[MULTI_STRATEGIES[0]][0]),
+          "event 0: the multi-plane launch differs from the per-plane loop "
+          "of the one-plane kernel")
+    print("event 0: multi-plane stacked ADC == per-plane loop of the "
+          "one-plane kernel, bit for bit")
+
+    for scatter in SCATTER_STRATEGIES:
+        cfg = dataclasses.replace(full, scatter_strategy=scatter)
+        adcs[scatter], launches[scatter], sim = run_main(
+            cfg, f"unfused+{scatter}", SCATTER_EVENTS, dev, [scatter_kernel])
+        print_stages(f"unfused+{scatter}", sim, key0,
+                     generate_depos(key0, full, device=dev))
+        name = f"scatter_add_{scatter}"
+        check(launches[scatter][name] == SCATTER_EVENTS,
+              f"{scatter}: kernel launches {launches[scatter]}")
+    for ev in range(SCATTER_EVENTS):
+        check(torch.equal(adcs["pallas"][ev], adcs["pallas_compact"][ev]),
+              f"event {ev}: unfused pallas and pallas_compact ADC differ")
+    print(f"ADC of all {SCATTER_EVENTS} unfused events identical between "
+          f"{SCATTER_STRATEGIES}")
+
     phase("kernel timing")
     rows = []
-    for name, compact, fn, plain, replaces in (
-            ("fused_rasterize_scatter", False, main_case.dense,
-             main_case.plain_dense, "src/repro/kernels/fused_sim/kernel.py:262"),
-            ("fused_rasterize_scatter_compact", True, main_case.compact,
-             main_case.plain_compact,
-             "src/repro/kernels/fused_sim/kernel.py:300")):
-        rounds = sorted(cuda_time(fn, iters=20, warmup=2) for _ in range(5))
-        ms = statistics.median(rounds)
-        plain_ms = cuda_time(plain, iters=3, warmup=1)
-        bound_ms, bound_by = main_case.bound(compact)
-        strategy = STRATEGIES[compact]
+    fused_src = "src/repro_torch/csrc/fused_sim.cu"
+    scatter_src = "src/repro_torch/csrc/scatter_add.cu"
+    timed = (
+        ("fused_rasterize_scatter", main_case, False, fused_src,
+         "src/repro/kernels/fused_sim/kernel.py:262", "fused_pallas", 3,
+         False, errors[0]),
+        ("fused_rasterize_scatter_compact", main_case, True, fused_src,
+         "src/repro/kernels/fused_sim/kernel.py:300", "fused_pallas_compact",
+         3, False, errors[1]),
+        ("fused_rasterize_scatter_multiplane", multi_case, False, fused_src,
+         "src/repro/kernels/fused_sim/kernel.py:340",
+         "fused_pallas_multiplane", 2, False, multi_errors[0]),
+        ("fused_rasterize_scatter_multiplane_compact", multi_case, True,
+         fused_src, "src/repro/kernels/fused_sim/kernel.py:392",
+         "fused_pallas_multiplane_compact", 2, False, multi_errors[1]),
+        ("scatter_add_pallas", scatter_case, False, scatter_src,
+         "src/repro/kernels/scatter_add/kernel.py:97", "pallas", 3, True,
+         scatter_errors[0]),
+        ("scatter_add_pallas_compact", scatter_case, True, scatter_src,
+         "src/repro/kernels/scatter_add/kernel.py:140", "pallas_compact", 3,
+         True, scatter_errors[1]))
+    for (name, case, compact, source, replaces, strategy, plain_iters,
+         has_library, err) in timed:
+        fn = case.compact if compact else case.dense
+        plain = case.plain_compact if compact else case.plain_dense
+        ms, rounds = wrapper_ms(fn)
+        plain_ms = cuda_time(plain, iters=plain_iters, warmup=1)
+        library_ms = wrapper_ms(case.library)[0] if has_library else None
+        bound_ms, bound_by = case.bound(compact)
         rows.append({
-            "name": name, "route": "cuda",
-            "source": "src/repro_torch/csrc/fused_sim.cu",
-            "replaces": replaces,
-            "launches": launches[strategy][name],
-            "max_abs_err": errors[compact], "ms": ms, "plain_ms": plain_ms,
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[strategy][name],
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None})
+            "library_ms": library_ms})
+        lib_text = (f"library call index_put_(accumulate=True) "
+                    f"{library_ms:.4f} ms" if has_library else
+                    "library call: none (no single PyTorch call computes "
+                    "this function)")
         print(f"{name}: {ms:.4f} ms/call of the wrapper (median of 5 rounds "
               f"of 20 calls, CUDA events; rounds {rounds[0]:.4f}.."
-              f"{rounds[-1]:.4f} ms); plain {plain_ms:.3f} ms; bound "
-              f"{bound_ms:.4f} ms "
-              f"({bound_by}); library call: none (no single PyTorch call "
-              f"computes this function); work {main_case.work()}",
-              flush=True)
+              f"{rounds[-1]:.4f} ms); plain {plain_ms:.3f} ms (mean of "
+              f"{plain_iters}); bound {bound_ms:.4f} ms ({bound_by}); "
+              f"{lib_text}; launches on the main path "
+              f"{launches[strategy][name]}", flush=True)
+    print(f"fused work (entries, in-support pixels, row+column weights): "
+          f"one plane {main_case.work()}, three planes {multi_case.work()}; "
+          f"scatter-add (entries, in-tile pixels) {scatter_case.work()}")
 
     print(f"chip_smoke wall: {time.perf_counter() - t_all:.1f} s")
     print(card)

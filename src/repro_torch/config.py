@@ -16,7 +16,7 @@ from typing import Any, Callable, Dict, NamedTuple, Tuple
 class LArTPCConfig:
     name: str = "lartpc_uboone"
     family: str = "lartpc"
-    # readout grid: one MicroBooNE-like plane
+    # readout grid of one MicroBooNE-like plane
     num_wires: int = 2560
     num_ticks: int = 9592          # readout window, 0.5 us ticks
     # depos
@@ -45,12 +45,13 @@ class LArTPCConfig:
     fluctuate: bool = True
     # counter | pool | relaxed | none (the port runs counter and none)
     rng_strategy: str = "counter"
-    # xla | sort_segment | pallas | pallas_compact | auto (the port runs xla)
+    # xla | sort_segment | pallas | pallas_compact | auto
     scatter_strategy: str = "xla"
-    # unfused | fused_pallas | fused_pallas_compact | auto
+    # unfused | fused_pallas | fused_pallas_compact | fused_pallas_multiplane
+    # | fused_pallas_multiplane_compact | multiplane_xla | auto
     charge_grid_strategy: str = "unfused"
     patch_dtype: str = "float32"
-    # rfft2 | fft2 | auto (the port runs rfft2)
+    # rfft2 | fft2 | auto
     fft_strategy: str = "rfft2"
     pipeline: str = "fig4"         # fig3 | fig4 (the port runs fig4)
     # response
@@ -63,7 +64,8 @@ class LArTPCConfig:
     adc_baseline: float = 900.0
     digitize_ste: bool = False
     dtype: str = "float32"
-    # multi-plane readout geometry (the port runs num_planes == 1)
+    # multi-plane readout geometry (MicroBooNE: U, V induction at +-60 deg,
+    # Y collection); plane_batching: auto | loop | stacked
     num_planes: int = 1
     plane_angles_deg: Tuple[float, ...] = (60.0, -60.0, 0.0)
     plane_pitches_mm: Tuple[float, ...] = ()

@@ -2,7 +2,9 @@
 
 ``generate_physical_depos`` is the stand-in for Geant4 output: straight
 tracks of correlated physical depos, drawn from the same threefry streams
-as the reference generator. ``generate_depos`` adds the drift stage.
+as the reference generator. ``generate_depos`` adds the drift stage;
+``generate_plane_depos`` drifts onto every readout plane, giving a
+``DepoSet`` whose fields carry a leading plane axis (P, N).
 """
 from __future__ import annotations
 
@@ -16,7 +18,8 @@ from repro_torch.device import resolve_device
 
 
 class DepoSet(NamedTuple):
-    """Structure-of-arrays depo container (float32, shape (N,)).
+    """Structure-of-arrays depo container (float32, shape (N,), or (P, N)
+    with one row per readout plane).
 
     wire/tick: centre in wire-pitch / tick units; sigma_w/sigma_t: Gaussian
     widths in the same units; charge: mean ionisation electrons.
@@ -57,7 +60,7 @@ def generate_physical_depos(k: torch.Tensor, cfg: LArTPCConfig,
     wires = torch.clamp(wires.reshape(-1)[:n].abs(), 0, cfg.num_wires - 1)
     ticks = torch.clamp(ticks.reshape(-1)[:n].abs(), 0, cfg.num_ticks - 1)
 
-    # along-wire position z [mm]; unused by the single-plane readout
+    # along-wire position z [mm]; read by the rotated planes
     k5a, k5b = prng.split(k5)
     z_extent = cfg.num_wires * cfg.wire_pitch_mm
     entry_z = prng.uniform(k5a, (n_tracks,), 0.0, z_extent, dev)
@@ -82,6 +85,15 @@ def generate_depos(k: torch.Tensor, cfg: LArTPCConfig, n: int | None = None,
     from repro_torch.core.drift import transport
 
     return transport(generate_physical_depos(k, cfg, n, device), cfg)
+
+
+def generate_plane_depos(k: torch.Tensor, cfg: LArTPCConfig,
+                         n: int | None = None, device="cuda") -> DepoSet:
+    """Physical depo generation + multi-plane transport: one DepoSet with a
+    leading plane axis (num_planes, N)."""
+    from repro_torch.core.drift import transport_planes
+
+    return transport_planes(generate_physical_depos(k, cfg, n, device), cfg)
 
 
 def depo_patch_origin(depos: DepoSet, cfg: LArTPCConfig):

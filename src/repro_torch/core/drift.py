@@ -1,17 +1,20 @@
-"""Drift/transport: physical depos -> detector-frame depos (single plane).
+"""Drift/transport: physical depos -> detector-frame depos, on one readout
+plane (``transport``) or on every plane at once (``transport_planes``).
 
 ``PhysicalDepoSet`` uses the anode drift frame of the reference: ``x`` is
 the drift time to the readout plane [us], ``y`` the transverse position in
-wire-pitch units, ``z`` the along-wire position [mm] (unused by one plane),
-``t`` the deposition time [us] and ``q`` the ionisation electrons.
+wire-pitch units, ``z`` the along-wire position [mm] (read by rotated
+planes), ``t`` the deposition time [us] and ``q`` the ionisation electrons.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+import dataclasses
+import math
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 
-from repro_torch.config import LArTPCConfig
+from repro_torch.config import LArTPCConfig, PlaneSpec, plane_specs
 from repro_torch.core.depo import DepoSet
 from repro_torch.tune.registry import register_strategy, resolve, set_default
 
@@ -66,7 +69,54 @@ set_default("drift", "jnp")
 
 def transport(pdepos: PhysicalDepoSet, cfg: LArTPCConfig) -> DepoSet:
     """Dispatch physical depos -> detector depos through the registry."""
-    if cfg.num_planes != 1:
-        raise NotImplementedError(
-            "the port transports single-plane configs only (num_planes=1)")
     return resolve("drift", cfg.drift_strategy).fn(pdepos, cfg)
+
+
+def project_to_plane(pdepos: PhysicalDepoSet, spec: PlaneSpec,
+                     cfg: LArTPCConfig) -> PhysicalDepoSet:
+    """Project the transverse position onto one plane's pitch direction.
+
+    A plane whose wires are rotated by ``spec.angle_deg`` from vertical
+    indexes ``wire_p = y * cw + z * cz + off_p`` with
+    ``cw = cos(angle) * wire_pitch_mm / pitch_p``, ``cz = sin(angle) /
+    pitch_p``, and ``off_p`` centring the plane on the detector's
+    transverse box (the reference's convention). The angle-0
+    reference-pitch plane passes through untouched.
+    """
+    rad = math.radians(spec.angle_deg)
+    cos_, sin_ = math.cos(rad), math.sin(rad)
+    cw = cos_ * cfg.wire_pitch_mm / spec.pitch_mm
+    cz = sin_ / spec.pitch_mm
+    y_max = (cfg.num_wires - 1.0) * cfg.wire_pitch_mm
+    z_max = cfg.num_wires * cfg.wire_pitch_mm
+    lo = min(0.0, y_max * cos_) + min(0.0, z_max * sin_)
+    hi = max(0.0, y_max * cos_) + max(0.0, z_max * sin_)
+    off = (cfg.num_wires - 1.0) / 2.0 - (lo + hi) / (2.0 * spec.pitch_mm)
+    if abs(off) < 1e-6:
+        off = 0.0
+    if cw == 1.0 and cz == 0.0 and off == 0.0:
+        return pdepos
+    # a float32 tensor times a Python float rounds the float to float32, as
+    # the reference's jnp.float32 constants are
+    y = pdepos.y * cw
+    if cz != 0.0:
+        y = y + pdepos.z * cz
+    if off != 0.0:
+        y = y + off
+    return pdepos._replace(y=y)
+
+
+def transport_planes(pdepos: PhysicalDepoSet, cfg: LArTPCConfig,
+                     planes: Optional[Sequence[int]] = None) -> DepoSet:
+    """Transport physical depos onto every readout plane (or the plane
+    indices ``planes``) at once: a ``DepoSet`` with a leading plane axis
+    (P, N). Per plane the transverse position is projected
+    (``project_to_plane``) and the drift runs with that plane's pitch."""
+    specs = plane_specs(cfg)
+    if planes is not None:
+        specs = tuple(specs[p] for p in planes)
+    per_plane = [
+        transport(project_to_plane(pdepos, spec, cfg),
+                  dataclasses.replace(cfg, wire_pitch_mm=spec.pitch_mm))
+        for spec in specs]
+    return DepoSet(*(torch.stack(xs) for xs in zip(*per_plane)))

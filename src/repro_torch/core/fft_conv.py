@@ -4,7 +4,10 @@
 
 Zero padding to the response's linear-convolution size avoids circular
 wrap. The transforms go to cuFFT through ``torch.fft`` on the card, as the
-reference leaves them to XLA.
+reference leaves them to XLA. Two strategies, the reference's: ``rfft2``
+(real-input half spectrum) and ``fft2`` (full complex spectrum, rebuilt from
+the stored half by Hermitian symmetry). Each convolves one plane's (W, T)
+grid; multi-plane stages call them once per plane.
 """
 from __future__ import annotations
 
@@ -34,6 +37,28 @@ def fft_convolve_rfft2(grid: torch.Tensor, resp: DetectorResponse) -> torch.Tens
     freq = torch.fft.rfft2(_pad_grid(grid, resp))
     out = torch.fft.irfft2(freq * resp.freq, s=(wp, tp))
     return out[:w, :t]
+
+
+def _full_spectrum(half: torch.Tensor, tp: int) -> torch.Tensor:
+    """Full complex spectrum of a real signal from its rfft2 half spectrum:
+    F[k1, k2] = conj(F[-k1 mod W, tp - k2])."""
+    wp = half.shape[0]
+    ncopy = tp - half.shape[1]
+    rows = (-torch.arange(wp, device=half.device)) % wp
+    cols = ncopy - torch.arange(ncopy, device=half.device)
+    tail = torch.conj(half[rows][:, cols])
+    return torch.cat([half, tail], dim=1)
+
+
+@register_strategy("fft_convolve", "fft2",
+                   note="full complex FFT; identical math, different layout")
+def fft_convolve_fft2(grid: torch.Tensor, resp: DetectorResponse) -> torch.Tensor:
+    w, t = grid.shape
+    _, tp = resp.pad_shape
+    padded = _pad_grid(grid, resp)
+    freq = torch.fft.fft2(padded.to(torch.complex64))
+    out = torch.fft.ifft2(freq * _full_spectrum(resp.freq, tp)).real
+    return out[:w, :t].to(padded.dtype)
 
 
 set_default("fft_convolve", "rfft2")

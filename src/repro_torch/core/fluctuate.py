@@ -4,7 +4,9 @@ The observed electron count of a patch pixel with mean ``p = q*w`` is
 Binomial(q, w); the simulation draws N(p, p*(1 - p/q)) instead, clamped at
 zero. ``counter`` fluctuation draws its normals from the threefry stream of
 the charge-grid key (``fluctuate_counter``); the fused kernel draws them
-from the stateless counter hash below, seeded per (depo, tile).
+from the stateless counter hash below, seeded per (depo, tile), and the
+plane-flattened ``multiplane_xla`` charge grid from its one-hash erfinv
+form (``counter_normals_erfinv``).
 
 The counter hash is uint32 arithmetic carried in int64 tensors masked to 32
 bits (torch on the CPU has no ``>>`` for uint32); the 32x32-bit multiplies
@@ -85,3 +87,18 @@ def counter_normals(seed0: int, seed1: int, stream: torch.Tensor,
     b1 = hash_u32(base ^ hash_u32(two_c))
     b2 = hash_u32(base ^ hash_u32((two_c + 1) & MASK32))
     return box_muller(1.0 - uniform_from_bits(b1), uniform_from_bits(b2))
+
+
+def counter_normals_erfinv(seed0, seed1, stream: torch.Tensor,
+                           counters: torch.Tensor) -> torch.Tensor:
+    """``counter_normals`` with ONE hash per draw and the inverse-CDF
+    transform ``sqrt(2) * erfinv(max(2u - 1, nextafter(-1, 0)))`` that
+    ``prng.normal`` applies to its uniforms: the same (seed, stream,
+    counter) contract, a different bit stream. ``seed0``/``seed1`` are ints
+    or int64 tensors broadcastable to ``counters``."""
+    base = (hash_u32(torch.as_tensor(seed1, dtype=torch.int64,
+                                     device=counters.device) ^ stream)
+            + seed0) & MASK32
+    u = uniform_from_bits(hash_u32(base ^ hash_u32(counters & MASK32)))
+    return prng.SQRT2_F32 * torch.special.erfinv(
+        torch.clamp_min(2.0 * u - 1.0, prng.NORMAL_LO))

@@ -121,12 +121,12 @@ def uniform(k: torch.Tensor, shape: Sequence[int], minval: float,
 
 
 #: float32 nextafter(-1, 0): the reference's lower bound for erfinv inputs
-_NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
-_SQRT2_F32 = _f32(np.sqrt(2.0))
+NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+SQRT2_F32 = _f32(np.sqrt(2.0))
 
 
 def normal(k: torch.Tensor, shape: Sequence[int], device) -> torch.Tensor:
     """``jax.random.normal(k, shape, float32)``: ``sqrt(2) * erfinv(u)`` with
     ``u`` uniform in [nextafter(-1, 0), 1)."""
-    u = uniform(k, shape, _NORMAL_LO, 1.0, device)
-    return torch.erfinv(u) * _SQRT2_F32
+    u = uniform(k, shape, NORMAL_LO, 1.0, device)
+    return torch.erfinv(u) * SQRT2_F32

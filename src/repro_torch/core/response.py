@@ -3,6 +3,8 @@
 A synthetic response with MicroBooNE's structure: a wire-direction
 induction profile times a time response (bipolar field response convolved
 with a semi-Gaussian shaper), transformed once at the padded grid shape.
+Induction planes get the bipolar field response, the collection plane the
+unipolar one (``make_plane_responses``).
 """
 from __future__ import annotations
 
@@ -10,7 +12,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.config import LArTPCConfig
+from repro_torch.config import LArTPCConfig, plane_specs
 from repro_torch.device import resolve_device
 
 
@@ -98,3 +100,10 @@ def make_response(cfg: LArTPCConfig, plane: str = "induction",
     freq = torch.fft.rfft2(kpad)
     return DetectorResponse(kernel=kernel, freq=freq, pad_shape=(w_pad, t_pad),
                             plane=plane)
+
+
+def make_plane_responses(cfg: LArTPCConfig, device="cuda"):
+    """One ``DetectorResponse`` per readout plane of ``cfg``, in plane order
+    (bipolar for induction planes, unipolar for the collection plane)."""
+    return tuple(make_response(cfg, plane=s.kind, device=device)
+                 for s in plane_specs(cfg))

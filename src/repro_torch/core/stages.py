@@ -1,42 +1,60 @@
-"""Stage-graph simulation core: the single-plane fig4 chain as one module.
+"""Stage-graph simulation core: the fig4 chain as one module.
 
     drift -> charge_grid -> convolve -> noise -> digitize
 
 ``SimGraph`` is an ``nn.Module`` holding the ordered stages (the convolve
-stage holds the response spectrum as a buffer). ``run`` executes the chain
+stage holds the response spectra as a buffer). ``run`` executes the chain
 for one event; ``timed`` runs it stage by stage and times each stage with
 CUDA events on the card (host clock on the CPU); ``replace`` swaps stages.
 
 RNG contract (the reference's): the event key is split once,
 ``kf, kn = split(key)``; the charge-grid stage draws from ``kf``, the noise
 stage from ``kn``.
+
+Multi-plane configs (``cfg.num_planes > 1``) run every readout stage for
+each plane, drawing from the plane-folded subkeys ``fold_in(kf, index)``
+and ``fold_in(kn, index)``, and carry a leading plane axis on every state
+leaf. Every stage runs one plane at a time, except that ``plane_batching``
+``stacked`` (the default for several planes) hands a multi-plane
+charge-grid strategy all planes in one launch; ``loop`` dispatches its
+single-plane form per plane. Both give the same bits. ``planes`` restricts
+a multi-plane graph to some plane indices.
 """
 from __future__ import annotations
 
 import statistics
 import time
-from typing import Callable, Dict, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
-from repro_torch.config import LArTPCConfig
+from repro_torch.config import LArTPCConfig, PlaneSpec, plane_specs
 from repro_torch.core import prng
 from repro_torch.core.depo import DepoSet
 from repro_torch.core.fft_conv import digitize, fft_convolve
 from repro_torch.core.noise import simulate_noise
 from repro_torch.core.response import DetectorResponse, make_response
 from repro_torch.device import resolve_device
+from repro_torch.tune.registry import get_strategy, resolve
 
 #: canonical stage order of the simulation chain
 STAGE_ORDER = ("drift", "charge_grid", "convolve", "noise", "digitize")
+#: charge_grid strategies that rasterise ALL planes in one launch: they take
+#: the unsplit charge-grid subkey and the full (P, N) depos and fold the
+#: per-plane subkeys themselves
+MULTIPLANE_CHARGE_GRID = ("fused_pallas_multiplane",
+                          "fused_pallas_multiplane_compact",
+                          "multiplane_xla")
 
 
 class SimOutput(NamedTuple):
-    """Simulation result of one event (single plane).
+    """Simulation result of one event. Multi-plane configs carry a leading
+    plane axis on adc, signal and charge_grid: (P, num_wires, num_ticks).
 
-    ``dropped`` counts the (depo, tile) entries the fused strategies' tile
-    binning could not fit (0-d tensor; always 0 for ``unfused``)."""
+    ``dropped`` counts the (depo, tile) entries the tile binning of the
+    kernel strategies could not fit, over all planes (0-d tensor; always 0
+    for the library strategies)."""
 
     adc: torch.Tensor          # (num_wires, num_ticks) int16
     signal: torch.Tensor       # (num_wires, num_ticks) float32
@@ -148,58 +166,182 @@ class SimGraph(nn.Module):
         return self.output(state), timings
 
 
-def drift_stage(cfg: LArTPCConfig) -> Stage:
-    """Transport physical depos to the readout plane; pass a DepoSet that
-    already arrived straight through."""
-    from repro_torch.core.drift import transport
+def resolve_plane_batching(cfg: LArTPCConfig) -> str:
+    """``cfg.plane_batching`` as "loop" or "stacked" ("auto": stacked for
+    several planes)."""
+    mode = cfg.plane_batching
+    if mode not in ("auto", "loop", "stacked"):
+        raise ValueError(f"unknown plane_batching {mode!r}; expected 'auto', "
+                         "'loop' or 'stacked'")
+    if mode == "auto":
+        return "stacked" if cfg.num_planes > 1 else "loop"
+    return mode
+
+
+def plane_fold_keys(key: torch.Tensor,
+                    specs: Sequence[PlaneSpec]) -> torch.Tensor:
+    """Stacked per-plane subkeys ``fold_in(key, spec.index)``: (P, 2)."""
+    return torch.stack(_plane_keys(key, specs))
+
+
+def _plane_keys(key: torch.Tensor, specs: Sequence[PlaneSpec]):
+    return [prng.fold_in(key, s.index) for s in specs]
+
+
+def _selected_specs(cfg: LArTPCConfig,
+                    planes: Optional[Tuple[int, ...]]) -> Tuple[PlaneSpec, ...]:
+    specs = plane_specs(cfg)
+    return specs if planes is None else tuple(specs[p] for p in planes)
+
+
+def _as_plane_responses(cfg: LArTPCConfig, resp, planes, device):
+    """One response per selected plane: None builds the defaults (one per
+    plane kind); a single ``DetectorResponse`` serves one plane only."""
+    specs = _selected_specs(cfg, planes)
+    if resp is None:
+        return tuple(make_response(cfg, plane=s.kind, device=device)
+                     for s in specs)
+    if isinstance(resp, DetectorResponse):
+        if len(specs) != 1:
+            raise ValueError(
+                f"config has {len(specs)} selected planes but got a single "
+                "DetectorResponse; pass make_plane_responses(cfg) (or None "
+                "to build the per-plane defaults)")
+        return (resp,)
+    resps = tuple(resp)
+    if len(resps) != len(specs):
+        raise ValueError(f"got {len(resps)} responses for {len(specs)} "
+                         "selected planes")
+    return resps
+
+
+def drift_stage(cfg: LArTPCConfig,
+                planes: Optional[Tuple[int, ...]] = None) -> Stage:
+    """Transport physical depos to the readout plane(s); pass a DepoSet that
+    already arrived straight through. Multi-plane configs project each
+    physical depo onto every selected plane; pre-drifted multi-plane input
+    carries the full plane axis, from which the selected planes are taken."""
+    from repro_torch.core.drift import PhysicalDepoSet, transport, \
+        transport_planes
+
+    multi = cfg.num_planes > 1
 
     def fn(state: SimState) -> SimState:
-        if isinstance(state.depos, DepoSet):
-            return state
-        return state._replace(depos=transport(state.depos, cfg))
+        if isinstance(state.depos, PhysicalDepoSet):
+            depos = (transport_planes(state.depos, cfg, planes=planes)
+                     if multi else transport(state.depos, cfg))
+            return state._replace(depos=depos)
+        if multi:
+            if state.depos.wire.ndim < 2:
+                raise ValueError(
+                    "multi-plane config fed a planeless DepoSet; pass a "
+                    "PhysicalDepoSet (the drift stage projects it onto "
+                    "every plane) or a DepoSet with a leading plane axis "
+                    "(e.g. generate_plane_depos)")
+            n_in = state.depos.wire.shape[-2]
+            if n_in != cfg.num_planes:
+                raise ValueError(
+                    f"pre-drifted depos carry {n_in} planes but the config "
+                    f"has num_planes={cfg.num_planes}; pre-drifted input "
+                    "always carries the FULL plane axis")
+            if planes is not None:
+                return state._replace(depos=DepoSet(
+                    *(x[list(planes)] for x in state.depos)))
+        return state
 
     return Stage("drift", fn, op="drift")
 
 
 def compute_charge_grid(k: torch.Tensor, depos: DepoSet, cfg: LArTPCConfig):
     """Dispatch depos -> (S(t,x), dropped) through the registered strategy."""
-    from repro_torch.tune.registry import resolve
-
     return resolve("charge_grid", cfg.charge_grid_strategy).fn(k, depos, cfg)
 
 
-def charge_grid_stage(cfg: LArTPCConfig) -> Stage:
-    """depos -> S(t,x): rasterize + fluctuate + scatter-add, or the fused
-    kernel, dispatched through the ``charge_grid`` registry."""
+def charge_grid_stage(cfg: LArTPCConfig,
+                      planes: Optional[Tuple[int, ...]] = None) -> Stage:
+    """depos -> S(t,x): rasterize + fluctuate + scatter-add, or a fused
+    kernel, dispatched through the ``charge_grid`` registry.
+
+    Multi-plane: plane i draws from ``fold_in(kf, index_i)`` and the grids
+    stack to (P, W, T). ``stacked`` hands all planes of a full graph to a
+    multi-plane strategy in one call; otherwise the stage dispatches per
+    plane (a multi-plane strategy through its single-plane form)."""
+    specs = _selected_specs(cfg, planes)
+    multi = cfg.num_planes > 1
+    stacked = multi and resolve_plane_batching(cfg) == "stacked"
+    name = resolve("charge_grid", cfg.charge_grid_strategy).name
+
+    def per_plane(keys, depos: DepoSet):
+        outs = [compute_charge_grid(k, DepoSet(*(x[i] for x in depos)), cfg)
+                for i, k in enumerate(keys)]
+        return (torch.stack([g for g, _ in outs]),
+                torch.stack([d for _, d in outs]).sum())
 
     def fn(state: SimState) -> SimState:
-        grid, dropped = compute_charge_grid(state.kf, state.depos, cfg)
+        if not multi:
+            grid, dropped = compute_charge_grid(state.kf, state.depos, cfg)
+        elif (stacked and name in MULTIPLANE_CHARGE_GRID
+              and len(specs) == cfg.num_planes):
+            grid, dropped = get_strategy("charge_grid", name).fn(
+                state.kf, state.depos, cfg)
+        else:
+            grid, dropped = per_plane(_plane_keys(state.kf, specs),
+                                      state.depos)
         return state._replace(grid=grid, dropped=dropped)
 
     return Stage("charge_grid", fn, op="charge_grid")
 
 
-def convolve_stage(cfg: LArTPCConfig, resp: DetectorResponse) -> Stage:
+def convolve_stage(cfg: LArTPCConfig, resp,
+                   planes: Optional[Tuple[int, ...]] = None,
+                   device="cuda") -> Stage:
     """S(t,x) -> M(t,x): frequency-domain convolution with the response,
-    whose spectrum the stage holds as the buffer ``response_freq``."""
+    whose spectrum the stage holds as the buffer ``response_freq``.
+
+    Multi-plane: one response per plane (bipolar induction, unipolar
+    collection), their spectra held as one (P, ...) buffer, and one
+    convolution per plane in either batching mode (so a plane's bits do
+    not depend on the planes beside it)."""
+    multi = cfg.num_planes > 1
+    resps = _as_plane_responses(cfg, resp, planes, device)
+    if len({r.pad_shape for r in resps}) != 1:
+        raise ValueError("the per-plane responses must share one padded "
+                         f"shape, got {[r.pad_shape for r in resps]}")
     stage = Stage("convolve", None, op="fft_convolve")
-    stage.register_buffer("response_freq", resp.freq)
+    stage.register_buffer("response_freq", torch.stack(
+        [r.freq for r in resps]) if multi else resps[0].freq)
 
     def fn(state: SimState) -> SimState:
-        r = resp._replace(freq=stage.response_freq)
-        return state._replace(
-            signal=fft_convolve(state.grid, r, cfg.fft_strategy))
+        freq = stage.response_freq
+        if not multi:
+            signal = fft_convolve(state.grid, resps[0]._replace(freq=freq),
+                                  cfg.fft_strategy)
+        else:
+            signal = torch.stack([
+                fft_convolve(state.grid[i], r._replace(freq=freq[i]),
+                             cfg.fft_strategy)
+                for i, r in enumerate(resps)])
+        return state._replace(signal=signal)
 
     stage.fn = fn
     return stage
 
 
-def noise_stage(cfg: LArTPCConfig) -> Stage:
-    """Add frequency-shaped electronics noise to the signal."""
+def noise_stage(cfg: LArTPCConfig,
+                planes: Optional[Tuple[int, ...]] = None) -> Stage:
+    """Add frequency-shaped electronics noise to the signal (multi-plane:
+    an independent realisation per plane from the plane-folded subkeys)."""
     denom = max(cfg.adc_per_electron, 1e-30)
+    specs = _selected_specs(cfg, planes)
+    multi = cfg.num_planes > 1
 
     def fn(state: SimState) -> SimState:
-        noise = simulate_noise(state.kn, cfg, device=state.signal.device)
+        dev = state.signal.device
+        if not multi:
+            noise = simulate_noise(state.kn, cfg, device=dev)
+        else:
+            noise = torch.stack([simulate_noise(k, cfg, device=dev)
+                                 for k in _plane_keys(state.kn, specs)])
         return state._replace(signal=state.signal + noise / denom)
 
     return Stage("noise", fn)
@@ -215,9 +357,9 @@ def digitize_stage(cfg: LArTPCConfig) -> Stage:
 
 
 def check_supported(cfg: LArTPCConfig) -> None:
-    """Raise for config features the port does not run yet."""
+    """Raise for config features the port does not run yet, and for a bad
+    plane geometry or batching mode."""
     unsupported = {
-        "num_planes": (cfg.num_planes, 1),
         "pipeline": (cfg.pipeline, "fig4"),
         "patch_dtype": (cfg.patch_dtype, "float32"),
         "check_finite": (cfg.check_finite, False),
@@ -230,20 +372,24 @@ def check_supported(cfg: LArTPCConfig) -> None:
         raise NotImplementedError(
             f"the port runs rng_strategy 'counter' or 'none' only "
             f"(got {cfg.rng_strategy!r})")
+    plane_specs(cfg)
+    resolve_plane_batching(cfg)
 
 
-def build_sim_graph(cfg: LArTPCConfig, resp: Optional[DetectorResponse] = None,
-                    add_noise: bool = True, device="cuda") -> SimGraph:
+def build_sim_graph(cfg: LArTPCConfig, resp=None, add_noise: bool = True,
+                    device="cuda",
+                    planes: Optional[Tuple[int, ...]] = None) -> SimGraph:
     """Assemble the canonical ``drift -> charge_grid -> convolve -> noise ->
     digitize`` chain on ``device`` (the one place the order is written).
-    ``add_noise=False`` drops the noise stage."""
+
+    ``resp``: a ``DetectorResponse`` (single plane), one per plane, or None
+    for the per-plane defaults. ``add_noise=False`` drops the noise stage.
+    ``planes`` restricts a multi-plane graph to those plane indices."""
     check_supported(cfg)
     dev = resolve_device(device)
-    if resp is None:
-        resp = make_response(cfg, device=dev)
-    stages = [drift_stage(cfg), charge_grid_stage(cfg),
-              convolve_stage(cfg, resp)]
+    stages = [drift_stage(cfg, planes), charge_grid_stage(cfg, planes),
+              convolve_stage(cfg, resp, planes, dev)]
     if add_noise:
-        stages.append(noise_stage(cfg))
+        stages.append(noise_stage(cfg, planes))
     stages.append(digitize_stage(cfg))
     return SimGraph(stages, dev)

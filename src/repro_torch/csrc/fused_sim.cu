@@ -4,8 +4,12 @@
 // Replaces the reference's Pallas TPU kernels
 //   src/repro/kernels/fused_sim/kernel.py:262  fused_rasterize_scatter
 //   src/repro/kernels/fused_sim/kernel.py:300  fused_rasterize_scatter_compact
-// (bodies _fused_kernel, _fused_kernel_compact, _depo_tile_contrib and the
-// portable counter-hash branch of _tile_normals).
+//   src/repro/kernels/fused_sim/kernel.py:340  fused_rasterize_scatter_multiplane
+//   src/repro/kernels/fused_sim/kernel.py:392
+//                                 fused_rasterize_scatter_multiplane_compact
+// (bodies _fused_kernel, _fused_kernel_compact, _fused_kernel_multiplane,
+// _fused_kernel_multiplane_compact, _depo_tile_contrib and the portable
+// counter-hash branch of _tile_normals).
 //
 // What it computes. The readout grid is cut into tw x tt tiles (64 x 256 by
 // default). Each tile has a list of the depos whose pw x pt patch touches it
@@ -53,6 +57,15 @@
 // threads idle between barriers, and tiles with long lists finish last.
 // Spreading one tile's depos over several CTAs (with a deterministic
 // reduction) is later work.
+//
+// Planes. Both kernels are plane-aware; one plane is the case P = 1. The
+// CTA index runs plane-major over P planes (i = p * per_plane + slot), the
+// depo parameters are (P, N) arrays flattened plane-major, and each plane
+// has its own two seed words (the raw words of fold_in(kf, p)). The depo id
+// and the tile id that seed a counter stream stay PLANE-LOCAL, so plane p
+// of a multi-plane launch is bit for bit the one-plane launch with plane
+// p's parameters and seed. Three planes triple the bound above; the design
+// is unchanged.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -66,7 +79,9 @@ constexpr float kTwoPi = 6.283185482025146484375f;     // float32(2*pi)
 constexpr float kInv2p24 = 1.0f / 16777216.0f;
 constexpr int kThreads = 256;
 constexpr int kMaxPatch = 64;  // largest patch extent the weight buffers hold
+constexpr int kMaxPlanes = 16;  // most planes one launch takes
 
+// One plane's view of the depo parameters (pointers already offset to it).
 struct DepoParams {
   const float* wire;
   const float* tick;
@@ -84,6 +99,11 @@ struct DepoParams {
   int pw;
   int pt;
   int k_max;
+};
+
+// The seed words of every plane of a launch, passed by value.
+struct PlaneSeeds {
+  uint32_t words[2 * kMaxPlanes];
 };
 
 __device__ __forceinline__ uint32_t fmix32(uint32_t x) {
@@ -178,73 +198,108 @@ __device__ void store_tile(const float* acc, float* dst, int tw, int tt,
   }
 }
 
+// Plane `plane`'s view of the plane-major (P, N) parameters.
+__device__ __forceinline__ DepoParams plane_view(DepoParams p, int plane,
+                                                 int n_depos,
+                                                 const PlaneSeeds& seeds) {
+  const long long off = static_cast<long long>(plane) * n_depos;
+  p.wire += off;
+  p.tick += off;
+  p.sigma_w += off;
+  p.sigma_t += off;
+  p.charge += off;
+  p.w0 += off;
+  p.t0 += off;
+  p.seed0 = seeds.words[2 * plane];
+  p.seed1 = seeds.words[2 * plane + 1];
+  return p;
+}
+
+// CTA i = p * n_tiles + t owns tile t of plane p; the output is (P, tiles_w
+// * tw, tiles_t * tt), so i / tiles_t is the block row over all planes.
 __global__ void __launch_bounds__(kThreads)
-fused_sim_dense_kernel(DepoParams p, const int* __restrict__ ids,
+fused_sim_dense_kernel(DepoParams p, PlaneSeeds seeds, int n_depos,
+                       int n_tiles, const int* __restrict__ ids,
                        float* __restrict__ out) {
   extern __shared__ float4 smem4[];
   float* acc = reinterpret_cast<float*>(smem4);
-  const int t_id = blockIdx.x;
-  accumulate_tile(p, t_id, ids + static_cast<long long>(t_id) * p.k_max, acc);
+  const int i = blockIdx.x;
+  const int plane = i / n_tiles;
+  accumulate_tile(plane_view(p, plane, n_depos, seeds), i - plane * n_tiles,
+                  ids + static_cast<long long>(i) * p.k_max, acc);
   const long long stride = static_cast<long long>(p.tiles_t) * p.tt;
-  float* dst = out + static_cast<long long>(t_id / p.tiles_t) * p.tw * stride +
-               static_cast<long long>(t_id % p.tiles_t) * p.tt;
+  float* dst = out + static_cast<long long>(i / p.tiles_t) * p.tw * stride +
+               static_cast<long long>(i % p.tiles_t) * p.tt;
   store_tile(acc, dst, p.tw, p.tt, stride);
 }
 
+// CTA i = p * n_cap + slot owns slot `slot` of plane p's active list, whose
+// entry is a plane-local tile id (-1 pads the list).
 __global__ void __launch_bounds__(kThreads)
-fused_sim_compact_kernel(DepoParams p, const int* __restrict__ active,
+fused_sim_compact_kernel(DepoParams p, PlaneSeeds seeds, int n_depos,
+                         int n_cap, const int* __restrict__ active,
                          const int* __restrict__ ids,
                          float* __restrict__ blocks) {
   extern __shared__ float4 smem4[];
   float* acc = reinterpret_cast<float*>(smem4);
-  const int slot = blockIdx.x;
-  const int t_id = active[slot];
-  float* dst = blocks + static_cast<long long>(slot) * p.tw * p.tt;
+  const int i = blockIdx.x;
+  const int t_id = active[i];
+  float* dst = blocks + static_cast<long long>(i) * p.tw * p.tt;
   if (t_id < 0) {  // padding slot: its block is all zeros
-    for (int i = threadIdx.x; i < p.tw * p.tt; i += blockDim.x) dst[i] = 0.0f;
+    for (int j = threadIdx.x; j < p.tw * p.tt; j += blockDim.x) dst[j] = 0.0f;
     return;
   }
-  accumulate_tile(p, t_id, ids + static_cast<long long>(slot) * p.k_max, acc);
+  accumulate_tile(plane_view(p, i / n_cap, n_depos, seeds), t_id,
+                  ids + static_cast<long long>(i) * p.k_max, acc);
   store_tile(acc, dst, p.tw, p.tt, p.tt);
 }
 
 DepoParams make_params(const float* wire, const float* tick,
                        const float* sigma_w, const float* sigma_t,
                        const float* charge, const int* w0, const int* t0,
-                       uint32_t seed0, uint32_t seed1, int fluctuate,
-                       int tiles_t, int tw, int tt, int pw, int pt,
-                       int k_max) {
-  return DepoParams{wire, tick, sigma_w, sigma_t, charge, w0, t0,
-                    seed0, seed1, fluctuate, tiles_t, tw, tt, pw, pt, k_max};
+                       int fluctuate, int tiles_t, int tw, int tt, int pw,
+                       int pt, int k_max) {
+  return DepoParams{wire, tick, sigma_w, sigma_t, charge, w0, t0, 0u, 0u,
+                    fluctuate, tiles_t, tw, tt, pw, pt, k_max};
 }
 
-int check_shape(int tw, int tt, int pw, int pt) {
-  if (tw <= 0 || tt <= 0 || tt % 4 != 0 || pw <= 0 || pt <= 0 ||
-      pw > kMaxPatch || pt > kMaxPatch)
+int check_shape(int num_planes, int tw, int tt, int pw, int pt) {
+  if (num_planes <= 0 || num_planes > kMaxPlanes || tw <= 0 || tt <= 0 ||
+      tt % 4 != 0 || pw <= 0 || pt <= 0 || pw > kMaxPatch || pt > kMaxPatch)
     return static_cast<int>(cudaErrorInvalidValue);
   return 0;
 }
 
+PlaneSeeds copy_seeds(const uint32_t* words, int num_planes) {
+  PlaneSeeds seeds{};
+  for (int i = 0; i < 2 * num_planes; ++i) seeds.words[i] = words[i];
+  return seeds;
+}
+
 }  // namespace
 
-// Plain C entry points (bound with ctypes). Each launches on `stream` and
-// returns cudaGetLastError() as an int (0 = launched).
+// Plain C entry points (bound with ctypes). Depo parameters are (P, N)
+// plane-major; `seeds` is a HOST array of 2 * num_planes words; a launch
+// runs num_planes * per_plane CTAs (per_plane = n_tiles for the dense
+// layout, n_cap for the compact one). Each launches on `stream` and returns
+// cudaGetLastError() as an int (0 = launched).
 extern "C" int fused_sim_dense(const float* wire, const float* tick,
                                const float* sigma_w, const float* sigma_t,
                                const float* charge, const int* w0,
-                               const int* t0, const int* ids, uint32_t seed0,
-                               uint32_t seed1, int fluctuate, int n_tiles,
+                               const int* t0, const int* ids,
+                               const uint32_t* seeds, int num_planes,
+                               int n_depos, int fluctuate, int n_tiles,
                                int tiles_t, int tw, int tt, int pw, int pt,
                                int k_max, float* out, void* stream) {
-  if (int err = check_shape(tw, tt, pw, pt)) return err;
+  if (int err = check_shape(num_planes, tw, tt, pw, pt)) return err;
   const int smem = tw * tt * static_cast<int>(sizeof(float));
   cudaFuncSetAttribute(fused_sim_dense_kernel,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   DepoParams p = make_params(wire, tick, sigma_w, sigma_t, charge, w0, t0,
-                             seed0, seed1, fluctuate, tiles_t, tw, tt, pw, pt,
-                             k_max);
-  fused_sim_dense_kernel<<<n_tiles, kThreads, smem,
-                           static_cast<cudaStream_t>(stream)>>>(p, ids, out);
+                             fluctuate, tiles_t, tw, tt, pw, pt, k_max);
+  fused_sim_dense_kernel<<<num_planes * n_tiles, kThreads, smem,
+                           static_cast<cudaStream_t>(stream)>>>(
+      p, copy_seeds(seeds, num_planes), n_depos, n_tiles, ids, out);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -252,19 +307,19 @@ extern "C" int fused_sim_compact(const float* wire, const float* tick,
                                  const float* sigma_w, const float* sigma_t,
                                  const float* charge, const int* w0,
                                  const int* t0, const int* active,
-                                 const int* ids, uint32_t seed0,
-                                 uint32_t seed1, int fluctuate, int n_cap,
-                                 int tiles_t, int tw, int tt, int pw, int pt,
-                                 int k_max, float* blocks, void* stream) {
-  if (int err = check_shape(tw, tt, pw, pt)) return err;
+                                 const int* ids, const uint32_t* seeds,
+                                 int num_planes, int n_depos, int fluctuate,
+                                 int n_cap, int tiles_t, int tw, int tt,
+                                 int pw, int pt, int k_max, float* blocks,
+                                 void* stream) {
+  if (int err = check_shape(num_planes, tw, tt, pw, pt)) return err;
   const int smem = tw * tt * static_cast<int>(sizeof(float));
   cudaFuncSetAttribute(fused_sim_compact_kernel,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   DepoParams p = make_params(wire, tick, sigma_w, sigma_t, charge, w0, t0,
-                             seed0, seed1, fluctuate, tiles_t, tw, tt, pw, pt,
-                             k_max);
-  fused_sim_compact_kernel<<<n_cap, kThreads, smem,
+                             fluctuate, tiles_t, tw, tt, pw, pt, k_max);
+  fused_sim_compact_kernel<<<num_planes * n_cap, kThreads, smem,
                              static_cast<cudaStream_t>(stream)>>>(
-      p, active, ids, blocks);
+      p, copy_seeds(seeds, num_planes), n_depos, n_cap, active, ids, blocks);
   return static_cast<int>(cudaGetLastError());
 }

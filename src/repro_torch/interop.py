@@ -1,10 +1,11 @@
 """Carry the reference's values into the port, as numpy arrays and dicts.
 
 The simulation has no weights: its state is the config, the PRNG keys, the
-depos and the detector response. These helpers build the port's objects
-from the JAX package's values once those are turned into numpy (the caller
-does that; nothing here imports JAX), and turn a port ``SimOutput`` back
-into numpy for comparison.
+depos (with a leading plane axis (P, N) for multi-plane configs) and the
+detector responses, one per readout plane. These helpers build the port's
+objects from the JAX package's values once those are turned into numpy (the
+caller does that; nothing here imports JAX), and turn a port ``SimOutput``
+back into numpy for comparison.
 """
 from __future__ import annotations
 
@@ -46,6 +47,8 @@ def _f32(x, device) -> torch.Tensor:
 
 def depos_from_numpy(wire, tick, sigma_w, sigma_t, charge,
                      device="cpu") -> DepoSet:
+    """A ``DepoSet`` of (N,) arrays, or of (P, N) arrays for the per-plane
+    depos of a multi-plane event."""
     return DepoSet(*(_f32(a, device)
                      for a in (wire, tick, sigma_w, sigma_t, charge)))
 
@@ -60,6 +63,13 @@ def response_from_numpy(kernel, freq, pad_shape, plane: str = "induction",
     return DetectorResponse(kernel=_f32(kernel, device), freq=freq.to(device),
                             pad_shape=tuple(int(s) for s in pad_shape),
                             plane=plane)
+
+
+def plane_responses_from_numpy(responses, device="cpu"):
+    """One ``DetectorResponse`` per plane, in plane order, from
+    ``(kernel, freq, pad_shape, plane)`` tuples."""
+    return tuple(response_from_numpy(kernel, freq, pad_shape, plane, device)
+                 for kernel, freq, pad_shape, plane in responses)
 
 
 def to_numpy(out: SimOutput) -> Dict[str, np.ndarray]:

@@ -17,14 +17,16 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, Tuple
+
+import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
 #: library name -> CUDA source under csrc/
-SOURCES = {"fused_sim": "fused_sim.cu"}
+SOURCES = {"fused_sim": "fused_sim.cu", "scatter_add": "scatter_add.cu"}
 
 #: no --use_fast_math and no --fmad=false (see the sources' headers)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -81,12 +83,21 @@ def _finish_build(name: str, proc, tmp: str, dest: Path) -> str:
 
 def build_all(force: bool = False) -> Dict[str, str]:
     """Build every missing library at once, one nvcc per source in
-    parallel. Returns {name: compiler output} of the libraries built."""
+    parallel. Returns {name: compiler output} of the libraries built; waits
+    for every compiler before raising the first failure."""
     started = {}
     for name in SOURCES:
         if force or not library_path(name).is_file():
             started[name] = _start_build(name)
-    return {name: _finish_build(name, *job) for name, job in started.items()}
+    logs, errors = {}, []
+    for name, job in started.items():
+        try:
+            logs[name] = _finish_build(name, *job)
+        except RuntimeError as e:
+            errors.append(e)
+    if errors:
+        raise errors[0]
+    return logs
 
 
 def load_library(name: str) -> ctypes.CDLL:
@@ -107,3 +118,29 @@ def declare(lib: ctypes.CDLL, fn: str, argtypes: List) -> None:
     f = getattr(lib, fn)
     f.argtypes = argtypes
     f.restype = ctypes.c_int
+
+
+def check_tensor(name: str, x: torch.Tensor, dtype: torch.dtype,
+                 shape: Tuple[int, ...], device: torch.device) -> None:
+    """Raise unless ``x`` is a contiguous ``shape`` ``dtype`` tensor on
+    ``device`` (what a kernel's pointer arithmetic assumes)."""
+    if x.dtype != dtype or x.device != device \
+            or tuple(x.shape) != tuple(shape) or not x.is_contiguous():
+        raise ValueError(
+            f"{name}: expected a contiguous {tuple(shape)} {dtype} tensor on "
+            f"{device}, got {tuple(x.shape)} {x.dtype} on {x.device}"
+            f"{'' if x.is_contiguous() else ' (non-contiguous)'}")
+
+
+def kernel_device(x: torch.Tensor) -> torch.device:
+    """The device a wrapper serves: CUDA launches its kernel, CPU runs the
+    plain version; anything else raises."""
+    if x.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {x.device}")
+    return x.device
+
+
+def raise_on(err: int, what: str) -> None:
+    """Raise when a launch returned a cudaError_t other than 0."""
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: cudaError_t {err}")

@@ -1,34 +1,42 @@
 """Wrappers of the fused rasterize + fluctuate + scatter CUDA kernels.
 
-``fused_rasterize_scatter`` (dense tile grid) and
-``fused_rasterize_scatter_compact`` (occupied tiles only) replace the
-reference's Pallas kernels of the same names
-(``src/repro/kernels/fused_sim/kernel.py:262`` and ``:300``). On CUDA
-tensors each wrapper launches its kernel from ``csrc/fused_sim.cu`` or
-raises; on CPU tensors it runs the plain PyTorch version in ``ref.py``.
-``LAUNCHES`` counts kernel launches per wrapper (plain-version calls do not
-count).
+``fused_rasterize_scatter`` (dense tile grid),
+``fused_rasterize_scatter_compact`` (occupied tiles only) and their
+multi-plane forms ``fused_rasterize_scatter_multiplane`` and
+``fused_rasterize_scatter_multiplane_compact`` (every plane in one launch)
+replace the reference's Pallas kernels of the same names
+(``src/repro/kernels/fused_sim/kernel.py:262``, ``:300``, ``:340`` and
+``:392``). On CUDA tensors each wrapper launches its kernel from
+``csrc/fused_sim.cu`` or raises; on CPU tensors it runs the plain PyTorch
+version in ``ref.py``. ``LAUNCHES`` counts kernel launches per wrapper
+(plain-version calls do not count).
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.kernels import declare, load_library
+from repro_torch.kernels import (check_tensor, declare, kernel_device,
+                                 load_library, raise_on)
 from repro_torch.kernels.fused_sim import ref
 from repro_torch.kernels.scatter_add.ops import tile_counts
 
 #: kernel launches per wrapper since the last ``reset_launches``
 LAUNCHES: Dict[str, int] = {"fused_rasterize_scatter": 0,
-                            "fused_rasterize_scatter_compact": 0}
+                            "fused_rasterize_scatter_compact": 0,
+                            "fused_rasterize_scatter_multiplane": 0,
+                            "fused_rasterize_scatter_multiplane_compact": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_U = ctypes.c_uint32
 _PARAM_ARGS = [_P] * 7  # wire, tick, sigma_w, sigma_t, charge, w0, t0
-_TAIL_ARGS = [_U, _U, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P]
+# seeds, num_planes, n_depos, fluctuate, per_plane, tiles_t, tw, tt, pw, pt,
+# k_max, out, stream
+_TAIL_ARGS = [_P] + [_I] * 10 + [_P, _P]
+
+Seed = Tuple[int, int]
 
 
 def reset_launches() -> None:
@@ -43,108 +51,189 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def _check(name: str, x: torch.Tensor, dtype: torch.dtype, numel: int,
-           device: torch.device) -> None:
-    if x.dtype != dtype or x.device != device or x.dim() != 1 \
-            or x.numel() != numel or not x.is_contiguous():
-        raise ValueError(
-            f"{name}: expected a contiguous ({numel},) {dtype} tensor on "
-            f"{device}, got {tuple(x.shape)} {x.dtype} on {x.device}"
-            f"{'' if x.is_contiguous() else ' (non-contiguous)'}")
-
-
-def _checked_params(wire, tick, sigma_w, sigma_t, charge, w0, t0):
-    n = wire.shape[0]
-    dev = wire.device
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {dev}")
+def _checked_params(wire, tick, sigma_w, sigma_t, charge, w0, t0,
+                    num_planes: Optional[int] = None):
+    """The seven depo parameters, checked to share one (N,) shape, or
+    (num_planes, N) when ``num_planes`` is given; returns (params,
+    device)."""
+    dev = kernel_device(wire)
+    lead = () if num_planes is None else (num_planes,)
+    shape = lead + tuple(wire.shape[-1:])
     for nm, x in (("wire", wire), ("tick", tick), ("sigma_w", sigma_w),
                   ("sigma_t", sigma_t), ("charge", charge)):
-        _check(nm, x, torch.float32, n, dev)
-    _check("w0", w0, torch.int32, n, dev)
-    _check("t0", t0, torch.int32, n, dev)
+        check_tensor(nm, x, torch.float32, shape, dev)
+    check_tensor("w0", w0, torch.int32, shape, dev)
+    check_tensor("t0", t0, torch.int32, shape, dev)
     return (wire, tick, sigma_w, sigma_t, charge, w0, t0), dev
 
 
-def _seed_words(seed: Optional[Sequence[int]]):
+def _seed_words(seed: Optional[Sequence[int]]) -> Seed:
     if seed is None:
         return 0, 0
     s0, s1 = (int(v) & 0xFFFFFFFF for v in seed)
     return s0, s1
 
 
-def _raise_on(err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{what} launch failed: cudaError_t {err}")
+def _launch(entry: str, name: str, params, lists, seeds: Sequence[Seed], *,
+            per_plane: int, fluctuate: bool, tiles_t: int, tw: int, tt: int,
+            pw: int, pt: int, k_max: int, out: torch.Tensor) -> None:
+    """Launch ``entry`` over len(seeds) planes of ``per_plane`` CTAs."""
+    dev = out.device
+    words = (ctypes.c_uint32 * (2 * len(seeds)))(*(w for s in seeds
+                                                     for w in s))
+    with torch.cuda.device(dev):
+        err = getattr(_library(), entry)(
+            *(x.data_ptr() for x in params), *(x.data_ptr() for x in lists),
+            ctypes.addressof(words), len(seeds), params[0].shape[-1],
+            int(fluctuate), per_plane, tiles_t, tw, tt, pw, pt, k_max,
+            out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    raise_on(err, entry)
+    LAUNCHES[name] += 1
+
+
+def _dense(name: str, params, tile_ids, seeds: Sequence[Seed], *,
+           num_wires: int, num_ticks: int, tw: int, tt: int, k_max: int,
+           pw: int, pt: int, fluctuate: bool = False) -> torch.Tensor:
+    """The dense layout over len(seeds) planes of (P, N) parameters:
+    (P, num_wires, num_ticks), counted under ``name``."""
+    dev = params[0].device
+    tiles_w, tiles_t, n_tiles = tile_counts(num_wires, num_ticks, tw, tt)
+    check_tensor("tile_ids", tile_ids, torch.int32,
+                 (len(seeds) * n_tiles * k_max,), dev)
+    geom = dict(tiles_t=tiles_t, tw=tw, tt=tt, pw=pw, pt=pt, k_max=k_max)
+    if dev.type == "cpu":
+        out = ref.fused_rasterize_scatter_multiplane_ref(
+            params, tile_ids, tiles_w=tiles_w, seeds=seeds,
+            fluctuate=fluctuate, **geom)
+    else:
+        out = torch.empty((len(seeds), tiles_w * tw, tiles_t * tt),
+                          dtype=torch.float32, device=dev)
+        _launch("fused_sim_dense", name, params, [tile_ids], seeds,
+                per_plane=n_tiles, fluctuate=fluctuate, out=out, **geom)
+    return out[:, :num_wires, :num_ticks]
+
+
+def _compact(name: str, params, active_tiles, tile_ids,
+             seeds: Sequence[Seed], *, num_wires: int, num_ticks: int,
+             tw: int, tt: int, k_max: int, pw: int, pt: int,
+             fluctuate: bool = False) -> torch.Tensor:
+    """The compact layout over len(seeds) planes of (P, N) parameters,
+    blocks placed: (P, num_wires, num_ticks), counted under ``name``."""
+    dev = params[0].device
+    num_planes = len(seeds)
+    tiles_w, tiles_t, _ = tile_counts(num_wires, num_ticks, tw, tt)
+    n_slots = active_tiles.shape[0]
+    if n_slots % num_planes:
+        raise ValueError(f"{n_slots} active slots do not split into "
+                         f"{num_planes} planes")
+    check_tensor("active_tiles", active_tiles, torch.int32, (n_slots,), dev)
+    check_tensor("tile_ids", tile_ids, torch.int32, (n_slots * k_max,), dev)
+    geom = dict(tiles_t=tiles_t, tw=tw, tt=tt, pw=pw, pt=pt, k_max=k_max)
+    if dev.type == "cpu":
+        blocks = ref.fused_rasterize_scatter_multiplane_compact_ref(
+            params, active_tiles, tile_ids, seeds=seeds, fluctuate=fluctuate,
+            **geom)
+    else:
+        blocks = torch.empty((n_slots, tw, tt), dtype=torch.float32,
+                             device=dev)
+        _launch("fused_sim_compact", name, params, [active_tiles, tile_ids],
+                seeds, per_plane=n_slots // num_planes, fluctuate=fluctuate,
+                out=blocks, **geom)
+    return scatter_tiles_to_grid_planes(
+        blocks, active_tiles, num_planes, tiles_w, tiles_t, tw,
+        tt)[:, :num_wires, :num_ticks]
 
 
 def fused_rasterize_scatter(wire, tick, sigma_w, sigma_t, charge, w0, t0,
-                            tile_ids, *, num_wires: int, num_ticks: int,
-                            tw: int, tt: int, k_max: int, pw: int, pt: int,
-                            seed=None, fluctuate: bool = False
-                            ) -> torch.Tensor:
+                            tile_ids, *, seed=None, **geom) -> torch.Tensor:
     """Depos -> (num_wires, num_ticks) charge grid over the dense tile grid.
 
     tile_ids: (n_tiles*k_max,) int32 per-tile depo lists (-1 padded);
-    seed: the two raw words of the charge-grid key (read when fluctuate).
+    seed: the two raw words of the charge-grid key (read when fluctuate);
+    geom: num_wires, num_ticks, tw, tt, k_max, pw, pt, fluctuate.
     """
-    params, dev = _checked_params(wire, tick, sigma_w, sigma_t, charge, w0,
-                                  t0)
-    tiles_w, tiles_t, n_tiles = tile_counts(num_wires, num_ticks, tw, tt)
-    _check("tile_ids", tile_ids, torch.int32, n_tiles * k_max, dev)
-    s0, s1 = _seed_words(seed)
-    if dev.type == "cpu":
-        out = ref.fused_rasterize_scatter_ref(
-            params, tile_ids, tiles_w=tiles_w, tiles_t=tiles_t, tw=tw, tt=tt,
-            k_max=k_max, pw=pw, pt=pt, seed=(s0, s1), fluctuate=fluctuate)
-        return out[:num_wires, :num_ticks]
-    out = torch.empty((tiles_w * tw, tiles_t * tt), dtype=torch.float32,
-                      device=dev)
-    with torch.cuda.device(dev):
-        err = _library().fused_sim_dense(
-            *(x.data_ptr() for x in params), tile_ids.data_ptr(), s0, s1,
-            int(fluctuate), n_tiles, tiles_t, tw, tt, pw, pt, k_max,
-            out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(err, "fused_sim_dense")
-    LAUNCHES["fused_rasterize_scatter"] += 1
-    return out[:num_wires, :num_ticks]
+    params, _ = _checked_params(wire, tick, sigma_w, sigma_t, charge, w0, t0)
+    return _dense("fused_rasterize_scatter", tuple(x[None] for x in params),
+                  tile_ids, [_seed_words(seed)], **geom)[0]
 
 
 def fused_rasterize_scatter_compact(wire, tick, sigma_w, sigma_t, charge,
                                     w0, t0, active_tiles, tile_ids, *,
-                                    num_wires: int, num_ticks: int, tw: int,
-                                    tt: int, k_max: int, pw: int, pt: int,
-                                    seed=None, fluctuate: bool = False
-                                    ) -> torch.Tensor:
+                                    seed=None, **geom) -> torch.Tensor:
     """Depos -> charge grid over the OCCUPIED tiles only.
 
     active_tiles: (n_cap,) int32 global tile ids (-1 padded);
-    tile_ids: (n_cap*k_max,) int32 depo lists per active slot. Bit-identical
-    to ``fused_rasterize_scatter`` for the same depos and seed.
+    tile_ids: (n_cap*k_max,) int32 depo lists per active slot; seed and
+    geom as for ``fused_rasterize_scatter``, to which it is bit-identical
+    for the same depos and seed.
     """
-    params, dev = _checked_params(wire, tick, sigma_w, sigma_t, charge, w0,
-                                  t0)
-    tiles_w, tiles_t, _ = tile_counts(num_wires, num_ticks, tw, tt)
-    n_cap = active_tiles.shape[0]
-    _check("active_tiles", active_tiles, torch.int32, n_cap, dev)
-    _check("tile_ids", tile_ids, torch.int32, n_cap * k_max, dev)
-    s0, s1 = _seed_words(seed)
-    if dev.type == "cpu":
-        blocks = ref.fused_rasterize_scatter_compact_ref(
-            params, active_tiles, tile_ids, tiles_t=tiles_t, tw=tw, tt=tt,
-            k_max=k_max, pw=pw, pt=pt, seed=(s0, s1), fluctuate=fluctuate)
-    else:
-        blocks = torch.empty((n_cap, tw, tt), dtype=torch.float32, device=dev)
-        with torch.cuda.device(dev):
-            err = _library().fused_sim_compact(
-                *(x.data_ptr() for x in params), active_tiles.data_ptr(),
-                tile_ids.data_ptr(), s0, s1, int(fluctuate), n_cap, tiles_t,
-                tw, tt, pw, pt, k_max, blocks.data_ptr(),
-                torch.cuda.current_stream(dev).cuda_stream)
-        _raise_on(err, "fused_sim_compact")
-        LAUNCHES["fused_rasterize_scatter_compact"] += 1
-    return scatter_tiles_to_grid(blocks, active_tiles, tiles_w, tiles_t, tw,
-                                 tt)[:num_wires, :num_ticks]
+    params, _ = _checked_params(wire, tick, sigma_w, sigma_t, charge, w0, t0)
+    return _compact("fused_rasterize_scatter_compact",
+                    tuple(x[None] for x in params), active_tiles, tile_ids,
+                    [_seed_words(seed)], **geom)[0]
+
+
+def _plane_seeds(seeds, num_planes: int):
+    words = [_seed_words(None)] * num_planes if seeds is None else [
+        _seed_words(s) for s in seeds]
+    if len(words) != num_planes:
+        raise ValueError(f"got {len(words)} seeds for {num_planes} planes")
+    return words
+
+
+def fused_rasterize_scatter_multiplane(wire, tick, sigma_w, sigma_t, charge,
+                                       w0, t0, tile_ids, *, num_planes: int,
+                                       seeds=None, **geom) -> torch.Tensor:
+    """All P planes' charge grids in ONE launch (dense tile layout).
+
+    Depo parameters are (P, N); tile_ids is each plane's dense
+    (n_tiles*k_max,) list (plane-LOCAL depo ids) concatenated plane-major;
+    seeds holds P pairs of raw key words (``fold_in(kf, p)``). Returns
+    (P, num_wires, num_ticks), plane p bit-identical to
+    ``fused_rasterize_scatter`` with plane p's parameters and seed.
+    """
+    params, _ = _checked_params(wire, tick, sigma_w, sigma_t, charge, w0,
+                                t0, num_planes)
+    return _dense("fused_rasterize_scatter_multiplane", params, tile_ids,
+                  _plane_seeds(seeds, num_planes), **geom)
+
+
+def fused_rasterize_scatter_multiplane_compact(
+        wire, tick, sigma_w, sigma_t, charge, w0, t0, active_tiles, tile_ids,
+        *, num_planes: int, seeds=None, **geom) -> torch.Tensor:
+    """Multi-plane fused kernel over each plane's OCCUPIED tiles.
+
+    active_tiles: (P*n_cap,) int32 plane-LOCAL tile ids, n_cap slots per
+    plane (-1 padded); tile_ids: (P*n_cap*k_max,) plane-local depo ids.
+    Returns (P, num_wires, num_ticks), bit-identical per plane to
+    ``fused_rasterize_scatter_multiplane``.
+    """
+    params, _ = _checked_params(wire, tick, sigma_w, sigma_t, charge, w0,
+                                t0, num_planes)
+    return _compact("fused_rasterize_scatter_multiplane_compact", params,
+                    active_tiles, tile_ids, _plane_seeds(seeds, num_planes),
+                    **geom)
+
+
+def scatter_tiles_to_grid_planes(blocks: torch.Tensor,
+                                 active_tiles: torch.Tensor, num_planes: int,
+                                 tiles_w: int, tiles_t: int, tw: int,
+                                 tt: int) -> torch.Tensor:
+    """Place (P*n_cap, tw, tt) blocks into (P, tiles_w*tw, tiles_t*tt)
+    grids: ``active_tiles`` holds plane-LOCAL tile ids in plane-major runs
+    of n_cap slots; -1 slots are dropped, unoccupied tiles stay zero."""
+    n_tiles = tiles_w * tiles_t
+    n_cap = active_tiles.shape[0] // num_planes
+    offs = torch.arange(num_planes, device=active_tiles.device
+                        ).repeat_interleave(n_cap) * n_tiles
+    # -1 slots land in one extra row that is cut off (no host sync)
+    dest = torch.where(active_tiles >= 0, active_tiles.long() + offs,
+                       torch.full_like(offs, num_planes * n_tiles))
+    full = torch.zeros((num_planes * n_tiles + 1, tw, tt), dtype=blocks.dtype,
+                       device=blocks.device)
+    full.index_copy_(0, dest, blocks)
+    return full[:-1].reshape(num_planes, tiles_w, tiles_t, tw, tt).transpose(
+        2, 3).reshape(num_planes, tiles_w * tw, tiles_t * tt)
 
 
 def scatter_tiles_to_grid(blocks: torch.Tensor, active_tiles: torch.Tensor,
@@ -152,12 +241,5 @@ def scatter_tiles_to_grid(blocks: torch.Tensor, active_tiles: torch.Tensor,
                           tt: int) -> torch.Tensor:
     """Place (n_cap, tw, tt) blocks into the padded (tiles_w*tw,
     tiles_t*tt) grid; -1 slots are dropped, unoccupied tiles stay zero."""
-    n_tiles = tiles_w * tiles_t
-    # -1 slots land in one extra row that is cut off (no host sync)
-    dest = torch.where(active_tiles >= 0, active_tiles,
-                       torch.full_like(active_tiles, n_tiles)).long()
-    full = torch.zeros((n_tiles + 1, tw, tt), dtype=blocks.dtype,
-                       device=blocks.device)
-    full.index_copy_(0, dest, blocks)
-    return full[:n_tiles].reshape(tiles_w, tiles_t, tw, tt).transpose(
-        1, 2).reshape(tiles_w * tw, tiles_t * tt)
+    return scatter_tiles_to_grid_planes(blocks, active_tiles, 1, tiles_w,
+                                        tiles_t, tw, tt)[0]

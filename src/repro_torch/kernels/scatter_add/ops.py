@@ -1,4 +1,5 @@
-"""Tile binning shared by the owner-computes charge-grid kernels.
+"""Tile binning shared by the owner-computes charge-grid kernels, and the
+scatter-add wrappers that bin and then launch the scatter kernels.
 
 The readout grid is cut into (tw, tt) tiles. A patch at (w0, t0) spanning
 [w0, w0+pw) x [t0, t0+pt) overlaps at most 4 tiles when tile >= patch; each
@@ -139,9 +140,70 @@ def active_tile_cap(w0, pw_pad: int, pt_pad: int, num_wires: int,
     return min(n_tiles, next_pow2(n_act))
 
 
+def compact_n_cap(n_active: int | None, w0s, t0s, pw_pad: int, pt_pad: int,
+                  num_wires: int, num_ticks: int, tw: int, tt: int) -> int:
+    """The compact layout's slots per plane: ``n_active`` bucketed to a power
+    of two, or the most occupied tiles of any plane in ``w0s``/``t0s`` (one
+    host read each), bucketed; never more than the tile count."""
+    if n_active is not None:
+        return min(tile_counts(num_wires, num_ticks, tw, tt)[2],
+                   next_pow2(n_active))
+    return max(active_tile_cap(w0, pw_pad, pt_pad, num_wires, num_ticks, tw,
+                               tt, t0=t0)
+               for w0, t0 in zip(w0s, t0s))
+
+
 def default_k_max(n: int, num_wires: int, num_ticks: int, tw: int,
                   tt: int) -> int:
     """Per-tile list length: expected uniform occupancy x8, as a power of
     two (the reference's heuristic)."""
     _, _, tiles = tile_counts(num_wires, num_ticks, tw, tt)
     return next_pow2(int(4 * n / tiles * 8))
+
+
+def scatter_add_tiles(patches, w0, t0, *, num_wires: int, num_ticks: int,
+                      tw: int = 64, tt: int = 256, k_max: int = 0):
+    """Owner-computes scatter-add, dense layout: bin, then accumulate.
+
+    Tiles are widened to cover a patch (``tw = max(tw, pw)``, the
+    reference's rule). Returns ((num_wires, num_ticks) f32 grid, dropped).
+    """
+    from repro_torch.kernels.scatter_add.kernel import scatter_add_pallas
+
+    n, pw, pt = patches.shape
+    tw, tt = max(tw, pw), max(tt, pt)
+    k_max = k_max or default_k_max(n, num_wires, num_ticks, tw, tt)
+    ids, _, dropped = bin_depos_to_tiles(w0, t0, pw, pt, num_wires,
+                                         num_ticks, tw, tt, k_max)
+    grid = scatter_add_pallas(patches, w0.to(torch.int32),
+                              t0.to(torch.int32), ids, num_wires=num_wires,
+                              num_ticks=num_ticks, tw=tw, tt=tt, k_max=k_max)
+    return grid[:num_wires, :num_ticks], dropped
+
+
+def scatter_add_tiles_compact(patches, w0, t0, *, num_wires: int,
+                              num_ticks: int, tw: int = 64, tt: int = 256,
+                              k_max: int = 0, n_active: int | None = None):
+    """Owner-computes scatter-add over the OCCUPIED tiles only.
+
+    The occupancy is counted on the host (one read) and bucketed to a power
+    of two unless ``n_active`` gives it. Bit-identical to
+    ``scatter_add_tiles``. Returns ((num_wires, num_ticks) grid, dropped).
+    """
+    from repro_torch.kernels.fused_sim.kernel import scatter_tiles_to_grid
+    from repro_torch.kernels.scatter_add.kernel import (
+        scatter_add_pallas_compact)
+
+    n, pw, pt = patches.shape
+    tw, tt = max(tw, pw), max(tt, pt)
+    k_max = k_max or default_k_max(n, num_wires, num_ticks, tw, tt)
+    tiles_w, tiles_t, _ = tile_counts(num_wires, num_ticks, tw, tt)
+    n_cap = compact_n_cap(n_active, [w0], [t0], pw, pt, num_wires, num_ticks,
+                          tw, tt)
+    active, ids, dropped = bin_depos_to_tiles_compact(
+        w0, t0, pw, pt, num_wires, num_ticks, tw, tt, k_max, n_cap)
+    blocks = scatter_add_pallas_compact(
+        patches, w0.to(torch.int32), t0.to(torch.int32), active, ids,
+        num_wires=num_wires, num_ticks=num_ticks, tw=tw, tt=tt, k_max=k_max)
+    grid = scatter_tiles_to_grid(blocks, active, tiles_w, tiles_t, tw, tt)
+    return grid[:num_wires, :num_ticks], dropped

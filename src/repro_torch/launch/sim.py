@@ -1,13 +1,17 @@
 """LArTPC simulation launcher of the PyTorch/CUDA port:
 
     python -m repro_torch.launch.sim [--smoke] [--events N] [--depos N]
-                                     [--seed S] [--device cuda|cpu]
+                                     [--planes P] [--seed S]
+                                     [--device cuda|cpu]
                                      [--set key=value ...]
 
 Each event ``ev`` uses the key ``fold_in(key(seed), ev)`` and the depos
 ``generate_depos`` draws from it, as the reference launcher does, and runs
-as one launch of the fig4 chain. Prints one ``event N: ...`` line per event
-and a ``total:`` line. Runs on the card unless ``--device cpu``.
+as one launch of the fig4 chain. Multi-plane configs (``--planes 3``: the
+MicroBooNE U, V and Y planes) hand the event's physical depos to the graph,
+whose drift stage projects them onto every plane. Prints one ``event N:
+...`` line per event (and one line per plane of it) and a ``total:`` line.
+Runs on the card unless ``--device cpu``.
 """
 from __future__ import annotations
 
@@ -17,9 +21,10 @@ from typing import Callable, Optional
 
 import torch
 
-from repro_torch.config import LArTPCConfig, apply_overrides, get_config
+from repro_torch.config import (LArTPCConfig, apply_overrides, get_config,
+                                plane_specs)
 from repro_torch.core import prng
-from repro_torch.core.depo import generate_depos
+from repro_torch.core.depo import generate_depos, generate_physical_depos
 from repro_torch.core.pipeline import make_sim_fn
 from repro_torch.device import resolve_device
 
@@ -36,17 +41,21 @@ def run_events(cfg: LArTPCConfig, num_events: int, seed: int = 0,
 
     ``on_event(ev, out, seconds)`` sees every event's ``SimOutput``. Raises
     if the charge-grid binning dropped any (depo, tile) entry. Returns
-    {"events", "depos", "wall_s", "event_s": [...]}; ``wall_s`` includes
-    depo generation, ``event_s`` is the simulation alone.
+    {"events", "depos", "wall_s", "event_s": [...]}; ``depos`` counts each
+    event's depos once, whatever the number of planes; ``wall_s`` includes
+    depo generation, ``event_s`` is the simulation alone (for multi-plane
+    configs it includes the drift onto the planes).
     """
     dev = resolve_device(device)
     sim = sim if sim is not None else make_sim_fn(cfg, device=dev)
+    generate = (generate_physical_depos if cfg.num_planes > 1
+                else generate_depos)
     base = prng.key(seed)
     stats = {"events": 0, "depos": 0, "wall_s": 0.0, "event_s": []}
     t_start = time.perf_counter()
     for ev in range(num_events):
         k = prng.fold_in(base, ev)
-        depos = generate_depos(k, cfg, device=dev)
+        depos = generate(k, cfg, device=dev)
         _sync(dev)
         t0 = time.perf_counter()
         out = sim(k, depos)
@@ -75,6 +84,8 @@ def main(argv=None):
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--events", type=int, default=2)
     ap.add_argument("--depos", type=int, default=0)
+    ap.add_argument("--planes", type=int, default=0,
+                    help="readout planes per event (3: U, V, Y)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; no silent fallback")
@@ -84,14 +95,26 @@ def main(argv=None):
     cfg = get_config("lartpc-uboone", smoke=args.smoke)
     if args.depos:
         cfg = apply_overrides(cfg, {"num_depos": args.depos})
+    if args.planes:
+        cfg = apply_overrides(cfg, {"num_planes": args.planes})
     if args.set:
         cfg = apply_overrides(cfg, dict(kv.split("=", 1) for kv in args.set))
 
     def report(ev, out, dt):
         n = cfg.num_depos
-        print(f"event {ev}: {n} depos -> {tuple(out.adc.shape)} ADC in "
-              f"{dt*1e3:.0f} ms ({n/dt:.3g} depos/s), "
-              f"max dev {max_dev(out.adc, cfg)}")
+        if cfg.num_planes == 1:
+            print(f"event {ev}: {n} depos -> {tuple(out.adc.shape)} ADC in "
+                  f"{dt*1e3:.0f} ms ({n/dt:.3g} depos/s), "
+                  f"max dev {max_dev(out.adc, cfg)}")
+            return
+        print(f"event {ev}: {n} depos x {cfg.num_planes} planes -> "
+              f"{tuple(out.adc.shape)} ADC in {dt*1e3:.0f} ms "
+              f"({n * cfg.num_planes / dt:.3g} plane-depos/s), "
+              f"dropped {int(out.dropped)}")
+        for spec in plane_specs(cfg):
+            print(f"event {ev} plane {spec.index} ({spec.kind}, "
+                  f"{spec.angle_deg:g} deg): max dev "
+                  f"{max_dev(out.adc[spec.index], cfg)}")
 
     stats = run_events(cfg, args.events, seed=args.seed, device=args.device,
                        on_event=report)

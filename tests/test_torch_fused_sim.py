@@ -188,12 +188,13 @@ def test_plain_path_adds_in_list_order():
     """The plain version adds in list order, as the kernel does: its grid
     equals a sequential float32 sum (np.add.at) of the same contributions."""
     from repro_torch.kernels.fused_sim import ref as tref
+    from repro_torch.kernels.scatter_add.ref import list_entries
 
     cfg, tw, tt = CASES["smoke"]
     args, kw = _kernel_args(cfg, tw, tt)
     tiles_w, tiles_t, _ = tbin.tile_counts(cfg.num_wires, cfg.num_ticks, tw,
                                            tt)
-    tile, _, depo = tref._entries(args[7], kw["k_max"])
+    tile, _, depo = list_entries(args[7], kw["k_max"])
     pix, e, vals = tref.tile_contributions(
         args[:7], tile, depo, tiles_t=tiles_t, tw=tw, tt=tt,
         pw=cfg.patch_wires, pt=cfg.patch_ticks, seed=(1, 2), fluctuate=True)

@@ -41,7 +41,9 @@ def test_no_jax_or_reference_imports(path):
 
 def test_import_leaves_jax_out_of_sys_modules():
     code = ("import sys, repro_torch.core.pipeline, repro_torch.launch.sim, "
-            "repro_torch.interop, repro_torch.kernels.fused_sim.ops; "
+            "repro_torch.interop, repro_torch.kernels.fused_sim.ops, "
+            "repro_torch.kernels.scatter_add.kernel, "
+            "repro_torch.core.scatter, repro_torch.core.drift; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); sys.exit(bool(bad))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
@@ -52,11 +54,14 @@ def test_import_leaves_jax_out_of_sys_modules():
 
 def _entry_points():
     from repro_torch.core import prng
-    from repro_torch.core.depo import generate_depos
+    from repro_torch.core.depo import generate_depos, generate_plane_depos
     from repro_torch.core.pipeline import make_sim_fn, simulate_fig4
+    from repro_torch.core.response import make_plane_responses
     from repro_torch.launch.sim import run_events
 
     cfg = tconfig.get_config("lartpc-uboone", smoke=True)
+    cfg3 = dataclasses.replace(cfg, num_planes=3,
+                               charge_grid_strategy="fused_pallas_multiplane")
     k = prng.key(0)
     return {
         "make_sim_fn": lambda **kw: make_sim_fn(cfg, **kw),
@@ -64,11 +69,18 @@ def _entry_points():
             k, generate_depos(k, cfg, device="cpu"), cfg=cfg, **kw),
         "generate_depos": lambda **kw: generate_depos(k, cfg, **kw),
         "run_events": lambda **kw: run_events(cfg, 1, **kw),
+        "generate_plane_depos": lambda **kw: generate_plane_depos(k, cfg3,
+                                                                  **kw),
+        "make_plane_responses": lambda **kw: make_plane_responses(cfg3, **kw),
+        "run_events_3planes": lambda **kw: run_events(cfg3, 1, **kw),
     }
 
 
 @pytest.mark.parametrize("name", ["make_sim_fn", "simulate_fig4",
-                                  "generate_depos", "run_events"])
+                                  "generate_depos", "run_events",
+                                  "generate_plane_depos",
+                                  "make_plane_responses",
+                                  "run_events_3planes"])
 def test_entry_points_default_to_the_card(name, monkeypatch):
     """Without a card the default device raises; device="cpu" runs."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -110,3 +122,23 @@ def test_apply_overrides_parses_like_reference():
     assert dataclasses.asdict(port) == dataclasses.asdict(ref)
     with pytest.raises(KeyError):
         tconfig.apply_overrides(tconfig.LArTPCConfig(), {"nope": "1"})
+
+
+def test_every_cuda_source_is_built_and_wrapped():
+    """Each source under csrc/ is registered for the build, and each
+    kernel wrapper module counts its launches per wrapper."""
+    from repro_torch import kernels
+    from repro_torch.kernels.fused_sim import kernel as fused
+    from repro_torch.kernels.scatter_add import kernel as scatter
+
+    sources = sorted(p.name for p in kernels.CSRC.glob("*.cu"))
+    assert sorted(kernels.SOURCES.values()) == sources
+    assert set(fused.LAUNCHES) == {
+        "fused_rasterize_scatter", "fused_rasterize_scatter_compact",
+        "fused_rasterize_scatter_multiplane",
+        "fused_rasterize_scatter_multiplane_compact"}
+    assert set(scatter.LAUNCHES) == {"scatter_add_pallas",
+                                     "scatter_add_pallas_compact"}
+    for module in (fused, scatter):
+        for name in module.LAUNCHES:
+            assert callable(getattr(module, name))

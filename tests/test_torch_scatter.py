@@ -1,0 +1,264 @@
+"""Port scatter-add module against the reference, on the CPU.
+
+The plain PyTorch versions of the owner-computes scatter-add kernels (what
+the wrappers run on CPU tensors) equal the reference's Pallas kernels in
+interpret mode bit for bit: both add plain float32 patch values in list
+order, and the reference's extra ``+0.0`` outside each patch changes no
+bit. The compact layout equals the dense one bit for bit. Each scatter
+strategy of the port matches the reference's same strategy (bitwise for the
+tile kernels; within ``parity`` tolerance for the library scatters, whose
+summation order is the library's). The CUDA kernels themselves are held
+against the plain versions on the card by ``chip_smoke.py``.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.config import LArTPCConfig as JaxConfig
+from repro.config import get_config as jax_get_config
+from repro.core import scatter as jscatter
+from repro.core.depo import depo_patch_origin as j_origin
+from repro.core.depo import generate_depos as j_generate
+from repro.core.pipeline import make_sim_fn as j_make_sim_fn
+from repro.kernels.scatter_add import kernel as jkernel
+from repro.kernels.scatter_add import ops as jops
+from repro_torch import interop
+from repro_torch.core import scatter as tscatter
+from repro_torch.core.pipeline import make_sim_fn
+from repro_torch.kernels.fused_sim.kernel import scatter_tiles_to_grid
+from repro_torch.kernels.scatter_add import kernel as tkernel
+from repro_torch.kernels.scatter_add import ops as tops
+from repro_torch.testing import parity
+
+torch.set_num_threads(1)
+
+SMOKE = jax_get_config("lartpc-uboone", smoke=True)
+#: patches straddle tile edges in both axes, and the last tile row is ragged
+EDGE = JaxConfig(num_wires=96, num_ticks=768, num_depos=128,
+                 response_wires=11, response_ticks=64)
+#: (config, tw, tt) cases: the default 64x256 tile and a small 32x128 one
+CASES = {"smoke": (SMOKE, 64, 256), "edge": (EDGE, 32, 128)}
+STRATEGIES = ["xla", "sort_segment", "pallas", "pallas_compact"]
+
+
+def _tcfg(cfg):
+    return interop.config_from_dict(dataclasses.asdict(cfg))
+
+
+def _inputs(cfg, seed):
+    """Patch origins of generated depos, and (N, pw, pt) non-negative
+    float32 patches drawn with numpy: the same numbers for both packages."""
+    d = j_generate(jax.random.key(seed), cfg)
+    w0, t0 = (np.array(x) for x in j_origin(d, cfg))
+    rng = np.random.default_rng(seed)
+    patches = (rng.random((cfg.num_depos, cfg.patch_wires, cfg.patch_ticks))
+               * rng.random((cfg.num_depos, 1, 1)) * 100).astype(np.float32)
+    return patches, w0, t0
+
+
+def _k_max(w0, t0, cfg, tw, tt):
+    """The longest list, as a power of two: a short k_max keeps the
+    interpret-mode reference quick and drops nothing."""
+    tile_s, _, _, rank, _, n_tiles = tops._sorted_tile_runs(
+        torch.from_numpy(w0), torch.from_numpy(t0), cfg.patch_wires,
+        cfg.patch_ticks, cfg.num_wires, cfg.num_ticks, tw, tt)
+    return tops.next_pow2(int(rank[tile_s < n_tiles].max()) + 1)
+
+
+@pytest.mark.parametrize("layout", ["dense", "compact"])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_plain_kernel_equals_reference_kernel(case, layout):
+    cfg, tw, tt = CASES[case]
+    patches, w0, t0 = _inputs(cfg, 1)
+    k_max = _k_max(w0, t0, cfg, tw, tt)
+    bin_args = (cfg.patch_wires, cfg.patch_ticks, cfg.num_wires,
+                cfg.num_ticks, tw, tt, k_max)
+    kw = dict(num_wires=cfg.num_wires, num_ticks=cfg.num_ticks, tw=tw, tt=tt,
+              k_max=k_max)
+    tp, tw0, tt0 = (torch.from_numpy(x) for x in (patches, w0, t0))
+    if layout == "dense":
+        ids, _ = jops.bin_depos_to_tiles(jnp.asarray(w0), jnp.asarray(t0),
+                                         *bin_args)
+        ref = jkernel.scatter_add_pallas(jnp.asarray(patches),
+                                         jnp.asarray(w0), jnp.asarray(t0),
+                                         ids, interpret=True, **kw)
+        out = tkernel.scatter_add_pallas(
+            tp, tw0, tt0, torch.from_numpy(np.asarray(ids)), **kw)
+    else:
+        n_cap = jops.active_tile_cap(jnp.asarray(w0), *bin_args[:-1],
+                                     t0=jnp.asarray(t0))
+        active, ids = jops.bin_depos_to_tiles_compact(
+            jnp.asarray(w0), jnp.asarray(t0), *bin_args, n_cap)
+        ref = jkernel.scatter_add_pallas_compact(
+            jnp.asarray(patches), jnp.asarray(w0), jnp.asarray(t0), active,
+            ids, interpret=True, **kw)
+        out = tkernel.scatter_add_pallas_compact(
+            tp, tw0, tt0, torch.from_numpy(np.asarray(active)),
+            torch.from_numpy(np.asarray(ids)), **kw)
+    assert float(out.sum()) > 0.0
+    np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_plain_compact_equals_plain_dense_bitwise(case):
+    cfg, tw, tt = CASES[case]
+    args = [torch.from_numpy(x) for x in _inputs(cfg, 2)]
+    kw = dict(num_wires=cfg.num_wires, num_ticks=cfg.num_ticks, tw=tw, tt=tt)
+    dense, dropped = tops.scatter_add_tiles(*args, **kw)
+    compact, cdropped = tops.scatter_add_tiles_compact(*args, **kw)
+    padded, _ = tops.scatter_add_tiles_compact(*args, n_active=10_000, **kw)
+    assert int(dropped) == 0 and int(cdropped) == 0
+    assert torch.equal(dense, compact) and torch.equal(dense, padded)
+
+
+@pytest.mark.parametrize("strategy", STRATEGIES)
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_strategy_matches_reference(case, strategy):
+    """Each port strategy against the reference's same strategy, at the
+    strategies' own tiles and k_max (the interpret-mode reference runs the
+    default k_max here)."""
+    cfg = CASES[case][0]
+    patches, w0, t0 = _inputs(cfg, 3)
+    ref = np.asarray(jscatter.STRATEGIES[strategy](
+        jnp.asarray(patches), jnp.asarray(w0), jnp.asarray(t0), cfg))
+    out, dropped = tscatter.scatter_add(
+        *(torch.from_numpy(x) for x in (patches, w0, t0)), _tcfg(cfg),
+        strategy=strategy)
+    assert int(dropped) == 0
+    if strategy.startswith("pallas"):
+        np.testing.assert_array_equal(out.numpy(), ref)
+    else:
+        parity.assert_close(out.numpy(), ref, what=strategy)
+
+
+def test_tile_strategies_widen_tiles_to_the_patch():
+    """tw = max(tw, pw), as the reference: a 16-wire tile under 20-wire
+    patches still lands every patch whole."""
+    cfg = EDGE
+    args = [torch.from_numpy(x) for x in _inputs(cfg, 4)]
+    expect, _ = tscatter.scatter_add(*args, _tcfg(cfg), strategy="xla")
+    for fn in (tops.scatter_add_tiles, tops.scatter_add_tiles_compact):
+        out, dropped = fn(*args, num_wires=cfg.num_wires,
+                          num_ticks=cfg.num_ticks, tw=16, tt=8)
+        assert int(dropped) == 0
+        parity.assert_close(out.numpy(), expect.numpy(), what=fn.__name__)
+
+
+def test_plain_path_adds_in_list_order():
+    """The plain version's grid equals a sequential float32 sum (np.add.at)
+    of the patches in list order."""
+    cfg, tw, tt = CASES["smoke"]
+    patches, w0, t0 = _inputs(cfg, 5)
+    k_max = tops.default_k_max(cfg.num_depos, cfg.num_wires, cfg.num_ticks,
+                               tw, tt)
+    tw0, tt0 = torch.from_numpy(w0), torch.from_numpy(t0)
+    ids, _, _ = tops.bin_depos_to_tiles(tw0, tt0, cfg.patch_wires,
+                                        cfg.patch_ticks, cfg.num_wires,
+                                        cfg.num_ticks, tw, tt, k_max)
+    tiles_w, tiles_t, n_tiles = tops.tile_counts(cfg.num_wires, cfg.num_ticks,
+                                                 tw, tt)
+    expect = np.zeros((tiles_w * tw, tiles_t * tt), np.float32)
+    lists = ids.numpy().reshape(n_tiles, k_max)
+    for rank in range(k_max):
+        for tile in range(n_tiles):
+            d = lists[tile, rank]
+            if d < 0:
+                continue
+            r0, c0 = (tile // tiles_t) * tw, (tile % tiles_t) * tt
+            rows = np.arange(w0[d], w0[d] + cfg.patch_wires)
+            cols = np.arange(t0[d], t0[d] + cfg.patch_ticks)
+            ri = rows[(rows >= r0) & (rows < r0 + tw)]
+            ci = cols[(cols >= c0) & (cols < c0 + tt)]
+            np.add.at(expect, (ri[:, None], ci[None, :]),
+                      patches[d][np.ix_(ri - w0[d], ci - t0[d])])
+    out = tkernel.scatter_add_pallas(torch.from_numpy(patches), tw0, tt0, ids,
+                                     num_wires=cfg.num_wires,
+                                     num_ticks=cfg.num_ticks, tw=tw, tt=tt,
+                                     k_max=k_max)
+    np.testing.assert_array_equal(out.numpy(), expect)
+
+
+def test_compact_blocks_place_into_the_dense_grid():
+    cfg, tw, tt = CASES["edge"]
+    patches, w0, t0 = (torch.from_numpy(x) for x in _inputs(cfg, 6))
+    k_max = 64
+    bin_args = (cfg.patch_wires, cfg.patch_ticks, cfg.num_wires,
+                cfg.num_ticks, tw, tt, k_max)
+    ids, _, _ = tops.bin_depos_to_tiles(w0, t0, *bin_args)
+    tiles_w, tiles_t, n_tiles = tops.tile_counts(cfg.num_wires, cfg.num_ticks,
+                                                 tw, tt)
+    active, cids, _ = tops.bin_depos_to_tiles_compact(w0, t0, *bin_args,
+                                                      n_tiles)
+    kw = dict(num_wires=cfg.num_wires, num_ticks=cfg.num_ticks, tw=tw, tt=tt,
+              k_max=k_max)
+    blocks = tkernel.scatter_add_pallas_compact(patches, w0, t0, active, cids,
+                                                **kw)
+    assert bool((blocks[active < 0] == 0).all())
+    assert torch.equal(scatter_tiles_to_grid(blocks, active, tiles_w, tiles_t,
+                                             tw, tt),
+                       tkernel.scatter_add_pallas(patches, w0, t0, ids, **kw))
+
+
+def _wrapper_args(cfg, tw, tt):
+    patches, w0, t0 = (torch.from_numpy(x) for x in _inputs(cfg, 7))
+    k_max = tops.default_k_max(cfg.num_depos, cfg.num_wires, cfg.num_ticks,
+                               tw, tt)
+    ids, _, _ = tops.bin_depos_to_tiles(w0, t0, cfg.patch_wires,
+                                        cfg.patch_ticks, cfg.num_wires,
+                                        cfg.num_ticks, tw, tt, k_max)
+    return [patches, w0, t0, ids], dict(num_wires=cfg.num_wires,
+                                        num_ticks=cfg.num_ticks, tw=tw, tt=tt,
+                                        k_max=k_max)
+
+
+def test_cpu_path_does_not_count_launches():
+    args, kw = _wrapper_args(*CASES["smoke"])
+    tkernel.reset_launches()
+    tkernel.scatter_add_pallas(*args, **kw)
+    assert tkernel.LAUNCHES == {"scatter_add_pallas": 0,
+                                "scatter_add_pallas_compact": 0}
+
+
+def test_non_cpu_tensors_never_take_the_plain_path():
+    """Tensors on another device go to the kernel or raise; here (meta
+    device) the wrapper refuses them instead of running the plain version."""
+    args, kw = _wrapper_args(*CASES["smoke"])
+    with pytest.raises(ValueError, match="unsupported device"):
+        tkernel.scatter_add_pallas(*(a.to("meta") for a in args), **kw)
+
+
+@pytest.mark.parametrize("bad", ["dtype", "rank", "origins", "lists"])
+def test_wrapper_rejects_bad_inputs(bad):
+    args, kw = _wrapper_args(*CASES["smoke"])
+    if bad == "dtype":
+        args[0] = args[0].to(torch.bfloat16)
+    elif bad == "rank":
+        args[0] = args[0].reshape(args[0].shape[0], -1)
+    elif bad == "origins":
+        args[1] = args[1].long()
+    else:
+        args[3] = args[3][:-1]
+    with pytest.raises(ValueError):
+        tkernel.scatter_add_pallas(*args, **kw)
+
+
+@pytest.mark.parametrize("strategy", ["sort_segment", "pallas",
+                                      "pallas_compact"])
+def test_unfused_event_matches_reference(strategy):
+    """The whole single-plane event with the unfused charge grid and each
+    scatter strategy, against the reference's same config."""
+    cfg = dataclasses.replace(SMOKE, scatter_strategy=strategy)
+    k = jax.random.fold_in(jax.random.key(0), 3)
+    d = j_generate(k, cfg)
+    ref = j_make_sim_fn(cfg)(k, d)
+    out = interop.to_numpy(make_sim_fn(_tcfg(cfg), device="cpu")(
+        interop.key_from_data(jax.random.key_data(k)),
+        interop.depos_from_numpy(*(np.asarray(x) for x in d))))
+    assert int(out["dropped"]) == 0
+    parity.assert_close(out["charge_grid"], np.asarray(ref.charge_grid),
+                        atol_frac=parity.GRID_ATOL_FRAC, what="grid")
+    parity.assert_adc_close(out["adc"], np.asarray(ref.adc), what="adc")
