@@ -22,7 +22,10 @@ Phases (any failure exits non-zero before the result line):
                 Multi-plane fused (rows 3-4) at full width with 3 planes:
                 within the grid tolerance of the plain version, compact ==
                 dense bit for bit, and plane p == the one-plane kernel (row
-                1) on plane p's depos with fold_in(kf, p), bit for bit
+                1) on plane p's depos with fold_in(kf, p), bit for bit.
+                Rasterize (row 8) at 100k depos (padded to 100 096), with
+                fluctuation on and off: kernel == plain bit for bit, two
+                runs bit-identical, zero padding
   4. main     : the launcher's event loop (launch counters reset just
                 before and read just after each run): 4 full-width events
                 with charge_grid_strategy=fused_pallas, then
@@ -33,12 +36,21 @@ Phases (any failure exits non-zero before the result line):
                 and equal to the per-plane loop of the one-plane kernel);
                 2 full-width events of unfused with scatter_strategy=pallas,
                 then pallas_compact (ADC equal between the two, launch
-                counters equal to the events served). Per plane:
+                counters equal to the events served); 4 full-width
+                three-plane events with fused_pallas_multiplane and
+                recon=True (deconvolve + hit_find; ADC equal to the
+                sim-only run, one hit-scan launch per plane and event,
+                stored and found hits per plane); rasterize_depos at 100k
+                depos with fluctuation on and off. Per plane:
                 int16 ADC at the 900 baseline, finite signal, non-zero max
-                dev; per-event time, depos/s, per-stage times, peak memory
+                dev; per-event time, depos/s, per-stage times, peak memory.
+                Then the hit-scan kernel (row 7) against its plain version,
+                bit for bit, on every plane's full-width deconvolved grid of
+                recon event 0 and on synthetic edge-case grids
   5. timing   : each kernel's wrapper (median of 5 rounds of 20 calls) and
                 its plain version (3 calls; the three-plane plain versions
-                2 calls) timed with CUDA events at the main path's shapes,
+                2 calls, hit scan and rasterize 1 call) timed with CUDA
+                events at the main path's shapes (hit scan: one plane),
                 beside the least time the card could take (bytes or
                 operations bound, from this run's inputs) and, for the
                 scatter-add kernels, the one PyTorch call that computes the
@@ -77,6 +89,13 @@ OPS_PER_AXIS = 10
 #: operations per (depo, tile) entry for its stream seed (2 mul, xor,
 #: fmix32, add)
 OPS_PER_ENTRY = 12
+#: operations per in-support pixel of the rasterize kernel with
+#: fluctuation: 2 mul (q*ww*wt); max, log, mul, sqrt, mul, cos, mul (the
+#: normal); max, div, max, min (p); sub, mul, max (var); sqrt, fma, max
+OPS_PER_RASTER_PIXEL = 2 + 7 + 4 + 3 + 3
+#: operations per hit-scan sample (compare, two selects, mul, two adds,
+#: max, the run bookkeeping)
+OPS_PER_HIT_SAMPLE = 10
 EVENTS = 4
 #: full-width single-plane events per scatter-add strategy
 SCATTER_EVENTS = 2
@@ -91,6 +110,12 @@ ONE_DEPO_CASES = (("straddle wire edge", (63.7, 100.2, 1.1, 1.4, 4321.0)),
                   ("straddle tick edge", (30.0, 255.4, 1.1, 1.4, 4321.0)),
                   ("straddle corner", (63.7, 255.4, 1.1, 1.4, 4321.0)),
                   ("detector edge", (0.4, 2.0, 0.8, 1.0, 999.0)))
+
+
+#: synthetic hit-scan grids: 70 wires (a ragged last warp) x 1000 ticks
+#: (a ragged last tile), threshold 500, and the scanner's edge cases
+HIT_CASE_SHAPE = (70, 1000)
+HIT_THRESHOLD = 500.0
 
 
 class PhaseError(RuntimeError):
@@ -460,6 +485,119 @@ class ScatterCase:
         return bound_of(nbytes, pixels)
 
 
+class RasterCase:
+    """The rasterize kernel's problem on its own path: ``rasterize_depos``
+    of ``cfg.num_depos`` generated depos, padded to the 256-depo block,
+    with the uniform pools of ``split(key)`` over the padded shape."""
+
+    def __init__(self, cfg, key, device, block: int = 256):
+        import torch
+
+        from repro_torch.core.depo import depo_patch_origin, generate_depos
+        from repro_torch.kernels.rasterize import ops
+
+        self.cfg = cfg
+        padded, _ = ops.pad_depos(generate_depos(key, cfg, device=device),
+                                  block)
+        self.params = (*padded, *depo_patch_origin(padded, cfg))
+        self.pw_pad = (cfg.patch_wires + 7) // 8 * 8
+        self.pt_pad = cfg.pad_ticks
+        self.pools = ops.uniform_pools(key, (padded.n, self.pw_pad,
+                                             self.pt_pad), device)
+        self.kw = dict(pw=cfg.patch_wires, pt=cfg.patch_ticks,
+                       pw_pad=self.pw_pad, pt_pad=self.pt_pad)
+        torch.cuda.synchronize()
+
+    def kernel(self, fluctuate: bool = True):
+        from repro_torch.kernels.rasterize import kernel
+
+        return kernel.rasterize_pallas(*self.params, *self.pools,
+                                       fluctuate=fluctuate, **self.kw)
+
+    def plain(self, fluctuate: bool = True):
+        from repro_torch.kernels.rasterize import ref
+
+        return ref.rasterize_ref(*self.params, *self.pools,
+                                 fluctuate=fluctuate, **self.kw)
+
+    def bound(self, fluctuate: bool = True):
+        """Bytes: the output written once, the depo parameters and, with
+        fluctuation, the in-support part of both pools read once;
+        operations: the per-pixel arithmetic of the in-support pixels and
+        the axis weights."""
+        n = self.params[0].numel()
+        pixels = n * self.cfg.patch_wires * self.cfg.patch_ticks
+        nbytes = 4 * n * (self.pw_pad * self.pt_pad + 7)
+        ops = (2 * pixels + OPS_PER_AXIS * n * (self.cfg.patch_wires
+                                                + self.cfg.patch_ticks))
+        if fluctuate:
+            nbytes += 2 * 4 * pixels
+            ops += (OPS_PER_RASTER_PIXEL - 2) * pixels
+        return bound_of(nbytes, ops)
+
+
+def hit_edge_grids(device):
+    """(label, (W, T) grid) synthetic hit-scan cases: runs at tick 0, open
+    at the last tick, more runs than the per-wire capacity, samples equal
+    to the threshold, all below, all above, and noise of every run
+    length."""
+    import torch
+
+    w, t = HIT_CASE_SHAPE
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    noise = torch.randn((w, t), generator=gen) * 600.0
+    g = torch.zeros((w, t))
+    g[0, 0] = 700.0
+    g[1, :5] = torch.tensor([600.0, 900.0, 1200.0, 800.0, 510.0])
+    g[2, -3:] = torch.tensor([550.0, 2000.0, 900.0])
+    g[3, :] = 1000.0 + torch.arange(t, dtype=torch.float32)
+    g[4, ::2] = 800.0
+    g[5, 10:20] = HIT_THRESHOLD
+    g[6, 10:20] = torch.nextafter(torch.tensor(HIT_THRESHOLD),
+                                  torch.tensor(1e9))
+    g[7, ::3] = 2e6
+    g[8:40] = noise[8:40]
+    g[40:] = noise[40:].abs() * 0.5 + 450.0
+    return [("edge cases", g.to(device)), ("noise", noise.to(device))]
+
+
+def check_hitfind(grids, cap: int):
+    """Hit-scan kernel == its plain version bit for bit on every (label,
+    grid), two runs bit-identical; returns the largest |kernel - plain|
+    over the float outputs (0 when they pass)."""
+    import torch
+
+    from repro_torch.kernels.hitfind import kernel, ref
+
+    worst = 0.0
+    for label, grid in grids:
+        got = kernel.hitfind_pallas(grid, threshold=HIT_THRESHOLD, cap=cap)
+        again = kernel.hitfind_pallas(grid, threshold=HIT_THRESHOLD, cap=cap)
+        want = ref.hitfind_ref(grid, threshold=HIT_THRESHOLD, cap=cap)
+        torch.cuda.synchronize()
+        errs = [float((a - b).abs().max()) for a, b in zip(got[1:], want[1:])]
+        worst = max([worst] + errs)
+        counts = got[0][:, 0]
+        print(f"hit scan {label}: grid {tuple(grid.shape)}, runs found "
+              f"{int(counts.sum())}, stored {int(counts.clamp_max(cap).sum())}"
+              f", max |kernel - plain| (charge, tick, peak) = {errs}",
+              flush=True)
+        for name, a, b, c in zip(("counts", "charge", "tick", "peak"), got,
+                                 want, again):
+            check(torch.equal(a, b), f"hit scan {label}: kernel {name} != "
+                  "plain version")
+            check(torch.equal(a, c), f"hit scan {label}: kernel {name} not "
+                  "bit-identical run to run")
+    return worst
+
+
+def hit_bound(grid, cap: int):
+    """The hit scan's bound on ``grid``. Bytes: the grid read once, counts
+    and candidates written once; operations: ~10 per sample."""
+    w, t = grid.shape
+    return bound_of(4 * (w * t + w + 3 * w * cap), OPS_PER_HIT_SAMPLE * w * t)
+
+
 def check_kernels(case, label: str):
     """Phase 3 checks for one fused case; returns max |kernel - plain| of
     the dense and of the compact kernel."""
@@ -567,18 +705,19 @@ def check_multiplane(case, label: str):
     return err, err_c
 
 
-def run_main(cfg, label: str, events: int, dev, counters):
+def run_main(cfg, label: str, events: int, dev, counters,
+             recon: bool = False):
     """One launcher run of ``events`` events, every launch counter reset
     just before and read just after; per-plane checks on every event.
-    Returns (the events' ADC, the counters read, the run's stats)."""
+    Returns (the events' ADC, the counters read, the graph, event 0's
+    output)."""
     import torch
 
-    from repro_torch.config import plane_specs
     from repro_torch.core.pipeline import make_sim_fn
-    from repro_torch.launch.sim import max_dev, run_events
+    from repro_torch.launch.sim import hit_counts, max_dev, run_events
 
-    sim = make_sim_fn(cfg, device=dev)
-    adcs, lines = [], []
+    sim = make_sim_fn(cfg, device=dev, recon=recon)
+    adcs, lines, first = [], [], []
     n_planes = cfg.num_planes
     shape = ((n_planes,) if n_planes > 1 else ()) + (cfg.num_wires,
                                                      cfg.num_ticks)
@@ -598,12 +737,22 @@ def run_main(cfg, label: str, events: int, dev, counters):
                   f"{cfg.adc_baseline}")
             check(devs[-1] > 0, f"plane {p}: max dev is 0")
         adcs.append(out.adc.clone())
+        if ev == 0:
+            first.append(out)
         n = cfg.num_depos * n_planes
+        hits = ""
+        if recon:
+            check(bool(torch.isfinite(out.decon).all()), "non-finite decon")
+            per_plane = [hit_counts(out.hits, p if n_planes > 1 else None)
+                         for p in range(n_planes)]
+            check(all(s > 0 for s, _ in per_plane), f"a plane without hits: "
+                  f"{per_plane}")
+            hits = f", hits (stored, found) per plane {per_plane}"
         lines.append(f"{label} event {ev}: {cfg.num_depos} depos x "
                      f"{n_planes} plane(s) -> {tuple(out.adc.shape)} ADC in "
                      f"{dt*1e3:.3f} ms ({n/dt:.4g} plane-depos/s), max dev "
                      f"per plane {devs}, median per plane {medians}, "
-                     f"dropped {int(out.dropped)}")
+                     f"dropped {int(out.dropped)}{hits}")
 
     torch.cuda.reset_peak_memory_stats(dev)
     for module in counters:
@@ -619,7 +768,7 @@ def run_main(cfg, label: str, events: int, dev, counters):
           f"alone: median {statistics.median(stats['event_s'])*1e3:.3f} "
           f"ms/event); launches {launches}; peak memory "
           f"{peak / 2**20:.1f} MiB", flush=True)
-    return adcs, launches, sim
+    return adcs, launches, sim, first[0]
 
 
 def print_stages(label: str, sim, key, depos) -> None:
@@ -646,6 +795,10 @@ def main() -> int:
     from repro_torch.core.depo import (DepoSet, generate_depos,
                                        generate_physical_depos)
     from repro_torch.kernels.fused_sim import kernel
+    from repro_torch.kernels.hitfind import kernel as hit_kernel
+    from repro_torch.kernels.hitfind import ref as hit_ref
+    from repro_torch.kernels.rasterize import kernel as raster_kernel
+    from repro_torch.kernels.rasterize.ops import rasterize_depos
     from repro_torch.kernels.scatter_add import kernel as scatter_kernel
     from repro_torch.launch.sim import max_dev, run_events
 
@@ -702,12 +855,35 @@ def main() -> int:
     multi_errors = check_multiplane(multi_case,
                                     "three planes, full width 64x256 tiles")
 
+    raster_case = RasterCase(full, key0, dev)
+    raster_err = 0.0
+    for fluct in (True, False):
+        got, again = raster_case.kernel(fluct), raster_case.kernel(fluct)
+        want = raster_case.plain(fluct)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        same = float((got == want).float().mean())
+        print(f"rasterize fluctuate={fluct}: patches {tuple(got.shape)}, max "
+              f"|kernel - plain| = {err:.6g}, bitwise-equal share {same}; "
+              f"max |patch| {float(want.abs().max()):.6g}", flush=True)
+        check(torch.equal(got, want), f"rasterize fluctuate={fluct}: kernel "
+              "!= plain version")
+        check(torch.equal(got, again), f"rasterize fluctuate={fluct}: not "
+              "bit-identical run to run")
+        check(bool((got[:, full.patch_wires:] == 0).all()
+                   and (got[:, :, full.patch_ticks:] == 0).all()),
+              "rasterize: non-zero padding")
+        check(bool((got >= 0).all()) and float(got.sum()) > 0,
+              f"rasterize fluctuate={fluct}: negative or empty patches")
+        raster_err = max(raster_err, err)
+        del got, again, want
+
     phase("main path")
     adcs = {}
     launches = {}
     for strategy in STRATEGIES:
         cfg = dataclasses.replace(full, charge_grid_strategy=strategy)
-        adcs[strategy], launches[strategy], sim = run_main(
+        adcs[strategy], launches[strategy], sim, _ = run_main(
             cfg, strategy, EVENTS, dev, [kernel])
         print_stages(strategy, sim, key0, generate_depos(key0, full,
                                                          device=dev))
@@ -728,7 +904,7 @@ def main() -> int:
 
     for strategy in MULTI_STRATEGIES:
         cfg = dataclasses.replace(full3, charge_grid_strategy=strategy)
-        adcs[strategy], launches[strategy], sim = run_main(
+        adcs[strategy], launches[strategy], sim, _ = run_main(
             cfg, strategy, EVENTS, dev, [kernel])
         print_stages(strategy, sim, key0, generate_physical_depos(
             key0, full3, device=dev))
@@ -743,8 +919,8 @@ def main() -> int:
           f"{MULTI_STRATEGIES}")
     loop_cfg = dataclasses.replace(full3, charge_grid_strategy="fused_pallas",
                                    plane_batching="loop")
-    loop_adcs, loop_launches, _ = run_main(loop_cfg, "fused_pallas loop", 1,
-                                           dev, [kernel])
+    loop_adcs, loop_launches, _, _ = run_main(loop_cfg, "fused_pallas loop",
+                                              1, dev, [kernel])
     check(loop_launches["fused_rasterize_scatter"] == PLANES,
           f"per-plane loop launches {loop_launches}")
     check(torch.equal(loop_adcs[0], adcs[MULTI_STRATEGIES[0]][0]),
@@ -755,7 +931,7 @@ def main() -> int:
 
     for scatter in SCATTER_STRATEGIES:
         cfg = dataclasses.replace(full, scatter_strategy=scatter)
-        adcs[scatter], launches[scatter], sim = run_main(
+        adcs[scatter], launches[scatter], sim, _ = run_main(
             cfg, f"unfused+{scatter}", SCATTER_EVENTS, dev, [scatter_kernel])
         print_stages(f"unfused+{scatter}", sim, key0,
                      generate_depos(key0, full, device=dev))
@@ -768,45 +944,103 @@ def main() -> int:
     print(f"ADC of all {SCATTER_EVENTS} unfused events identical between "
           f"{SCATTER_STRATEGIES}")
 
+    recon_cfg = dataclasses.replace(full3,
+                                    charge_grid_strategy=MULTI_STRATEGIES[0])
+    recon_adcs, launches["recon"], sim, recon0 = run_main(
+        recon_cfg, "recon", EVENTS, dev, [kernel, hit_kernel], recon=True)
+    print_stages("recon", sim, key0, generate_physical_depos(
+        key0, full3, device=dev))
+    check(launches["recon"]["hitfind_pallas"] == PLANES * EVENTS,
+          f"recon: hit-scan launches {launches['recon']} != planes x events")
+    check(launches["recon"]["fused_rasterize_scatter_multiplane"] == EVENTS,
+          f"recon: charge-grid launches {launches['recon']}")
+    for ev in range(EVENTS):
+        check(torch.equal(recon_adcs[ev], adcs[MULTI_STRATEGIES[0]][ev]),
+              f"event {ev}: the recon graph's ADC differs from the sim-only "
+              "graph's")
+    print(f"ADC of all {EVENTS} recon events identical to the sim-only run")
+
+    depos0 = generate_depos(key0, full, device=dev)
+    raster_kernel.reset_launches()
+    for fluct in (True, False):
+        patches, _, _ = rasterize_depos(key0, depos0, full, fluctuate=fluct,
+                                        device=dev)
+        torch.cuda.synchronize()
+        check(tuple(patches.shape) == (full.num_depos, raster_case.pw_pad,
+                                       raster_case.pt_pad)
+              and bool(torch.isfinite(patches).all()),
+              f"rasterize_depos fluctuate={fluct}: {tuple(patches.shape)}")
+        print(f"rasterize_depos fluctuate={fluct}: {tuple(patches.shape)} "
+              f"patches, total charge {float(patches.sum()):.6g}", flush=True)
+    launches["rasterize"] = dict(raster_kernel.LAUNCHES)
+    check(launches["rasterize"]["rasterize_pallas"] == 2,
+          f"rasterize_depos launches {launches['rasterize']}")
+    del patches
+
+    planes0 = [(f"recon event 0 plane {p}", recon0.decon[p].contiguous())
+               for p in range(PLANES)]
+    hit_err = check_hitfind(planes0 + hit_edge_grids(dev),
+                            full.max_hits_per_wire)
+    print("hit scan: kernel == plain version bit for bit on every plane and "
+          "edge case", flush=True)
+
     phase("kernel timing")
     rows = []
     fused_src = "src/repro_torch/csrc/fused_sim.cu"
     scatter_src = "src/repro_torch/csrc/scatter_add.cu"
+    grid0, cap = planes0[0][1], full.max_hits_per_wire
+    # (name, wrapper call, plain call, plain calls timed, bound, library
+    # call or None, source, replaced TPU kernel, main-path run, max error)
     timed = (
-        ("fused_rasterize_scatter", main_case, False, fused_src,
-         "src/repro/kernels/fused_sim/kernel.py:262", "fused_pallas", 3,
-         False, errors[0]),
-        ("fused_rasterize_scatter_compact", main_case, True, fused_src,
+        ("fused_rasterize_scatter", main_case.dense, main_case.plain_dense, 3,
+         main_case.bound(False), None, fused_src,
+         "src/repro/kernels/fused_sim/kernel.py:262", "fused_pallas",
+         errors[0]),
+        ("fused_rasterize_scatter_compact", main_case.compact,
+         main_case.plain_compact, 3, main_case.bound(True), None, fused_src,
          "src/repro/kernels/fused_sim/kernel.py:300", "fused_pallas_compact",
-         3, False, errors[1]),
-        ("fused_rasterize_scatter_multiplane", multi_case, False, fused_src,
+         errors[1]),
+        ("fused_rasterize_scatter_multiplane", multi_case.dense,
+         multi_case.plain_dense, 2, multi_case.bound(False), None, fused_src,
          "src/repro/kernels/fused_sim/kernel.py:340",
-         "fused_pallas_multiplane", 2, False, multi_errors[0]),
-        ("fused_rasterize_scatter_multiplane_compact", multi_case, True,
+         "fused_pallas_multiplane", multi_errors[0]),
+        ("fused_rasterize_scatter_multiplane_compact", multi_case.compact,
+         multi_case.plain_compact, 2, multi_case.bound(True), None,
          fused_src, "src/repro/kernels/fused_sim/kernel.py:392",
-         "fused_pallas_multiplane_compact", 2, False, multi_errors[1]),
-        ("scatter_add_pallas", scatter_case, False, scatter_src,
-         "src/repro/kernels/scatter_add/kernel.py:97", "pallas", 3, True,
+         "fused_pallas_multiplane_compact", multi_errors[1]),
+        ("scatter_add_pallas", scatter_case.dense, scatter_case.plain_dense,
+         3, scatter_case.bound(False), scatter_case.library, scatter_src,
+         "src/repro/kernels/scatter_add/kernel.py:97", "pallas",
          scatter_errors[0]),
-        ("scatter_add_pallas_compact", scatter_case, True, scatter_src,
-         "src/repro/kernels/scatter_add/kernel.py:140", "pallas_compact", 3,
-         True, scatter_errors[1]))
-    for (name, case, compact, source, replaces, strategy, plain_iters,
-         has_library, err) in timed:
-        fn = case.compact if compact else case.dense
-        plain = case.plain_compact if compact else case.plain_dense
+        ("scatter_add_pallas_compact", scatter_case.compact,
+         scatter_case.plain_compact, 3, scatter_case.bound(True),
+         scatter_case.library, scatter_src,
+         "src/repro/kernels/scatter_add/kernel.py:140", "pallas_compact",
+         scatter_errors[1]),
+        ("hitfind_pallas",
+         lambda: hit_kernel.hitfind_pallas(grid0, threshold=HIT_THRESHOLD,
+                                           cap=cap),
+         lambda: hit_ref.hitfind_ref(grid0, threshold=HIT_THRESHOLD,
+                                     cap=cap),
+         1, hit_bound(grid0, cap), None, "src/repro_torch/csrc/hitfind.cu",
+         "src/repro/kernels/hitfind/kernel.py:40", "recon", hit_err),
+        ("rasterize_pallas", raster_case.kernel, raster_case.plain, 1,
+         raster_case.bound(), None, "src/repro_torch/csrc/rasterize.cu",
+         "src/repro/kernels/rasterize/kernel.py:78", "rasterize",
+         raster_err))
+    for (name, fn, plain, plain_iters, (bound_ms, bound_by), library,
+         source, replaces, run, err) in timed:
         ms, rounds = wrapper_ms(fn)
         plain_ms = cuda_time(plain, iters=plain_iters, warmup=1)
-        library_ms = wrapper_ms(case.library)[0] if has_library else None
-        bound_ms, bound_by = case.bound(compact)
+        library_ms = wrapper_ms(library)[0] if library else None
         rows.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[strategy][name],
+            "replaces": replaces, "launches": launches[run][name],
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms})
         lib_text = (f"library call index_put_(accumulate=True) "
-                    f"{library_ms:.4f} ms" if has_library else
+                    f"{library_ms:.4f} ms" if library else
                     "library call: none (no single PyTorch call computes "
                     "this function)")
         print(f"{name}: {ms:.4f} ms/call of the wrapper (median of 5 rounds "
@@ -814,7 +1048,11 @@ def main() -> int:
               f"{rounds[-1]:.4f} ms); plain {plain_ms:.3f} ms (mean of "
               f"{plain_iters}); bound {bound_ms:.4f} ms ({bound_by}); "
               f"{lib_text}; launches on the main path "
-              f"{launches[strategy][name]}", flush=True)
+              f"{launches[run][name]}", flush=True)
+    unfluct_ms = wrapper_ms(lambda: raster_case.kernel(False))[0]
+    print(f"rasterize_pallas without fluctuation: {unfluct_ms:.4f} ms/call, "
+          f"bound {raster_case.bound(False)[0]:.4f} ms "
+          f"({raster_case.bound(False)[1]})", flush=True)
     print(f"fused work (entries, in-support pixels, row+column weights): "
           f"one plane {main_case.work()}, three planes {multi_case.work()}; "
           f"scatter-add (entries, in-tile pixels) {scatter_case.work()}")

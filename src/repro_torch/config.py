@@ -71,7 +71,7 @@ class LArTPCConfig:
     plane_pitches_mm: Tuple[float, ...] = ()
     plane_types: Tuple[str, ...] = ("induction", "induction", "collection")
     plane_batching: str = "auto"
-    # recon (carried for round-tripping; no recon stage in the port yet)
+    # recon: build_sim_graph(..., recon=True) appends deconvolve -> hit_find
     deconv_filter: str = "wiener"
     deconv_wiener_lambda: float = 2e-3
     deconv_gauss_cut: float = 0.25

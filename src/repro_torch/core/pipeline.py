@@ -171,26 +171,30 @@ set_default("charge_grid", "unfused")
 
 def simulate_fig4(key: torch.Tensor, depos, resp=None,
                   cfg: Optional[LArTPCConfig] = None, add_noise: bool = True,
-                  device="cuda") -> SimOutput:
+                  device="cuda", recon: bool = False) -> SimOutput:
     """One run of the canonical stage chain for one event. ``depos`` may be
     a detector-frame ``DepoSet`` (with a leading plane axis for multi-plane
     configs) or a ``PhysicalDepoSet``; ``resp`` one response, one per
-    plane, or None for the config's defaults."""
+    plane, or None for the config's defaults. ``recon=True`` appends the
+    deconvolve and hit_find stages and fills ``SimOutput.decon``/``hits``."""
     if cfg is None:
         raise TypeError("simulate_fig4() missing required argument: 'cfg'")
-    return build_sim_graph(cfg, resp, add_noise=add_noise,
-                           device=device).run(key, depos)
+    return build_sim_graph(cfg, resp, add_noise=add_noise, device=device,
+                           recon=recon).run(key, depos)
 
 
 def make_sim_fn(cfg: LArTPCConfig, resp: Optional[DetectorResponse] = None,
-                add_noise: bool = True, device="cuda"):
+                add_noise: bool = True, device="cuda", recon: bool = False):
     """The single-event executor: a ``SimGraph`` called as
-    ``sim(key, depos) -> SimOutput``, built once (response spectra
-    included) and reused for every event."""
-    return build_sim_graph(cfg, resp, add_noise=add_noise, device=device)
+    ``sim(key, depos) -> SimOutput``, built once (response spectra and, with
+    ``recon``, the deconvolution filters included) and reused for every
+    event."""
+    return build_sim_graph(cfg, resp, add_noise=add_noise, device=device,
+                           recon=recon)
 
 
 def simulate(key: torch.Tensor, depos, cfg: LArTPCConfig, resp=None,
-             add_noise: bool = True, device="cuda") -> SimOutput:
+             add_noise: bool = True, device="cuda",
+             recon: bool = False) -> SimOutput:
     return simulate_fig4(key, depos, resp, cfg, add_noise=add_noise,
-                         device=device)
+                         device=device, recon=recon)

@@ -17,7 +17,7 @@ from repro_torch.core.depo import DepoSet, depo_patch_origin
 SQRT2 = 1.4142135623730951
 
 
-def _axis_weights(center: torch.Tensor, sigma: torch.Tensor,
+def axis_weights(center: torch.Tensor, sigma: torch.Tensor,
                   origin: torch.Tensor, npix: int) -> torch.Tensor:
     """Bin-integrated Gaussian weights along one axis: (N,) -> (N, npix)."""
     edges = (origin[:, None].to(torch.float32)
@@ -34,7 +34,7 @@ def rasterize(depos: DepoSet, cfg: LArTPCConfig):
     if cfg.patch_dtype != "float32":
         raise NotImplementedError("the port rasterizes float32 patches only")
     w0, t0 = depo_patch_origin(depos, cfg)
-    ww = _axis_weights(depos.wire, depos.sigma_w, w0, cfg.patch_wires)
-    wt = _axis_weights(depos.tick, depos.sigma_t, t0, cfg.patch_ticks)
+    ww = axis_weights(depos.wire, depos.sigma_w, w0, cfg.patch_wires)
+    wt = axis_weights(depos.tick, depos.sigma_t, t0, cfg.patch_ticks)
     patches = depos.charge[:, None, None] * ww[:, :, None] * wt[:, None, :]
     return patches, w0, t0

@@ -1,6 +1,7 @@
 """Stage-graph simulation core: the fig4 chain as one module.
 
     drift -> charge_grid -> convolve -> noise -> digitize
+          [-> deconvolve -> hit_find]      (``recon=True``)
 
 ``SimGraph`` is an ``nn.Module`` holding the ordered stages (the convolve
 stage holds the response spectra as a buffer). ``run`` executes the chain
@@ -40,6 +41,10 @@ from repro_torch.tune.registry import get_strategy, resolve
 
 #: canonical stage order of the simulation chain
 STAGE_ORDER = ("drift", "charge_grid", "convolve", "noise", "digitize")
+#: the recon stages ``build_sim_graph(..., recon=True)`` appends
+RECON_STAGE_ORDER = ("deconvolve", "hit_find")
+#: the full sim -> recon chain
+FULL_STAGE_ORDER = STAGE_ORDER + RECON_STAGE_ORDER
 #: charge_grid strategies that rasterise ALL planes in one launch: they take
 #: the unsplit charge-grid subkey and the full (P, N) depos and fold the
 #: per-plane subkeys themselves
@@ -54,12 +59,16 @@ class SimOutput(NamedTuple):
 
     ``dropped`` counts the (depo, tile) entries the tile binning of the
     kernel strategies could not fit, over all planes (0-d tensor; always 0
-    for the library strategies)."""
+    for the library strategies). ``decon`` and ``hits`` are set only by
+    recon graphs (``build_sim_graph(..., recon=True)``); multi-plane hits
+    stack their leaves to (P, max_hits)."""
 
     adc: torch.Tensor          # (num_wires, num_ticks) int16
     signal: torch.Tensor       # (num_wires, num_ticks) float32
     charge_grid: torch.Tensor  # S(t,x) after the charge-grid stage
     dropped: Optional[torch.Tensor] = None
+    decon: Optional[torch.Tensor] = None  # S^(t,x) after deconvolve
+    hits: Optional[object] = None         # HitSet after hit_find
 
 
 class SimState(NamedTuple):
@@ -73,6 +82,8 @@ class SimState(NamedTuple):
     signal: Optional[torch.Tensor] = None
     adc: Optional[torch.Tensor] = None
     dropped: Optional[torch.Tensor] = None
+    decon: Optional[torch.Tensor] = None
+    hits: Optional[object] = None
 
 
 class Stage(nn.Module):
@@ -124,7 +135,8 @@ class SimGraph(nn.Module):
     @staticmethod
     def output(state: SimState) -> SimOutput:
         return SimOutput(adc=state.adc, signal=state.signal,
-                         charge_grid=state.grid, dropped=state.dropped)
+                         charge_grid=state.grid, dropped=state.dropped,
+                         decon=state.decon, hits=state.hits)
 
     def run(self, key: torch.Tensor, depos) -> SimOutput:
         """Execute the full chain for one event."""
@@ -292,39 +304,49 @@ def charge_grid_stage(cfg: LArTPCConfig,
     return Stage("charge_grid", fn, op="charge_grid")
 
 
+def _spectra_stage(name: str, op: str, buffer: str, resps,
+                   apply: Callable[[torch.Tensor, DetectorResponse],
+                                   torch.Tensor],
+                   source: Callable[[SimState], torch.Tensor], target: str,
+                   multi: bool) -> Stage:
+    """A stage applying one spectrum per plane (held as the buffer
+    ``buffer``, (P, ...) for several planes) to ``source(state)`` and
+    writing the result to the state's ``target`` field: one call per plane
+    in either batching mode, so a plane's bits do not depend on the planes
+    beside it."""
+    if len({r.pad_shape for r in resps}) != 1:
+        raise ValueError("the per-plane responses must share one padded "
+                         f"shape, got {[r.pad_shape for r in resps]}")
+    stage = Stage(name, None, op=op)
+    stage.register_buffer(buffer, torch.stack(
+        [r.freq for r in resps]) if multi else resps[0].freq)
+
+    def fn(state: SimState) -> SimState:
+        freq = getattr(stage, buffer)
+        x = source(state)
+        if not multi:
+            out = apply(x, resps[0]._replace(freq=freq))
+        else:
+            out = torch.stack([apply(x[i], r._replace(freq=freq[i]))
+                               for i, r in enumerate(resps)])
+        return state._replace(**{target: out})
+
+    stage.fn = fn
+    return stage
+
+
 def convolve_stage(cfg: LArTPCConfig, resp,
                    planes: Optional[Tuple[int, ...]] = None,
                    device="cuda") -> Stage:
     """S(t,x) -> M(t,x): frequency-domain convolution with the response,
-    whose spectrum the stage holds as the buffer ``response_freq``.
-
-    Multi-plane: one response per plane (bipolar induction, unipolar
-    collection), their spectra held as one (P, ...) buffer, and one
-    convolution per plane in either batching mode (so a plane's bits do
-    not depend on the planes beside it)."""
-    multi = cfg.num_planes > 1
+    whose spectrum the stage holds as the buffer ``response_freq``
+    (multi-plane: one response per plane, bipolar induction and unipolar
+    collection, one convolution per plane)."""
     resps = _as_plane_responses(cfg, resp, planes, device)
-    if len({r.pad_shape for r in resps}) != 1:
-        raise ValueError("the per-plane responses must share one padded "
-                         f"shape, got {[r.pad_shape for r in resps]}")
-    stage = Stage("convolve", None, op="fft_convolve")
-    stage.register_buffer("response_freq", torch.stack(
-        [r.freq for r in resps]) if multi else resps[0].freq)
-
-    def fn(state: SimState) -> SimState:
-        freq = stage.response_freq
-        if not multi:
-            signal = fft_convolve(state.grid, resps[0]._replace(freq=freq),
-                                  cfg.fft_strategy)
-        else:
-            signal = torch.stack([
-                fft_convolve(state.grid[i], r._replace(freq=freq[i]),
-                             cfg.fft_strategy)
-                for i, r in enumerate(resps)])
-        return state._replace(signal=signal)
-
-    stage.fn = fn
-    return stage
+    return _spectra_stage(
+        "convolve", "fft_convolve", "response_freq", resps,
+        lambda grid, r: fft_convolve(grid, r, cfg.fft_strategy),
+        lambda state: state.grid, "signal", cfg.num_planes > 1)
 
 
 def noise_stage(cfg: LArTPCConfig,
@@ -356,6 +378,45 @@ def digitize_stage(cfg: LArTPCConfig) -> Stage:
     return Stage("digitize", fn)
 
 
+def deconvolve_stage(cfg: LArTPCConfig, resp,
+                     planes: Optional[Tuple[int, ...]] = None,
+                     device="cuda") -> Stage:
+    """ADC -> S^(t,x): invert the response with the config's regularised
+    filter (``deconvolve`` registry). The per-plane filters are built once,
+    from the same responses the convolve stage applies, and held as the
+    buffer ``filter_freq``; one deconvolution per plane."""
+    from repro_torch.core.deconvolve import (deconvolve, make_deconv_filter,
+                                             measured_signal)
+
+    filts = tuple(make_deconv_filter(r, cfg)
+                  for r in _as_plane_responses(cfg, resp, planes, device))
+    return _spectra_stage(
+        "deconvolve", "deconvolve", "filter_freq", filts,
+        lambda meas, f: deconvolve(meas, f, cfg.deconv_strategy),
+        lambda state: measured_signal(state.adc, cfg), "decon",
+        cfg.num_planes > 1)
+
+
+def hit_find_stage(cfg: LArTPCConfig,
+                   planes: Optional[Tuple[int, ...]] = None) -> Stage:
+    """S^(t,x) -> HitSet: threshold-scan runs on every deconvolved wire
+    (``hit_find`` registry). Multi-plane: one scan per plane, the HitSet
+    leaves stacked to (P, max_hits)."""
+    from repro_torch.core.hitfind import find_hits, stack_hits
+
+    n_planes = len(_selected_specs(cfg, planes))
+
+    def fn(state: SimState) -> SimState:
+        if cfg.num_planes == 1:
+            return state._replace(
+                hits=find_hits(state.decon, cfg, cfg.hitfind_strategy))
+        return state._replace(hits=stack_hits(
+            find_hits(state.decon[i], cfg, cfg.hitfind_strategy)
+            for i in range(n_planes)))
+
+    return Stage("hit_find", fn, op="hit_find")
+
+
 def check_supported(cfg: LArTPCConfig) -> None:
     """Raise for config features the port does not run yet, and for a bad
     plane geometry or batching mode."""
@@ -378,18 +439,26 @@ def check_supported(cfg: LArTPCConfig) -> None:
 
 def build_sim_graph(cfg: LArTPCConfig, resp=None, add_noise: bool = True,
                     device="cuda",
-                    planes: Optional[Tuple[int, ...]] = None) -> SimGraph:
+                    planes: Optional[Tuple[int, ...]] = None,
+                    recon: bool = False) -> SimGraph:
     """Assemble the canonical ``drift -> charge_grid -> convolve -> noise ->
     digitize`` chain on ``device`` (the one place the order is written).
 
     ``resp``: a ``DetectorResponse`` (single plane), one per plane, or None
     for the per-plane defaults. ``add_noise=False`` drops the noise stage.
-    ``planes`` restricts a multi-plane graph to those plane indices."""
+    ``planes`` restricts a multi-plane graph to those plane indices.
+    ``recon=True`` appends ``deconvolve -> hit_find``, whose filters come
+    from the same responses; the default graph has no recon stage and no
+    ``decon``/``hits`` output."""
     check_supported(cfg)
     dev = resolve_device(device)
+    resps = _as_plane_responses(cfg, resp, planes, dev)
     stages = [drift_stage(cfg, planes), charge_grid_stage(cfg, planes),
-              convolve_stage(cfg, resp, planes, dev)]
+              convolve_stage(cfg, resps, planes, dev)]
     if add_noise:
         stages.append(noise_stage(cfg, planes))
     stages.append(digitize_stage(cfg))
+    if recon:
+        stages += [deconvolve_stage(cfg, resps, planes, dev),
+                   hit_find_stage(cfg, planes)]
     return SimGraph(stages, dev)

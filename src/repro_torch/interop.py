@@ -5,7 +5,9 @@ depos (with a leading plane axis (P, N) for multi-plane configs) and the
 detector responses, one per readout plane. These helpers build the port's
 objects from the JAX package's values once those are turned into numpy (the
 caller does that; nothing here imports JAX), and turn a port ``SimOutput``
-back into numpy for comparison.
+back into numpy for comparison. A deconvolution filter is a
+``DetectorResponse`` too, so ``response_from_numpy`` carries the
+reference's filters across as well.
 """
 from __future__ import annotations
 
@@ -73,6 +75,13 @@ def plane_responses_from_numpy(responses, device="cpu"):
 
 
 def to_numpy(out: SimOutput) -> Dict[str, np.ndarray]:
-    """A port ``SimOutput`` as a dict of numpy arrays (None fields left out)."""
-    return {name: value.detach().cpu().numpy()
-            for name, value in out._asdict().items() if value is not None}
+    """A port ``SimOutput`` as a dict of numpy arrays (None fields left
+    out); a recon output's ``HitSet`` leaves come as ``hits.<field>``."""
+    arrays = {}
+    for name, value in out._asdict().items():
+        if name == "hits" and value is not None:
+            arrays.update({f"hits.{f}": v.detach().cpu().numpy()
+                           for f, v in value._asdict().items()})
+        elif value is not None:
+            arrays[name] = value.detach().cpu().numpy()
+    return arrays

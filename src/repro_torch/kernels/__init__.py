@@ -26,7 +26,8 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
 #: library name -> CUDA source under csrc/
-SOURCES = {"fused_sim": "fused_sim.cu", "scatter_add": "scatter_add.cu"}
+SOURCES = {"fused_sim": "fused_sim.cu", "scatter_add": "scatter_add.cu",
+           "hitfind": "hitfind.cu", "rasterize": "rasterize.cu"}
 
 #: no --use_fast_math and no --fmad=false (see the sources' headers)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

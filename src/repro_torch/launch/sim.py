@@ -1,7 +1,7 @@
 """LArTPC simulation launcher of the PyTorch/CUDA port:
 
     python -m repro_torch.launch.sim [--smoke] [--events N] [--depos N]
-                                     [--planes P] [--seed S]
+                                     [--planes P] [--seed S] [--recon]
                                      [--device cuda|cpu]
                                      [--set key=value ...]
 
@@ -9,9 +9,11 @@ Each event ``ev`` uses the key ``fold_in(key(seed), ev)`` and the depos
 ``generate_depos`` draws from it, as the reference launcher does, and runs
 as one launch of the fig4 chain. Multi-plane configs (``--planes 3``: the
 MicroBooNE U, V and Y planes) hand the event's physical depos to the graph,
-whose drift stage projects them onto every plane. Prints one ``event N:
-...`` line per event (and one line per plane of it) and a ``total:`` line.
-Runs on the card unless ``--device cpu``.
+whose drift stage projects them onto every plane. ``--recon`` appends the
+deconvolve and hit_find stages, and each event (and each plane) reports the
+hits stored and the runs found. Prints one ``event N: ...`` line per event
+(and one line per plane of it) and a ``total:`` line. Runs on the card
+unless ``--device cpu``.
 """
 from __future__ import annotations
 
@@ -79,6 +81,23 @@ def max_dev(adc: torch.Tensor, cfg: LArTPCConfig) -> int:
     return int((adc.to(torch.int32) - int(cfg.adc_baseline)).abs().max())
 
 
+def hit_counts(hits, plane: Optional[int] = None):
+    """(stored, found) hits of a HitSet: of one plane of a multi-plane
+    HitSet, or summed over its planes."""
+    mask, found = hits.mask, hits.n_hits
+    if plane is not None:
+        mask, found = mask[plane], found[plane]
+    return int(mask.sum()), int(found.sum())
+
+
+def hit_text(hits, plane: Optional[int] = None) -> str:
+    """``", S hits stored, F found"`` for a recon output, else ``""``."""
+    if hits is None:
+        return ""
+    stored, found = hit_counts(hits, plane)
+    return f", {stored} hits stored, {found} found"
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--smoke", action="store_true")
@@ -87,6 +106,8 @@ def main(argv=None):
     ap.add_argument("--planes", type=int, default=0,
                     help="readout planes per event (3: U, V, Y)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--recon", action="store_true",
+                    help="append the deconvolve + hit_find recon stages")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; no silent fallback")
     ap.add_argument("--set", nargs="*", default=[])
@@ -105,19 +126,22 @@ def main(argv=None):
         if cfg.num_planes == 1:
             print(f"event {ev}: {n} depos -> {tuple(out.adc.shape)} ADC in "
                   f"{dt*1e3:.0f} ms ({n/dt:.3g} depos/s), "
-                  f"max dev {max_dev(out.adc, cfg)}")
+                  f"max dev {max_dev(out.adc, cfg)}{hit_text(out.hits)}")
             return
         print(f"event {ev}: {n} depos x {cfg.num_planes} planes -> "
               f"{tuple(out.adc.shape)} ADC in {dt*1e3:.0f} ms "
               f"({n * cfg.num_planes / dt:.3g} plane-depos/s), "
-              f"dropped {int(out.dropped)}")
+              f"dropped {int(out.dropped)}{hit_text(out.hits)}")
         for spec in plane_specs(cfg):
             print(f"event {ev} plane {spec.index} ({spec.kind}, "
                   f"{spec.angle_deg:g} deg): max dev "
-                  f"{max_dev(out.adc[spec.index], cfg)}")
+                  f"{max_dev(out.adc[spec.index], cfg)}"
+                  f"{hit_text(out.hits, spec.index)}")
 
-    stats = run_events(cfg, args.events, seed=args.seed, device=args.device,
-                       on_event=report)
+    device = resolve_device(args.device)
+    sim = make_sim_fn(cfg, device=device, recon=args.recon)
+    stats = run_events(cfg, args.events, seed=args.seed, device=device,
+                       sim=sim, on_event=report)
     ev_s = stats["events"] / stats["wall_s"]
     dp_s = stats["depos"] / stats["wall_s"]
     print(f"total: {stats['events']} events / {stats['depos']} depos in "

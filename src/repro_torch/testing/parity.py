@@ -27,6 +27,10 @@ SIGNAL_ATOL_FRAC = GRID_ATOL_FRAC
 #: normals: torch.erfinv vs XLA's erf_inv approximation differ by up to
 #: ~2e-5 absolute in the tails (measured 2.2e-5 over 1e5 draws)
 NORMAL_ATOL = 5e-5
+#: hits (charge, mean tick, peak of one run) of an identical ADC: sums
+#: over a run of deconvolved samples, whose FFT and filter ULPs differ
+#: (measured worst 3.6e-6 relative at the three-plane smoke config)
+HIT_RTOL = 1e-5
 #: ADC: |delta| <= 1 count everywhere ...
 ADC_MAX_DELTA = 1
 #: ... on at most this fraction of pixels (rounding ties after float ULPs)

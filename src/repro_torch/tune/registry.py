@@ -1,9 +1,10 @@
 """Kernel-strategy registry: one table of candidate implementations per hot op.
 
 Same surface as the reference's registry: each hot op (``charge_grid``,
-``scatter_add``, ``fft_convolve``, ``drift``) registers its candidates under
-a name with their ``differentiable`` and ``collectives`` metadata, and
-per-backend defaults live in one table. There is no autotuner in the port
+``scatter_add``, ``fft_convolve``, ``drift``, ``deconvolve``,
+``hit_find``) registers its candidates under a name with their
+``differentiable`` and ``collectives`` metadata, and per-backend defaults
+live in one table. There is no autotuner in the port
 yet: a config field set to ``"auto"`` resolves to the registry default.
 """
 from __future__ import annotations
@@ -54,8 +55,10 @@ def set_default(op: str, name: str, backend: str = "*") -> None:
 
 def ensure_registered() -> None:
     """Import every module that registers strategies (idempotent)."""
+    import repro_torch.core.deconvolve  # noqa: F401  registers deconvolve/*
     import repro_torch.core.drift  # noqa: F401  registers drift/*
     import repro_torch.core.fft_conv  # noqa: F401  registers fft_convolve/*
+    import repro_torch.core.hitfind  # noqa: F401  registers hit_find/*
     import repro_torch.core.pipeline  # noqa: F401  registers charge_grid/*
     import repro_torch.core.scatter  # noqa: F401  registers scatter_add/*
 

@@ -43,7 +43,10 @@ def test_import_leaves_jax_out_of_sys_modules():
     code = ("import sys, repro_torch.core.pipeline, repro_torch.launch.sim, "
             "repro_torch.interop, repro_torch.kernels.fused_sim.ops, "
             "repro_torch.kernels.scatter_add.kernel, "
-            "repro_torch.core.scatter, repro_torch.core.drift; "
+            "repro_torch.core.scatter, repro_torch.core.drift, "
+            "repro_torch.core.deconvolve, repro_torch.core.hitfind, "
+            "repro_torch.kernels.hitfind.ops, "
+            "repro_torch.kernels.rasterize.ops; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); sys.exit(bool(bad))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
@@ -54,9 +57,12 @@ def test_import_leaves_jax_out_of_sys_modules():
 
 def _entry_points():
     from repro_torch.core import prng
+    from repro_torch.core.deconvolve import make_plane_deconv_filters
     from repro_torch.core.depo import generate_depos, generate_plane_depos
-    from repro_torch.core.pipeline import make_sim_fn, simulate_fig4
+    from repro_torch.core.pipeline import make_sim_fn, simulate, \
+        simulate_fig4
     from repro_torch.core.response import make_plane_responses
+    from repro_torch.kernels.rasterize.ops import rasterize_depos
     from repro_torch.launch.sim import run_events
 
     cfg = tconfig.get_config("lartpc-uboone", smoke=True)
@@ -73,6 +79,13 @@ def _entry_points():
                                                                   **kw),
         "make_plane_responses": lambda **kw: make_plane_responses(cfg3, **kw),
         "run_events_3planes": lambda **kw: run_events(cfg3, 1, **kw),
+        "make_sim_fn_recon": lambda **kw: make_sim_fn(cfg, recon=True, **kw),
+        "simulate_recon": lambda **kw: simulate(
+            k, generate_depos(k, cfg, device="cpu"), cfg, recon=True, **kw),
+        "make_plane_deconv_filters": lambda **kw: make_plane_deconv_filters(
+            cfg3, **kw),
+        "rasterize_depos": lambda **kw: rasterize_depos(
+            k, generate_depos(k, cfg, device="cpu"), cfg, **kw),
     }
 
 
@@ -80,7 +93,10 @@ def _entry_points():
                                   "generate_depos", "run_events",
                                   "generate_plane_depos",
                                   "make_plane_responses",
-                                  "run_events_3planes"])
+                                  "run_events_3planes", "make_sim_fn_recon",
+                                  "simulate_recon",
+                                  "make_plane_deconv_filters",
+                                  "rasterize_depos"])
 def test_entry_points_default_to_the_card(name, monkeypatch):
     """Without a card the default device raises; device="cpu" runs."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -129,6 +145,8 @@ def test_every_cuda_source_is_built_and_wrapped():
     kernel wrapper module counts its launches per wrapper."""
     from repro_torch import kernels
     from repro_torch.kernels.fused_sim import kernel as fused
+    from repro_torch.kernels.hitfind import kernel as hitfind
+    from repro_torch.kernels.rasterize import kernel as rasterize
     from repro_torch.kernels.scatter_add import kernel as scatter
 
     sources = sorted(p.name for p in kernels.CSRC.glob("*.cu"))
@@ -139,6 +157,9 @@ def test_every_cuda_source_is_built_and_wrapped():
         "fused_rasterize_scatter_multiplane_compact"}
     assert set(scatter.LAUNCHES) == {"scatter_add_pallas",
                                      "scatter_add_pallas_compact"}
-    for module in (fused, scatter):
+    assert set(hitfind.LAUNCHES) == {"hitfind_pallas"}
+    assert set(rasterize.LAUNCHES) == {"rasterize_pallas"}
+    assert {"hitfind", "rasterize"} <= set(kernels.SOURCES)
+    for module in (fused, scatter, hitfind, rasterize):
         for name in module.LAUNCHES:
             assert callable(getattr(module, name))
