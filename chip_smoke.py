@@ -8,25 +8,32 @@ Phases (any failure exits non-zero before the result line):
   1. device   : the card's name and power limit (nvidia-smi), device count
   2. build    : nvcc every CUDA source for sm_90a, in parallel (timed as
                 set-up)
-  3. kernels  : each kernel against its plain PyTorch version.
+  3. division : drift_depos on the card against the same float32 formulas
+                evaluated by numpy on the host, bit for bit (the port divides
+                where the reference divides, by a 0-d tensor: torch on the
+                card multiplies by the reciprocal of a Python float)
+  4. kernels  : each kernel against its plain PyTorch version.
                 Fused (rows 1-2) at full MicroBooNE width (2560 x 9592, 100k
-                depos): dense within the grid tolerance of the plain
-                version, compact == dense bit for bit, two runs
-                bit-identical, no dropped (depo, tile) entries; again at a
-                tile-edge config, with 32 x 128 tiles, and for single depos
-                straddling tile edges.
+                depos): dense and compact == the plain version bit for bit
+                (the tolerance is printed), compact == dense bit for bit,
+                two runs bit-identical, no dropped (depo, tile) entries, the
+                launch order kernels == their plain version; again at a
+                tile-edge config, with 32 x 128 tiles, for single depos
+                straddling tile edges, and for 48 depos filling one tile's
+                list at k_max = 48 (no multiple of the 32-entry chunk).
                 Scatter-add (rows 5-6) on the unfused chain's fluctuated
                 patches at the same configs: kernel == plain bit for bit,
                 compact == dense bit for bit, two runs bit-identical, and
                 within the parity tolerance of index_put_(accumulate=True).
                 Multi-plane fused (rows 3-4) at full width with 3 planes:
-                within the grid tolerance of the plain version, compact ==
-                dense bit for bit, and plane p == the one-plane kernel (row
-                1) on plane p's depos with fold_in(kf, p), bit for bit.
+                == the plain version bit for bit, compact == dense bit for
+                bit, and plane p == the one-plane kernel (row 1) on plane
+                p's depos with fold_in(kf, p), bit for bit; entries per
+                tile (max, median, p99) per plane
                 Rasterize (row 8) at 100k depos (padded to 100 096), with
                 fluctuation on and off: kernel == plain bit for bit, two
                 runs bit-identical, zero padding
-  4. main     : the launcher's event loop (launch counters reset just
+  5. main     : the launcher's event loop (launch counters reset just
                 before and read just after each run): 4 full-width events
                 with charge_grid_strategy=fused_pallas, then
                 fused_pallas_compact (ADC equal between the two); one event
@@ -47,16 +54,21 @@ Phases (any failure exits non-zero before the result line):
                 Then the hit-scan kernel (row 7) against its plain version,
                 bit for bit, on every plane's full-width deconvolved grid of
                 recon event 0 and on synthetic edge-case grids
-  5. timing   : each kernel's wrapper (median of 5 rounds of 20 calls) and
+  6. timing   : each kernel's wrapper (median of 5 rounds of 20 calls) and
                 its plain version (3 calls; the three-plane plain versions
                 2 calls, hit scan and rasterize 1 call) timed with CUDA
                 events at the main path's shapes (hit scan: one plane),
                 beside the least time the card could take (bytes or
-                operations bound, from this run's inputs) and, for the
+                operations bound, from this run's inputs; for the fused
+                kernels the pixels with nonzero weights, and beside it the
+                bound over every in-support pixel as earlier runs had it)
+                and, for the
                 scatter-add kernels, the one PyTorch call that computes the
-                same function (index_put_ with accumulate=True)
-  6. summary  : one JSON line {"kernels": [...]}
-  7. result   : last line {"ok": true, "device": {...}}
+                same function (index_put_ with accumulate=True); for the
+                fused kernels also the SASS instructions per pixel of the
+                pixel loop (cuobjdump) and the issue-rate floor they imply
+  7. summary  : one JSON line {"kernels": [...]}
+  8. result   : last line {"ok": true, "device": {...}}
 
 The on-card checks live here rather than in pytest because the machine with
 the card has no JAX, which the repository's test configuration imports.
@@ -116,6 +128,14 @@ ONE_DEPO_CASES = (("straddle wire edge", (63.7, 100.2, 1.1, 1.4, 4321.0)),
 #: (a ragged last tile), threshold 500, and the scanner's edge cases
 HIT_CASE_SHAPE = (70, 1000)
 HIT_THRESHOLD = 500.0
+
+
+#: depos of the case whose list fills k_max = FULL_LIST, no multiple of the
+#: kernel's 32-entry chunk; (wire, tick, sigma_w, sigma_t, charge) drawn
+#: uniformly between these, inside tile (0, 0) of 64 x 256 tiles
+FULL_LIST = 48
+FULL_LIST_LOW = (4.0, 12.0, 0.6, 0.8, 500.0)
+FULL_LIST_HIGH = (56.0, 240.0, 2.5, 3.5, 8000.0)
 
 
 class PhaseError(RuntimeError):
@@ -188,13 +208,158 @@ def list_work(ids, k_max: int, w0, t0, pw: int, pt: int, tiles_t: int,
     return int(pos.numel()), int((nr * nc).sum()), int((nr + nc).sum())
 
 
+def length_stats(ids, k_max: int) -> str:
+    """Entries per slot of k_max-long lists (filled from rank 0): max,
+    median and p99 over all slots, and how many hold any."""
+    import torch
+
+    n = (ids.view(-1, k_max) >= 0).sum(1).to(torch.float32)
+    return (f"max {int(n.max())}, median {float(n.median()):g}, p99 "
+            f"{float(torch.quantile(n, 0.99)):g} over {n.numel()} tiles "
+            f"({int((n > 0).sum())} occupied)")
+
+
+def evaluated_pixels(case) -> int:
+    """In-support pixels the fused kernel evaluates on ``case``'s dense
+    lists: each entry's support trimmed to the span of its nonzero row and
+    column weights (the kernel skips pixels whose mean is exactly 0)."""
+    import torch
+
+    from repro_torch.core.rasterize import SQRT2
+    from repro_torch.kernels.fused_sim.ref import _axis
+
+    wire, tick, sigma_w, sigma_t, charge, w0, t0 = case.params
+    pos = torch.nonzero(case.ids >= 0, as_tuple=True)[0]
+    tile = pos // case.k_max
+    d = case.ids[pos].long()
+
+    def span(origin, tile0, extent, tile_extent, center, sigma):
+        idx = torch.arange(extent, device=pos.device)
+        edges = origin.long()[d][:, None] + idx[None, :]
+        inside = (edges >= tile0[:, None]) & (edges < (tile0
+                                                       + tile_extent)[:, None])
+        w = _axis(edges.to(torch.float32), center[d][:, None],
+                  (sigma[d] * SQRT2)[:, None])
+        nz = inside & (w != 0)
+        first = torch.where(nz, idx, extent).min(1).values
+        last = torch.where(nz, idx, -1).max(1).values
+        return (last - first + 1).clamp_min(0)
+
+    tw0 = (tile // case.tiles_t) * case.tw
+    tt0 = (tile % case.tiles_t) * case.tt
+    rows = span(w0, tw0, case.cfg.patch_wires, case.tw, wire, sigma_w)
+    cols = span(t0, tt0, case.cfg.patch_ticks, case.tt, tick, sigma_t)
+    return int((rows * cols).sum())
+
+
+def check_division(dev) -> bool:
+    """drift_depos on the card against its float32 formulas evaluated by
+    numpy on the host, bit for bit. sigma_w divides by the wire pitch and
+    sigma_t by drift speed x tick, neither a power of two, so a division
+    turned into a multiplication by the reciprocal shows; the square roots
+    come from the card (torch.sqrt of the same products), so only the
+    division, the products and the sums are held against the host. Prints
+    the mismatches; True when none."""
+    import numpy as np
+    import torch
+
+    from repro_torch.config import get_config
+    from repro_torch.core import prng
+    from repro_torch.core.depo import generate_physical_depos
+    from repro_torch.core.drift import drift_depos
+
+    cfg = get_config("lartpc-uboone")
+    pd = generate_physical_depos(prng.key(3), cfg, device=dev)
+    got = drift_depos(pd, cfg)
+    roots = [torch.sqrt(2.0 * d * pd.x).cpu().numpy()
+             for d in (cfg.diffusion_long, cfg.diffusion_tran)]
+    torch.cuda.synchronize()
+    f32 = np.float32
+
+    def sigma(root, metric, floor, patch):
+        return np.clip(root / f32(metric) * f32(cfg.diffusion_scale)
+                       + f32(floor), f32(min(0.3, floor)),
+                       f32((patch / 2 - 1) / cfg.nsigma))
+
+    want = {
+        "tick": (pd.t.cpu().numpy() + pd.x.cpu().numpy())
+        / f32(cfg.tick_us),
+        "sigma_t": sigma(roots[0], cfg.drift_speed_mm_us * cfg.tick_us,
+                         cfg.sigma_t_floor, cfg.patch_ticks),
+        "sigma_w": sigma(roots[1], cfg.wire_pitch_mm, cfg.sigma_w_floor,
+                         cfg.patch_wires)}
+    bad = {name: int((getattr(got, name).cpu().numpy() != w).sum())
+           for name, w in want.items()}
+    print(f"division: drift_depos of {pd.n} depos on the card vs numpy "
+          f"float32 on the host, values that differ: {bad}", flush=True)
+    return not any(bad.values())
+
+
+def sass_item_instructions():
+    """SASS instructions per pixel on the fast path of the dense fused
+    kernel's pixel loop, from ``cuobjdump -sass`` of the built library: the
+    innermost loop holding the square roots (MUFU.RSQ), less the blocks a
+    forward branch skips that hold only a slow path (a CALL, local memory
+    or float64: cosf's large-argument reduction, the division's and sqrt's
+    special cases), over the pixels one pass computes (kItems). Returns
+    (per pixel, loop instructions, kItems) or None without cuobjdump."""
+    import re
+
+    from repro_torch import kernels
+
+    tool = Path(kernels.nvcc_path()).parent / "cuobjdump"
+    if not tool.is_file():
+        return None
+    text = subprocess.run([str(tool), "-sass",
+                           str(kernels.library_path("fused_sim"))],
+                          capture_output=True, text=True, timeout=120,
+                          check=True).stdout
+    body = next(f for f in re.split(r"\n\s*Function : ", text)[1:]
+                if "fused_sim_kernelILb0E" in f.split("\n", 1)[0])
+    insts = [(int(a, 16), op.strip()) for a, op in
+             re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body)]
+    branch = re.compile(r"\bBRA\S*\s+(?:[^,;]*,\s*)?0x([0-9a-f]+)")
+    targets = [(a, int(m.group(1), 16), op) for a, op in insts
+               for m in [branch.search(op)] if m]
+    rsq = [a for a, op in insts if "MUFU.RSQ" in op]
+    lo, hi = min(((t, a) for a, t, _ in targets if t < a
+                  and any(t <= x <= a for x in rsq)),
+                 key=lambda loop: loop[1] - loop[0])
+    skipped = set()
+    for a, t, op in targets:
+        if op.startswith("@") and lo <= a < t <= hi:
+            block = [o for x, o in insts if a < x < t]
+            slow = any(k in o for o in block for k in ("CALL", "LDL", "STL",
+                                                       "DMUL"))
+            if slow and not any("MUFU" in o for o in block):
+                skipped.update(x for x, _ in insts if a < x < t)
+    count = sum(1 for a, _ in insts if lo <= a <= hi and a not in skipped)
+    src = (kernels.CSRC / kernels.SOURCES["fused_sim"]).read_text()
+    items = int(re.search(r"constexpr int kItems = (\d+);", src).group(1))
+    return count / items, count, items
+
+
+def issue_floor_ms(per_pixel: float, pixels: int) -> float:
+    """The least time the card's issue slots need for ``pixels`` pixel
+    evaluations of ``per_pixel`` instructions: one warp instruction per
+    clock on each of an SM's 4 schedulers, at the card's top SM clock."""
+    import torch
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.split()[0])
+    return per_pixel * pixels / 32 / (sms * 4 * mhz * 1e6) * 1e3
+
+
 class KernelCase:
     """One fused-kernel problem: depos (generated from ``key`` unless
     given), binned lists and seed (the charge-grid key's words unless
     given) on the card."""
 
     def __init__(self, cfg, key, tw: int, tt: int, device, depos=None,
-                 seed=None):
+                 seed=None, k_max=None):
         import torch
 
         from repro_torch.core import prng
@@ -208,8 +373,8 @@ class KernelCase:
         self.params = (*depos, w0, t0)
         self.seed = seed if seed is not None else tuple(
             int(v) for v in prng.key_data(prng.split(key)[0]))
-        self.k_max = binning.default_k_max(depos.n, cfg.num_wires,
-                                           cfg.num_ticks, tw, tt)
+        self.k_max = k_max or binning.default_k_max(depos.n, cfg.num_wires,
+                                                    cfg.num_ticks, tw, tt)
         self.bin_args = (w0, t0, cfg.patch_wires, cfg.patch_ticks,
                          cfg.num_wires, cfg.num_ticks, tw, tt)
         self.ids, self.n_tiles, dropped = binning.bin_depos_to_tiles(
@@ -268,20 +433,24 @@ class KernelCase:
             self.tt)[:self.cfg.num_wires, :self.cfg.num_ticks]
 
     def work(self):
-        """(entries, in-support pixels, row+column weights) these lists
-        need: the data-dependent work of the kernel."""
+        """(entries, in-support pixels, row+column weights, pixels with
+        nonzero weights) these lists need: the data-dependent work of the
+        kernel."""
         if self._work is None:
             self._work = list_work(self.ids, self.k_max, self.params[5],
                                    self.params[6], self.cfg.patch_wires,
                                    self.cfg.patch_ticks, self.tiles_t,
-                                   self.tw, self.tt)
+                                   self.tw, self.tt) + (
+                                       evaluated_pixels(self),)
         return self._work
 
-    def bytes_ops(self, n_cap: int = 0):
+    def bytes_ops(self, n_cap: int = 0, support: bool = False):
         """(bytes, operations) of the fused kernel on these lists: inputs
-        read once, the grid written once; ``n_cap`` adds the compact
-        layout's active list."""
-        entries, pixels, axes = self.work()
+        read once, the grid written once, and the pixels whose weights are
+        nonzero (every in-support pixel with ``support``: the count of
+        earlier runs); ``n_cap`` adds the compact layout's active list."""
+        entries, in_support, axes, nonzero = self.work()
+        pixels = in_support if support else nonzero
         n = self.params[0].numel()
         out_bytes = 4 * self.cfg.num_wires * self.cfg.num_ticks
         nbytes = 7 * 4 * n + 4 * entries + 4 * n_cap + out_bytes
@@ -289,8 +458,9 @@ class KernelCase:
                + OPS_PER_ENTRY * entries)
         return nbytes, ops
 
-    def bound(self, compact: bool):
-        return bound_of(*self.bytes_ops(self.n_cap if compact else 0))
+    def bound(self, compact: bool, support: bool = False):
+        return bound_of(*self.bytes_ops(self.n_cap if compact else 0,
+                                        support))
 
 
 class MultiPlaneCase:
@@ -366,10 +536,10 @@ class MultiPlaneCase:
             self.tiles_t, self.geom["tw"], self.geom["tt"]
         )[:, :self.cfg.num_wires, :self.cfg.num_ticks]
 
-    def bound(self, compact: bool):
+    def bound(self, compact: bool, support: bool = False):
         """The one-plane bound's bytes and operations summed over the
         planes' lists."""
-        parts = [c.bytes_ops(self.n_cap if compact else 0)
+        parts = [c.bytes_ops(self.n_cap if compact else 0, support)
                  for c in self.planes]
         return bound_of(sum(b for b, _ in parts), sum(o for _, o in parts))
 
@@ -598,9 +768,20 @@ def hit_bound(grid, cap: int):
     return bound_of(4 * (w * t + w + 3 * w * cap), OPS_PER_HIT_SAMPLE * w * t)
 
 
+def check_order(ids, k_max: int, label: str) -> None:
+    """The launch order kernels == their plain version on ``ids``."""
+    import torch
+
+    from repro_torch.kernels.fused_sim import kernel
+
+    got = kernel.launch_order(ids, k_max)
+    check(torch.equal(got.cpu(), kernel.launch_order(ids.cpu(), k_max)),
+          f"{label}: launch order kernels != their plain version")
+
+
 def check_kernels(case, label: str):
-    """Phase 3 checks for one fused case; returns max |kernel - plain| of
-    the dense and of the compact kernel."""
+    """Phase 4 checks for one fused case; returns max |kernel - plain| of
+    the dense and of the compact kernel (0 when they pass)."""
     import torch
 
     from repro_torch.testing.parity import GRID_ATOL_FRAC, RTOL
@@ -622,15 +803,20 @@ def check_kernels(case, label: str):
     atol = GRID_ATOL_FRAC * float(plain.abs().max())
     err = float((dense1 - plain).abs().max())
     err_c = float((comp1 - plain_c).abs().max())
-    close = torch.allclose(dense1, plain, rtol=RTOL, atol=atol)
     n_bad = int((~torch.isclose(dense1, plain, rtol=RTOL, atol=atol)).sum())
     print(f"{label}: grid {tuple(dense1.shape)}, max |kernel - plain| = "
-          f"{err:.6g} (atol {atol:.6g}, rtol {RTOL}), {n_bad} outside; "
-          f"max |plain| = {float(plain.abs().max()):.6g}; compact == dense "
-          f"bitwise; run-to-run bitwise; n_cap {case.n_cap}, k_max "
-          f"{case.k_max}, entries {case.work()[0]}", flush=True)
-    check(close, f"{label}: dense kernel outside tolerance of the plain "
+          f"{err:.6g} (compact {err_c:.6g}; atol {atol:.6g}, rtol {RTOL}), "
+          f"{n_bad} outside; max |plain| = {float(plain.abs().max()):.6g}; "
+          f"compact == dense bitwise; run-to-run bitwise; n_cap "
+          f"{case.n_cap}, k_max {case.k_max}, entries {case.work()[0]}; "
+          f"entries per tile: {length_stats(case.ids, case.k_max)}",
+          flush=True)
+    check(torch.equal(dense1, plain), f"{label}: dense kernel != plain "
           "version")
+    check(torch.equal(comp1, plain_c), f"{label}: compact kernel != plain "
+          "version")
+    check_order(case.ids, case.k_max, f"{label} dense lists")
+    check_order(case.cids, case.k_max, f"{label} compact lists")
     return err, err_c
 
 
@@ -670,8 +856,8 @@ def check_scatter(case, label: str):
 
 
 def check_multiplane(case, label: str):
-    """Phase 3 checks for the three-plane fused case; returns max |kernel -
-    plain| of the dense and of the compact kernel."""
+    """Phase 4 checks for the three-plane fused case; returns max |kernel -
+    plain| of the dense and of the compact kernel (0 when they pass)."""
     import torch
 
     from repro_torch.testing.parity import GRID_ATOL_FRAC, RTOL
@@ -694,8 +880,14 @@ def check_multiplane(case, label: str):
           "kernel")
     check(torch.equal(plain_c, plain), f"{label}: plain compact != plain "
           "dense")
-    check(torch.allclose(dense1, plain, rtol=RTOL, atol=atol),
-          f"{label}: kernel outside tolerance of the plain version")
+    check(torch.equal(dense1, plain), f"{label}: kernel != plain version")
+    check(torch.equal(comp, plain_c), f"{label}: compact kernel != plain "
+          "version")
+    check_order(case.ids, case.k_max, f"{label} dense lists")
+    check_order(case.cids, case.k_max, f"{label} compact lists")
+    for p, c in enumerate(case.planes):
+        print(f"{label}: plane {p} entries per tile: "
+              f"{length_stats(c.ids, c.k_max)}", flush=True)
     for p, single in enumerate(singles):
         check(torch.equal(dense1[p], single),
               f"{label}: plane {p} != the one-plane kernel with "
@@ -703,6 +895,51 @@ def check_multiplane(case, label: str):
     print(f"{label}: plane p == one-plane kernel with fold_in(kf, p), bit "
           f"for bit, p = 0..{len(singles) - 1}", flush=True)
     return err, err_c
+
+
+def fused_cases(dev):
+    """(label, case) of every fused case: full MicroBooNE width with 64 x
+    256 and with 32 x 128 tiles, the tile-edge grid, four single depos on
+    tile edges, and the three-plane event (last)."""
+    import torch
+
+    from repro_torch.config import get_config
+    from repro_torch.core import prng
+    from repro_torch.core.depo import DepoSet
+
+    full = get_config("lartpc-uboone")
+    edge_cfg = dataclasses.replace(full, num_wires=96, num_ticks=768,
+                                   num_depos=128)
+    one = dataclasses.replace(edge_cfg, num_depos=1)
+    key0 = prng.fold_in(prng.key(0), 0)
+    cases = [
+        ("full width 64x256 tiles", KernelCase(full, key0, 64, 256, dev)),
+        ("tile-edge 96x768, 32x128 tiles",
+         KernelCase(edge_cfg, prng.key(1), 32, 128, dev)),
+        ("full width 32x128 tiles",
+         KernelCase(full, prng.fold_in(prng.key(0), 1), 32, 128, dev))]
+    for label, values in ONE_DEPO_CASES:
+        depos = DepoSet(*(torch.tensor([v], dtype=torch.float32, device=dev)
+                          for v in values))
+        cases.append((f"one depo, {label}",
+                       KernelCase(one, prng.key(2), 64, 256, dev, depos)))
+    # FULL_LIST depos inside tile (0, 0), so its list fills k_max exactly
+    gen = torch.Generator().manual_seed(3)
+    lo, hi = torch.tensor(FULL_LIST_LOW), torch.tensor(FULL_LIST_HIGH)
+    values = lo + (hi - lo) * torch.rand((FULL_LIST, 5), generator=gen)
+    full_list = KernelCase(dataclasses.replace(edge_cfg,
+                                               num_depos=FULL_LIST),
+                           prng.key(3), 64, 256, dev,
+                           DepoSet(*values.T.contiguous().to(dev)),
+                           k_max=FULL_LIST)
+    check(int((full_list.ids.view(-1, FULL_LIST) >= 0).sum(1).max())
+          == FULL_LIST, "k_max 48 case: no list fills k_max")
+    cases.append((f"{FULL_LIST} depos, one list filling k_max {FULL_LIST}",
+                  full_list))
+    cases.append(("three planes, full width 64x256 tiles",
+                  MultiPlaneCase(dataclasses.replace(full, num_planes=PLANES),
+                                 key0, 64, 256, dev)))
+    return cases
 
 
 def run_main(cfg, label: str, events: int, dev, counters,
@@ -821,24 +1058,23 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.2f} s set-up "
           f"({', '.join(logs) or 'cached'})", flush=True)
 
+    phase("division")
+    check(check_division(dev), "drift_depos on the card differs from its "
+          "float32 formulas")
+
     phase("kernels vs plain")
     full = get_config("lartpc-uboone")
     full3 = dataclasses.replace(full, num_planes=PLANES)
     key0 = prng.fold_in(prng.key(0), 0)
-    main_case = KernelCase(full, key0, 64, 256, dev)
-    errors = check_kernels(main_case, "full width 64x256 tiles")
     edge_cfg = dataclasses.replace(full, num_wires=96, num_ticks=768,
                                    num_depos=128)
-    check_kernels(KernelCase(edge_cfg, prng.key(1), 32, 128, dev),
-                  "tile-edge 96x768, 32x128 tiles")
-    check_kernels(KernelCase(full, prng.fold_in(prng.key(0), 1), 32, 128,
-                             dev), "full width 32x128 tiles")
     one = dataclasses.replace(edge_cfg, num_depos=1)
-    for label, values in ONE_DEPO_CASES:
-        depos = DepoSet(*(torch.tensor([v], dtype=torch.float32, device=dev)
-                          for v in values))
-        check_kernels(KernelCase(one, prng.key(2), 64, 256, dev, depos),
-                      f"one depo, {label}")
+    cases = fused_cases(dev)
+    fused_errors = [(check_multiplane if isinstance(case, MultiPlaneCase)
+                     else check_kernels)(case, label)
+                    for label, case in cases]
+    main_case, multi_case = cases[0][1], cases[-1][1]
+    errors, multi_errors = fused_errors[0], fused_errors[-1]
 
     scatter_case = ScatterCase(full, key0, 64, 256, dev)
     scatter_errors = check_scatter(scatter_case,
@@ -850,10 +1086,6 @@ def main() -> int:
                           for v in values))
         check_scatter(ScatterCase(one, prng.key(2), 64, 256, dev, depos),
                       f"scatter-add one depo, {label}")
-
-    multi_case = MultiPlaneCase(full3, key0, 64, 256, dev)
-    multi_errors = check_multiplane(multi_case,
-                                    "three planes, full width 64x256 tiles")
 
     raster_case = RasterCase(full, key0, dev)
     raster_err = 0.0
@@ -1028,6 +1260,14 @@ def main() -> int:
          raster_case.bound(), None, "src/repro_torch/csrc/rasterize.cu",
          "src/repro/kernels/rasterize/kernel.py:78", "rasterize",
          raster_err))
+    # the fused rows' bound over every in-support pixel, as earlier
+    # versions of this script counted it (rows compare across versions)
+    support_bounds = {
+        "fused_rasterize_scatter": main_case.bound(False, True)[0],
+        "fused_rasterize_scatter_compact": main_case.bound(True, True)[0],
+        "fused_rasterize_scatter_multiplane": multi_case.bound(False, True)[0],
+        "fused_rasterize_scatter_multiplane_compact":
+            multi_case.bound(True, True)[0]}
     for (name, fn, plain, plain_iters, (bound_ms, bound_by), library,
          source, replaces, run, err) in timed:
         ms, rounds = wrapper_ms(fn)
@@ -1039,6 +1279,11 @@ def main() -> int:
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms})
+        support_text = ""
+        if name in support_bounds:
+            rows[-1]["bound_all_support_ms"] = support_bounds[name]
+            support_text = (f" (pixels with nonzero weights; every in-support "
+                            f"pixel {support_bounds[name]:.4f} ms)")
         lib_text = (f"library call index_put_(accumulate=True) "
                     f"{library_ms:.4f} ms" if library else
                     "library call: none (no single PyTorch call computes "
@@ -1046,16 +1291,35 @@ def main() -> int:
         print(f"{name}: {ms:.4f} ms/call of the wrapper (median of 5 rounds "
               f"of 20 calls, CUDA events; rounds {rounds[0]:.4f}.."
               f"{rounds[-1]:.4f} ms); plain {plain_ms:.3f} ms (mean of "
-              f"{plain_iters}); bound {bound_ms:.4f} ms ({bound_by}); "
+              f"{plain_iters}); bound {bound_ms:.4f} ms ({bound_by})"
+              f"{support_text}; "
               f"{lib_text}; launches on the main path "
               f"{launches[run][name]}", flush=True)
     unfluct_ms = wrapper_ms(lambda: raster_case.kernel(False))[0]
     print(f"rasterize_pallas without fluctuation: {unfluct_ms:.4f} ms/call, "
           f"bound {raster_case.bound(False)[0]:.4f} ms "
           f"({raster_case.bound(False)[1]})", flush=True)
-    print(f"fused work (entries, in-support pixels, row+column weights): "
+    print(f"fused work (entries, in-support pixels, row+column weights, "
+          f"pixels with nonzero weights): "
           f"one plane {main_case.work()}, three planes {multi_case.work()}; "
           f"scatter-add (entries, in-tile pixels) {scatter_case.work()}")
+    sass = sass_item_instructions()
+    if sass is None:
+        print("fused kernel SASS: cuobjdump not found, instructions per "
+              "pixel not measured")
+    else:
+        per_pixel, loop, items = sass
+        for label, cases_ in (("one plane", [main_case]),
+                              ("three planes", multi_case.planes)):
+            support = sum(c.work()[1] for c in cases_)
+            evaluated = sum(c.work()[3] for c in cases_)
+            print(f"fused kernel SASS: {loop} instructions on the fast path "
+                  f"of the pixel loop for {items} pixels, {per_pixel:g} per "
+                  f"pixel; {label}: {evaluated} of {support} in-support "
+                  f"pixels evaluated (nonzero weights), issue floor "
+                  f"{issue_floor_ms(per_pixel, evaluated):.4f} ms at the top "
+                  f"SM clock ({issue_floor_ms(per_pixel, support):.4f} ms "
+                  f"for every in-support pixel)", flush=True)
 
     print(f"chip_smoke wall: {time.perf_counter() - t_all:.1f} s")
     print(card)

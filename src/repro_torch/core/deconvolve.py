@@ -27,6 +27,7 @@ import torch
 from repro_torch.config import LArTPCConfig
 from repro_torch.core.fft_conv import fft_convolve, fft_convolve_rfft2
 from repro_torch.core.response import DetectorResponse, make_plane_responses
+from repro_torch.device import scalar
 from repro_torch.tune.registry import register_strategy, resolve, \
     set_default, strategies
 
@@ -34,19 +35,12 @@ from repro_torch.tune.registry import register_strategy, resolve, \
 DECONV_FILTERS = ("wiener", "gaussian")
 
 
-def _scalar(value: float, like: torch.Tensor) -> torch.Tensor:
-    """``value`` as a float32 0-d tensor on ``like``'s device. Dividing by
-    it is an IEEE division: torch on the card turns a division by a Python
-    scalar into a multiplication by its reciprocal."""
-    return torch.tensor(value, dtype=torch.float32, device=like.device)
-
-
 def measured_signal(adc: torch.Tensor, cfg: LArTPCConfig) -> torch.Tensor:
     """ADC counts -> measured signal in electrons: the inverse of
     ``digitize``'s affine map (baseline shift, then a division by the
     gain); the rounding and clipping are not recoverable."""
     denom = max(float(cfg.adc_per_electron), 1e-30)
-    return (adc.to(torch.float32) - cfg.adc_baseline) / _scalar(denom, adc)
+    return (adc.to(torch.float32) - cfg.adc_baseline) / scalar(denom, adc)
 
 
 def _bounded_inverse(freq: torch.Tensor, lam: float) -> torch.Tensor:
@@ -77,7 +71,7 @@ def make_deconv_filter(resp: DetectorResponse, cfg: LArTPCConfig,
         # exp(-(k / (cut * Nyquist))^2 / 2) is real and exactly 1 at k = 0
         nyq = max(resp.pad_shape[1] // 2, 1)
         k = torch.arange(g.shape[1], dtype=torch.float32, device=g.device)
-        x = k / _scalar(cut * nyq, k)
+        x = k / scalar(cut * nyq, k)
         window = torch.exp(-0.5 * (x * x))
         g = g * window[None, :]
     return DetectorResponse(kernel=resp.kernel, freq=g.to(torch.complex64),

@@ -16,6 +16,7 @@ import torch
 
 from repro_torch.config import LArTPCConfig, PlaneSpec, plane_specs
 from repro_torch.core.depo import DepoSet
+from repro_torch.device import scalar
 from repro_torch.tune.registry import register_strategy, resolve, set_default
 
 
@@ -43,14 +44,14 @@ def drift_depos(pdepos: PhysicalDepoSet, cfg: LArTPCConfig) -> DepoSet:
     growing like sqrt(drift time) with floors and the patch clip, charge
     scaled by recombination and (when enabled) lifetime attenuation."""
     t_drift = pdepos.x
-    tick = (pdepos.t + t_drift) / cfg.tick_us
+    tick = (pdepos.t + t_drift) / scalar(cfg.tick_us, t_drift)
     wire = pdepos.y
 
-    sigma_t = torch.sqrt(2.0 * cfg.diffusion_long * t_drift) / (
-        cfg.drift_speed_mm_us * cfg.tick_us
+    sigma_t = torch.sqrt(2.0 * cfg.diffusion_long * t_drift) / scalar(
+        cfg.drift_speed_mm_us * cfg.tick_us, t_drift
     ) * cfg.diffusion_scale + cfg.sigma_t_floor
-    sigma_w = torch.sqrt(2.0 * cfg.diffusion_tran * t_drift) / (
-        cfg.wire_pitch_mm) * cfg.diffusion_scale + cfg.sigma_w_floor
+    sigma_w = torch.sqrt(2.0 * cfg.diffusion_tran * t_drift) / scalar(
+        cfg.wire_pitch_mm, t_drift) * cfg.diffusion_scale + cfg.sigma_w_floor
     sigma_w = torch.clamp(sigma_w, min(0.3, cfg.sigma_w_floor),
                           (cfg.patch_wires / 2 - 1) / cfg.nsigma)
     sigma_t = torch.clamp(sigma_t, min(0.3, cfg.sigma_t_floor),
@@ -58,7 +59,8 @@ def drift_depos(pdepos: PhysicalDepoSet, cfg: LArTPCConfig) -> DepoSet:
 
     q = pdepos.q * cfg.recombination
     if cfg.electron_lifetime_us > 0.0:
-        q = q * torch.exp(-t_drift / cfg.electron_lifetime_us)
+        q = q * torch.exp(-t_drift / scalar(cfg.electron_lifetime_us,
+                                            t_drift))
 
     return DepoSet(wire=wire, tick=tick, sigma_w=sigma_w, sigma_t=sigma_t,
                    charge=q)

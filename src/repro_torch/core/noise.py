@@ -11,7 +11,7 @@ import torch
 
 from repro_torch.config import LArTPCConfig
 from repro_torch.core import prng
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, scalar
 
 
 def _parseval_weights(num_ticks: int, device) -> torch.Tensor:
@@ -31,11 +31,12 @@ def noise_spectrum(cfg: LArTPCConfig, device="cuda") -> torch.Tensor:
     n = cfg.num_ticks
     nfreq = n // 2 + 1
     f = torch.arange(nfreq, dtype=torch.float32, device=device) + 1.0
-    amp = 1.0 / torch.sqrt(f) + 0.3
-    r = f / nfreq
+    amp = scalar(1.0, f) / torch.sqrt(f) + 0.3
+    r = f / scalar(nfreq, f)
     amp = amp * torch.exp(-(r * r) * 2.0)
     w = _parseval_weights(n, device)
-    norm = cfg.noise_rms_adc * n / torch.sqrt(torch.sum(w * (amp * amp)) + 1e-30)
+    norm = scalar(cfg.noise_rms_adc * n, amp) / torch.sqrt(
+        torch.sum(w * (amp * amp)) + 1e-30)
     return amp * norm
 
 

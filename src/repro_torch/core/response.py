@@ -13,7 +13,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.config import LArTPCConfig, plane_specs
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, scalar
 
 
 class DetectorResponse(NamedTuple):
@@ -27,7 +27,7 @@ class DetectorResponse(NamedTuple):
 
 def _semigaussian(t_us: torch.Tensor, shaping_us: float = 2.0) -> torch.Tensor:
     """CR-(RC)^4 semi-Gaussian electronics shaping response."""
-    x = torch.clamp_min(t_us / shaping_us, 0.0)
+    x = torch.clamp_min(t_us / scalar(shaping_us, t_us), 0.0)
     x2 = x * x
     h = (x2 * x2) * torch.exp(-4 * x)
     return h / (torch.max(h) + 1e-30)
@@ -36,9 +36,9 @@ def _semigaussian(t_us: torch.Tensor, shaping_us: float = 2.0) -> torch.Tensor:
 def _field_time(t_us: torch.Tensor, plane: str) -> torch.Tensor:
     """Field-response time shape: bipolar (induction) or unipolar."""
     if plane == "collection":
-        z = (t_us - 1.0) / 0.5
+        z = (t_us - 1.0) / scalar(0.5, t_us)
         return torch.exp(-0.5 * (z * z))
-    z = (t_us - 1.5) / 0.6
+    z = (t_us - 1.5) / scalar(0.6, t_us)
     return -(t_us - 1.5) * torch.exp(-0.5 * (z * z))
 
 
@@ -83,7 +83,7 @@ def make_response(cfg: LArTPCConfig, plane: str = "induction",
     tr = tr / (torch.max(torch.abs(tr)) + 1e-30)
 
     dw = torch.arange(rw, dtype=torch.float32, device=dev) - (rw - 1) / 2.0
-    z = dw / (rw / 6.0)
+    z = dw / scalar(rw / 6.0, dw)
     wire_prof = torch.exp(-0.5 * (z * z))
     wire_prof = wire_prof / torch.sum(wire_prof)
 

@@ -36,7 +36,7 @@ from repro_torch.core.depo import DepoSet
 from repro_torch.core.fft_conv import digitize, fft_convolve
 from repro_torch.core.noise import simulate_noise
 from repro_torch.core.response import DetectorResponse, make_response
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, scalar
 from repro_torch.tune.registry import get_strategy, resolve
 
 #: canonical stage order of the simulation chain
@@ -364,7 +364,8 @@ def noise_stage(cfg: LArTPCConfig,
         else:
             noise = torch.stack([simulate_noise(k, cfg, device=dev)
                                  for k in _plane_keys(state.kn, specs)])
-        return state._replace(signal=state.signal + noise / denom)
+        return state._replace(signal=state.signal
+                              + noise / scalar(denom, noise))
 
     return Stage("noise", fn)
 

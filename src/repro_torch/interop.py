@@ -7,7 +7,9 @@ objects from the JAX package's values once those are turned into numpy (the
 caller does that; nothing here imports JAX), and turn a port ``SimOutput``
 back into numpy for comparison. A deconvolution filter is a
 ``DetectorResponse`` too, so ``response_from_numpy`` carries the
-reference's filters across as well.
+reference's filters across as well. Like every entry point of the port,
+the builders put their tensors on the card unless ``device="cpu"`` is
+passed.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ from repro_torch.core.depo import DepoSet
 from repro_torch.core.drift import PhysicalDepoSet
 from repro_torch.core.response import DetectorResponse
 from repro_torch.core.stages import SimOutput
+from repro_torch.device import resolve_device
 
 
 def config_from_dict(d: Mapping[str, Any]) -> LArTPCConfig:
@@ -44,30 +47,33 @@ def key_from_data(data) -> torch.Tensor:
 
 
 def _f32(x, device) -> torch.Tensor:
-    return torch.from_numpy(np.array(x, dtype=np.float32)).to(device)
+    return torch.from_numpy(np.array(x, dtype=np.float32)).to(
+        resolve_device(device))
 
 
 def depos_from_numpy(wire, tick, sigma_w, sigma_t, charge,
-                     device="cpu") -> DepoSet:
+                     device="cuda") -> DepoSet:
     """A ``DepoSet`` of (N,) arrays, or of (P, N) arrays for the per-plane
     depos of a multi-plane event."""
     return DepoSet(*(_f32(a, device)
                      for a in (wire, tick, sigma_w, sigma_t, charge)))
 
 
-def physical_depos_from_numpy(x, y, z, t, q, device="cpu") -> PhysicalDepoSet:
+def physical_depos_from_numpy(x, y, z, t, q,
+                              device="cuda") -> PhysicalDepoSet:
     return PhysicalDepoSet(*(_f32(a, device) for a in (x, y, z, t, q)))
 
 
 def response_from_numpy(kernel, freq, pad_shape, plane: str = "induction",
-                        device="cpu") -> DetectorResponse:
+                        device="cuda") -> DetectorResponse:
+    dev = resolve_device(device)
     freq = torch.from_numpy(np.array(freq, dtype=np.complex64))
-    return DetectorResponse(kernel=_f32(kernel, device), freq=freq.to(device),
+    return DetectorResponse(kernel=_f32(kernel, dev), freq=freq.to(dev),
                             pad_shape=tuple(int(s) for s in pad_shape),
                             plane=plane)
 
 
-def plane_responses_from_numpy(responses, device="cpu"):
+def plane_responses_from_numpy(responses, device="cuda"):
     """One ``DetectorResponse`` per plane, in plane order, from
     ``(kernel, freq, pad_shape, plane)`` tuples."""
     return tuple(response_from_numpy(kernel, freq, pad_shape, plane, device)

@@ -10,6 +10,12 @@ replace the reference's Pallas kernels of the same names
 ``csrc/fused_sim.cu`` or raises; on CPU tensors it runs the plain PyTorch
 version in ``ref.py``. ``LAUNCHES`` counts kernel launches per wrapper
 (plain-version calls do not count).
+
+Two pieces serve the kernels: ``launch_order`` starts the CTAs longest
+list first (two small kernels of the same source on the card, a stable
+sort on the CPU), and on the card the compact layout writes each occupied
+tile in place into a grid zeroed once (``scatter_tiles_to_grid_planes``
+places the plain version's blocks on the CPU path).
 """
 from __future__ import annotations
 
@@ -32,9 +38,15 @@ LAUNCHES: Dict[str, int] = {"fused_rasterize_scatter": 0,
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _PARAM_ARGS = [_P] * 7  # wire, tick, sigma_w, sigma_t, charge, w0, t0
-# seeds, num_planes, n_depos, fluctuate, per_plane, tiles_t, tw, tt, pw, pt,
-# k_max, out, stream
-_TAIL_ARGS = [_P] + [_I] * 10 + [_P, _P]
+# order, seeds, num_planes, n_depos, fluctuate, per_plane, n_tiles,
+# tiles_t, tw, tt, pw, pt, k_max, lengths, out, stream
+_TAIL_ARGS = [_P, _P] + [_I] * 11 + [_P, _P, _P]
+#: the C entry points of csrc/fused_sim.cu and their argument types
+SIGNATURES = {
+    "fused_sim_dense": _PARAM_ARGS + [_P] + _TAIL_ARGS,  # + ids
+    "fused_sim_compact": _PARAM_ARGS + [_P, _P] + _TAIL_ARGS,  # + active, ids
+    # ids, n_slots, k_max, lengths, order, stream
+    "fused_sim_launch_order": [_P, _I, _I, _P, _P, _P]}
 
 Seed = Tuple[int, int]
 
@@ -46,8 +58,8 @@ def reset_launches() -> None:
 
 def _library() -> ctypes.CDLL:
     lib = load_library("fused_sim")
-    declare(lib, "fused_sim_dense", _PARAM_ARGS + [_P] + _TAIL_ARGS)
-    declare(lib, "fused_sim_compact", _PARAM_ARGS + [_P, _P] + _TAIL_ARGS)
+    for name, argtypes in SIGNATURES.items():
+        declare(lib, name, argtypes)
     return lib
 
 
@@ -74,19 +86,51 @@ def _seed_words(seed: Optional[Sequence[int]]) -> Seed:
     return s0, s1
 
 
+def launch_order(tile_ids: torch.Tensor, k_max: int) -> torch.Tensor:
+    """The CTA launch order of ``k_max``-long per-slot lists: the slots
+    sorted by descending list length (entries up to the first -1), stable,
+    so slots of equal length keep their order. (n_slots,) int32 on the
+    lists' device: computed by two kernels on the card, by the plain
+    version on the CPU. Not counted in ``LAUNCHES``."""
+    dev = kernel_device(tile_ids)
+    n_slots = tile_ids.numel() // k_max
+    check_tensor("tile_ids", tile_ids, torch.int32, (n_slots * k_max,), dev)
+    if dev.type == "cpu":
+        return ref.launch_order_ref(tile_ids, k_max)
+    return _lengths_and_order(tile_ids, k_max)[1]
+
+
+def _lengths_and_order(tile_ids: torch.Tensor, k_max: int):
+    """The lists' filled lengths and launch order, by the two kernels."""
+    dev = tile_ids.device
+    scratch = torch.empty((2, tile_ids.numel() // k_max), dtype=torch.int32,
+                          device=dev)
+    with torch.cuda.device(dev):
+        err = _library().fused_sim_launch_order(
+            tile_ids.data_ptr(), scratch.shape[1], k_max,
+            scratch[0].data_ptr(), scratch[1].data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    raise_on(err, "fused_sim_launch_order")
+    return scratch[0], scratch[1]
+
+
 def _launch(entry: str, name: str, params, lists, seeds: Sequence[Seed], *,
-            per_plane: int, fluctuate: bool, tiles_t: int, tw: int, tt: int,
-            pw: int, pt: int, k_max: int, out: torch.Tensor) -> None:
-    """Launch ``entry`` over len(seeds) planes of ``per_plane`` CTAs."""
+            per_plane: int, n_tiles: int, fluctuate: bool, tiles_t: int,
+            tw: int, tt: int, pw: int, pt: int, k_max: int,
+            out: torch.Tensor) -> None:
+    """Launch ``entry`` over len(seeds) planes of ``per_plane`` slots,
+    longest list first; the last of ``lists`` holds the depo lists."""
     dev = out.device
+    lengths, order = _lengths_and_order(lists[-1], k_max)
     words = (ctypes.c_uint32 * (2 * len(seeds)))(*(w for s in seeds
                                                      for w in s))
     with torch.cuda.device(dev):
         err = getattr(_library(), entry)(
             *(x.data_ptr() for x in params), *(x.data_ptr() for x in lists),
-            ctypes.addressof(words), len(seeds), params[0].shape[-1],
-            int(fluctuate), per_plane, tiles_t, tw, tt, pw, pt, k_max,
-            out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+            order.data_ptr(), ctypes.addressof(words), len(seeds),
+            params[0].shape[-1], int(fluctuate), per_plane, n_tiles, tiles_t,
+            tw, tt, pw, pt, k_max, lengths.data_ptr(), out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
     raise_on(err, entry)
     LAUNCHES[name] += 1
 
@@ -109,7 +153,8 @@ def _dense(name: str, params, tile_ids, seeds: Sequence[Seed], *,
         out = torch.empty((len(seeds), tiles_w * tw, tiles_t * tt),
                           dtype=torch.float32, device=dev)
         _launch("fused_sim_dense", name, params, [tile_ids], seeds,
-                per_plane=n_tiles, fluctuate=fluctuate, out=out, **geom)
+                per_plane=n_tiles, n_tiles=n_tiles, fluctuate=fluctuate,
+                out=out, **geom)
     return out[:, :num_wires, :num_ticks]
 
 
@@ -117,11 +162,12 @@ def _compact(name: str, params, active_tiles, tile_ids,
              seeds: Sequence[Seed], *, num_wires: int, num_ticks: int,
              tw: int, tt: int, k_max: int, pw: int, pt: int,
              fluctuate: bool = False) -> torch.Tensor:
-    """The compact layout over len(seeds) planes of (P, N) parameters,
-    blocks placed: (P, num_wires, num_ticks), counted under ``name``."""
+    """The compact layout over len(seeds) planes of (P, N) parameters:
+    (P, num_wires, num_ticks), counted under ``name``. On the card each
+    occupied tile is written in place into a grid zeroed once."""
     dev = params[0].device
     num_planes = len(seeds)
-    tiles_w, tiles_t, _ = tile_counts(num_wires, num_ticks, tw, tt)
+    tiles_w, tiles_t, n_tiles = tile_counts(num_wires, num_ticks, tw, tt)
     n_slots = active_tiles.shape[0]
     if n_slots % num_planes:
         raise ValueError(f"{n_slots} active slots do not split into "
@@ -130,18 +176,18 @@ def _compact(name: str, params, active_tiles, tile_ids,
     check_tensor("tile_ids", tile_ids, torch.int32, (n_slots * k_max,), dev)
     geom = dict(tiles_t=tiles_t, tw=tw, tt=tt, pw=pw, pt=pt, k_max=k_max)
     if dev.type == "cpu":
-        blocks = ref.fused_rasterize_scatter_multiplane_compact_ref(
-            params, active_tiles, tile_ids, seeds=seeds, fluctuate=fluctuate,
-            **geom)
+        out = scatter_tiles_to_grid_planes(
+            ref.fused_rasterize_scatter_multiplane_compact_ref(
+                params, active_tiles, tile_ids, seeds=seeds,
+                fluctuate=fluctuate, **geom),
+            active_tiles, num_planes, tiles_w, tiles_t, tw, tt)
     else:
-        blocks = torch.empty((n_slots, tw, tt), dtype=torch.float32,
-                             device=dev)
+        out = torch.zeros((num_planes, tiles_w * tw, tiles_t * tt),
+                          dtype=torch.float32, device=dev)
         _launch("fused_sim_compact", name, params, [active_tiles, tile_ids],
-                seeds, per_plane=n_slots // num_planes, fluctuate=fluctuate,
-                out=blocks, **geom)
-    return scatter_tiles_to_grid_planes(
-        blocks, active_tiles, num_planes, tiles_w, tiles_t, tw,
-        tt)[:, :num_wires, :num_ticks]
+                seeds, per_plane=n_slots // num_planes, n_tiles=n_tiles,
+                fluctuate=fluctuate, out=out, **geom)
+    return out[:, :num_wires, :num_ticks]
 
 
 def fused_rasterize_scatter(wire, tick, sigma_w, sigma_t, charge, w0, t0,

@@ -72,7 +72,7 @@ def test_drift_same_physical_depos(name):
     pd = jdepo.generate_physical_depos(jax.random.key(4), cfg)
     ref = jdrift.drift_depos(pd, cfg)
     out = tdrift.drift_depos(
-        interop.physical_depos_from_numpy(*_np(pd)), _tcfg(cfg))
+        interop.physical_depos_from_numpy(*_np(pd), device="cpu"), _tcfg(cfg))
     # wire and tick are exact ops of the inputs (identity, power-of-2 scale)
     np.testing.assert_array_equal(np.asarray(out.wire), np.asarray(ref.wire))
     np.testing.assert_array_equal(np.asarray(out.tick), np.asarray(ref.tick))
@@ -87,7 +87,7 @@ def test_drift_with_lifetime_and_recombination():
     pd = jdepo.generate_physical_depos(jax.random.key(5), cfg)
     ref = jdrift.drift_depos(pd, cfg)
     out = tdrift.drift_depos(
-        interop.physical_depos_from_numpy(*_np(pd)), _tcfg(cfg))
+        interop.physical_depos_from_numpy(*_np(pd), device="cpu"), _tcfg(cfg))
     parity.assert_close(out.charge.numpy(), np.asarray(ref.charge),
                         what="charge")
 
@@ -97,8 +97,8 @@ def test_depo_patch_origin_exact(name):
     cfg = CONFIGS[name]
     d = _ref_depos(cfg, 6)
     w0, t0 = jdepo.depo_patch_origin(d, cfg)
-    tw0, tt0 = tdepo.depo_patch_origin(interop.depos_from_numpy(*_np(d)),
-                                       _tcfg(cfg))
+    tw0, tt0 = tdepo.depo_patch_origin(
+        interop.depos_from_numpy(*_np(d), device="cpu"), _tcfg(cfg))
     np.testing.assert_array_equal(tw0.numpy(), np.asarray(w0))
     np.testing.assert_array_equal(tt0.numpy(), np.asarray(t0))
 
@@ -144,7 +144,7 @@ def test_fft_convolve_same_grid(name):
     ref = np.asarray(jfft.fft_convolve(jnp.asarray(grid), resp))
     tresp_ = interop.response_from_numpy(np.asarray(resp.kernel),
                                          np.asarray(resp.freq),
-                                         resp.pad_shape)
+                                         resp.pad_shape, device="cpu")
     out = tfft.fft_convolve(torch.from_numpy(grid), tresp_).numpy()
     parity.assert_close(out, ref, what="fft_convolve")
 
@@ -181,8 +181,8 @@ def test_rasterize_same_depos(name):
     cfg = CONFIGS[name]
     d = _ref_depos(cfg, 10)
     p, w0, t0 = jrast.rasterize(d, cfg)
-    tp, tw0, tt0 = trast.rasterize(interop.depos_from_numpy(*_np(d)),
-                                   _tcfg(cfg))
+    tp, tw0, tt0 = trast.rasterize(
+        interop.depos_from_numpy(*_np(d), device="cpu"), _tcfg(cfg))
     np.testing.assert_array_equal(tw0.numpy(), np.asarray(w0))
     np.testing.assert_array_equal(tt0.numpy(), np.asarray(t0))
     parity.assert_close(tp.numpy(), np.asarray(p), what="patches")

@@ -43,7 +43,7 @@ def _tcfg(cfg):
 def _tresp(resp):
     return interop.response_from_numpy(np.asarray(resp.kernel),
                                        np.asarray(resp.freq), resp.pad_shape,
-                                       resp.plane)
+                                       resp.plane, device="cpu")
 
 
 def _meas(seed=0):

@@ -37,7 +37,8 @@ CASES = {"smoke": (SMOKE, 64, 256), "edge": (EDGE, 32, 128)}
 
 def _depos(cfg, seed=0):
     d = j_generate(jax.random.key(seed), cfg)
-    return d, interop.depos_from_numpy(*(np.asarray(x) for x in d))
+    return d, interop.depos_from_numpy(*(np.asarray(x) for x in d),
+                                       device="cpu")
 
 
 def _tcfg(cfg):
@@ -323,7 +324,7 @@ def test_single_depo_tile_boundary(name):
     from repro_torch.core.pipeline import charge_grid_unfused
 
     values = [np.array([v], np.float32) for v in BOUNDARY_CASES[name]]
-    td = interop.depos_from_numpy(*values)
+    td = interop.depos_from_numpy(*values, device="cpu")
     tcfg = _tcfg(BOUNDARY)
     dense, _ = tops.simulate_charge_grid(td, tcfg)
     compact, _ = tops.simulate_charge_grid_compact(td, tcfg)
@@ -334,3 +335,112 @@ def test_single_depo_tile_boundary(name):
         JaxDepoSet(*(jax.numpy.asarray(v) for v in values)), BOUNDARY,
         interpret=True))
     parity.assert_close(dense.numpy(), ref, what=name)
+
+
+def _lists(case, layout):
+    """(per-slot lists, k_max) of the binned smoke/edge depos."""
+    cfg, tw, tt = CASES[case]
+    _, (tw0, tt0) = _origins(cfg, 3)
+    args = _bin_args(cfg, tw, tt)
+    if layout == "dense":
+        return tbin.bin_depos_to_tiles(tw0, tt0, *args)[0], args[-1]
+    n_cap = tbin.active_tile_cap(tw0, *args[:-1], t0=tt0)
+    return tbin.bin_depos_to_tiles_compact(tw0, tt0, *args, n_cap)[1], \
+        args[-1]
+
+
+def _synthetic_lists():
+    """Eight slots of k_max 4 with repeated lengths (3, 0, 3, 4, 1, 3, 0,
+    4), each list filled from rank 0."""
+    lengths = [3, 0, 3, 4, 1, 3, 0, 4]
+    ids = torch.full((len(lengths), 4), -1, dtype=torch.int32)
+    for slot, n in enumerate(lengths):
+        ids[slot, :n] = torch.arange(n, dtype=torch.int32) + 10 * slot
+    return ids.reshape(-1), 4
+
+
+@pytest.mark.parametrize("lists", ["smoke-dense", "smoke-compact",
+                                   "edge-dense", "edge-compact", "ties"])
+def test_launch_order_is_a_stable_longest_first_permutation(lists):
+    ids, k_max = (_synthetic_lists() if lists == "ties"
+                  else _lists(*lists.split("-")))
+    order = tkernel.launch_order(ids, k_max)
+    n_slots = ids.numel() // k_max
+    assert order.dtype == torch.int32 and order.shape == (n_slots,)
+    assert sorted(order.tolist()) == list(range(n_slots))
+    lengths = (ids.view(n_slots, k_max) >= 0).sum(1)[order.long()].tolist()
+    assert lengths == sorted(lengths, reverse=True)
+    for a, b, la, lb in zip(order.tolist(), order.tolist()[1:], lengths,
+                            lengths[1:]):
+        assert la > lb or a < b  # equal lengths keep their slot order
+    if lists == "ties":
+        assert order.tolist() == [3, 7, 0, 2, 5, 4, 1, 6]
+
+
+@pytest.mark.parametrize("num_planes", [1, 3])
+@pytest.mark.parametrize("tile", [(64, 256), (32, 128)])
+def test_scatter_tiles_to_grid_planes_places_each_slot_at_its_tile(
+        num_planes, tile):
+    """Slot i of plane i // n_cap lands at plane-local tile active[i];
+    -1 slots are dropped and unoccupied tiles stay zero (the layout the
+    compact kernel stores in place on the card)."""
+    tw, tt = tile
+    tiles_w, tiles_t, n_tiles = 3, 4, 12
+    n_cap = 8
+    rng = np.random.default_rng(num_planes * tw)
+    active = np.full((num_planes, n_cap), -1, np.int32)
+    for p in range(num_planes):
+        occupied = rng.choice(n_tiles, size=5 + p, replace=False)
+        active[p, :occupied.size] = occupied
+    blocks = rng.standard_normal((num_planes * n_cap, tw, tt)).astype(
+        np.float32)
+    want = np.zeros((num_planes, tiles_w * tw, tiles_t * tt), np.float32)
+    for i, t in enumerate(active.reshape(-1)):
+        if t >= 0:
+            r, c = divmod(int(t), tiles_t)
+            want[i // n_cap, r * tw:(r + 1) * tw, c * tt:(c + 1) * tt] = \
+                blocks[i]
+    got = tkernel.scatter_tiles_to_grid_planes(
+        torch.from_numpy(blocks), torch.from_numpy(active.reshape(-1)),
+        num_planes, tiles_w, tiles_t, tw, tt)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+@pytest.mark.parametrize("value", [0.5, 0.6, 3.0, 4797, 1e-30])
+def test_division_operand_is_a_float32_scalar_on_the_inputs_device(device,
+                                                                  value):
+    from repro_torch.device import scalar
+
+    like = torch.ones(3, device=device)
+    s = scalar(value, like)
+    assert s.dtype == torch.float32 and s.dim() == 0
+    assert s.device == like.device
+    if device == "cpu":
+        x = torch.linspace(0.1, 7.3, 257)
+        want = x.numpy() / np.float32(value)
+        np.testing.assert_array_equal((x / s).numpy(), want)
+
+
+def test_launch_order_ends_a_list_at_its_first_gap():
+    """A -1 ends a list, as in the kernel: entries after it do not count."""
+    ids = torch.tensor([5, -1, 7, 8,  1, 2, -1, -1,  3, 4, 5, -1],
+                       dtype=torch.int32)
+    assert tkernel.launch_order(ids, 4).tolist() == [2, 1, 0]
+
+
+@pytest.mark.parametrize("name", sorted(tkernel.SIGNATURES))
+def test_bound_argument_types_match_the_c_entry_points(name):
+    """ctypes passes what ``SIGNATURES`` declares: one pointer (c_void_p)
+    for each pointer parameter of the C function, one c_int for each int."""
+    import ctypes
+    import re
+
+    from repro_torch import kernels
+
+    src = (kernels.CSRC / kernels.SOURCES["fused_sim"]).read_text()
+    params = re.search(r'extern "C" int ' + name + r"\(([^)]*)\)",
+                       src).group(1)
+    want = [ctypes.c_void_p if "*" in p else ctypes.c_int
+            for p in params.split(",")]
+    assert tkernel.SIGNATURES[name] == want

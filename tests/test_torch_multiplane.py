@@ -77,7 +77,7 @@ def _np(tree):
 def _physical(seed):
     k = jax.random.key(seed)
     pd = j_generate_physical(k, CFG3)
-    return k, pd, interop.physical_depos_from_numpy(*_np(pd))
+    return k, pd, interop.physical_depos_from_numpy(*_np(pd), device="cpu")
 
 
 @pytest.mark.parametrize("plane", [0, 1, 2])
@@ -116,7 +116,7 @@ def test_plane_responses_and_their_interop():
     outs = tresp.make_plane_responses(_tcfg(CFG3), device="cpu")
     carried = interop.plane_responses_from_numpy(
         [(np.asarray(r.kernel), np.asarray(r.freq), r.pad_shape, r.plane)
-         for r in refs])
+         for r in refs], device="cpu")
     assert [o.plane for o in outs] == [r.plane for r in refs] == [
         "induction", "induction", "collection"]
     for r, o, c in zip(refs, outs, carried):
@@ -147,7 +147,8 @@ def test_fft2_matches_reference_and_rfft2(plane):
     r = jresp.make_response(CFG3, plane)
     ref = np.asarray(jfft.fft_convolve_fft2(jnp.asarray(grid), r))
     tr = interop.response_from_numpy(np.asarray(r.kernel),
-                                     np.asarray(r.freq), r.pad_shape, plane)
+                                     np.asarray(r.freq), r.pad_shape, plane,
+                                     device="cpu")
     out = tfft.fft_convolve(torch.from_numpy(grid), tr, "fft2").numpy()
     parity.assert_close(out, ref, what="fft2")
     parity.assert_close(out, tfft.fft_convolve(torch.from_numpy(grid), tr,
@@ -171,8 +172,8 @@ def test_plain_multiplane_kernels_match_reference(layout, fluct):
                             tops.simulate_charge_grid_multiplane_compact)
                 }[layout]
     ref = np.asarray(jfn(d, CFG3, interpret=True, keys=keys))
-    out, dropped = tfn(interop.depos_from_numpy(*_np(d)), _tcfg(CFG3),
-                       keys=tkeys)
+    out, dropped = tfn(interop.depos_from_numpy(*_np(d), device="cpu"),
+                       _tcfg(CFG3), keys=tkeys)
     assert int(dropped) == 0 and out.shape == (3, 128, 512)
     parity.assert_close(out.numpy(), ref, atol_frac=parity.GRID_ATOL_FRAC,
                         what=f"{layout} grid")

@@ -39,10 +39,12 @@ def _run_both(cfg, ev=0, physical=False):
     k = jax.random.fold_in(jax.random.key(0), ev)
     if physical:
         d = j_generate_physical(k, cfg)
-        td = interop.physical_depos_from_numpy(*(np.asarray(x) for x in d))
+        td = interop.physical_depos_from_numpy(
+            *(np.asarray(x) for x in d), device="cpu")
     else:
         d = j_generate(k, cfg)
-        td = interop.depos_from_numpy(*(np.asarray(x) for x in d))
+        td = interop.depos_from_numpy(*(np.asarray(x) for x in d),
+                                      device="cpu")
     ref = j_make_sim_fn(cfg)(k, d)
     tcfg = interop.config_from_dict(dataclasses.asdict(cfg))
     out = make_sim_fn(tcfg, device="cpu")(

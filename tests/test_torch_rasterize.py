@@ -160,7 +160,8 @@ def test_rasterize_depos_matches_reference(fluctuate, n, block):
     depos = j_generate(k, cfg)
     ref, rw0, rt0 = (np.asarray(x) for x in jops.rasterize_depos(
         k, depos, cfg, depo_block=block, fluctuate=fluctuate))
-    tdepos = interop.depos_from_numpy(*(np.asarray(x) for x in depos))
+    tdepos = interop.depos_from_numpy(*(np.asarray(x) for x in depos),
+                                      device="cpu")
     tkernel.reset_launches()
     port, w0, t0 = tops.rasterize_depos(_tkey(k), tdepos, _tcfg(cfg),
                                         depo_block=block, fluctuate=fluctuate,
@@ -175,7 +176,8 @@ def test_rasterize_depos_matches_reference(fluctuate, n, block):
 
 def test_padding_depos_have_zero_patches():
     depos = interop.depos_from_numpy(*(np.full(5, v, np.float32)
-                                       for v in (30.0, 40.0, 1.2, 1.3, 900.)))
+                                       for v in (30.0, 40.0, 1.2, 1.3, 900.)),
+                                     device="cpu")
     padded, n = tops.pad_depos(depos, 4)
     assert n == 5 and padded.n == 8
     assert padded.sigma_w[5:].tolist() == [1.0] * 3

@@ -61,10 +61,12 @@ def _run_both(cfg, seed, physical=False):
     k = jax.random.key(seed)
     if physical:
         d = j_generate_physical(k, cfg)
-        td = interop.physical_depos_from_numpy(*(np.asarray(x) for x in d))
+        td = interop.physical_depos_from_numpy(
+            *(np.asarray(x) for x in d), device="cpu")
     else:
         d = j_generate(k, cfg)
-        td = interop.depos_from_numpy(*(np.asarray(x) for x in d))
+        td = interop.depos_from_numpy(*(np.asarray(x) for x in d),
+                                      device="cpu")
     ref = j_make_sim_fn(cfg, recon=True)(k, d)
     out = simulate(_tkey(k), td, _tcfg(cfg), device="cpu", recon=True)
     return ref, interop.to_numpy(out)

@@ -257,7 +257,7 @@ def test_unfused_event_matches_reference(strategy):
     ref = j_make_sim_fn(cfg)(k, d)
     out = interop.to_numpy(make_sim_fn(_tcfg(cfg), device="cpu")(
         interop.key_from_data(jax.random.key_data(k)),
-        interop.depos_from_numpy(*(np.asarray(x) for x in d))))
+        interop.depos_from_numpy(*(np.asarray(x) for x in d), device="cpu")))
     assert int(out["dropped"]) == 0
     parity.assert_close(out["charge_grid"], np.asarray(ref.charge_grid),
                         atol_frac=parity.GRID_ATOL_FRAC, what="grid")
