@@ -22,9 +22,13 @@ Phases (any failure exits non-zero before the result line):
                 straddling tile edges, and for 48 depos filling one tile's
                 list at k_max = 48 (no multiple of the 32-entry chunk).
                 Scatter-add (rows 5-6) on the unfused chain's fluctuated
-                patches at the same configs: kernel == plain bit for bit,
-                compact == dense bit for bit, two runs bit-identical, and
-                within the parity tolerance of index_put_(accumulate=True).
+                patches at the same configs, at 30 x 128 tiles (no list
+                splits), at 72 x 40 patches, and at a list filling k_max =
+                48 that runs split over 4 CTAs: dense, compact in place
+                and compact blocks == their plain versions bit for bit, the
+                in-place grid == the dense grid and == the placed blocks,
+                two runs bit-identical, and within the parity tolerance
+                of index_put_(accumulate=True).
                 Multi-plane fused (rows 3-4) at full width with 3 planes:
                 == the plain version bit for bit, compact == dense bit for
                 bit, and plane p == the one-plane kernel (row 1) on plane
@@ -43,7 +47,8 @@ Phases (any failure exits non-zero before the result line):
                 and equal to the per-plane loop of the one-plane kernel);
                 2 full-width events of unfused with scatter_strategy=pallas,
                 then pallas_compact (ADC equal between the two, launch
-                counters equal to the events served); 4 full-width
+                counters equal to the events served, no placement of
+                compact blocks: the kernel writes the grid); 4 full-width
                 three-plane events with fused_pallas_multiplane and
                 recon=True (deconvolve + hit_find; ADC equal to the
                 sim-only run, one hit-scan launch per plane and event,
@@ -52,12 +57,27 @@ Phases (any failure exits non-zero before the result line):
                 int16 ADC at the 900 baseline, finite signal, non-zero max
                 dev; per-event time, depos/s, per-stage times, peak memory.
                 Then the hit-scan kernel (row 7) against its plain version,
-                bit for bit, on every plane's full-width deconvolved grid of
-                recon event 0 and on synthetic edge-case grids
-  6. timing   : each kernel's wrapper (median of 5 rounds of 20 calls) and
-                its plain version (3 calls; the three-plane plain versions
-                2 calls, hit scan and rasterize 1 call) timed with CUDA
-                events at the main path's shapes (hit scan: one plane),
+                bit for bit and run to run, on every plane's full-width
+                deconvolved grid of recon event 0 (with the stored runs'
+                lengths: max, median, p99) and on synthetic edge-case grids
+                of 70 x 1000 and 70 x 1001 (runs across the kernel's load
+                and step edges, a run as long as the wire, an 8th run
+                starting in the last step) at thresholds 500 and 333.3
+                and caps 8, 1 and 40 (more stored runs than lanes), and
+                the plane with the most runs at cap 40
+  6. timing   : each kernel's wrapper (median of 5 rounds of 20 calls
+                timed with CUDA events as the host enqueues them, the
+                method of every version of this script, which reads the
+                host's pace where a call is shorter than its enqueueing,
+                as on the main path; beside it, as ms_card, the same calls
+                enqueued while the card spins on a kernel that outlasts the
+                enqueueing, so the events read the card's time alone, and
+                the host's enqueue time per call) and its plain version
+                (3 calls; the three-plane plain
+                versions 2 calls, hit scan and rasterize 1 call) timed with
+                CUDA events at the main path's shapes (hit scan: one plane;
+                each plane's time is printed too; compact scatter-add: the
+                grid written in place, as the main path calls it),
                 beside the least time the card could take (bytes or
                 operations bound, from this run's inputs; for the fused
                 kernels the pixels with nonzero weights, and beside it the
@@ -75,6 +95,7 @@ the card has no JAX, which the repository's test configuration imports.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import statistics
@@ -124,10 +145,19 @@ ONE_DEPO_CASES = (("straddle wire edge", (63.7, 100.2, 1.1, 1.4, 4321.0)),
                   ("detector edge", (0.4, 2.0, 0.8, 1.0, 999.0)))
 
 
-#: synthetic hit-scan grids: 70 wires (a ragged last warp) x 1000 ticks
-#: (a ragged last tile), threshold 500, and the scanner's edge cases
-HIT_CASE_SHAPE = (70, 1000)
+#: synthetic hit-scan grids: 70 wires (not a multiple of the kernel's 4
+#: wires per CTA) x 1000 and x 1001 ticks (1001: no multiple of 4, of the
+#: 32-tick load or of the 512-tick step), the scanner's edge cases, at two
+#: thresholds (333.3 is not a float32: both sides round it the same way)
+#: and three per-wire capacities (40: more stored runs than a warp has
+#: lanes, so a lane walks runs l and l + 32)
+HIT_CASE_WIRES = 70
+HIT_CASE_TICKS = (1000, 1001)
 HIT_THRESHOLD = 500.0
+HIT_THRESHOLDS = (HIT_THRESHOLD, 333.3)
+HIT_CAPS = (8, 1, 40)
+#: the hit-scan kernel's load width in ticks (one per lane of a warp)
+HIT_LOAD = 32
 
 
 #: depos of the case whose list fills k_max = FULL_LIST, no multiple of the
@@ -136,6 +166,15 @@ HIT_THRESHOLD = 500.0
 FULL_LIST = 48
 FULL_LIST_LOW = (4.0, 12.0, 0.6, 0.8, 500.0)
 FULL_LIST_HIGH = (56.0, 240.0, 2.5, 3.5, 8000.0)
+
+
+#: (module, function) of the placement of compact blocks into the grid and
+#: of the gathering of blocks from it, which the card's compact scatter-add
+#: path does not call
+PLACEMENT = (("repro_torch.kernels.tiles", "scatter_tiles_to_grid"),
+             ("repro_torch.kernels.scatter_add.kernel",
+              "scatter_tiles_to_grid"),
+             ("repro_torch.kernels.scatter_add.kernel", "tiles_of_grid"))
 
 
 class PhaseError(RuntimeError):
@@ -149,6 +188,31 @@ def check(cond, msg: str) -> None:
 
 def phase(name: str) -> None:
     print(f"== {name}", flush=True)
+
+
+@contextlib.contextmanager
+def count_calls(targets):
+    """Count the calls of each (module, function) of ``targets`` inside the
+    block: yields the list of counts, one per target."""
+    import importlib
+
+    counts = [0] * len(targets)
+    saved = []
+    for i, (module, fn) in enumerate(targets):
+        mod = importlib.import_module(module)
+        orig = getattr(mod, fn)
+
+        def counted(*args, _i=i, _orig=orig, **kwargs):
+            counts[_i] += 1
+            return _orig(*args, **kwargs)
+
+        saved.append((mod, fn, orig))
+        setattr(mod, fn, counted)
+    try:
+        yield counts
+    finally:
+        for mod, fn, orig in saved:
+            setattr(mod, fn, orig)
 
 
 def card_line() -> str:
@@ -175,10 +239,56 @@ def cuda_time(fn, iters: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / iters
 
 
+#: spin-kernel cycles per millisecond at 2 GHz, above the H100's top SM
+#: clock, so a spin of n ms worth lasts at least n ms
+SPIN_CYCLES_PER_MS = 2_000_000
+
+
+def primed_time(fn, iters: int = 20):
+    """(ms per call on the card, ms per call on the host): ``iters`` calls
+    enqueued while the card still spins on a kernel that outlasts their
+    enqueueing, so CUDA events around them read the card's time alone, not
+    the host's pace. Raises if the host took longer than the spin."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    spun, start, end = (torch.cuda.Event(enable_timing=True)
+                        for _ in range(3))
+    spun.record()
+    torch.cuda._sleep(int((3.0 * host_ms + 2.0) * SPIN_CYCLES_PER_MS))
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    enqueue_ms = (time.perf_counter() - t0) * 1e3
+    end.record()
+    end.synchronize()
+    spin_ms = spun.elapsed_time(start)
+    check(enqueue_ms < spin_ms, f"primed timing: the host took {enqueue_ms:.3f}"
+          f" ms to enqueue, longer than the {spin_ms:.3f} ms spin")
+    return start.elapsed_time(end) / iters, enqueue_ms / iters
+
+
 def wrapper_ms(fn):
-    """(median, sorted rounds) of 5 rounds of 20 calls, ms per call."""
+    """(median, sorted rounds) of 5 rounds of 20 calls, ms per call, timed
+    with CUDA events while the host enqueues them (the method of every
+    version of this script, so rows compare across versions: a call shorter
+    than its enqueueing reads the host's pace, as on the main path)."""
     rounds = sorted(cuda_time(fn, iters=20, warmup=2) for _ in range(5))
     return statistics.median(rounds), rounds
+
+
+def card_ms(fn) -> float:
+    """Median of 5 rounds of 20 calls, ms per call on the card alone
+    (primed: the host's enqueueing does not pace the calls)."""
+    fn()
+    fn()
+    return statistics.median(primed_time(fn)[0] for _ in range(5))
 
 
 def bound_of(nbytes: float, ops: float):
@@ -421,14 +531,15 @@ class KernelCase:
         return out[:self.cfg.num_wires, :self.cfg.num_ticks]
 
     def plain_compact(self):
-        from repro_torch.kernels.fused_sim import kernel, ref
+        from repro_torch.kernels import tiles
+        from repro_torch.kernels.fused_sim import ref
 
         blocks = ref.fused_rasterize_scatter_compact_ref(
             self.params, self.active, self.cids, tiles_t=self.tiles_t,
             tw=self.tw, tt=self.tt, k_max=self.k_max,
             pw=self.cfg.patch_wires, pt=self.cfg.patch_ticks, seed=self.seed,
             fluctuate=True)
-        return kernel.scatter_tiles_to_grid(
+        return tiles.scatter_tiles_to_grid(
             blocks, self.active, self.tiles_w, self.tiles_t, self.tw,
             self.tt)[:self.cfg.num_wires, :self.cfg.num_ticks]
 
@@ -526,12 +637,13 @@ class MultiPlaneCase:
         return out[:, :self.cfg.num_wires, :self.cfg.num_ticks]
 
     def plain_compact(self):
-        from repro_torch.kernels.fused_sim import kernel, ref
+        from repro_torch.kernels import tiles
+        from repro_torch.kernels.fused_sim import ref
 
         blocks = ref.fused_rasterize_scatter_multiplane_compact_ref(
             self.params, self.active, self.cids, seeds=self.seeds,
             fluctuate=True, **self.geom)
-        return kernel.scatter_tiles_to_grid_planes(
+        return tiles.scatter_tiles_to_grid_planes(
             blocks, self.active, self.cfg.num_planes, self.tiles_w,
             self.tiles_t, self.geom["tw"], self.geom["tt"]
         )[:, :self.cfg.num_wires, :self.cfg.num_ticks]
@@ -550,9 +662,11 @@ class MultiPlaneCase:
 class ScatterCase:
     """One scatter-add problem: the unfused chain's fluctuated patches of
     depos generated from ``key`` (or given), with the dense and compact
-    lists the ``pallas`` strategies bin them into."""
+    lists the ``pallas`` strategies bin them into (at ``k_max`` when given,
+    else the default)."""
 
-    def __init__(self, cfg, key, tw: int, tt: int, device, depos=None):
+    def __init__(self, cfg, key, tw: int, tt: int, device, depos=None,
+                 k_max=None):
         import torch
 
         from repro_torch.core import fluctuate as fl
@@ -569,8 +683,8 @@ class ScatterCase:
                                             depos.charge)
         _, pw, pt = self.patches.shape
         self.tw, self.tt = max(tw, pw), max(tt, pt)
-        self.k_max = binning.default_k_max(depos.n, cfg.num_wires,
-                                           cfg.num_ticks, self.tw, self.tt)
+        self.k_max = k_max or binning.default_k_max(
+            depos.n, cfg.num_wires, cfg.num_ticks, self.tw, self.tt)
         args = (self.w0, self.t0, pw, pt, cfg.num_wires, cfg.num_ticks,
                 self.tw, self.tt)
         self.ids, _, dropped = binning.bin_depos_to_tiles(*args, self.k_max)
@@ -593,7 +707,7 @@ class ScatterCase:
         return grid[:self.cfg.num_wires, :self.cfg.num_ticks]
 
     def _place(self, blocks):
-        from repro_torch.kernels.fused_sim.kernel import scatter_tiles_to_grid
+        from repro_torch.kernels.tiles import scatter_tiles_to_grid
 
         return self._crop(scatter_tiles_to_grid(
             blocks, self.active, self.tiles_w, self.tiles_t, self.tw,
@@ -606,11 +720,21 @@ class ScatterCase:
             self.patches, self.w0, self.t0, self.ids, **self.kw))
 
     def compact(self):
+        """The compact kernel as the main path calls it: each occupied tile
+        written in place into a grid zeroed once."""
         from repro_torch.kernels.scatter_add import kernel
 
-        return self._place(kernel.scatter_add_pallas_compact(
+        return self._crop(kernel.scatter_add_pallas_compact(
             self.patches, self.w0, self.t0, self.active, self.cids,
-            **self.kw))
+            layout="grid", **self.kw))
+
+    def compact_blocks(self):
+        """The compact kernel's reference layout, (n_cap, tw, tt) blocks."""
+        from repro_torch.kernels.scatter_add import kernel
+
+        return kernel.scatter_add_pallas_compact(
+            self.patches, self.w0, self.t0, self.active, self.cids,
+            layout="blocks", **self.kw)
 
     def plain_dense(self):
         from repro_torch.kernels.scatter_add import ref
@@ -619,12 +743,15 @@ class ScatterCase:
             self.patches, self.w0, self.t0, self.ids, tiles_w=self.tiles_w,
             tiles_t=self.tiles_t, tw=self.tw, tt=self.tt, k_max=self.k_max))
 
-    def plain_compact(self):
+    def plain_blocks(self):
         from repro_torch.kernels.scatter_add import ref
 
-        return self._place(ref.scatter_add_compact_ref(
+        return ref.scatter_add_compact_ref(
             self.patches, self.w0, self.t0, self.active, self.cids,
-            tiles_t=self.tiles_t, tw=self.tw, tt=self.tt, k_max=self.k_max))
+            tiles_t=self.tiles_t, tw=self.tw, tt=self.tt, k_max=self.k_max)
+
+    def plain_compact(self):
+        return self._place(self.plain_blocks())
 
     def library(self):
         """The one PyTorch call computing the same function:
@@ -706,15 +833,19 @@ class RasterCase:
         return bound_of(nbytes, ops)
 
 
-def hit_edge_grids(device):
+def hit_edge_grids(device, t: int):
     """(label, (W, T) grid) synthetic hit-scan cases: runs at tick 0, open
     at the last tick, more runs than the per-wire capacity, samples equal
-    to the threshold, all below, all above, and noise of every run
+    to the threshold, all below, all above (a stored run as long as the
+    wire), runs across a 32-tick load edge and a step edge, a wire
+    whose 8th run starts in the last step, and noise of every run
     length."""
     import torch
 
-    w, t = HIT_CASE_SHAPE
-    gen = torch.Generator(device="cpu").manual_seed(0)
+    from repro_torch.kernels.hitfind.kernel import STEP as step
+
+    w = HIT_CASE_WIRES
+    gen = torch.Generator(device="cpu").manual_seed(t)
     noise = torch.randn((w, t), generator=gen) * 600.0
     g = torch.zeros((w, t))
     g[0, 0] = 700.0
@@ -726,12 +857,25 @@ def hit_edge_grids(device):
     g[6, 10:20] = torch.nextafter(torch.tensor(HIT_THRESHOLD),
                                   torch.tensor(1e9))
     g[7, ::3] = 2e6
-    g[8:40] = noise[8:40]
+    # runs across load and step edges, one ending on a step's first tick
+    for lo, hi in ((HIT_LOAD - 2, HIT_LOAD + 3), (step // 2 - 1, step // 2 + 1),
+                   (step - 5, step + 7)):
+        g[8, lo:hi] = 900.0 + torch.arange(hi - lo, dtype=torch.float32)
+    g[9, HIT_LOAD - 1] = 650.0   # one tick, the last of a load
+    g[9, step - 40:step] = 650.0   # ends on the next step's first tick
+    g[9, step + 1] = 660.0       # one tick, right after
+    # seven short runs, then the 8th starting in the last step, open at T
+    last_step = (t - 1) // step * step
+    g[10, 5:40:5] = 720.0
+    g[10, last_step + 17:] = 1500.0
+    g[11, 1:-1] = 0.37 * noise[11, 1:-1] + 333.3   # around 333.3
+    g[12:40] = noise[12:40]
     g[40:] = noise[40:].abs() * 0.5 + 450.0
-    return [("edge cases", g.to(device)), ("noise", noise.to(device))]
+    return [(f"edge cases {w}x{t}", g.to(device)),
+            (f"noise {w}x{t}", noise.to(device))]
 
 
-def check_hitfind(grids, cap: int):
+def check_hitfind(grids, cap: int, threshold: float = HIT_THRESHOLD):
     """Hit-scan kernel == its plain version bit for bit on every (label,
     grid), two runs bit-identical; returns the largest |kernel - plain|
     over the float outputs (0 when they pass)."""
@@ -741,17 +885,17 @@ def check_hitfind(grids, cap: int):
 
     worst = 0.0
     for label, grid in grids:
-        got = kernel.hitfind_pallas(grid, threshold=HIT_THRESHOLD, cap=cap)
-        again = kernel.hitfind_pallas(grid, threshold=HIT_THRESHOLD, cap=cap)
-        want = ref.hitfind_ref(grid, threshold=HIT_THRESHOLD, cap=cap)
+        got = kernel.hitfind_pallas(grid, threshold=threshold, cap=cap)
+        again = kernel.hitfind_pallas(grid, threshold=threshold, cap=cap)
+        want = ref.hitfind_ref(grid, threshold=threshold, cap=cap)
         torch.cuda.synchronize()
         errs = [float((a - b).abs().max()) for a, b in zip(got[1:], want[1:])]
         worst = max([worst] + errs)
         counts = got[0][:, 0]
-        print(f"hit scan {label}: grid {tuple(grid.shape)}, runs found "
-              f"{int(counts.sum())}, stored {int(counts.clamp_max(cap).sum())}"
-              f", max |kernel - plain| (charge, tick, peak) = {errs}",
-              flush=True)
+        print(f"hit scan {label}, threshold {threshold}, cap {cap}: grid "
+              f"{tuple(grid.shape)}, runs found {int(counts.sum())}, stored "
+              f"{int(counts.clamp_max(cap).sum())}, max |kernel - plain| "
+              f"(charge, tick, peak) = {errs}", flush=True)
         for name, a, b, c in zip(("counts", "charge", "tick", "peak"), got,
                                  want, again):
             check(torch.equal(a, b), f"hit scan {label}: kernel {name} != "
@@ -759,6 +903,34 @@ def check_hitfind(grids, cap: int):
             check(torch.equal(a, c), f"hit scan {label}: kernel {name} not "
                   "bit-identical run to run")
     return worst
+
+
+def stored_run_lengths(grid, threshold: float, cap: int):
+    """Lengths in ticks of the runs the scan stores (the first ``cap`` of
+    each wire): runs found by shifted masks, ranked by a cumulative sum."""
+    import torch
+
+    above = grid > torch.tensor(threshold, dtype=torch.float32,
+                                device=grid.device)
+    off = torch.zeros_like(above[:, :1])
+    starts = above & ~torch.cat([off, above[:, :-1]], 1)
+    lasts = above & ~torch.cat([above[:, 1:], off], 1)
+    rank = torch.cumsum(starts.to(torch.int32), 1) - 1
+    kept = rank < cap
+    lo = torch.nonzero(starts & kept)[:, 1]
+    hi = torch.nonzero(lasts & kept)[:, 1]
+    return hi - lo + 1
+
+
+def run_length_stats(lengths) -> str:
+    import torch
+
+    n = lengths.to(torch.float32)
+    if n.numel() == 0:
+        return "no stored runs"
+    return (f"{n.numel()} stored runs, length max {int(n.max())}, median "
+            f"{float(n.median()):g}, p99 {float(torch.quantile(n, 0.99)):g} "
+            f"ticks")
 
 
 def hit_bound(grid, cap: int):
@@ -772,10 +944,10 @@ def check_order(ids, k_max: int, label: str) -> None:
     """The launch order kernels == their plain version on ``ids``."""
     import torch
 
-    from repro_torch.kernels.fused_sim import kernel
+    from repro_torch.kernels.tiles import launch_order
 
-    got = kernel.launch_order(ids, k_max)
-    check(torch.equal(got.cpu(), kernel.launch_order(ids.cpu(), k_max)),
+    got = launch_order(ids, k_max)
+    check(torch.equal(got.cpu(), launch_order(ids.cpu(), k_max)),
           f"{label}: launch order kernels != their plain version")
 
 
@@ -821,35 +993,48 @@ def check_kernels(case, label: str):
 
 
 def check_scatter(case, label: str):
-    """Phase 3 checks for one scatter-add case; returns max |kernel -
-    plain| of the dense and of the compact kernel (0 when they pass)."""
+    """Phase 4 checks for one scatter-add case: dense, compact in place and
+    compact blocks == their plain versions bit for bit, two runs
+    bit-identical, the in-place grid == the dense grid and == the placed
+    blocks; returns max |kernel - plain| of the dense and of the compact
+    kernel (0 when they pass)."""
     import torch
 
     from repro_torch.testing.parity import ATOL_FRAC, RTOL
 
     dense1, dense2 = case.dense(), case.dense()
     comp1, comp2 = case.compact(), case.compact()
-    plain, plain_c = case.plain_dense(), case.plain_compact()
+    blocks1, blocks2 = case.compact_blocks(), case.compact_blocks()
+    plain, plain_blocks = case.plain_dense(), case.plain_blocks()
+    plain_c = case._place(plain_blocks)
     lib = case.library()
     torch.cuda.synchronize()
     err = float((dense1 - plain).abs().max())
-    err_c = float((comp1 - plain_c).abs().max())
+    err_c = max(float((comp1 - plain_c).abs().max()),
+                float((blocks1 - plain_blocks).abs().max()))
     atol = ATOL_FRAC * float(lib.abs().max())
     lib_err = float((dense1 - lib).abs().max())
     print(f"{label}: grid {tuple(dense1.shape)}, max |kernel - plain| = "
-          f"{err:.6g} (compact {err_c:.6g}), max |kernel - index_put_| = "
-          f"{lib_err:.6g} (atol {atol:.6g}, rtol {RTOL}); max |grid| = "
-          f"{float(plain.abs().max()):.6g}; tiles {case.tw}x{case.tt}, "
-          f"n_cap {case.n_cap}, k_max {case.k_max}", flush=True)
+          f"{err:.6g} (compact, in place and blocks {err_c:.6g}), max "
+          f"|kernel - index_put_| = {lib_err:.6g} (atol {atol:.6g}, rtol "
+          f"{RTOL}); max |grid| = {float(plain.abs().max()):.6g}; tiles "
+          f"{case.tw}x{case.tt}, n_cap {case.n_cap}, k_max {case.k_max}; "
+          f"entries per tile: {length_stats(case.ids, case.k_max)}",
+          flush=True)
     check(float(dense1.sum()) > 0.0, f"{label}: empty grid")
     check(torch.equal(dense1, plain), f"{label}: dense kernel != plain "
           "version")
-    check(torch.equal(comp1, plain_c), f"{label}: compact kernel != plain "
-          "version")
-    check(torch.equal(dense1, dense2) and torch.equal(comp1, comp2),
+    check(torch.equal(comp1, plain_c), f"{label}: compact kernel (in place) "
+          "!= plain version")
+    check(torch.equal(blocks1, plain_blocks), f"{label}: compact kernel "
+          "blocks != plain version")
+    check(torch.equal(dense1, dense2) and torch.equal(comp1, comp2)
+          and torch.equal(blocks1, blocks2),
           f"{label}: kernel not bit-identical run to run")
-    check(torch.equal(comp1, dense1), f"{label}: compact kernel != dense "
-          "kernel")
+    check(torch.equal(comp1, dense1), f"{label}: compact kernel (in place) "
+          "!= dense kernel")
+    check(torch.equal(comp1, case._place(blocks1)), f"{label}: compact "
+          "kernel in place != its placed blocks")
     check(torch.allclose(dense1, lib, rtol=RTOL, atol=atol),
           f"{label}: kernel outside tolerance of index_put_")
     return err, err_c
@@ -897,6 +1082,19 @@ def check_multiplane(case, label: str):
     return err, err_c
 
 
+def full_list_depos(dev):
+    """FULL_LIST depos inside tile (0, 0) of 64 x 256 tiles, so its list
+    fills k_max = FULL_LIST exactly."""
+    import torch
+
+    from repro_torch.core.depo import DepoSet
+
+    gen = torch.Generator().manual_seed(3)
+    lo, hi = torch.tensor(FULL_LIST_LOW), torch.tensor(FULL_LIST_HIGH)
+    values = lo + (hi - lo) * torch.rand((FULL_LIST, 5), generator=gen)
+    return DepoSet(*values.T.contiguous().to(dev))
+
+
 def fused_cases(dev):
     """(label, case) of every fused case: full MicroBooNE width with 64 x
     256 and with 32 x 128 tiles, the tile-edge grid, four single depos on
@@ -923,14 +1121,9 @@ def fused_cases(dev):
                           for v in values))
         cases.append((f"one depo, {label}",
                        KernelCase(one, prng.key(2), 64, 256, dev, depos)))
-    # FULL_LIST depos inside tile (0, 0), so its list fills k_max exactly
-    gen = torch.Generator().manual_seed(3)
-    lo, hi = torch.tensor(FULL_LIST_LOW), torch.tensor(FULL_LIST_HIGH)
-    values = lo + (hi - lo) * torch.rand((FULL_LIST, 5), generator=gen)
     full_list = KernelCase(dataclasses.replace(edge_cfg,
                                                num_depos=FULL_LIST),
-                           prng.key(3), 64, 256, dev,
-                           DepoSet(*values.T.contiguous().to(dev)),
+                           prng.key(3), 64, 256, dev, full_list_depos(dev),
                            k_max=FULL_LIST)
     check(int((full_list.ids.view(-1, FULL_LIST) >= 0).sum(1).max())
           == FULL_LIST, "k_max 48 case: no list fills k_max")
@@ -1081,11 +1274,32 @@ def main() -> int:
                                    "scatter-add full width 64x256 tiles")
     check_scatter(ScatterCase(edge_cfg, prng.key(1), 32, 128, dev),
                   "scatter-add tile-edge 96x768, 32x128 tiles")
+    # tiles of 30 wires (no multiple of the 4 row parts: no list splits),
+    # and patches of 72 x 40 (wider than a 64-wire tile, two 32-column
+    # blocks a row)
+    check_scatter(ScatterCase(edge_cfg, prng.key(4), 30, 128, dev),
+                  "scatter-add tile-edge 96x768, 30x128 tiles")
+    check_scatter(ScatterCase(dataclasses.replace(edge_cfg, patch_wires=72,
+                                                  patch_ticks=40),
+                              prng.key(4), 64, 128, dev),
+                  "scatter-add tile-edge 96x768, 72x40 patches, 64x128 "
+                  "tiles")
     for label, values in ONE_DEPO_CASES:
         depos = DepoSet(*(torch.tensor([v], dtype=torch.float32, device=dev)
                           for v in values))
         check_scatter(ScatterCase(one, prng.key(2), 64, 256, dev, depos),
                       f"scatter-add one depo, {label}")
+    # a list filling k_max = 48 (no multiple of the 32-entry chunk); the
+    # launch expects ~67 entries over >= 132 resident CTAs, so its long-list
+    # threshold is 0 and the tile runs split over 4 CTAs by row
+    full_scatter = ScatterCase(dataclasses.replace(edge_cfg,
+                                                   num_depos=FULL_LIST),
+                               prng.key(3), 64, 256, dev, full_list_depos(dev),
+                               k_max=FULL_LIST)
+    check(int((full_scatter.ids.view(-1, FULL_LIST) >= 0).sum(1).max())
+          == FULL_LIST, "scatter k_max 48 case: no list fills k_max")
+    check_scatter(full_scatter, f"scatter-add {FULL_LIST} depos, one list "
+                  f"filling k_max {FULL_LIST}, split over 4 CTAs")
 
     raster_case = RasterCase(full, key0, dev)
     raster_err = 0.0
@@ -1163,13 +1377,19 @@ def main() -> int:
 
     for scatter in SCATTER_STRATEGIES:
         cfg = dataclasses.replace(full, scatter_strategy=scatter)
-        adcs[scatter], launches[scatter], sim, _ = run_main(
-            cfg, f"unfused+{scatter}", SCATTER_EVENTS, dev, [scatter_kernel])
+        with count_calls(PLACEMENT) as placements:
+            adcs[scatter], launches[scatter], sim, _ = run_main(
+                cfg, f"unfused+{scatter}", SCATTER_EVENTS, dev,
+                [scatter_kernel])
         print_stages(f"unfused+{scatter}", sim, key0,
                      generate_depos(key0, full, device=dev))
         name = f"scatter_add_{scatter}"
         check(launches[scatter][name] == SCATTER_EVENTS,
               f"{scatter}: kernel launches {launches[scatter]}")
+        check(placements == [0] * len(PLACEMENT), f"unfused+{scatter}: the "
+              f"blocks were placed on the card {placements}")
+    print(f"unfused+pallas_compact: the kernel wrote the grid in place (no "
+          f"call of {', '.join(m + '.' + f for m, f in PLACEMENT)})")
     for ev in range(SCATTER_EVENTS):
         check(torch.equal(adcs["pallas"][ev], adcs["pallas_compact"][ev]),
               f"event {ev}: unfused pallas and pallas_compact ADC differ")
@@ -1211,16 +1431,28 @@ def main() -> int:
 
     planes0 = [(f"recon event 0 plane {p}", recon0.decon[p].contiguous())
                for p in range(PLANES)]
-    hit_err = check_hitfind(planes0 + hit_edge_grids(dev),
-                            full.max_hits_per_wire)
+    cap = full.max_hits_per_wire
+    hit_err = check_hitfind(planes0, cap)
+    # the plane with the most runs at HIT_CAPS[-1] stored runs per wire
+    hit_err = max(hit_err, check_hitfind(planes0[-1:], HIT_CAPS[-1]))
+    for label, grid in planes0:
+        print(f"hit scan {label}: "
+              f"{run_length_stats(stored_run_lengths(grid, HIT_THRESHOLD, cap))}",
+              flush=True)
+    edge_grids = [g for t in HIT_CASE_TICKS for g in hit_edge_grids(dev, t)]
+    for threshold in HIT_THRESHOLDS:
+        for edge_cap in HIT_CAPS:
+            hit_err = max(hit_err, check_hitfind(edge_grids, edge_cap,
+                                                 threshold))
     print("hit scan: kernel == plain version bit for bit on every plane and "
-          "edge case", flush=True)
+          f"edge case (thresholds {HIT_THRESHOLDS}, caps {HIT_CAPS})",
+          flush=True)
 
     phase("kernel timing")
     rows = []
     fused_src = "src/repro_torch/csrc/fused_sim.cu"
     scatter_src = "src/repro_torch/csrc/scatter_add.cu"
-    grid0, cap = planes0[0][1], full.max_hits_per_wire
+    grid0 = planes0[0][1]
     # (name, wrapper call, plain call, plain calls timed, bound, library
     # call or None, source, replaced TPU kernel, main-path run, max error)
     timed = (
@@ -1271,6 +1503,8 @@ def main() -> int:
     for (name, fn, plain, plain_iters, (bound_ms, bound_by), library,
          source, replaces, run, err) in timed:
         ms, rounds = wrapper_ms(fn)
+        on_card_ms = card_ms(fn)
+        host_ms = primed_time(fn)[1]
         plain_ms = cuda_time(plain, iters=plain_iters, warmup=1)
         library_ms = wrapper_ms(library)[0] if library else None
         rows.append({
@@ -1278,7 +1512,8 @@ def main() -> int:
             "replaces": replaces, "launches": launches[run][name],
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms})
+            "library_ms": library_ms, "ms_card": on_card_ms,
+            "host_ms": host_ms})
         support_text = ""
         if name in support_bounds:
             rows[-1]["bound_all_support_ms"] = support_bounds[name]
@@ -1289,12 +1524,23 @@ def main() -> int:
                     "library call: none (no single PyTorch call computes "
                     "this function)")
         print(f"{name}: {ms:.4f} ms/call of the wrapper (median of 5 rounds "
-              f"of 20 calls, CUDA events; rounds {rounds[0]:.4f}.."
-              f"{rounds[-1]:.4f} ms); plain {plain_ms:.3f} ms (mean of "
+              f"of 20 calls, CUDA events, host-paced; rounds "
+              f"{rounds[0]:.4f}..{rounds[-1]:.4f} ms); on the card alone "
+              f"(primed) {on_card_ms:.4f} ms/call; host enqueue "
+              f"{host_ms:.4f} ms/call; "
+              f"plain {plain_ms:.3f} ms (mean of "
               f"{plain_iters}); bound {bound_ms:.4f} ms ({bound_by})"
               f"{support_text}; "
               f"{lib_text}; launches on the main path "
               f"{launches[run][name]}", flush=True)
+    for label, grid in planes0:
+        def scan(grid=grid):
+            return hit_kernel.hitfind_pallas(grid, threshold=HIT_THRESHOLD,
+                                             cap=cap)
+
+        print(f"hitfind_pallas on {label}: {wrapper_ms(scan)[0]:.4f} "
+              f"ms/call host-paced, {card_ms(scan):.4f} on the card alone, "
+              f"bound {hit_bound(grid, cap)[0]:.4f} ms", flush=True)
     unfluct_ms = wrapper_ms(lambda: raster_case.kernel(False))[0]
     print(f"rasterize_pallas without fluctuation: {unfluct_ms:.4f} ms/call, "
           f"bound {raster_case.bound(False)[0]:.4f} ms "

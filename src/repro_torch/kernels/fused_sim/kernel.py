@@ -11,11 +11,11 @@ replace the reference's Pallas kernels of the same names
 version in ``ref.py``. ``LAUNCHES`` counts kernel launches per wrapper
 (plain-version calls do not count).
 
-Two pieces serve the kernels: ``launch_order`` starts the CTAs longest
-list first (two small kernels of the same source on the card, a stable
-sort on the CPU), and on the card the compact layout writes each occupied
-tile in place into a grid zeroed once (``scatter_tiles_to_grid_planes``
-places the plain version's blocks on the CPU path).
+The CTAs start longest list first (``kernels/tiles.py``, whose two small
+kernels this source compiles), and on the card the compact layout writes
+each occupied tile in place into a grid zeroed once
+(``tiles.scatter_tiles_to_grid_planes`` places the plain version's blocks
+on the CPU path).
 """
 from __future__ import annotations
 
@@ -28,6 +28,8 @@ from repro_torch.kernels import (check_tensor, declare, kernel_device,
                                  load_library, raise_on)
 from repro_torch.kernels.fused_sim import ref
 from repro_torch.kernels.scatter_add.ops import tile_counts
+from repro_torch.kernels.tiles import (ORDER_ARGS, lengths_and_order,
+                                       scatter_tiles_to_grid_planes)
 
 #: kernel launches per wrapper since the last ``reset_launches``
 LAUNCHES: Dict[str, int] = {"fused_rasterize_scatter": 0,
@@ -45,8 +47,7 @@ _TAIL_ARGS = [_P, _P] + [_I] * 11 + [_P, _P, _P]
 SIGNATURES = {
     "fused_sim_dense": _PARAM_ARGS + [_P] + _TAIL_ARGS,  # + ids
     "fused_sim_compact": _PARAM_ARGS + [_P, _P] + _TAIL_ARGS,  # + active, ids
-    # ids, n_slots, k_max, lengths, order, stream
-    "fused_sim_launch_order": [_P, _I, _I, _P, _P, _P]}
+    "fused_sim_launch_order": ORDER_ARGS}  # wrapped by kernels/tiles.py
 
 Seed = Tuple[int, int]
 
@@ -86,34 +87,6 @@ def _seed_words(seed: Optional[Sequence[int]]) -> Seed:
     return s0, s1
 
 
-def launch_order(tile_ids: torch.Tensor, k_max: int) -> torch.Tensor:
-    """The CTA launch order of ``k_max``-long per-slot lists: the slots
-    sorted by descending list length (entries up to the first -1), stable,
-    so slots of equal length keep their order. (n_slots,) int32 on the
-    lists' device: computed by two kernels on the card, by the plain
-    version on the CPU. Not counted in ``LAUNCHES``."""
-    dev = kernel_device(tile_ids)
-    n_slots = tile_ids.numel() // k_max
-    check_tensor("tile_ids", tile_ids, torch.int32, (n_slots * k_max,), dev)
-    if dev.type == "cpu":
-        return ref.launch_order_ref(tile_ids, k_max)
-    return _lengths_and_order(tile_ids, k_max)[1]
-
-
-def _lengths_and_order(tile_ids: torch.Tensor, k_max: int):
-    """The lists' filled lengths and launch order, by the two kernels."""
-    dev = tile_ids.device
-    scratch = torch.empty((2, tile_ids.numel() // k_max), dtype=torch.int32,
-                          device=dev)
-    with torch.cuda.device(dev):
-        err = _library().fused_sim_launch_order(
-            tile_ids.data_ptr(), scratch.shape[1], k_max,
-            scratch[0].data_ptr(), scratch[1].data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
-    raise_on(err, "fused_sim_launch_order")
-    return scratch[0], scratch[1]
-
-
 def _launch(entry: str, name: str, params, lists, seeds: Sequence[Seed], *,
             per_plane: int, n_tiles: int, fluctuate: bool, tiles_t: int,
             tw: int, tt: int, pw: int, pt: int, k_max: int,
@@ -121,7 +94,7 @@ def _launch(entry: str, name: str, params, lists, seeds: Sequence[Seed], *,
     """Launch ``entry`` over len(seeds) planes of ``per_plane`` slots,
     longest list first; the last of ``lists`` holds the depo lists."""
     dev = out.device
-    lengths, order = _lengths_and_order(lists[-1], k_max)
+    lengths, order = lengths_and_order(lists[-1], k_max)
     words = (ctypes.c_uint32 * (2 * len(seeds)))(*(w for s in seeds
                                                      for w in s))
     with torch.cuda.device(dev):
@@ -259,33 +232,3 @@ def fused_rasterize_scatter_multiplane_compact(
     return _compact("fused_rasterize_scatter_multiplane_compact", params,
                     active_tiles, tile_ids, _plane_seeds(seeds, num_planes),
                     **geom)
-
-
-def scatter_tiles_to_grid_planes(blocks: torch.Tensor,
-                                 active_tiles: torch.Tensor, num_planes: int,
-                                 tiles_w: int, tiles_t: int, tw: int,
-                                 tt: int) -> torch.Tensor:
-    """Place (P*n_cap, tw, tt) blocks into (P, tiles_w*tw, tiles_t*tt)
-    grids: ``active_tiles`` holds plane-LOCAL tile ids in plane-major runs
-    of n_cap slots; -1 slots are dropped, unoccupied tiles stay zero."""
-    n_tiles = tiles_w * tiles_t
-    n_cap = active_tiles.shape[0] // num_planes
-    offs = torch.arange(num_planes, device=active_tiles.device
-                        ).repeat_interleave(n_cap) * n_tiles
-    # -1 slots land in one extra row that is cut off (no host sync)
-    dest = torch.where(active_tiles >= 0, active_tiles.long() + offs,
-                       torch.full_like(offs, num_planes * n_tiles))
-    full = torch.zeros((num_planes * n_tiles + 1, tw, tt), dtype=blocks.dtype,
-                       device=blocks.device)
-    full.index_copy_(0, dest, blocks)
-    return full[:-1].reshape(num_planes, tiles_w, tiles_t, tw, tt).transpose(
-        2, 3).reshape(num_planes, tiles_w * tw, tiles_t * tt)
-
-
-def scatter_tiles_to_grid(blocks: torch.Tensor, active_tiles: torch.Tensor,
-                          tiles_w: int, tiles_t: int, tw: int,
-                          tt: int) -> torch.Tensor:
-    """Place (n_cap, tw, tt) blocks into the padded (tiles_w*tw,
-    tiles_t*tt) grid; -1 slots are dropped, unoccupied tiles stay zero."""
-    return scatter_tiles_to_grid_planes(blocks, active_tiles, 1, tiles_w,
-                                        tiles_t, tw, tt)[0]

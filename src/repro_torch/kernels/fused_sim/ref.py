@@ -122,12 +122,3 @@ def fused_rasterize_scatter_multiplane_compact_ref(
                                             actives[p], lists[p], seed=seed,
                                             **geom)
         for p, seed in enumerate(seeds)])
-
-
-def launch_order_ref(tile_ids: torch.Tensor, k_max: int) -> torch.Tensor:
-    """Slots of ``k_max``-long lists by descending filled length (the run
-    before the first -1), stable: (n_slots,) int32."""
-    filled = (tile_ids.view(-1, k_max) >= 0).to(torch.int32)
-    lengths = torch.cumprod(filled, 1).sum(1)
-    return torch.sort(lengths, descending=True,
-                      stable=True).indices.to(torch.int32)

@@ -21,6 +21,11 @@ from repro_torch.kernels.hitfind import ref
 #: kernel launches per wrapper since the last ``reset_launches``
 LAUNCHES: Dict[str, int] = {"hitfind_pallas": 0}
 
+#: the kernel's step in ticks (``kStep`` of csrc/hitfind.cu, which refuses
+#: any other value): a wire is read 512 ticks at a time, so runs that cross
+#: a multiple of it are the edge cases to check
+STEP = 512
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
@@ -30,12 +35,17 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
+#: the C entry point of csrc/hitfind.cu and its argument types: decon,
+#: num_wires, num_ticks, threshold, cap, step, counts, charge, tick, peak,
+#: stream
+SIGNATURES = {"hitfind_scan": [_P, _I, _I, ctypes.c_float, _I, _I]
+              + [_P] * 5}
+
+
 def _library() -> ctypes.CDLL:
     lib = load_library("hitfind")
-    # decon, num_wires, num_ticks, threshold, cap, counts, charge, tick,
-    # peak, stream
-    declare(lib, "hitfind_scan",
-            [_P, _I, _I, ctypes.c_float, _I] + [_P] * 5)
+    for name, argtypes in SIGNATURES.items():
+        declare(lib, name, argtypes)
     return lib
 
 
@@ -58,7 +68,7 @@ def hitfind_pallas(decon: torch.Tensor, *, threshold: float, cap: int):
                                       device=dev) for _ in range(3))
     with torch.cuda.device(dev):
         err = _library().hitfind_scan(
-            decon.data_ptr(), w, t, threshold, cap, counts.data_ptr(),
+            decon.data_ptr(), w, t, threshold, cap, STEP, counts.data_ptr(),
             charge.data_ptr(), tick.data_ptr(), peak.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     raise_on(err, "hitfind_scan")

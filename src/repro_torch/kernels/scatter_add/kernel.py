@@ -1,14 +1,19 @@
-"""Wrappers of the owner-computes scatter-add CUDA kernels.
+"""Wrappers of the owner-computes scatter-add CUDA kernel.
 
 ``scatter_add_pallas`` (dense tile grid) and ``scatter_add_pallas_compact``
 (occupied tiles only) replace the reference's Pallas kernels of the same
 names (``src/repro/kernels/scatter_add/kernel.py:97`` and ``:140``) and
 return what they return: the padded (tiles_w*tw, tiles_t*tt) grid, or one
-(tw, tt) block per active slot. On CUDA tensors each wrapper launches its
-kernel from ``csrc/scatter_add.cu`` or raises; on CPU tensors it runs the
-plain PyTorch version in ``ref.py``. ``LAUNCHES`` counts kernel launches
-per wrapper (plain-version calls do not count). Patches are float32; the
-reference's bfloat16 patch input is not ported yet.
+(tw, tt) block per active slot. The compact wrapper can instead write each
+occupied tile in place into the padded grid (``layout="grid"``), which is
+what the ``pallas_compact`` strategy runs. On CUDA tensors each wrapper
+launches ``scatter_add_launch`` from ``csrc/scatter_add.cu`` (CTAs longest
+list first, by ``kernels/tiles.py``) or raises; the kernel always writes
+the grid, and the compact blocks are gathered from it. On CPU tensors each
+wrapper runs the plain PyTorch version in ``ref.py``.
+``LAUNCHES`` counts kernel launches per wrapper (plain-version calls do not
+count). Patches are float32; the reference's bfloat16 patch input is not
+ported yet.
 """
 from __future__ import annotations
 
@@ -21,10 +26,18 @@ from repro_torch.kernels import (check_tensor, declare, kernel_device,
                                  load_library, raise_on)
 from repro_torch.kernels.scatter_add import ref
 from repro_torch.kernels.scatter_add.ops import tile_counts
+from repro_torch.kernels.tiles import (lengths_and_order,
+                                       scatter_tiles_to_grid, tiles_of_grid)
 
 #: kernel launches per wrapper since the last ``reset_launches``
 LAUNCHES: Dict[str, int] = {"scatter_add_pallas": 0,
                             "scatter_add_pallas_compact": 0}
+
+#: the compact wrapper's outputs: the reference's blocks, or the padded
+#: grid written in place
+LAYOUTS = ("blocks", "grid")
+#: the C entry point's modes: dense lists, or compact ones with tile ids
+_DENSE, _COMPACT = 0, 1
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -35,14 +48,16 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
+#: the C entry point of csrc/scatter_add.cu and its argument types:
+#: patches, w0, t0, active, ids, order, lengths, n_depos, pw, pt, n_slots,
+#: tiles_t, tw, tt, k_max, mode, out, stream
+SIGNATURES = {"scatter_add_launch": [_P] * 7 + [_I] * 9 + [_P, _P]}
+
+
 def _library() -> ctypes.CDLL:
     lib = load_library("scatter_add")
-    # patches, w0, t0, ids, pw, pt, n_tiles, tiles_t, tw, tt, k_max, out,
-    # stream
-    declare(lib, "scatter_add_dense", [_P] * 4 + [_I] * 7 + [_P, _P])
-    # patches, w0, t0, active, ids, pw, pt, n_cap, tiles_t, tw, tt, k_max,
-    # blocks, stream
-    declare(lib, "scatter_add_compact", [_P] * 5 + [_I] * 7 + [_P, _P])
+    for name, argtypes in SIGNATURES.items():
+        declare(lib, name, argtypes)
     return lib
 
 
@@ -57,12 +72,21 @@ def _checked(patches, w0, t0):
     return dev
 
 
-def _call(entry: str, name: str, patches, *ints_and_ptrs) -> None:
+def _launch(name: str, patches, w0, t0, active, tile_ids, *, n_slots: int,
+            tiles_t: int, tw: int, tt: int, k_max: int, mode: int,
+            out: torch.Tensor) -> None:
+    """Launch the kernel over ``n_slots`` lists, longest first."""
     dev = patches.device
+    n, pw, pt = patches.shape
+    lengths, order = lengths_and_order(tile_ids, k_max)
     with torch.cuda.device(dev):
-        err = getattr(_library(), entry)(
-            *ints_and_ptrs, torch.cuda.current_stream(dev).cuda_stream)
-    raise_on(err, entry)
+        err = _library().scatter_add_launch(
+            patches.data_ptr(), w0.data_ptr(), t0.data_ptr(),
+            0 if active is None else active.data_ptr(), tile_ids.data_ptr(),
+            order.data_ptr(), lengths.data_ptr(), n, pw, pt, n_slots,
+            tiles_t, tw, tt, k_max, mode, out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    raise_on(err, "scatter_add_launch")
     LAUNCHES[name] += 1
 
 
@@ -76,7 +100,6 @@ def scatter_add_pallas(patches, w0, t0, tile_ids, *, num_wires: int,
     padded (tiles_w*tw, tiles_t*tt) grid.
     """
     dev = _checked(patches, w0, t0)
-    _, pw, pt = patches.shape
     tiles_w, tiles_t, n_tiles = tile_counts(num_wires, num_ticks, tw, tt)
     check_tensor("tile_ids", tile_ids, torch.int32, (n_tiles * k_max,), dev)
     if dev.type == "cpu":
@@ -84,36 +107,47 @@ def scatter_add_pallas(patches, w0, t0, tile_ids, *, num_wires: int,
                                    tiles_t=tiles_t, tw=tw, tt=tt, k_max=k_max)
     out = torch.empty((tiles_w * tw, tiles_t * tt), dtype=torch.float32,
                       device=dev)
-    _call("scatter_add_dense", "scatter_add_pallas", patches,
-          patches.data_ptr(), w0.data_ptr(), t0.data_ptr(),
-          tile_ids.data_ptr(), pw, pt, n_tiles, tiles_t, tw, tt, k_max,
-          out.data_ptr())
+    _launch("scatter_add_pallas", patches, w0, t0, None, tile_ids,
+            n_slots=n_tiles, tiles_t=tiles_t, tw=tw, tt=tt, k_max=k_max,
+            mode=_DENSE, out=out)
     return out
 
 
 def scatter_add_pallas_compact(patches, w0, t0, active_tiles, tile_ids, *,
                                num_wires: int, num_ticks: int, tw: int,
-                               tt: int, k_max: int) -> torch.Tensor:
+                               tt: int, k_max: int,
+                               layout: str = "blocks") -> torch.Tensor:
     """Owner-computes scatter-add over the OCCUPIED tiles only.
 
     active_tiles: (n_cap,) int32 global tile ids, -1 padded; tile_ids:
-    (n_cap*k_max,) int32 depo lists per active slot. Returns (n_cap, tw, tt)
-    blocks (zero for -1 slots), which ``fused_sim.kernel.
-    scatter_tiles_to_grid`` places into the grid.
+    (n_cap*k_max,) int32 depo lists per active slot. ``layout="blocks"``
+    returns the reference's (n_cap, tw, tt) blocks (zero for -1 slots),
+    which ``tiles.scatter_tiles_to_grid`` places into the grid;
+    ``layout="grid"`` returns that padded (tiles_w*tw, tiles_t*tt) grid. On
+    the card the kernel writes the grid in place into a grid zeroed once,
+    and the blocks are its tiles at ``active_tiles``.
     """
+    if layout not in LAYOUTS:
+        raise ValueError(f"layout must be one of {sorted(LAYOUTS)}, got "
+                         f"{layout!r}")
     dev = _checked(patches, w0, t0)
-    _, pw, pt = patches.shape
-    _, tiles_t, _ = tile_counts(num_wires, num_ticks, tw, tt)
+    tiles_w, tiles_t, _ = tile_counts(num_wires, num_ticks, tw, tt)
     n_cap = active_tiles.shape[0]
     check_tensor("active_tiles", active_tiles, torch.int32, (n_cap,), dev)
     check_tensor("tile_ids", tile_ids, torch.int32, (n_cap * k_max,), dev)
     if dev.type == "cpu":
-        return ref.scatter_add_compact_ref(patches, w0, t0, active_tiles,
-                                           tile_ids, tiles_t=tiles_t, tw=tw,
-                                           tt=tt, k_max=k_max)
-    blocks = torch.empty((n_cap, tw, tt), dtype=torch.float32, device=dev)
-    _call("scatter_add_compact", "scatter_add_pallas_compact", patches,
-          patches.data_ptr(), w0.data_ptr(), t0.data_ptr(),
-          active_tiles.data_ptr(), tile_ids.data_ptr(), pw, pt, n_cap,
-          tiles_t, tw, tt, k_max, blocks.data_ptr())
-    return blocks
+        blocks = ref.scatter_add_compact_ref(patches, w0, t0, active_tiles,
+                                             tile_ids, tiles_t=tiles_t,
+                                             tw=tw, tt=tt, k_max=k_max)
+        if layout == "blocks":
+            return blocks
+        return scatter_tiles_to_grid(blocks, active_tiles, tiles_w, tiles_t,
+                                     tw, tt)
+    grid = torch.zeros((tiles_w * tw, tiles_t * tt), dtype=torch.float32,
+                       device=dev)
+    _launch("scatter_add_pallas_compact", patches, w0, t0, active_tiles,
+            tile_ids, n_slots=n_cap, tiles_t=tiles_t, tw=tw, tt=tt,
+            k_max=k_max, mode=_COMPACT, out=grid)
+    if layout == "grid":
+        return grid
+    return tiles_of_grid(grid, active_tiles, tiles_w, tiles_t, tw, tt)

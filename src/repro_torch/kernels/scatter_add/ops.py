@@ -187,23 +187,23 @@ def scatter_add_tiles_compact(patches, w0, t0, *, num_wires: int,
     """Owner-computes scatter-add over the OCCUPIED tiles only.
 
     The occupancy is counted on the host (one read) and bucketed to a power
-    of two unless ``n_active`` gives it. Bit-identical to
-    ``scatter_add_tiles``. Returns ((num_wires, num_ticks) grid, dropped).
+    of two unless ``n_active`` gives it. On the card the kernel writes each
+    occupied tile in place into a grid zeroed once (no blocks buffer, no
+    placement copy). Bit-identical to ``scatter_add_tiles``. Returns
+    ((num_wires, num_ticks) grid, dropped).
     """
-    from repro_torch.kernels.fused_sim.kernel import scatter_tiles_to_grid
     from repro_torch.kernels.scatter_add.kernel import (
         scatter_add_pallas_compact)
 
     n, pw, pt = patches.shape
     tw, tt = max(tw, pw), max(tt, pt)
     k_max = k_max or default_k_max(n, num_wires, num_ticks, tw, tt)
-    tiles_w, tiles_t, _ = tile_counts(num_wires, num_ticks, tw, tt)
     n_cap = compact_n_cap(n_active, [w0], [t0], pw, pt, num_wires, num_ticks,
                           tw, tt)
     active, ids, dropped = bin_depos_to_tiles_compact(
         w0, t0, pw, pt, num_wires, num_ticks, tw, tt, k_max, n_cap)
-    blocks = scatter_add_pallas_compact(
+    grid = scatter_add_pallas_compact(
         patches, w0.to(torch.int32), t0.to(torch.int32), active, ids,
-        num_wires=num_wires, num_ticks=num_ticks, tw=tw, tt=tt, k_max=k_max)
-    grid = scatter_tiles_to_grid(blocks, active, tiles_w, tiles_t, tw, tt)
+        num_wires=num_wires, num_ticks=num_ticks, tw=tw, tt=tt, k_max=k_max,
+        layout="grid")
     return grid[:num_wires, :num_ticks], dropped

@@ -21,6 +21,7 @@ from repro.kernels.fused_sim import ops as jops
 from repro.kernels.scatter_add import ops as jbin
 from repro_torch import interop
 from repro_torch.core.depo import depo_patch_origin
+from repro_torch.kernels import tiles
 from repro_torch.kernels.fused_sim import kernel as tkernel
 from repro_torch.kernels.fused_sim import ops as tops
 from repro_torch.kernels.scatter_add import ops as tbin
@@ -364,7 +365,7 @@ def _synthetic_lists():
 def test_launch_order_is_a_stable_longest_first_permutation(lists):
     ids, k_max = (_synthetic_lists() if lists == "ties"
                   else _lists(*lists.split("-")))
-    order = tkernel.launch_order(ids, k_max)
+    order = tiles.launch_order(ids, k_max)
     n_slots = ids.numel() // k_max
     assert order.dtype == torch.int32 and order.shape == (n_slots,)
     assert sorted(order.tolist()) == list(range(n_slots))
@@ -400,7 +401,7 @@ def test_scatter_tiles_to_grid_planes_places_each_slot_at_its_tile(
             r, c = divmod(int(t), tiles_t)
             want[i // n_cap, r * tw:(r + 1) * tw, c * tt:(c + 1) * tt] = \
                 blocks[i]
-    got = tkernel.scatter_tiles_to_grid_planes(
+    got = tiles.scatter_tiles_to_grid_planes(
         torch.from_numpy(blocks), torch.from_numpy(active.reshape(-1)),
         num_planes, tiles_w, tiles_t, tw, tt)
     np.testing.assert_array_equal(got.numpy(), want)
@@ -426,7 +427,7 @@ def test_launch_order_ends_a_list_at_its_first_gap():
     """A -1 ends a list, as in the kernel: entries after it do not count."""
     ids = torch.tensor([5, -1, 7, 8,  1, 2, -1, -1,  3, 4, 5, -1],
                        dtype=torch.int32)
-    assert tkernel.launch_order(ids, 4).tolist() == [2, 1, 0]
+    assert tiles.launch_order(ids, 4).tolist() == [2, 1, 0]
 
 
 @pytest.mark.parametrize("name", sorted(tkernel.SIGNATURES))

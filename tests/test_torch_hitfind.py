@@ -196,3 +196,156 @@ def test_stack_hits_adds_plane_axis():
     for p, h in enumerate(hits):
         for f in thit.HitSet._fields:
             assert torch.equal(getattr(stacked, f)[p], getattr(h, f))
+
+
+# ---------------------------------------------------------------------------
+# The run decomposition the CUDA kernel relies on (csrc/hitfind.cu): runs
+# found from shifted masks (the kernel: one 32-bit ballot per 32 ticks, the
+# previous tick's flag carried in), ranked by a cumulative count of starts
+# (the kernel: popcounts), and the first ``cap`` runs summed one tick after
+# another from their first sample. A numpy model of that decomposition
+# must give the reference scan's bits.
+# ---------------------------------------------------------------------------
+
+#: the kernel's load width and tick step
+LOAD, STEP = 32, tkernel.STEP
+
+
+def _kernel_grid(name: str, w: int = 70, t: int = 1001) -> np.ndarray:
+    """(W, T) grids of the kernel's edge cases: W no multiple of its 4
+    wires per CTA, T no multiple of 4, of a 32-tick load or of its step."""
+    rng = np.random.default_rng(t)
+    noise = (rng.standard_normal((w, t)) * 600.0).astype(np.float32)
+    if name == "noise":
+        return noise
+    g = np.zeros((w, t), np.float32)
+    g[0, 0] = 700.0
+    g[1, -3:] = [550.0, 2000.0, 900.0]                # open at the last tick
+    g[2, :] = 1000.0 + np.arange(t)                   # one run, the whole wire
+    g[3, ::2] = 800.0                                 # more runs than any cap
+    for lo, hi in ((LOAD - 2, LOAD + 3), (STEP // 2 - 1, STEP // 2 + 1),
+                   (STEP - 5, STEP + 7)):
+        g[4, lo:hi] = 900.0 + np.arange(hi - lo)      # across load/step edges
+    g[5, LOAD - 1] = 650.0                            # last tick of a load
+    g[5, STEP - 40:STEP] = 650.0                      # ends on a step's first
+    g[5, STEP + 1] = 660.0                            # tick; one tick after
+    last_step = (t - 1) // STEP * STEP
+    g[6, 5:40:5] = 720.0                              # 7 runs, then the 8th
+    g[6, last_step + 17:] = 1500.0                    # in the last step
+    g[7, 10:20] = 500.0                               # == threshold 500
+    g[8, 1:-1] = 0.37 * noise[8, 1:-1] + 333.3        # around 333.3
+    g[9:40] = noise[9:40]
+    g[40:] = np.abs(noise[40:]) * 0.5 + 450.0
+    return g
+
+
+def _word_masks(above: np.ndarray):
+    """Run starts and closes (the first tick below after a run) of one
+    wire's flags, one 32-tick word at a time with the previous tick's flag
+    carried in, as the kernel's ballots find them; ticks past T are below."""
+    t = above.shape[0]
+    words = -(-(t + 1) // LOAD)
+    flags = np.zeros(words * LOAD, bool)
+    flags[:t] = above
+    starts = np.zeros_like(flags)
+    closes = np.zeros_like(flags)
+    carry = 0
+    for k in range(words):
+        m = int(np.sum(flags[k * LOAD:(k + 1) * LOAD].astype(np.uint64)
+                       << np.arange(LOAD, dtype=np.uint64)))
+        prev = ((m << 1) | carry) & 0xFFFFFFFF
+        carry = m >> 31
+        for bit, mask in ((m & ~prev, starts), (~m & prev & 0xFFFFFFFF,
+                                                closes)):
+            mask[k * LOAD:(k + 1) * LOAD] = (bit >> np.arange(LOAD)) & 1
+    return starts, closes
+
+
+def _model_scan(grid: np.ndarray, threshold: float, cap: int):
+    """The kernel's decomposition in numpy: (counts (W,), charge, tick,
+    peak (W, cap))."""
+    w, t = grid.shape
+    above = grid > np.float32(threshold)
+    prev = np.zeros_like(above)
+    prev[:, 1:] = above[:, :-1]
+    starts = above & ~prev
+    after = np.zeros((w, t + 1), bool)
+    after[:, :t] = above
+    closes = np.zeros((w, t + 1), bool)
+    closes[:, 1:] = after[:, :-1] & ~after[:, 1:]   # a close at T flushes
+    rank = np.cumsum(starts, axis=1) - 1
+    counts = starts.sum(axis=1).astype(np.int32)
+    out = np.zeros((3, w, cap), np.float32)
+    for i in range(w):
+        s_word, c_word = _word_masks(above[i])
+        assert np.array_equal(s_word[:t], starts[i]) and not s_word[t:].any()
+        assert np.array_equal(c_word[:t + 1], closes[i])
+        assert not c_word[t + 1:].any()
+        lo = np.flatnonzero(starts[i] & (rank[i] < cap))
+        hi = np.flatnonzero(closes[i])[:len(lo)]
+        for k, (a, b) in enumerate(zip(lo, hi)):
+            v = grid[i, a]
+            csum, tsum, pk = v, v * np.float32(a), v
+            for tick in range(a + 1, b):
+                v = grid[i, tick]
+                csum = np.float32(csum + v)
+                tsum = np.float32(tsum + np.float32(v * np.float32(tick)))
+                pk = max(pk, v)
+            out[:, i, k] = (csum, np.float32(tsum / max(csum,
+                                                         np.float32(1e-30))),
+                            pk)
+    return counts, out[0], out[1], out[2]
+
+
+@pytest.mark.parametrize("threshold", [500.0, 333.3])
+@pytest.mark.parametrize("cap", [1, 8, 40])
+@pytest.mark.parametrize("name", ["edges", "noise"])
+def test_run_decomposition_model_equals_reference_scan(name, cap, threshold):
+    """The numpy model of the kernel's decomposition == the reference's
+    find_wire_hits_ref == the port's plain version, bit for bit, at 70 x
+    1001 (T no multiple of 4, 32 or 256; W no multiple of 4). Cap 40 stores
+    more runs than a warp has lanes (lane l walks runs l, l + 32, ...)."""
+    from repro.kernels.hitfind.ref import find_wire_hits_ref
+    from repro_torch.kernels.hitfind.ref import hitfind_ref
+
+    g = _kernel_grid(name)
+    model = _model_scan(g, threshold, cap)
+    ref = [np.asarray(x) for x in find_wire_hits_ref(
+        jnp.asarray(g), threshold=threshold, cap=cap)]
+    port = hitfind_ref(torch.from_numpy(g), threshold=threshold, cap=cap)
+    _assert_equal(model, ref)
+    _assert_equal((port[0][:, 0],) + tuple(port[1:]), ref)
+    assert int(model[0].sum()) > int(np.minimum(model[0], cap).sum()) > 0
+
+
+def test_run_decomposition_edge_cases_by_hand():
+    """The kernel edge grid's runs at threshold 500, cap 8, by hand."""
+    g = _kernel_grid("edges")
+    counts, charge, tick, peak = _model_scan(g, 500.0, 8)
+    last_step = 1000 // STEP * STEP
+    assert counts[:8].tolist() == [1, 1, 1, 501, 3, 3, 8, 0]
+    assert charge[2, 0] == np.float32(np.float32(1000.0 + np.arange(1001))
+                                      .cumsum(dtype=np.float32)[-1])
+    assert peak[4].tolist()[:3] == [904.0, 901.0, 911.0]
+    assert charge[5].tolist()[:3] == [650.0, np.float32(650.0 * 40), 660.0]
+    assert tick[5, 2] == float(STEP + 1)
+    assert charge[6, 7] == np.float32(1500.0 * (1001 - last_step - 17))
+    assert (charge[6, :7] == 720.0).all() and (charge[7] == 0.0).all()
+
+
+def test_c_entry_point_signature_matches_the_binding():
+    """ctypes passes what ``SIGNATURES`` declares: c_void_p for each pointer
+    of the C function, c_float for a float, c_int for an int."""
+    import ctypes
+    import re
+
+    from repro_torch import kernels
+
+    src = (kernels.CSRC / kernels.SOURCES["hitfind"]).read_text()
+    for name, argtypes in tkernel.SIGNATURES.items():
+        params = re.search(r'extern "C" int ' + name + r"\(([^)]*)\)",
+                           src).group(1).split(",")
+        want = [ctypes.c_void_p if "*" in p else
+                ctypes.c_float if "float" in p else ctypes.c_int
+                for p in params]
+        assert argtypes == want, name

@@ -29,7 +29,7 @@ from repro.kernels.scatter_add import ops as jops
 from repro_torch import interop
 from repro_torch.core import scatter as tscatter
 from repro_torch.core.pipeline import make_sim_fn
-from repro_torch.kernels.fused_sim.kernel import scatter_tiles_to_grid
+from repro_torch.kernels.tiles import scatter_tiles_to_grid, tiles_of_grid
 from repro_torch.kernels.scatter_add import kernel as tkernel
 from repro_torch.kernels.scatter_add import ops as tops
 from repro_torch.testing import parity
@@ -262,3 +262,161 @@ def test_unfused_event_matches_reference(strategy):
     parity.assert_close(out["charge_grid"], np.asarray(ref.charge_grid),
                         atol_frac=parity.GRID_ATOL_FRAC, what="grid")
     parity.assert_adc_close(out["adc"], np.asarray(ref.adc), what="adc")
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_compact_layouts_blocks_and_grid_in_place(case):
+    """The compact wrapper's two outputs: ``layout="blocks"`` the
+    reference's blocks, ``layout="grid"`` (what the ``pallas_compact``
+    strategy runs; written in place on the card) the same blocks placed
+    into the padded grid, equal to the dense wrapper's grid bit for bit;
+    the blocks are the grid's tiles at ``active`` (how the card returns
+    them)."""
+    cfg, tw, tt = CASES[case]
+    patches, w0, t0 = (torch.from_numpy(x) for x in _inputs(cfg, 8))
+    k_max = tops.default_k_max(cfg.num_depos, cfg.num_wires, cfg.num_ticks,
+                               tw, tt)
+    bin_args = (cfg.patch_wires, cfg.patch_ticks, cfg.num_wires,
+                cfg.num_ticks, tw, tt, k_max)
+    ids, _, _ = tops.bin_depos_to_tiles(w0, t0, *bin_args)
+    n_cap = tops.active_tile_cap(w0, *bin_args[:-1], t0=t0)
+    active, cids, _ = tops.bin_depos_to_tiles_compact(w0, t0, *bin_args,
+                                                      n_cap)
+    tiles_w, tiles_t, _ = tops.tile_counts(cfg.num_wires, cfg.num_ticks, tw,
+                                           tt)
+    kw = dict(num_wires=cfg.num_wires, num_ticks=cfg.num_ticks, tw=tw, tt=tt,
+              k_max=k_max)
+    blocks = tkernel.scatter_add_pallas_compact(patches, w0, t0, active,
+                                                cids, **kw)
+    grid = tkernel.scatter_add_pallas_compact(patches, w0, t0, active, cids,
+                                              layout="grid", **kw)
+    assert blocks.shape == (n_cap, tw, tt)
+    assert grid.shape == (tiles_w * tw, tiles_t * tt)
+    assert torch.equal(grid, scatter_tiles_to_grid(blocks, active, tiles_w,
+                                                   tiles_t, tw, tt))
+    assert torch.equal(grid, tkernel.scatter_add_pallas(patches, w0, t0, ids,
+                                                        **kw))
+    assert torch.equal(tiles_of_grid(grid, active, tiles_w, tiles_t, tw, tt),
+                       blocks)
+    assert float(grid.sum()) > 0.0
+    with pytest.raises(ValueError, match="layout"):
+        tkernel.scatter_add_pallas_compact(patches, w0, t0, active, cids,
+                                           layout="tiles", **kw)
+
+
+@pytest.mark.parametrize("tile", [(64, 256), (20, 24)])
+def test_tiles_of_grid_takes_each_slots_block_back(tile):
+    """``tiles_of_grid`` returns the block of each occupied slot from the
+    grid ``scatter_tiles_to_grid`` made, and +0.0 blocks for -1 slots."""
+    tw, tt = tile
+    tiles_w, tiles_t = 3, 5
+    rng = np.random.default_rng(tw)
+    active = np.full(10, -1, np.int32)
+    active[[0, 2, 3, 6, 7, 9]] = rng.choice(tiles_w * tiles_t, 6,
+                                            replace=False)
+    blocks = torch.from_numpy(rng.standard_normal((10, tw, tt)).astype(
+        np.float32))
+    active = torch.from_numpy(active)
+    grid = scatter_tiles_to_grid(blocks, active, tiles_w, tiles_t, tw, tt)
+    got = tiles_of_grid(grid, active, tiles_w, tiles_t, tw, tt)
+    kept = active >= 0
+    assert got.shape == blocks.shape
+    assert torch.equal(got[kept], blocks[kept])
+    assert torch.equal(got[~kept], torch.zeros_like(got[~kept]))
+    assert not torch.signbit(got[~kept]).any()
+
+
+def _full_list_inputs(k_max: int = 48):
+    """k_max depos whose patches all touch tile (0, 0) of 64 x 256 tiles
+    of the EDGE grid, so that tile's list fills k_max exactly (48: no
+    multiple of the kernel's 32-entry chunk)."""
+    rng = np.random.default_rng(9)
+    w0 = rng.integers(0, 60, k_max).astype(np.int32)
+    t0 = rng.integers(0, 250, k_max).astype(np.int32)
+    patches = (rng.random((k_max, EDGE.patch_wires, EDGE.patch_ticks))
+               * 50).astype(np.float32)
+    return patches, w0, t0
+
+
+@pytest.mark.parametrize("layout", ["dense", "compact"])
+def test_list_filling_an_odd_k_max_equals_reference_kernel(layout):
+    """A list that fills k_max = 48 (the CUDA kernel reads lists in chunks
+    of 32 and must not read past k_max): the plain version == the
+    reference's interpret-mode kernel bit for bit."""
+    k_max = 48
+    patches, w0, t0 = _full_list_inputs(k_max)
+    cfg = dataclasses.replace(EDGE, num_depos=k_max)
+    tw, tt = 64, 256
+    bin_args = (cfg.patch_wires, cfg.patch_ticks, cfg.num_wires,
+                cfg.num_ticks, tw, tt, k_max)
+    kw = dict(num_wires=cfg.num_wires, num_ticks=cfg.num_ticks, tw=tw, tt=tt,
+              k_max=k_max)
+    tp, tw0, tt0 = (torch.from_numpy(x) for x in (patches, w0, t0))
+    jp, jw0, jt0 = (jnp.asarray(x) for x in (patches, w0, t0))
+    if layout == "dense":
+        ids, _, dropped = tops.bin_depos_to_tiles(tw0, tt0, *bin_args)
+        ref = jkernel.scatter_add_pallas(jp, jw0, jt0,
+                                         jnp.asarray(ids.numpy()),
+                                         interpret=True, **kw)
+        out = tkernel.scatter_add_pallas(tp, tw0, tt0, ids, **kw)
+    else:
+        n_cap = tops.active_tile_cap(tw0, *bin_args[:-1], t0=tt0)
+        active, ids, dropped = tops.bin_depos_to_tiles_compact(
+            tw0, tt0, *bin_args, n_cap)
+        ref = jkernel.scatter_add_pallas_compact(
+            jp, jw0, jt0, jnp.asarray(active.numpy()),
+            jnp.asarray(ids.numpy()), interpret=True, **kw)
+        out = tkernel.scatter_add_pallas_compact(tp, tw0, tt0, active, ids,
+                                                 **kw)
+    assert int(dropped) == 0
+    assert int((ids.view(-1, k_max) >= 0).sum(1).max()) == k_max
+    np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
+
+
+@pytest.mark.parametrize("layout", ["dense", "compact"])
+@pytest.mark.parametrize("case", sorted(CASES) + ["full-list"])
+def test_launch_order_over_scatter_lists(case, layout):
+    """The CTA launch order the scatter-add kernel takes from the fused
+    kernels' launch-order kernels, over the scatter strategies' own lists:
+    a permutation of the slots, longest list first, ties in slot order."""
+    from repro_torch.kernels.tiles import launch_order
+
+    if case == "full-list":
+        cfg, tw, tt, k_max = (dataclasses.replace(EDGE, num_depos=48), 64,
+                              256, 48)
+        patches, w0, t0 = (torch.from_numpy(x) for x in _full_list_inputs())
+    else:
+        cfg, tw, tt = CASES[case]
+        patches, w0, t0 = (torch.from_numpy(x) for x in _inputs(cfg, 10))
+        k_max = tops.default_k_max(cfg.num_depos, cfg.num_wires,
+                                   cfg.num_ticks, tw, tt)
+    bin_args = (cfg.patch_wires, cfg.patch_ticks, cfg.num_wires,
+                cfg.num_ticks, tw, tt, k_max)
+    if layout == "dense":
+        ids, _, _ = tops.bin_depos_to_tiles(w0, t0, *bin_args)
+    else:
+        n_cap = tops.active_tile_cap(w0, *bin_args[:-1], t0=t0)
+        _, ids, _ = tops.bin_depos_to_tiles_compact(w0, t0, *bin_args, n_cap)
+    order = launch_order(ids, k_max).tolist()
+    n_slots = ids.numel() // k_max
+    lengths = (ids.view(n_slots, k_max) >= 0).sum(1).tolist()
+    assert sorted(order) == list(range(n_slots))
+    keys = [(-lengths[i], i) for i in order]
+    assert keys == sorted(keys)
+    assert lengths[order[0]] == max(lengths) > 0
+
+
+def test_c_entry_point_signature_matches_the_binding():
+    """ctypes passes what ``SIGNATURES`` declares: one pointer (c_void_p)
+    for each pointer parameter of the C function, one c_int for each int."""
+    import ctypes
+    import re
+
+    from repro_torch import kernels
+
+    src = (kernels.CSRC / kernels.SOURCES["scatter_add"]).read_text()
+    for name, argtypes in tkernel.SIGNATURES.items():
+        params = re.search(r'extern "C" int ' + name + r"\(([^)]*)\)",
+                           src).group(1).split(",")
+        assert argtypes == [ctypes.c_void_p if "*" in p else ctypes.c_int
+                            for p in params], name
