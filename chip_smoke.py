@@ -28,7 +28,10 @@ Phases (any failure exits non-zero before the result line):
                 and compact blocks == their plain versions bit for bit, the
                 in-place grid == the dense grid and == the placed blocks,
                 two runs bit-identical, and within the parity tolerance
-                of index_put_(accumulate=True).
+                of index_put_(accumulate=True); the same cases again on
+                the bfloat16 patches of unfused_bf16 without fluctuation
+                (the full-width case included), where each output also ==
+                the float32 kernel on the widened patches bit for bit.
                 Multi-plane fused (rows 3-4) at full width with 3 planes:
                 == the plain version bit for bit, compact == dense bit for
                 bit, and plane p == the one-plane kernel (row 1) on plane
@@ -52,8 +55,17 @@ Phases (any failure exits non-zero before the result line):
                 three-plane events with fused_pallas_multiplane and
                 recon=True (deconvolve + hit_find; ADC equal to the
                 sim-only run, one hit-scan launch per plane and event,
-                stored and found hits per plane); rasterize_depos at 100k
-                depos with fluctuation on and off. Per plane:
+                stored and found hits per plane); unfused_bf16 at one and
+                three planes, 2 events each without fluctuation and with
+                scatter_strategy=pallas, then pallas_compact (every
+                scatter-add launch on bfloat16 patches, ADC equal between
+                the two), and 2 events with fluctuation on and pallas (the
+                patches reach the kernel as float32); the library scatters
+                twice with one key (unfused + xla, unfused_bf16 + xla,
+                unfused + sort_segment, three-plane multiplane_xla): max
+                |delta grid| and ADC mismatches, both 0 or the run fails;
+                rasterize_depos at 100k depos with fluctuation on and off.
+                Per plane:
                 int16 ADC at the 900 baseline, finite signal, non-zero max
                 dev; per-event time, depos/s, per-stage times, peak memory.
                 Then the hit-scan kernel (row 7) against its plain version,
@@ -83,8 +95,9 @@ Phases (any failure exits non-zero before the result line):
                 kernels the pixels with nonzero weights, and beside it the
                 bound over every in-support pixel as earlier runs had it)
                 and, for the
-                scatter-add kernels, the one PyTorch call that computes the
-                same function (index_put_ with accumulate=True); for the
+                scatter-add kernels (float32 and bfloat16 patches, each its
+                own row), the one PyTorch call that computes the same
+                function (index_put_ with accumulate=True); for the
                 fused kernels also the SASS instructions per pixel of the
                 pixel loop (cuobjdump) and the issue-rate floor they imply
   7. summary  : one JSON line {"kernels": [...]}
@@ -96,6 +109,7 @@ the card has no JAX, which the repository's test configuration imports.
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import json
 import statistics
@@ -660,13 +674,14 @@ class MultiPlaneCase:
 
 
 class ScatterCase:
-    """One scatter-add problem: the unfused chain's fluctuated patches of
-    depos generated from ``key`` (or given), with the dense and compact
-    lists the ``pallas`` strategies bin them into (at ``k_max`` when given,
-    else the default)."""
+    """One scatter-add problem: the unfused chain's fluctuated float32
+    patches of depos generated from ``key`` (or given), or with ``bf16``
+    the bfloat16 patches ``unfused_bf16`` hands the scatter without
+    fluctuation, with the dense and compact lists the ``pallas`` strategies
+    bin them into (at ``k_max`` when given, else the default)."""
 
     def __init__(self, cfg, key, tw: int, tt: int, device, depos=None,
-                 k_max=None):
+                 k_max=None, bf16: bool = False):
         import torch
 
         from repro_torch.core import fluctuate as fl
@@ -678,9 +693,13 @@ class ScatterCase:
         self.cfg = cfg
         if depos is None:
             depos = generate_depos(key, cfg, device=device)
-        patches, self.w0, self.t0 = rasterize(depos, cfg)
-        self.patches = fl.fluctuate_counter(prng.split(key)[0], patches,
-                                            depos.charge)
+        if bf16:
+            self.patches, self.w0, self.t0 = rasterize(
+                depos, dataclasses.replace(cfg, patch_dtype="bfloat16"))
+        else:
+            patches, self.w0, self.t0 = rasterize(depos, cfg)
+            self.patches = fl.fluctuate_counter(prng.split(key)[0], patches,
+                                                depos.charge)
         _, pw, pt = self.patches.shape
         self.tw, self.tt = max(tw, pw), max(tt, pt)
         self.k_max = k_max or binning.default_k_max(
@@ -702,6 +721,13 @@ class ScatterCase:
         self.flat_idx = flat_pixel_indices(self.w0, self.t0, pw, pt,
                                            cfg.num_ticks).reshape(-1)
         torch.cuda.synchronize()
+
+    def widened(self):
+        """This case with its patches widened to float32 (the float32
+        kernel's input that the bfloat16 kernel must match bit for bit)."""
+        wide = copy.copy(self)
+        wide.patches = self.patches.float()
+        return wide
 
     def _crop(self, grid):
         return grid[:self.cfg.num_wires, :self.cfg.num_ticks]
@@ -756,12 +782,14 @@ class ScatterCase:
     def library(self):
         """The one PyTorch call computing the same function:
         index_put_(accumulate=True) of every patch pixel into a zeroed
-        grid."""
+        grid (bfloat16 patches widened first: index_put_ takes the grid's
+        dtype)."""
         import torch
 
         grid = torch.zeros(self.cfg.num_wires * self.cfg.num_ticks,
                            dtype=torch.float32, device=self.patches.device)
-        grid.index_put_((self.flat_idx,), self.patches.reshape(-1),
+        grid.index_put_((self.flat_idx,),
+                        self.patches.reshape(-1).to(torch.float32),
                         accumulate=True)
         return grid.reshape(self.cfg.num_wires, self.cfg.num_ticks)
 
@@ -776,7 +804,8 @@ class ScatterCase:
         (plus the compact active list), the grid written once;
         operations: one add per in-tile patch pixel."""
         entries, pixels = self.work()
-        nbytes = (self.patches.numel() * 4 + 8 * self.patches.shape[0]
+        nbytes = (self.patches.numel() * self.patches.element_size()
+                  + 8 * self.patches.shape[0]
                   + 4 * entries + (4 * self.n_cap if compact else 0)
                   + 4 * self.cfg.num_wires * self.cfg.num_ticks)
         return bound_of(nbytes, pixels)
@@ -996,8 +1025,9 @@ def check_scatter(case, label: str):
     """Phase 4 checks for one scatter-add case: dense, compact in place and
     compact blocks == their plain versions bit for bit, two runs
     bit-identical, the in-place grid == the dense grid and == the placed
-    blocks; returns max |kernel - plain| of the dense and of the compact
-    kernel (0 when they pass)."""
+    blocks, and for bfloat16 patches each of the three == the float32
+    kernel on the widened patches bit for bit; returns max |kernel -
+    plain| of the dense and of the compact kernel (0 when they pass)."""
     import torch
 
     from repro_torch.testing.parity import ATOL_FRAC, RTOL
@@ -1037,6 +1067,15 @@ def check_scatter(case, label: str):
           "kernel in place != its placed blocks")
     check(torch.allclose(dense1, lib, rtol=RTOL, atol=atol),
           f"{label}: kernel outside tolerance of index_put_")
+    if case.patches.dtype == torch.bfloat16:
+        wide = case.widened()
+        same = [torch.equal(a, b) for a, b in (
+            (dense1, wide.dense()), (comp1, wide.compact()),
+            (blocks1, wide.compact_blocks()))]
+        print(f"{label}: bfloat16 kernel == float32 kernel on the widened "
+              f"patches (dense, in place, blocks): {same}", flush=True)
+        check(all(same), f"{label}: bfloat16 kernel != float32 kernel on "
+              "the widened patches")
     return err, err_c
 
 
@@ -1136,11 +1175,12 @@ def fused_cases(dev):
 
 
 def run_main(cfg, label: str, events: int, dev, counters,
-             recon: bool = False):
+             recon: bool = False, card: str = ""):
     """One launcher run of ``events`` events, every launch counter reset
-    just before and read just after; per-plane checks on every event.
-    Returns (the events' ADC, the counters read, the graph, event 0's
-    output)."""
+    just before and read just after (a module's launches on bfloat16
+    patches under the wrapper's name with ``_bf16``); per-plane checks on
+    every event; the total line names ``card``. Returns (the events' ADC,
+    the counters read, the graph, event 0's output)."""
     import torch
 
     from repro_torch.core.pipeline import make_sim_fn
@@ -1191,14 +1231,70 @@ def run_main(cfg, label: str, events: int, dev, counters,
                        on_event=on_event)
     launches = {name: n for module in counters
                 for name, n in module.LAUNCHES.items()}
+    launches.update({f"{name}_bf16": n for module in counters
+                     for name, n in getattr(module, "BF16_LAUNCHES",
+                                            {}).items()})
     peak = torch.cuda.max_memory_allocated(dev)
     print("\n".join(lines))
     print(f"{label} total: {stats['events']} events / {stats['depos']} "
           f"depos x {n_planes} plane(s) in {stats['wall_s']:.4f} s (sim "
           f"alone: median {statistics.median(stats['event_s'])*1e3:.3f} "
           f"ms/event); launches {launches}; peak memory "
-          f"{peak / 2**20:.1f} MiB", flush=True)
+          f"{peak / 2**20:.1f} MiB; {card}", flush=True)
     return adcs, launches, sim, first[0]
+
+
+#: the settings of the library-scatter determinism check: (label, config
+#: overrides on the full one-plane config)
+DETERMINISM_SETTINGS = (
+    ("unfused + xla", {}),
+    ("unfused_bf16 + xla", {"charge_grid_strategy": "unfused_bf16"}),
+    ("unfused + sort_segment", {"scatter_strategy": "sort_segment"}),
+    ("multiplane_xla, 3 planes", {"num_planes": PLANES,
+                                  "charge_grid_strategy": "multiplane_xla"}))
+
+
+def check_determinism(full, key, dev, case) -> None:
+    """The library scatters run to run: each setting's full-width event
+    twice with one key and one set of depos; prints max |delta grid| and
+    the ADC pixels that differ, and fails on any difference. Then a
+    witness that does not fail the run: the run totals that
+    ``sort_segment`` summed with ``index_add_`` before it took
+    ``index_put_``, twice on the full-width fluctuated patches of ``case``
+    (the unfused event's own), and how far the two grids lie apart."""
+    import torch
+
+    from repro_torch.core.depo import generate_depos, generate_physical_depos
+    from repro_torch.core.pipeline import make_sim_fn
+
+    for label, overrides in DETERMINISM_SETTINGS:
+        cfg = dataclasses.replace(full, **overrides)
+        generate = (generate_physical_depos if cfg.num_planes > 1
+                    else generate_depos)
+        depos = generate(key, cfg, device=dev)
+        sim = make_sim_fn(cfg, device=dev)
+        first, second = sim(key, depos), sim(key, depos)
+        torch.cuda.synchronize()
+        dgrid = float((first.charge_grid - second.charge_grid).abs().max())
+        n_grid = int((first.charge_grid != second.charge_grid).sum())
+        n_adc = int((first.adc != second.adc).sum())
+        print(f"determinism {label}: two runs, one key: max |delta grid| "
+              f"{dgrid:.6g}, grid pixels that differ {n_grid}, ADC "
+              f"mismatches {n_adc}", flush=True)
+        check(n_grid == 0 and n_adc == 0,
+              f"determinism {label}: two runs with one key differ")
+    idx_s, order = torch.sort(case.flat_idx, stable=True)
+    _, run = torch.unique_consecutive(idx_s, return_inverse=True)
+    vals = case.patches.reshape(-1)[order]
+    totals = [torch.zeros(int(run[-1]) + 1, device=dev).index_add_(0, run,
+                                                                   vals)
+              for _ in range(2)]
+    torch.cuda.synchronize()
+    print(f"determinism witness, index_add_ over sort_segment's runs (its "
+          f"form before the repair): two runs, max |delta grid| "
+          f"{float((totals[0] - totals[1]).abs().max()):.6g}, grid pixels "
+          f"that differ {int((totals[0] != totals[1]).sum())} of "
+          f"{totals[0].numel()}", flush=True)
 
 
 def print_stages(label: str, sim, key, depos) -> None:
@@ -1272,34 +1368,42 @@ def main() -> int:
     scatter_case = ScatterCase(full, key0, 64, 256, dev)
     scatter_errors = check_scatter(scatter_case,
                                    "scatter-add full width 64x256 tiles")
-    check_scatter(ScatterCase(edge_cfg, prng.key(1), 32, 128, dev),
-                  "scatter-add tile-edge 96x768, 32x128 tiles")
-    # tiles of 30 wires (no multiple of the 4 row parts: no list splits),
-    # and patches of 72 x 40 (wider than a 64-wire tile, two 32-column
-    # blocks a row)
-    check_scatter(ScatterCase(edge_cfg, prng.key(4), 30, 128, dev),
-                  "scatter-add tile-edge 96x768, 30x128 tiles")
-    check_scatter(ScatterCase(dataclasses.replace(edge_cfg, patch_wires=72,
-                                                  patch_ticks=40),
-                              prng.key(4), 64, 128, dev),
-                  "scatter-add tile-edge 96x768, 72x40 patches, 64x128 "
-                  "tiles")
-    for label, values in ONE_DEPO_CASES:
-        depos = DepoSet(*(torch.tensor([v], dtype=torch.float32, device=dev)
-                          for v in values))
-        check_scatter(ScatterCase(one, prng.key(2), 64, 256, dev, depos),
-                      f"scatter-add one depo, {label}")
-    # a list filling k_max = 48 (no multiple of the 32-entry chunk); the
-    # launch expects ~67 entries over >= 132 resident CTAs, so its long-list
-    # threshold is 0 and the tile runs split over 4 CTAs by row
-    full_scatter = ScatterCase(dataclasses.replace(edge_cfg,
-                                                   num_depos=FULL_LIST),
-                               prng.key(3), 64, 256, dev, full_list_depos(dev),
-                               k_max=FULL_LIST)
-    check(int((full_scatter.ids.view(-1, FULL_LIST) >= 0).sum(1).max())
-          == FULL_LIST, "scatter k_max 48 case: no list fills k_max")
-    check_scatter(full_scatter, f"scatter-add {FULL_LIST} depos, one list "
-                  f"filling k_max {FULL_LIST}, split over 4 CTAs")
+    # the bfloat16 patches of unfused_bf16 without fluctuation
+    bf16_case = ScatterCase(full, key0, 64, 256, dev, bf16=True)
+    bf16_errors = check_scatter(bf16_case, "scatter-add bfloat16 full width "
+                                "64x256 tiles")
+    for bf16 in (False, True):
+        tag = "scatter-add bfloat16" if bf16 else "scatter-add"
+        check_scatter(ScatterCase(edge_cfg, prng.key(1), 32, 128, dev,
+                                  bf16=bf16),
+                      f"{tag} tile-edge 96x768, 32x128 tiles")
+        # tiles of 30 wires (no multiple of the 4 row parts: no list
+        # splits), and patches of 72 x 40 (wider than a 64-wire tile, two
+        # 32-column blocks a row)
+        check_scatter(ScatterCase(edge_cfg, prng.key(4), 30, 128, dev,
+                                  bf16=bf16),
+                      f"{tag} tile-edge 96x768, 30x128 tiles")
+        check_scatter(ScatterCase(dataclasses.replace(
+            edge_cfg, patch_wires=72, patch_ticks=40), prng.key(4), 64, 128,
+            dev, bf16=bf16),
+            f"{tag} tile-edge 96x768, 72x40 patches, 64x128 tiles")
+        for label, values in ONE_DEPO_CASES:
+            depos = DepoSet(*(torch.tensor([v], dtype=torch.float32,
+                                           device=dev) for v in values))
+            check_scatter(ScatterCase(one, prng.key(2), 64, 256, dev, depos,
+                                      bf16=bf16),
+                          f"{tag} one depo, {label}")
+        # a list filling k_max = 48 (no multiple of the 32-entry chunk);
+        # the launch expects ~67 entries over >= 132 resident CTAs, so its
+        # long-list threshold is 0 and the tile runs split over 4 CTAs by
+        # row
+        full_scatter = ScatterCase(
+            dataclasses.replace(edge_cfg, num_depos=FULL_LIST), prng.key(3),
+            64, 256, dev, full_list_depos(dev), k_max=FULL_LIST, bf16=bf16)
+        check(int((full_scatter.ids.view(-1, FULL_LIST) >= 0).sum(1).max())
+              == FULL_LIST, "scatter k_max 48 case: no list fills k_max")
+        check_scatter(full_scatter, f"{tag} {FULL_LIST} depos, one list "
+                      f"filling k_max {FULL_LIST}, split over 4 CTAs")
 
     raster_case = RasterCase(full, key0, dev)
     raster_err = 0.0
@@ -1330,7 +1434,7 @@ def main() -> int:
     for strategy in STRATEGIES:
         cfg = dataclasses.replace(full, charge_grid_strategy=strategy)
         adcs[strategy], launches[strategy], sim, _ = run_main(
-            cfg, strategy, EVENTS, dev, [kernel])
+            cfg, strategy, EVENTS, dev, [kernel], card=card)
         print_stages(strategy, sim, key0, generate_depos(key0, full,
                                                          device=dev))
     check(launches["fused_pallas"]["fused_rasterize_scatter"] == EVENTS,
@@ -1345,13 +1449,14 @@ def main() -> int:
 
     unfused = run_events(full, 1, seed=0, device=dev, on_event=lambda ev,
                          out, dt: print(f"unfused event {ev}: {dt*1e3:.3f} "
-                                        f"ms, max dev {max_dev(out.adc, full)}"))
+                                        f"ms, max dev {max_dev(out.adc, full)}"
+                                        f"; {card}"))
     check(unfused["events"] == 1, "unfused run")
 
     for strategy in MULTI_STRATEGIES:
         cfg = dataclasses.replace(full3, charge_grid_strategy=strategy)
         adcs[strategy], launches[strategy], sim, _ = run_main(
-            cfg, strategy, EVENTS, dev, [kernel])
+            cfg, strategy, EVENTS, dev, [kernel], card=card)
         print_stages(strategy, sim, key0, generate_physical_depos(
             key0, full3, device=dev))
         name = strategy.replace("fused_pallas", "fused_rasterize_scatter")
@@ -1366,7 +1471,7 @@ def main() -> int:
     loop_cfg = dataclasses.replace(full3, charge_grid_strategy="fused_pallas",
                                    plane_batching="loop")
     loop_adcs, loop_launches, _, _ = run_main(loop_cfg, "fused_pallas loop",
-                                              1, dev, [kernel])
+                                              1, dev, [kernel], card=card)
     check(loop_launches["fused_rasterize_scatter"] == PLANES,
           f"per-plane loop launches {loop_launches}")
     check(torch.equal(loop_adcs[0], adcs[MULTI_STRATEGIES[0]][0]),
@@ -1380,7 +1485,7 @@ def main() -> int:
         with count_calls(PLACEMENT) as placements:
             adcs[scatter], launches[scatter], sim, _ = run_main(
                 cfg, f"unfused+{scatter}", SCATTER_EVENTS, dev,
-                [scatter_kernel])
+                [scatter_kernel], card=card)
         print_stages(f"unfused+{scatter}", sim, key0,
                      generate_depos(key0, full, device=dev))
         name = f"scatter_add_{scatter}"
@@ -1396,10 +1501,54 @@ def main() -> int:
     print(f"ADC of all {SCATTER_EVENTS} unfused events identical between "
           f"{SCATTER_STRATEGIES}")
 
+    # unfused_bf16, config (a): no fluctuation, so the bfloat16 patches
+    # reach the scatter kernel; config (b): fluctuation on (the physics
+    # default), so float32 patches reach it
+    bf16_a = dataclasses.replace(full, charge_grid_strategy="unfused_bf16",
+                                 fluctuate=False)
+    for n_planes in (1, PLANES):
+        for scatter in SCATTER_STRATEGIES:
+            cfg = dataclasses.replace(bf16_a, num_planes=n_planes,
+                                      scatter_strategy=scatter)
+            label = f"unfused_bf16 (a) {n_planes} plane(s) +{scatter}"
+            adcs[label], launches[label], sim, _ = run_main(
+                cfg, label, SCATTER_EVENTS, dev, [scatter_kernel], card=card)
+            name = f"scatter_add_{scatter}"
+            want = SCATTER_EVENTS * n_planes
+            check(launches[label][name + "_bf16"] == want
+                  == launches[label][name],
+                  f"{label}: bfloat16 kernel launches {launches[label]}")
+            if n_planes == 1:
+                print_stages(label, sim, key0, generate_depos(key0, full,
+                                                              device=dev))
+        pair = [f"unfused_bf16 (a) {n_planes} plane(s) +{scatter}"
+                for scatter in SCATTER_STRATEGIES]
+        for ev in range(SCATTER_EVENTS):
+            check(torch.equal(adcs[pair[0]][ev], adcs[pair[1]][ev]),
+                  f"event {ev}: {pair} ADC differ")
+        print(f"unfused_bf16 (a), {n_planes} plane(s): every scatter-add "
+              f"launch took bfloat16 patches; ADC of all {SCATTER_EVENTS} "
+              f"events identical between {SCATTER_STRATEGIES}", flush=True)
+        cfg = dataclasses.replace(bf16_a, num_planes=n_planes, fluctuate=True,
+                                  scatter_strategy="pallas")
+        label = f"unfused_bf16 (b) {n_planes} plane(s) +pallas"
+        _, launches[label], sim, _ = run_main(
+            cfg, label, SCATTER_EVENTS, dev, [scatter_kernel], card=card)
+        check(launches[label]["scatter_add_pallas"] == SCATTER_EVENTS
+              * n_planes and launches[label]["scatter_add_pallas_bf16"] == 0,
+              f"{label}: the fluctuated patches are float32, launches "
+              f"{launches[label]}")
+        if n_planes == 1:
+            print_stages(label, sim, key0, generate_depos(key0, full,
+                                                          device=dev))
+
+    check_determinism(full, key0, dev, scatter_case)
+
     recon_cfg = dataclasses.replace(full3,
                                     charge_grid_strategy=MULTI_STRATEGIES[0])
     recon_adcs, launches["recon"], sim, recon0 = run_main(
-        recon_cfg, "recon", EVENTS, dev, [kernel, hit_kernel], recon=True)
+        recon_cfg, "recon", EVENTS, dev, [kernel, hit_kernel], recon=True,
+        card=card)
     print_stages("recon", sim, key0, generate_physical_depos(
         key0, full3, device=dev))
     check(launches["recon"]["hitfind_pallas"] == PLANES * EVENTS,
@@ -1481,6 +1630,14 @@ def main() -> int:
          scatter_case.library, scatter_src,
          "src/repro/kernels/scatter_add/kernel.py:140", "pallas_compact",
          scatter_errors[1]),
+        ("scatter_add_pallas_bf16", bf16_case.dense, bf16_case.plain_dense,
+         3, bf16_case.bound(False), bf16_case.library, scatter_src,
+         "src/repro/kernels/scatter_add/kernel.py:97",
+         "unfused_bf16 (a) 1 plane(s) +pallas", bf16_errors[0]),
+        ("scatter_add_pallas_compact_bf16", bf16_case.compact,
+         bf16_case.plain_compact, 3, bf16_case.bound(True), bf16_case.library,
+         scatter_src, "src/repro/kernels/scatter_add/kernel.py:140",
+         "unfused_bf16 (a) 1 plane(s) +pallas_compact", bf16_errors[1]),
         ("hitfind_pallas",
          lambda: hit_kernel.hitfind_pallas(grid0, threshold=HIT_THRESHOLD,
                                            cap=cap),

@@ -28,20 +28,59 @@ FMIX_C2 = 0xC2B2AE35
 TWO_PI_F32 = float(torch.tensor(2.0 * math.pi, dtype=torch.float32))
 
 
+def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """float32 ``a * b + c`` rounded once, as a fused multiply-add.
+
+    The product of two float32 values is exact in float64. Their float64
+    sum is taken with rounding to odd (round to nearest, then the last bit
+    forced odd when the sum was inexact), which makes the final rounding to
+    float32 correct: float64 carries more than 24 + 2 bits.
+    """
+    p = a.to(torch.float64) * b.to(torch.float64)  # repro-lint: disable=f64-literal — exact product for the FMA
+    cd = c.to(torch.float64)  # repro-lint: disable=f64-literal — exact FMA emulation, rounded to f32 below
+    s = p + cd
+    # TwoSum: the exact rounding error of s
+    bv = s - p
+    err = (p - (s - bv)) + (cd - bv)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, torch.full_like(s, float("inf")),
+                         torch.full_like(s, float("-inf")))
+    s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
+    return s.to(torch.float32)
+
+
 def binomial_normal_approx(patches: torch.Tensor, charge: torch.Tensor,
                            normals: torch.Tensor) -> torch.Tensor:
     """patches (N, pw, pt) mean counts, charge (N,) totals, normals like
-    patches -> fluctuated patches."""
+    patches -> fluctuated float32 patches.
+
+    bfloat16 patches meet the float32 charge and widen to float32, as in
+    the reference. For them the last step is the jitted reference's: XLA
+    contracts ``patches + sqrt(var) * normals`` into one fused multiply-add
+    (``fma_f32``) after a correctly rounded square root (torch's float32
+    ``sqrt`` on the CPU is not always one; the root of a float32 through
+    float64 is). float32 patches keep the separately rounded form.
+    """
     q = torch.clamp_min(charge[:, None, None], 1.0)
     p = torch.clamp(patches / q, 0.0, 1.0)
     var = torch.clamp_min(patches * (1.0 - p), 0.0)
+    if patches.dtype == torch.bfloat16:
+        sd = torch.sqrt(var.to(torch.float64)).to(torch.float32)  # repro-lint: disable=f64-literal — correctly rounded float32 root
+        return torch.clamp_min(fma_f32(sd, normals, patches), 0.0)
     return torch.clamp_min(patches + torch.sqrt(var) * normals, 0.0)
 
 
 def fluctuate_counter(k: torch.Tensor, patches: torch.Tensor,
                       charge: torch.Tensor) -> torch.Tensor:
-    """Fluctuate with threefry normals drawn from key ``k``."""
-    normals = prng.normal(k, patches.shape, patches.device)
+    """Fluctuate with threefry normals drawn from key ``k`` in
+    ``patches.dtype``: bfloat16 patches draw bfloat16 normals, held in
+    float32 as the jitted reference holds them
+    (``prng.normal_bf16_wide``), and come out float32."""
+    if patches.dtype == torch.bfloat16:
+        normals = prng.normal_bf16_wide(k, patches.shape, patches.device)
+    else:
+        normals = prng.normal(k, patches.shape, patches.device,
+                              patches.dtype)
     return binomial_normal_approx(patches, charge, normals)
 
 

@@ -10,6 +10,7 @@ Charge-grid strategies (each returns ``(grid, dropped)``):
   unfused              : rasterize -> threefry fluctuation -> scatter_add
                          (``cfg.scatter_strategy``: xla, sort_segment, or the
                          owner-computes CUDA kernels pallas, pallas_compact)
+  unfused_bf16         : the same chain with bfloat16 patches
   fused_pallas         : the fused CUDA kernel over the dense tile grid
   fused_pallas_compact : the fused CUDA kernel over occupied tiles only
 
@@ -41,7 +42,8 @@ from repro_torch.core.stages import SimOutput, build_sim_graph, \
 from repro_torch.tune.registry import register_strategy, set_default
 
 __all__ = ["SimOutput", "simulate_fig4", "make_sim_fn", "simulate",
-           "charge_grid_unfused", "charge_grid_fused",
+           "charge_grid_unfused", "charge_grid_unfused_bf16",
+           "charge_grid_fused",
            "charge_grid_fused_compact", "charge_grid_fused_multiplane",
            "charge_grid_fused_multiplane_compact",
            "charge_grid_multiplane_xla"]
@@ -54,6 +56,18 @@ def charge_grid_unfused(k: torch.Tensor, depos: DepoSet, cfg: LArTPCConfig):
     if cfg.fluctuate and cfg.rng_strategy == "counter":
         patches = fl.fluctuate_counter(k, patches, depos.charge)
     return scatter_add(patches, w0, t0, cfg)
+
+
+@register_strategy("charge_grid", "unfused_bf16",
+                   note="unfused chain with bfloat16 patches (f32 accumulate)")
+def charge_grid_unfused_bf16(k: torch.Tensor, depos: DepoSet,
+                             cfg: LArTPCConfig):
+    """``unfused`` with bfloat16 patches. With fluctuation on, the patches
+    meet the float32 charge and reach the scatter as float32 (bfloat16
+    means, bfloat16 normals), as in the reference; without it the scatter
+    takes the bfloat16 patches and adds them in float32."""
+    return charge_grid_unfused(
+        k, depos, dataclasses.replace(cfg, patch_dtype="bfloat16"))
 
 
 def _fused_key(k: torch.Tensor, cfg: LArTPCConfig) -> Optional[torch.Tensor]:

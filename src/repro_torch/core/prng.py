@@ -3,7 +3,8 @@
 The JAX package draws every random number through ``jax.random`` with
 ``jax_threefry_partitionable=True``; this module reproduces those draws bit
 for bit: ``key``, ``split``, ``fold_in``, ``key_data``, ``random_bits`` and
-``uniform``, and ``normal`` up to the ULPs of ``erfinv``.
+``uniform`` in float32 and bfloat16, ``normal`` in float32 up to the ULPs
+of ``erfinv``, and ``normal`` in bfloat16 bit for bit.
 
 A key is a CPU int64 tensor of shape (2,) holding two uint32 words. Keys are
 derived on the host (a handful of scalar hashes, no device launch); the bulk
@@ -12,6 +13,7 @@ masked to 32 bits, because torch on the CPU has no ``>>`` for uint32.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Sequence, Tuple, Union
 
@@ -107,9 +109,38 @@ def _bits_to_unit(bits: torch.Tensor) -> torch.Tensor:
     return fbits.view(torch.float32) - 1.0
 
 
+def _bf16(x: float) -> float:
+    """``x`` rounded to the nearest bfloat16, as a Python float."""
+    return float(torch.tensor(x, dtype=torch.bfloat16))
+
+
+def _bits_to_unit_bf16(bits: torch.Tensor) -> torch.Tensor:
+    """The low 8 bits -> bfloat16 in [0, 1): 7 random mantissa bits under
+    exponent 0 (``jax.random`` draws 8 bits for a type of fewer than 8
+    mantissa bits and shifts one out)."""
+    fbits = (((bits & 0xFF) >> 1) | 0x3F80).to(torch.int16)
+    return fbits.view(torch.bfloat16) - 1.0
+
+
+def _uniform_bf16(bits: torch.Tensor, minval: float,
+                  maxval: float) -> torch.Tensor:
+    """Random bits -> bfloat16 uniforms in [minval, maxval): the bounds,
+    their difference, the product and the sum each rounded to bfloat16, as
+    the reference's ops are."""
+    lo = _bf16(minval)
+    span = _bf16(_bf16(maxval) - lo)
+    return torch.clamp_min(_bits_to_unit_bf16(bits) * span + lo, lo)
+
+
 def uniform(k: torch.Tensor, shape: Sequence[int], minval: float,
-            maxval: float, device) -> torch.Tensor:
-    """``jax.random.uniform(k, shape, float32, minval, maxval)``, bit exact."""
+            maxval: float, device, dtype=torch.float32) -> torch.Tensor:
+    """``jax.random.uniform(k, shape, dtype, minval, maxval)``, bit exact,
+    for ``dtype`` float32 or bfloat16."""
+    if dtype == torch.bfloat16:
+        return _uniform_bf16(random_bits(k, shape, device), minval, maxval)
+    if dtype != torch.float32:
+        raise NotImplementedError(f"uniform draws float32 or bfloat16, "
+                                  f"not {dtype}")
     lo = _f32(minval)
     span = _f32(np.float32(maxval) - np.float32(minval))
     floats = _bits_to_unit(random_bits(k, shape, device))
@@ -123,10 +154,41 @@ def uniform(k: torch.Tensor, shape: Sequence[int], minval: float,
 #: float32 nextafter(-1, 0): the reference's lower bound for erfinv inputs
 NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
 SQRT2_F32 = _f32(np.sqrt(2.0))
+#: the same bound and scale in bfloat16: nextafter(-1, 0) = -0.99609375 and
+#: sqrt(2) rounded to 1.4140625
+NORMAL_LO_BF16 = -1.0 + 2.0 ** -8
+SQRT2_BF16 = _bf16(math.sqrt(2.0))
 
 
-def normal(k: torch.Tensor, shape: Sequence[int], device) -> torch.Tensor:
-    """``jax.random.normal(k, shape, float32)``: ``sqrt(2) * erfinv(u)`` with
-    ``u`` uniform in [nextafter(-1, 0), 1)."""
-    u = uniform(k, shape, NORMAL_LO, 1.0, device)
+@functools.lru_cache(maxsize=None)
+def _bf16_normal_table(device: str) -> torch.Tensor:
+    """The 128 values a bfloat16 normal can take, indexed by its 7 random
+    bits, as the reference holds them inside a jitted computation: ``erfinv``
+    of the bfloat16 uniform, rounded to bfloat16, times ``SQRT2_BF16`` kept
+    in float32 (a product of two bfloat16 values is exact in float32).
+    Computed once on the CPU and copied to ``device``, so every device
+    draws the same bits."""
+    u = _uniform_bf16(torch.arange(0, 256, 2), NORMAL_LO_BF16, 1.0)
+    erfinv = torch.erfinv(u.to(torch.float32)).to(torch.bfloat16)
+    return (erfinv.to(torch.float32) * SQRT2_BF16).to(device)
+
+
+def normal_bf16_wide(k: torch.Tensor, shape: Sequence[int],
+                     device) -> torch.Tensor:
+    """The bfloat16 normals of ``jax.random.normal(k, shape, bfloat16)`` as a
+    jitted computation that consumes them holds them: float32, the last
+    product not rounded to bfloat16 (``fluctuate_counter`` on bfloat16
+    patches). Bit exact on every device: a table lookup of 7 random bits."""
+    index = (random_bits(k, shape, device) & 0xFF) >> 1
+    return _bf16_normal_table(str(torch.device(device)))[index]
+
+
+def normal(k: torch.Tensor, shape: Sequence[int], device,
+           dtype=torch.float32) -> torch.Tensor:
+    """``jax.random.normal(k, shape, dtype)``: ``sqrt(2) * erfinv(u)`` with
+    ``u`` uniform in [nextafter(-1, 0), 1) of ``dtype``. bfloat16 normals
+    are bit exact; float32 ones agree up to the ULPs of ``erfinv``."""
+    if dtype == torch.bfloat16:
+        return normal_bf16_wide(k, shape, device).to(torch.bfloat16)
+    u = uniform(k, shape, NORMAL_LO, 1.0, device, dtype)
     return torch.erfinv(u) * SQRT2_F32

@@ -15,6 +15,8 @@ from repro_torch.core.depo import DepoSet, depo_patch_origin
 #: sqrt(2); a float32 tensor times this Python float rounds it to float32,
 #: as the reference's weak-typed constant is
 SQRT2 = 1.4142135623730951
+#: the patch dtypes the port rasterizes (``cfg.patch_dtype``)
+PATCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def axis_weights(center: torch.Tensor, sigma: torch.Tensor,
@@ -29,12 +31,23 @@ def axis_weights(center: torch.Tensor, sigma: torch.Tensor,
     return torch.clamp_min(0.5 * (cdf[:, 1:] - cdf[:, :-1]), 0.0)
 
 
+def patch_dtype(cfg: LArTPCConfig) -> torch.dtype:
+    """The torch dtype of ``cfg.patch_dtype``: float32 or bfloat16; any
+    other raises ``NotImplementedError``."""
+    if cfg.patch_dtype not in PATCH_DTYPES:
+        raise NotImplementedError(
+            f"the port rasterizes patch_dtype {sorted(PATCH_DTYPES)} only "
+            f"(got {cfg.patch_dtype!r})")
+    return PATCH_DTYPES[cfg.patch_dtype]
+
+
 def rasterize(depos: DepoSet, cfg: LArTPCConfig):
-    """All-depo rasterisation -> (patches (N, pw, pt) f32, w0, t0 int32)."""
-    if cfg.patch_dtype != "float32":
-        raise NotImplementedError("the port rasterizes float32 patches only")
+    """All-depo rasterisation -> (patches (N, pw, pt) in ``cfg.patch_dtype``,
+    w0, t0 int32). The weights are float32; a bfloat16 patch is the float32
+    one rounded to nearest even, as XLA's convert rounds."""
+    dtype = patch_dtype(cfg)
     w0, t0 = depo_patch_origin(depos, cfg)
     ww = axis_weights(depos.wire, depos.sigma_w, w0, cfg.patch_wires)
     wt = axis_weights(depos.tick, depos.sigma_t, t0, cfg.patch_ticks)
     patches = depos.charge[:, None, None] * ww[:, :, None] * wt[:, None, :]
-    return patches, w0, t0
+    return patches.to(dtype), w0, t0

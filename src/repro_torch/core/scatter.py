@@ -12,6 +12,8 @@ dropped)``:
                   deterministic and without atomics.
   pallas_compact: the same kernel over occupied tiles only.
 
+Patches arrive float32 or bfloat16 (``cfg.patch_dtype``); every strategy
+widens each value to float32 before its add and returns a float32 grid.
 ``dropped`` (a 0-d tensor) counts the (depo, tile) entries the tile
 binning could not fit; the library strategies drop nothing.
 ``depo_patch_origin`` clips every origin so no window leaves the grid.
@@ -65,7 +67,11 @@ def scatter_sort_segment(patches: torch.Tensor, w0: torch.Tensor,
     dest, run = torch.unique_consecutive(idx_s, return_inverse=True)
     totals = torch.zeros(dest.shape[0], dtype=torch.float32,
                          device=vals.device)
-    totals.index_add_(0, run, vals[order])
+    # index_put_ with accumulate sorts its indices stably on the card and
+    # adds each run of equal indices in order, so the totals are the same
+    # bits run to run; index_add_ adds with atomics there, whose order
+    # changes from run to run
+    totals.index_put_((run,), vals[order], accumulate=True)
     grid = torch.zeros(cfg.num_wires * cfg.num_ticks, dtype=torch.float32,
                        device=patches.device)
     grid[dest] = totals

@@ -35,6 +35,7 @@ from repro_torch.core import prng
 from repro_torch.core.depo import DepoSet
 from repro_torch.core.fft_conv import digitize, fft_convolve
 from repro_torch.core.noise import simulate_noise
+from repro_torch.core.rasterize import patch_dtype
 from repro_torch.core.response import DetectorResponse, make_response
 from repro_torch.device import resolve_device, scalar
 from repro_torch.tune.registry import get_strategy, resolve
@@ -423,13 +424,13 @@ def check_supported(cfg: LArTPCConfig) -> None:
     plane geometry or batching mode."""
     unsupported = {
         "pipeline": (cfg.pipeline, "fig4"),
-        "patch_dtype": (cfg.patch_dtype, "float32"),
         "check_finite": (cfg.check_finite, False),
     }
     for name, (value, supported) in unsupported.items():
         if value != supported:
             raise NotImplementedError(
                 f"the port runs {name}={supported!r} only (got {value!r})")
+    patch_dtype(cfg)
     if cfg.rng_strategy not in ("counter", "none"):
         raise NotImplementedError(
             f"the port runs rng_strategy 'counter' or 'none' only "

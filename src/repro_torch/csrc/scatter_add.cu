@@ -9,10 +9,14 @@
 // What it computes. The readout grid is cut into tw x tt tiles (64 x 256 by
 // default). Each tile has a list of the depos whose pw x pt patch touches it
 // (ascending depo order, -1 padded; see kernels/scatter_add/ops.py). Every
-// tile adds, in list order, the part of each listed depo's float32 patch
-// (already rasterised and fluctuated) that lies inside the tile. The TPU
-// kernel adds the whole tile window of a zero-padded staging buffer, that is
-// +0.0 outside the patch, which changes no bit; this one adds only the
+// tile adds, in list order, the part of each listed depo's patch (already
+// rasterised, and fluctuated unless the config turns it off) that lies
+// inside the tile. Patches are float32 or bfloat16, the two types the
+// reference's kernel takes; a bfloat16 value is widened to float32
+// (__bfloat162float, exact) before its add, as the reference upcasts, so the
+// bfloat16 grid is the float32 grid of the widened patches, bit for bit. The
+// TPU kernel adds the whole tile window of a zero-padded staging buffer, that
+// is +0.0 outside the patch, which changes no bit; this one adds only the
 // intersection.
 //
 // Summation order. Every pixel is the sum, from +0.0, of its contributions
@@ -57,19 +61,22 @@
 //    grid's tiles at `active`, so the wrapper gathers them from it.
 //
 // What bounds it on an H100. Bytes: the patches are read once (N x 20 x 20
-// x 4 bytes = 160 MB at 100k depos), the lists and origins once, and the
-// grid written once (2560 x 9592 x 4 bytes = 98 MB at MicroBooNE width):
-// ~260 MB, about 77 us at 3.35 TB/s. Operations are one add per in-tile
-// pixel (40 M), negligible beside that. What the design pays on top: a
-// 20-column row keeps 20 of 32 lanes busy, and each (entry, own row) slot
-// costs three shuffles, the mapping arithmetic and a shared-memory
-// read-modify-write, paid by each of the 8 warps for each entry.
+// x 4 bytes = 160 MB at 100k depos in float32, 80 MB in bfloat16), the lists
+// and origins once, and the grid written once (2560 x 9592 x 4 bytes = 98 MB
+// at MicroBooNE width): ~260 MB, about 77 us at 3.35 TB/s (~180 MB, ~54 us,
+// for bfloat16). Operations are one add per in-tile pixel (40 M), negligible
+// beside that. What the design pays on top: a 20-column row keeps 20 of 32
+// lanes busy, and each (entry, own row) slot costs three shuffles, the
+// mapping arithmetic and a shared-memory read-modify-write, paid by each of
+// the 8 warps for each entry. A bfloat16 row is read as 2-byte loads, one a
+// lane (loads of 8 values a lane are later work).
 
 #include <cstdint>
 #include <map>
 #include <mutex>
 #include <utility>
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -89,8 +96,18 @@ constexpr int kSplitShift = 2;
 constexpr int kDense = 0;    // slot s = tile s
 constexpr int kCompact = 1;  // slot s = tile active[s], -1 for none
 
+// Patch element types (the entry point's `patch_dtype`).
+constexpr int kFloat32 = 0;
+constexpr int kBFloat16 = 1;
+
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+template <typename T>
 struct Geometry {
-  const float* patches;  // (N, pw, pt)
+  const T* patches;  // (N, pw, pt)
   const int* w0;         // (N,) patch origin, wire
   const int* t0;         // (N,) patch origin, tick
   int pw;
@@ -105,7 +122,8 @@ struct Geometry {
 // offset `base` with patch index = base + r * pt + c for tile-local pixel
 // (r, c), first own row and row end packed in `rows`, column span packed in
 // `cols`) to `acc`, in list order. Own rows: r = cls (mod 2^shift).
-__device__ __forceinline__ void add_chunk(const Geometry& g, int n, int base,
+template <typename T>
+__device__ __forceinline__ void add_chunk(const Geometry<T>& g, int n, int base,
                                           int rows, int cols, int shift,
                                           int part_shift, int lane,
                                           float* acc) {
@@ -129,7 +147,7 @@ __device__ __forceinline__ void add_chunk(const Geometry& g, int n, int base,
       a[b] = -1;
       v[b] = 0.0f;
       if (j0 + b < total && r < r_hi && c < c_hi) {
-        v[b] = g.patches[off + r * g.pt + c];
+        v[b] = widen(g.patches[off + r * g.pt + c]);
         a[b] = (r >> part_shift) * g.tt + c;  // the CTA holds its rows
       }
       if (++cb == col_blocks) {
@@ -149,7 +167,8 @@ __device__ __forceinline__ void add_chunk(const Geometry& g, int n, int base,
 // The entry a lane holds, for its warp's rows r = cls (mod 2^shift) of tile
 // (tile_w0, tile_t0): patch offset, (first own row, row end), (first column,
 // column end), tile-local; no rows for d = -1.
-__device__ __forceinline__ void place_entry(const Geometry& g, int d, int w0,
+template <typename T>
+__device__ __forceinline__ void place_entry(const Geometry<T>& g, int d, int w0,
                                             int t0, int tile_w0, int tile_t0,
                                             int cls, int shift, int& base,
                                             int& rows, int& cols) {
@@ -165,7 +184,8 @@ __device__ __forceinline__ void place_entry(const Geometry& g, int d, int w0,
 
 // Sum the in-tile part of every patch in `list` into the rows r = part (mod
 // 2^part_shift) of tile t_id, held packed in the shared `acc`.
-__device__ void accumulate_tile(const Geometry& g, int t_id, int part,
+template <typename T>
+__device__ void accumulate_tile(const Geometry<T>& g, int t_id, int part,
                                 int part_shift,
                                 const int* __restrict__ list, float* acc) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -225,9 +245,9 @@ __device__ void store_tile(const float* acc, float* dst, long long stride,
 // runs as one CTA per row part, a shorter one in its first CTA alone (the
 // others return). Every later rank runs as one CTA. CTA b runs slot i =
 // order[rank]; lists are (n_slots, k_max), `lengths` their filled lengths.
-template <int kMode>
+template <int kMode, typename T>
 __global__ void __launch_bounds__(kThreads)
-scatter_add_kernel(Geometry g, int n_split, int long_list,
+scatter_add_kernel(Geometry<T> g, int n_split, int long_list,
                    const int* __restrict__ order,
                    const int* __restrict__ lengths,
                    const int* __restrict__ active,
@@ -272,7 +292,7 @@ int check_shape(int n_depos, int n_slots, int tiles_t, int tw, int tt, int pw,
 // bytes of shared memory each. The host work behind it (the kernel's
 // opt-in to that much shared memory, raised and never lowered, and the
 // occupancy query) is done once per device and size, not on every launch.
-template <int kMode>
+template <int kMode, typename T>
 int resident_ctas(int smem) {
   static std::mutex mutex;
   static std::map<int, int> opted_in;                  // device -> bytes
@@ -282,7 +302,7 @@ int resident_ctas(int smem) {
   const std::lock_guard<std::mutex> hold(mutex);
   int& opted = opted_in[device];
   if (smem > opted &&
-      cudaFuncSetAttribute(scatter_add_kernel<kMode>,
+      cudaFuncSetAttribute(scatter_add_kernel<kMode, T>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            smem) == cudaSuccess)
     opted = smem;
@@ -292,14 +312,14 @@ int resident_ctas(int smem) {
     int sms = 0, per_sm = 0;
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
     cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, scatter_add_kernel<kMode>, kThreads, smem);
+        &per_sm, scatter_add_kernel<kMode, T>, kThreads, smem);
     it = resident.emplace(key, max(sms * per_sm, 1)).first;
   }
   return it->second;
 }
 
-template <int kMode>
-int launch(const Geometry& g, int n_depos, int n_slots, const int* order,
+template <int kMode, typename T>
+int launch(const Geometry<T>& g, int n_depos, int n_slots, const int* order,
            const int* lengths, const int* active, const int* ids, float* out,
            cudaStream_t stream) {
   const int smem = g.tw * g.tt * static_cast<int>(sizeof(float));
@@ -311,44 +331,68 @@ int launch(const Geometry& g, int n_depos, int n_slots, const int* order,
   const double entries = static_cast<double>(n_depos) *
                          (1.0 + (g.pw - 1.0) / g.tw) *
                          (1.0 + (g.pt - 1.0) / g.tt);
-  const int long_list = static_cast<int>(entries / resident_ctas<kMode>(smem));
+  const int long_list =
+      static_cast<int>(entries / resident_ctas<kMode, T>(smem));
   const int n_split =
       g.tw % (1 << kSplitShift) ? 0 : min(kSplitSlots, n_slots);
   const int ctas = n_slots + (n_split << kSplitShift) - n_split;
-  scatter_add_kernel<kMode><<<ctas, kThreads, smem, stream>>>(
+  scatter_add_kernel<kMode, T><<<ctas, kThreads, smem, stream>>>(
       g, n_split, long_list, order, lengths, active, ids, out);
   return static_cast<int>(cudaGetLastError());
 }
 
+// The layout's launch for patches of type T.
+template <typename T>
+int launch_mode(const void* patches, const int* w0, const int* t0,
+                const int* active, const int* ids, const int* order,
+                const int* lengths, int n_depos, int pw, int pt, int n_slots,
+                int tiles_t, int tw, int tt, int k_max, int mode, float* out,
+                cudaStream_t stream) {
+  const Geometry<T> g{static_cast<const T*>(patches), w0, t0, pw, pt, tiles_t,
+                      tw, tt, k_max};
+  switch (mode) {
+    case kDense:
+      return launch<kDense>(g, n_depos, n_slots, order, lengths, nullptr, ids,
+                            out, stream);
+    case kCompact:
+      return launch<kCompact>(g, n_depos, n_slots, order, lengths, active,
+                              ids, out, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
-// Plain C entry point (bound with ctypes). `ids` holds n_slots lists of
-// k_max depo ids (-1 padded); `order` is the CTA launch order, a
-// permutation of the slots, and `lengths` their filled lengths (both from
-// fused_sim_launch_order). `out` is the padded (tiles_w*tw, tiles_t*tt)
-// grid. mode 0: dense lists, slot s = tile s; mode 1: compact lists with
-// `active` (n_slots,) global tile ids, written only at the occupied tiles
-// (the caller zeroes the grid). Launches on `stream` and returns
-// cudaGetLastError() as an int (0 = launched).
-extern "C" int scatter_add_launch(const float* patches, const int* w0,
+// Plain C entry point (bound with ctypes). `patches` holds (n_depos, pw, pt)
+// values of type `patch_dtype` (0: float32, 1: bfloat16). `ids` holds
+// n_slots lists of k_max depo ids (-1 padded); `order` is the CTA launch
+// order, a permutation of the slots, and `lengths` their filled lengths
+// (both from fused_sim_launch_order). `out` is the padded (tiles_w*tw,
+// tiles_t*tt) float32 grid. mode 0: dense lists, slot s = tile s; mode 1:
+// compact lists with `active` (n_slots,) global tile ids, written only at
+// the occupied tiles (the caller zeroes the grid). Launches on `stream` and
+// returns cudaGetLastError() as an int (0 = launched).
+extern "C" int scatter_add_launch(const void* patches, const int* w0,
                                   const int* t0, const int* active,
                                   const int* ids, const int* order,
                                   const int* lengths, int n_depos, int pw,
                                   int pt, int n_slots, int tiles_t, int tw,
-                                  int tt, int k_max, int mode, float* out,
-                                  void* stream) {
+                                  int tt, int k_max, int mode,
+                                  int patch_dtype, float* out, void* stream) {
   if (int err = check_shape(n_depos, n_slots, tiles_t, tw, tt, pw, pt, k_max))
     return err;
   if (n_slots == 0) return 0;
-  const Geometry g{patches, w0, t0, pw, pt, tiles_t, tw, tt, k_max};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (mode) {
-    case kDense:
-      return launch<kDense>(g, n_depos, n_slots, order, lengths, nullptr, ids,
-                            out, s);
-    case kCompact:
-      return launch<kCompact>(g, n_depos, n_slots, order, lengths, active,
-                              ids, out, s);
+  switch (patch_dtype) {
+    case kFloat32:
+      return launch_mode<float>(patches, w0, t0, active, ids, order, lengths,
+                                n_depos, pw, pt, n_slots, tiles_t, tw, tt,
+                                k_max, mode, out, s);
+    case kBFloat16:
+      return launch_mode<__nv_bfloat16>(patches, w0, t0, active, ids, order,
+                                        lengths, n_depos, pw, pt, n_slots,
+                                        tiles_t, tw, tt, k_max, mode, out, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

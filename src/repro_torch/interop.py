@@ -80,6 +80,29 @@ def plane_responses_from_numpy(responses, device="cuda"):
                  for kernel, freq, pad_shape, plane in responses)
 
 
+def bf16_bits(x) -> np.ndarray:
+    """The uint16 bit patterns of a bfloat16 array, as numpy: of a torch
+    tensor (torch has no ``.numpy()`` for bfloat16) or of a numpy array of
+    JAX's bfloat16 type (``ml_dtypes.bfloat16``; numpy has none of its
+    own). Bit views compare two packages' bfloat16 values exactly."""
+    if isinstance(x, torch.Tensor):
+        if x.dtype != torch.bfloat16:
+            raise ValueError(f"expected a bfloat16 tensor, got {x.dtype}")
+        return x.detach().cpu().view(torch.int16).numpy().view(np.uint16)
+    arr = np.asarray(x)
+    if arr.dtype.name != "bfloat16":
+        raise ValueError(f"expected a bfloat16 array, got {arr.dtype}")
+    return arr.view(np.uint16)
+
+
+def bf16_from_numpy(x, device="cuda") -> torch.Tensor:
+    """A bfloat16 tensor from a numpy array of JAX's bfloat16 type, carried
+    across as its bits."""
+    bits = np.ascontiguousarray(bf16_bits(x)).view(np.int16)
+    return torch.from_numpy(bits.copy()).view(torch.bfloat16).to(
+        resolve_device(device))
+
+
 def to_numpy(out: SimOutput) -> Dict[str, np.ndarray]:
     """A port ``SimOutput`` as a dict of numpy arrays (None fields left
     out); a recon output's ``HitSet`` leaves come as ``hits.<field>``."""

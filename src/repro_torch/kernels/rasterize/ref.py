@@ -16,32 +16,11 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.fluctuate import TWO_PI_F32
+from repro_torch.core.fluctuate import TWO_PI_F32, fma_f32
 from repro_torch.core.rasterize import axis_weights
 
 #: depos per step of the plain version (bounds its float64 temporaries)
 CHUNK = 4096
-
-
-def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """float32 ``a * b + c`` rounded once, as a fused multiply-add.
-
-    The product of two float32 values is exact in float64. Their float64
-    sum is taken with rounding to odd (round to nearest, then the last bit
-    forced odd when the sum was inexact), which makes the final rounding to
-    float32 correct: float64 carries more than 24 + 2 bits.
-    """
-    p = a.to(torch.float64) * b.to(torch.float64)  # repro-lint: disable=f64-literal — exact product for the FMA
-    cd = c.to(torch.float64)  # repro-lint: disable=f64-literal — exact FMA emulation, rounded to f32 below
-    s = p + cd
-    # TwoSum: the exact rounding error of s
-    bv = s - p
-    err = (p - (s - bv)) + (cd - bv)
-    even = (s.view(torch.int64) & 1) == 0
-    toward = torch.where(err > 0, torch.full_like(s, float("inf")),
-                         torch.full_like(s, float("-inf")))
-    s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
-    return s.to(torch.float32)
 
 
 def _block(wire, tick, sigma_w, sigma_t, charge, w0, t0, u1, u2, *, pw: int,

@@ -11,9 +11,11 @@ launches ``scatter_add_launch`` from ``csrc/scatter_add.cu`` (CTAs longest
 list first, by ``kernels/tiles.py``) or raises; the kernel always writes
 the grid, and the compact blocks are gathered from it. On CPU tensors each
 wrapper runs the plain PyTorch version in ``ref.py``.
-``LAUNCHES`` counts kernel launches per wrapper (plain-version calls do not
-count). Patches are float32; the reference's bfloat16 patch input is not
-ported yet.
+``LAUNCHES`` counts kernel launches per wrapper, and ``BF16_LAUNCHES``
+those on bfloat16 patches (plain-version calls do not count). Patches are
+float32 or bfloat16, as the reference takes them; a bfloat16 value is
+widened to float32 before its add, so the grid is the one float32
+``patches.float()`` gives, bit for bit. Any other dtype raises.
 """
 from __future__ import annotations
 
@@ -32,12 +34,17 @@ from repro_torch.kernels.tiles import (lengths_and_order,
 #: kernel launches per wrapper since the last ``reset_launches``
 LAUNCHES: Dict[str, int] = {"scatter_add_pallas": 0,
                             "scatter_add_pallas_compact": 0}
+#: of those, the launches on bfloat16 patches (the kernel's bfloat16
+#: instantiation)
+BF16_LAUNCHES: Dict[str, int] = dict.fromkeys(LAUNCHES, 0)
 
 #: the compact wrapper's outputs: the reference's blocks, or the padded
 #: grid written in place
 LAYOUTS = ("blocks", "grid")
 #: the C entry point's modes: dense lists, or compact ones with tile ids
 _DENSE, _COMPACT = 0, 1
+#: the patch dtypes the kernel reads, and the C entry point's codes for them
+PATCH_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -46,12 +53,13 @@ _I = ctypes.c_int
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+        BF16_LAUNCHES[name] = 0
 
 
 #: the C entry point of csrc/scatter_add.cu and its argument types:
 #: patches, w0, t0, active, ids, order, lengths, n_depos, pw, pt, n_slots,
-#: tiles_t, tw, tt, k_max, mode, out, stream
-SIGNATURES = {"scatter_add_launch": [_P] * 7 + [_I] * 9 + [_P, _P]}
+#: tiles_t, tw, tt, k_max, mode, patch dtype code, out, stream
+SIGNATURES = {"scatter_add_launch": [_P] * 7 + [_I] * 10 + [_P, _P]}
 
 
 def _library() -> ctypes.CDLL:
@@ -66,7 +74,10 @@ def _checked(patches, w0, t0):
     if patches.ndim != 3:
         raise ValueError(f"patches: expected (N, pw, pt), got "
                          f"{tuple(patches.shape)}")
-    check_tensor("patches", patches, torch.float32, tuple(patches.shape), dev)
+    if patches.dtype not in PATCH_DTYPES:
+        raise ValueError(f"patches: expected one of {list(PATCH_DTYPES)}, "
+                         f"got {patches.dtype}")
+    check_tensor("patches", patches, patches.dtype, tuple(patches.shape), dev)
     check_tensor("w0", w0, torch.int32, (patches.shape[0],), dev)
     check_tensor("t0", t0, torch.int32, (patches.shape[0],), dev)
     return dev
@@ -84,10 +95,13 @@ def _launch(name: str, patches, w0, t0, active, tile_ids, *, n_slots: int,
             patches.data_ptr(), w0.data_ptr(), t0.data_ptr(),
             0 if active is None else active.data_ptr(), tile_ids.data_ptr(),
             order.data_ptr(), lengths.data_ptr(), n, pw, pt, n_slots,
-            tiles_t, tw, tt, k_max, mode, out.data_ptr(),
+            tiles_t, tw, tt, k_max, mode, PATCH_DTYPES[patches.dtype],
+            out.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     raise_on(err, "scatter_add_launch")
     LAUNCHES[name] += 1
+    if patches.dtype == torch.bfloat16:
+        BF16_LAUNCHES[name] += 1
 
 
 def scatter_add_pallas(patches, w0, t0, tile_ids, *, num_wires: int,
@@ -95,9 +109,9 @@ def scatter_add_pallas(patches, w0, t0, tile_ids, *, num_wires: int,
                        k_max: int) -> torch.Tensor:
     """Owner-computes scatter-add over the dense tile grid.
 
-    patches: (N, pw, pt) f32; w0, t0: (N,) int32 patch origins; tile_ids:
-    (n_tiles*k_max,) int32 depo lists per tile, -1 padded. Returns the
-    padded (tiles_w*tw, tiles_t*tt) grid.
+    patches: (N, pw, pt) f32 or bf16; w0, t0: (N,) int32 patch origins;
+    tile_ids: (n_tiles*k_max,) int32 depo lists per tile, -1 padded.
+    Returns the padded (tiles_w*tw, tiles_t*tt) f32 grid.
     """
     dev = _checked(patches, w0, t0)
     tiles_w, tiles_t, n_tiles = tile_counts(num_wires, num_ticks, tw, tt)

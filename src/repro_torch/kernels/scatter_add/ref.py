@@ -6,9 +6,11 @@ taken one list position at a time: entries at one position sit in distinct
 tiles, so their pixels are distinct and one indexed add lands them exactly;
 each pixel therefore receives its contributions in list order, as in the
 kernel, and the result does not depend on how a library orders colliding
-adds. The helpers here also serve the fused kernels' plain versions. The
-CPU path and the tests use these; on the card they serve only as the
-kernels' comparison.
+adds. bfloat16 patches are widened to float32 before their adds (exact),
+so they give the float32 sums of ``patches.float()``, as the reference's
+kernels do. The helpers here also serve the fused kernels' plain
+versions. The CPU path and the tests use these; on the card they serve
+only as the kernels' comparison.
 """
 from __future__ import annotations
 
@@ -42,9 +44,10 @@ def in_tile_pixels(w0: torch.Tensor, t0: torch.Tensor,
 
 def add_in_list_order(out: torch.Tensor, dest: torch.Tensor,
                       rank: torch.Tensor, vals: torch.Tensor) -> None:
-    """out[dest] += vals, one list position (rank) after another."""
+    """out[dest] += vals, one list position (rank) after another, each value
+    widened to ``out``'s float32 first."""
     order = torch.argsort(rank, stable=True)
-    dest, vals = dest[order], vals[order]
+    dest, vals = dest[order], vals[order].to(out.dtype)
     start = 0
     for size in torch.bincount(rank).tolist():
         sl = slice(start, start + size)

@@ -11,9 +11,10 @@ as one launch of the fig4 chain. Multi-plane configs (``--planes 3``: the
 MicroBooNE U, V and Y planes) hand the event's physical depos to the graph,
 whose drift stage projects them onto every plane. ``--recon`` appends the
 deconvolve and hit_find stages, and each event (and each plane) reports the
-hits stored and the runs found. Prints one ``event N: ...`` line per event
-(and one line per plane of it) and a ``total:`` line. Runs on the card
-unless ``--device cpu``.
+hits stored and the runs found. Prints one ``event N: ...`` line per event,
+naming the dtype of the patches the charge grid rasterises (``--set
+charge_grid_strategy=unfused_bf16``: bfloat16), and one line per plane of
+it, and a ``total:`` line. Runs on the card unless ``--device cpu``.
 """
 from __future__ import annotations
 
@@ -76,6 +77,16 @@ def run_events(cfg: LArTPCConfig, num_events: int, seed: int = 0,
     return stats
 
 
+def patch_dtype_name(cfg: LArTPCConfig) -> str:
+    """The dtype of the patches the config's charge-grid strategy
+    rasterises: bfloat16 for ``unfused_bf16``, float32 for the fused
+    kernels (which ignore ``patch_dtype``), else ``cfg.patch_dtype``."""
+    name = cfg.charge_grid_strategy
+    if name == "unfused_bf16":
+        return "bfloat16"
+    return "float32" if name.startswith("fused") else cfg.patch_dtype
+
+
 def max_dev(adc: torch.Tensor, cfg: LArTPCConfig) -> int:
     """Largest |ADC - baseline| of an event."""
     return int((adc.to(torch.int32) - int(cfg.adc_baseline)).abs().max())
@@ -121,17 +132,20 @@ def main(argv=None):
     if args.set:
         cfg = apply_overrides(cfg, dict(kv.split("=", 1) for kv in args.set))
 
+    patches = patch_dtype_name(cfg)
+
     def report(ev, out, dt):
         n = cfg.num_depos
         if cfg.num_planes == 1:
             print(f"event {ev}: {n} depos -> {tuple(out.adc.shape)} ADC in "
                   f"{dt*1e3:.0f} ms ({n/dt:.3g} depos/s), "
-                  f"max dev {max_dev(out.adc, cfg)}{hit_text(out.hits)}")
+                  f"max dev {max_dev(out.adc, cfg)}, patches {patches}"
+                  f"{hit_text(out.hits)}")
             return
         print(f"event {ev}: {n} depos x {cfg.num_planes} planes -> "
               f"{tuple(out.adc.shape)} ADC in {dt*1e3:.0f} ms "
-              f"({n * cfg.num_planes / dt:.3g} plane-depos/s), "
-              f"dropped {int(out.dropped)}{hit_text(out.hits)}")
+              f"({n * cfg.num_planes / dt:.3g} plane-depos/s), patches "
+              f"{patches}, dropped {int(out.dropped)}{hit_text(out.hits)}")
         for spec in plane_specs(cfg):
             print(f"event {ev} plane {spec.index} ({spec.kind}, "
                   f"{spec.angle_deg:g} deg): max dev "

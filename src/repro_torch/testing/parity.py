@@ -27,6 +27,16 @@ SIGNAL_ATOL_FRAC = GRID_ATOL_FRAC
 #: normals: torch.erfinv vs XLA's erf_inv approximation differ by up to
 #: ~2e-5 absolute in the tails (measured 2.2e-5 over 1e5 draws)
 NORMAL_ATOL = 5e-5
+#: bfloat16 patches, compared as float32 with ``ATOL_FRAC``: each is the
+#: float32 patch rounded to nearest even, and the two float32 patches
+#: differ by erf ULPs, which can land them on two neighbouring bfloat16
+#: values (one bfloat16 ulp is at most 2**-7 of the value). Measured by
+#: ``test_torch_bf16.py::test_rasterize_bf16``: at the smoke config 12 027
+#: of 102 400 pixels differ, 519 of them above the absolute floor, 481 of
+#: those by one bfloat16 ulp and the rest (small values) by 2-4; at the
+#: edge config 5 441 of 51 200, 247, 227, at most 3 ulps. All lie inside
+#: the floor plus 2**-7 of the value
+BF16_RTOL = 2.0 ** -7
 #: hits (charge, mean tick, peak of one run) of an identical ADC: sums
 #: over a run of deconvolved samples, whose FFT and filter ULPs differ
 #: (measured worst 3.6e-6 relative at the three-plane smoke config)

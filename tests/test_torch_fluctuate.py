@@ -1,7 +1,9 @@
 """Port fluctuation primitives against repro.core.fluctuate, on the CPU.
 
 The fmix32 hash and uniform_from_bits are exact; the Box-Muller normals and
-the binomial approximation agree to the float tolerances of ``parity``.
+the binomial approximation agree to the float tolerances of ``parity``. On
+bfloat16 patches the port reproduces the jitted reference bit for bit: its
+float32 normals and its fused multiply-add.
 """
 import jax
 import jax.numpy as jnp
@@ -11,7 +13,7 @@ import torch
 
 from repro.core import fluctuate as jfl
 from repro_torch.core import fluctuate as tfl
-from repro_torch.interop import key_from_data
+from repro_torch.interop import bf16_from_numpy, key_from_data
 from repro_torch.testing import parity
 
 torch.set_num_threads(1)
@@ -91,3 +93,51 @@ def test_fluctuate_counter_close():
                                 torch.from_numpy(patches),
                                 torch.from_numpy(charge)).numpy()
     parity.assert_close(out, ref, what="fluctuate_counter")
+
+
+def _bf16_inputs(seed, n=400):
+    """bfloat16 patches of up to ~40 electrons a pixel (as a JAX array),
+    float32 charges, drawn with numpy."""
+    rng = np.random.default_rng(seed)
+    patches = (rng.random((n, 20, 20)) * 40 * rng.random((n, 1, 1))).astype(
+        np.float32)
+    patches[0, 0, 0] = 0.0
+    charge = (rng.random(n) * 6000 + 1).astype(np.float32)
+    return jnp.asarray(patches).astype(jnp.bfloat16), charge
+
+
+def test_binomial_bf16_patches_widen_and_fuse_like_jitted_reference():
+    """bfloat16 patches and float32 charge give float32, and the last step
+    is one fused multiply-add, as under ``jax.jit``."""
+    patches, charge = _bf16_inputs(7)
+    normals = np.random.default_rng(8).standard_normal(
+        patches.shape).astype(np.float32)
+    ref = np.asarray(jax.jit(jfl.binomial_normal_approx)(
+        patches, jnp.asarray(charge), jnp.asarray(normals)))
+    out = tfl.binomial_normal_approx(
+        bf16_from_numpy(np.asarray(patches), device="cpu"),
+        torch.from_numpy(charge), torch.from_numpy(normals))
+    assert out.dtype == torch.float32 and ref.dtype == np.float32
+    np.testing.assert_array_equal(out.numpy(), ref)
+
+
+@pytest.mark.parametrize("seed", [21, 22, 23])
+def test_fluctuate_counter_bf16_matches_jitted_reference(seed):
+    """bfloat16 normals held in float32, the correctly rounded root and the
+    fused multiply-add: bit for bit the jitted reference. The eager
+    reference rounds the normals to bfloat16 and does not fuse; it lies
+    farther from the jitted one than ``RTOL`` / ``ATOL_FRAC`` allow, so a
+    port of the eager form fails here."""
+    k = jax.random.key(seed)
+    patches, charge = _bf16_inputs(seed)
+    ref = np.asarray(jax.jit(jfl.fluctuate_counter)(k, patches,
+                                                    jnp.asarray(charge)))
+    out = tfl.fluctuate_counter(key_from_data(jax.random.key_data(k)),
+                                bf16_from_numpy(np.asarray(patches),
+                                                device="cpu"),
+                                torch.from_numpy(charge))
+    assert out.dtype == torch.float32 and ref.dtype == np.float32
+    np.testing.assert_array_equal(out.numpy(), ref)
+    eager = np.asarray(jfl.fluctuate_counter(k, patches, jnp.asarray(charge)))
+    with pytest.raises(AssertionError):
+        parity.assert_close(eager, ref, what="eager vs jitted reference")

@@ -168,7 +168,7 @@ def test_simulate_entry_point_matches_graph():
 @pytest.mark.parametrize("field,value", [("num_planes", 3),
                                          ("rng_strategy", "pool"),
                                          ("pipeline", "fig3"),
-                                         ("patch_dtype", "bfloat16")])
+                                         ("patch_dtype", "float16")])
 def test_unported_features_raise(field, value):
     cfg = dataclasses.replace(get_config("lartpc-uboone", smoke=True),
                               **{field: value})

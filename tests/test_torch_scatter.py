@@ -7,8 +7,11 @@ order, and the reference's extra ``+0.0`` outside each patch changes no
 bit. The compact layout equals the dense one bit for bit. Each scatter
 strategy of the port matches the reference's same strategy (bitwise for the
 tile kernels; within ``parity`` tolerance for the library scatters, whose
-summation order is the library's). The CUDA kernels themselves are held
-against the plain versions on the card by ``chip_smoke.py``.
+summation order is the library's). bfloat16 patches are widened before
+each add: the plain versions equal the reference's kernels on them bit for
+bit, and equal their own float32 result on the widened patches. The CUDA
+kernels themselves are held against the plain versions on the card by
+``chip_smoke.py``.
 """
 import dataclasses
 
@@ -235,7 +238,7 @@ def test_non_cpu_tensors_never_take_the_plain_path():
 def test_wrapper_rejects_bad_inputs(bad):
     args, kw = _wrapper_args(*CASES["smoke"])
     if bad == "dtype":
-        args[0] = args[0].to(torch.bfloat16)
+        args[0] = args[0].to(torch.float16)
     elif bad == "rank":
         args[0] = args[0].reshape(args[0].shape[0], -1)
     elif bad == "origins":
@@ -420,3 +423,95 @@ def test_c_entry_point_signature_matches_the_binding():
                            src).group(1).split(",")
         assert argtypes == [ctypes.c_void_p if "*" in p else ctypes.c_int
                             for p in params], name
+
+
+def _bf16_case(case, seed):
+    """(config, tw, tt, k_max, bfloat16 patches as a JAX array, w0, t0) of
+    a ``CASES`` case or of the list filling k_max = 48."""
+    if case == "full-list":
+        patches, w0, t0 = _full_list_inputs()
+        cfg, tw, tt, k_max = dataclasses.replace(EDGE, num_depos=48), 64, \
+            256, 48
+    else:
+        cfg, tw, tt = CASES[case]
+        patches, w0, t0 = _inputs(cfg, seed)
+        k_max = _k_max(w0, t0, cfg, tw, tt)
+    return cfg, tw, tt, k_max, jnp.asarray(patches).astype(jnp.bfloat16), \
+        w0, t0
+
+
+@pytest.mark.parametrize("layout", ["dense", "blocks", "grid"])
+@pytest.mark.parametrize("case", sorted(CASES) + ["full-list"])
+def test_plain_kernel_bf16_equals_reference_kernel(case, layout):
+    """bfloat16 patches: the plain versions (dense, compact blocks, compact
+    written into the grid) == the reference's interpret-mode kernels bit
+    for bit, and == the port's own float32 result on the widened
+    patches."""
+    cfg, tw, tt, k_max, jp, w0, t0 = _bf16_case(case, 11)
+    kw = dict(num_wires=cfg.num_wires, num_ticks=cfg.num_ticks, tw=tw, tt=tt,
+              k_max=k_max)
+    bin_args = (cfg.patch_wires, cfg.patch_ticks, cfg.num_wires,
+                cfg.num_ticks, tw, tt, k_max)
+    tp = interop.bf16_from_numpy(np.asarray(jp), device="cpu")
+    tw0, tt0 = torch.from_numpy(w0), torch.from_numpy(t0)
+    jw0, jt0 = jnp.asarray(w0), jnp.asarray(t0)
+    if layout == "dense":
+        ids, _, dropped = tops.bin_depos_to_tiles(tw0, tt0, *bin_args)
+        ref = jkernel.scatter_add_pallas(jp, jw0, jt0,
+                                         jnp.asarray(ids.numpy()),
+                                         interpret=True, **kw)
+
+        def port(patches):
+            return tkernel.scatter_add_pallas(patches, tw0, tt0, ids, **kw)
+    else:
+        n_cap = tops.active_tile_cap(tw0, *bin_args[:-1], t0=tt0)
+        active, ids, dropped = tops.bin_depos_to_tiles_compact(
+            tw0, tt0, *bin_args, n_cap)
+        ref = jkernel.scatter_add_pallas_compact(
+            jp, jw0, jt0, jnp.asarray(active.numpy()),
+            jnp.asarray(ids.numpy()), interpret=True, **kw)
+        if layout == "grid":
+            tiles_w, tiles_t, _ = tops.tile_counts(cfg.num_wires,
+                                                   cfg.num_ticks, tw, tt)
+            ref = scatter_tiles_to_grid(torch.from_numpy(np.array(ref)),
+                                        active, tiles_w, tiles_t, tw, tt)
+
+        def port(patches):
+            return tkernel.scatter_add_pallas_compact(
+                patches, tw0, tt0, active, ids, layout=layout, **kw)
+    out = port(tp)
+    assert int(dropped) == 0 and out.dtype == torch.float32
+    assert float(out.sum()) > 0.0
+    np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
+    assert torch.equal(out, port(tp.to(torch.float32)))
+
+
+@pytest.mark.parametrize("strategy", STRATEGIES)
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_strategy_bf16_matches_reference(case, strategy):
+    """Each scatter strategy on bfloat16 patches against the reference's
+    same strategy: bitwise for the tile kernels, within ``parity`` for the
+    library scatters; every strategy returns float32."""
+    cfg = CASES[case][0]
+    patches, w0, t0 = _inputs(cfg, 12)
+    jp = jnp.asarray(patches).astype(jnp.bfloat16)
+    ref = np.asarray(jscatter.STRATEGIES[strategy](
+        jp, jnp.asarray(w0), jnp.asarray(t0), cfg))
+    out, dropped = tscatter.scatter_add(
+        interop.bf16_from_numpy(np.asarray(jp), device="cpu"),
+        torch.from_numpy(w0), torch.from_numpy(t0), _tcfg(cfg),
+        strategy=strategy)
+    assert int(dropped) == 0 and out.dtype == torch.float32
+    if strategy.startswith("pallas"):
+        np.testing.assert_array_equal(out.numpy(), ref)
+    else:
+        parity.assert_close(out.numpy(), ref, what=strategy)
+
+
+def test_cpu_path_does_not_count_bf16_launches():
+    args, kw = _wrapper_args(*CASES["smoke"])
+    args[0] = args[0].to(torch.bfloat16)
+    tkernel.reset_launches()
+    tkernel.scatter_add_pallas(*args, **kw)
+    assert set(tkernel.LAUNCHES.values()) == {0}
+    assert tkernel.BF16_LAUNCHES == dict.fromkeys(tkernel.LAUNCHES, 0)
