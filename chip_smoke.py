@@ -8,10 +8,12 @@ Phases (any failure exits non-zero before the result line):
   1. device   : the card's name and power limit (nvidia-smi), device count
   2. build    : nvcc every CUDA source for sm_90a, in parallel (timed as
                 set-up)
-  3. division : drift_depos on the card against the same float32 formulas
-                evaluated by numpy on the host, bit for bit (the port divides
-                where the reference divides, by a 0-d tensor: torch on the
-                card multiplies by the reciprocal of a Python float)
+  3. division : drift_depos and PhysicalDepoSet.from_mm on the card against
+                the same float32 formulas evaluated by numpy on the host, bit
+                for bit (the port divides where the reference divides, by a
+                0-d tensor: torch on the card multiplies by the reciprocal of
+                a Python float); a real allocation failure and a kernel
+                wrapper's out-of-memory launch error classify as OOM
   4. kernels  : each kernel against its plain PyTorch version.
                 Fused (rows 1-2) at full MicroBooNE width (2560 x 9592, 100k
                 depos): dense and compact == the plain version bit for bit
@@ -77,7 +79,31 @@ Phases (any failure exits non-zero before the result line):
                 starting in the last step) at thresholds 500 and 333.3
                 and caps 8, 1 and 40 (more stored runs than lanes), and
                 the plane with the most runs at cap 40
-  6. timing   : each kernel's wrapper (median of 5 rounds of 20 calls
+  6. stream   : the streaming launcher (stream_simulate, the batched
+                executor) at full width, launch counters reset just before
+                and read just after each stream: one plane fused_pallas, 8
+                events 4 a batch; three planes fused_pallas_multiplane with
+                recon, 8 events 4 a batch (hits); three planes
+                fused_pallas_multiplane_compact, 10 events 6 a batch (18
+                rows a batch: two fused launches; the last batch 4 events
+                and 2 padding rows); 2 events 2 a batch each of unfused +
+                pallas, fused_pallas_compact and unfused + pallas_compact.
+                Every streamed row == run_events' event bit for bit (ADC,
+                grid, signal, decon, hits), the fused kernel launched
+                ceil(rows / 16) times a batch, and each fused stream's
+                first batch (4, 12, 16 + 2 and 2 rows) run again and held
+                bit for bit against the plain version of each launch on
+                the same rows and seeds. Then the fault plan
+                nan@1,oom@0 with a journal (survivors and the halved batch
+                == the clean rows), a journalled stream stopped at batch 1
+                (error@1) and resumed through the launcher's --resume (its
+                digests == the clean stream's), check_finite (ADC == off;
+                with validation off the sentinel trips on nan@1 alone), and
+                events/s of the loop beside streams of 1 and 4 events a
+                batch (and 4 without validation), one plane and three
+                planes with recon, and each one's device busy share
+                under torch.profiler with its top kernels
+  7. timing   : each kernel's wrapper (median of 5 rounds of 20 calls
                 timed with CUDA events as the host enqueues them, the
                 method of every version of this script, which reads the
                 host's pace where a call is shorter than its enqueueing,
@@ -100,8 +126,9 @@ Phases (any failure exits non-zero before the result line):
                 function (index_put_ with accumulate=True); for the
                 fused kernels also the SASS instructions per pixel of the
                 pixel loop (cuobjdump) and the issue-rate floor they imply
-  7. summary  : one JSON line {"kernels": [...]}
-  8. result   : last line {"ok": true, "device": {...}}
+  8. summary  : one JSON line {"kernels": [...]} (with each kernel's
+                launches over the clean streams, stream_launches)
+  9. result   : last line {"ok": true, "device": {...}}
 
 The on-card checks live here rather than in pytest because the machine with
 the card has no JAX, which the repository's test configuration imports.
@@ -227,6 +254,32 @@ def count_calls(targets):
     finally:
         for mod, fn, orig in saved:
             setattr(mod, fn, orig)
+
+
+@contextlib.contextmanager
+def recorded_calls(module: str, names):
+    """Record the (name, args, kwargs) of every call of the functions
+    ``names`` of ``module`` inside the block (they still run): yields the
+    list."""
+    import importlib
+
+    mod = importlib.import_module(module)
+    calls = []
+    saved = {name: getattr(mod, name) for name in names}
+
+    def recording(name, orig):
+        def call(*args, **kwargs):
+            calls.append((name, args, kwargs))
+            return orig(*args, **kwargs)
+        return call
+
+    for name, orig in saved.items():
+        setattr(mod, name, recording(name, orig))
+    try:
+        yield calls
+    finally:
+        for name, orig in saved.items():
+            setattr(mod, name, orig)
 
 
 def card_line() -> str:
@@ -382,15 +435,16 @@ def check_division(dev) -> bool:
     sigma_t by drift speed x tick, neither a power of two, so a division
     turned into a multiplication by the reciprocal shows; the square roots
     come from the card (torch.sqrt of the same products), so only the
-    division, the products and the sums are held against the host. Prints
-    the mismatches; True when none."""
+    division, the products and the sums are held against the host. The
+    same for ``PhysicalDepoSet.from_mm``'s divisions by the drift speed
+    and the wire pitch. Prints the mismatches; True when none."""
     import numpy as np
     import torch
 
     from repro_torch.config import get_config
     from repro_torch.core import prng
     from repro_torch.core.depo import generate_physical_depos
-    from repro_torch.core.drift import drift_depos
+    from repro_torch.core.drift import PhysicalDepoSet, drift_depos
 
     cfg = get_config("lartpc-uboone")
     pd = generate_physical_depos(prng.key(3), cfg, device=dev)
@@ -416,7 +470,19 @@ def check_division(dev) -> bool:
            for name, w in want.items()}
     print(f"division: drift_depos of {pd.n} depos on the card vs numpy "
           f"float32 on the host, values that differ: {bad}", flush=True)
-    return not any(bad.values())
+    # PhysicalDepoSet.from_mm divides by the drift speed and the pitch
+    rng = np.random.default_rng(5)
+    mm = [rng.uniform(0.0, 8000.0, pd.n).astype(f32) for _ in range(5)]
+    ingested = PhysicalDepoSet.from_mm(*mm, cfg, device=dev)
+    ingest_bad = {
+        "x": int((ingested.x.cpu().numpy()
+                  != mm[0] / f32(cfg.drift_speed_mm_us)).sum()),
+        "y": int((ingested.y.cpu().numpy()
+                  != mm[1] / f32(cfg.wire_pitch_mm)).sum())}
+    print(f"division: PhysicalDepoSet.from_mm of {pd.n} depos on the card "
+          f"vs numpy float32 on the host, values that differ: {ingest_bad}",
+          flush=True)
+    return not any(bad.values()) and not any(ingest_bad.values())
 
 
 def sass_item_instructions():
@@ -1297,6 +1363,369 @@ def check_determinism(full, key, dev, case) -> None:
           f"{totals[0].numel()}", flush=True)
 
 
+#: the stream phase's full-width streams: (label, planes,
+#: charge_grid_strategy, scatter_strategy, recon, events, batch events).
+#: The three-plane compact stream's last batch holds 4 events and 2
+#: padding rows, and each of its batches 18 rows: two fused launches
+STREAMS = (
+    ("fused_pallas", 1, "fused_pallas", "xla", False, 8, 4),
+    ("fused_pallas_multiplane recon", PLANES, "fused_pallas_multiplane",
+     "xla", True, 8, 4),
+    ("fused_pallas_multiplane_compact", PLANES,
+     "fused_pallas_multiplane_compact", "xla", False, 10, 6),
+    ("unfused+pallas", 1, "unfused", "pallas", False, 2, 2),
+    ("fused_pallas_compact", 1, "fused_pallas_compact", "xla", False, 2, 2),
+    ("unfused+pallas_compact", 1, "unfused", "pallas_compact", False, 2, 2))
+#: the most rows one fused launch takes (kMaxPlanes, csrc/fused_sim.cu)
+FUSED_ROWS_PER_LAUNCH = 16
+
+
+def output_fields(out, e=None):
+    """A SimOutput's compared tensors by name (event ``e`` of a batched
+    one): ADC, grid, signal, and decon and the HitSet leaves with recon."""
+    named = {"adc": out.adc, "charge_grid": out.charge_grid,
+             "signal": out.signal}
+    if out.decon is not None:
+        named["decon"] = out.decon
+    if out.hits is not None:
+        named.update({f"hits.{f}": v for f, v in out.hits._asdict().items()})
+    return {k: (v if e is None else v[e]) for k, v in named.items()}
+
+
+def loop_outputs(cfg, events: int, dev, recon: bool):
+    """run_events' output of events 0 .. events-1, the loop the streams
+    are held against; and its stats."""
+    from repro_torch.core.pipeline import make_sim_fn
+    from repro_torch.launch.sim import run_events
+
+    outs = {}
+    stats = run_events(cfg, events, seed=0, device=dev,
+                       sim=make_sim_fn(cfg, device=dev, recon=recon),
+                       on_event=lambda ev, out, dt: outs.update({ev: out}))
+    return outs, stats
+
+
+def run_stream(cfg, label: str, events: int, batch_events: int, dev,
+               counters, expect=None, kept=None, rows_calls=None, **kw):
+    """One stream_simulate run, every launch counter reset just before and
+    read just after, and the fused kernel's launches counted. Each valid
+    row is held against ``expect[id]`` (run_events' output of that event)
+    bit for bit on every compared field; ``kept`` names the event ids the
+    stream keeps (default all); ``rows_calls``, a list, receives the
+    (args, kwargs) of every ``simulate_charge_grid_rows`` call (one a
+    batch for a fused strategy). Returns (stats, launches, fused
+    launches, {id: the row's ADC})."""
+    import torch
+
+    from repro_torch.launch.sim import stream_simulate
+
+    kept = list(range(events)) if kept is None else kept
+    adcs = {}
+
+    def on_batch(b, n_valid, n_depos, dt, out):
+        ids = [i for i in kept
+               if b * batch_events <= i < (b + 1) * batch_events]
+        check(len(ids) == n_valid, f"{label} batch {b}: {n_valid} rows for "
+              f"ids {ids}")
+        for e, ev in enumerate(ids):
+            if expect is not None:
+                want, got = output_fields(expect[ev]), output_fields(out, e)
+                bad = [k for k in want if not torch.equal(got[k], want[k])]
+                check(not bad, f"{label}: event {ev} differs from "
+                      f"run_events in {bad}")
+            adcs[ev] = out.adc[e].clone()
+
+    for module in counters:
+        module.reset_launches()
+    with count_calls([("repro_torch.kernels.fused_sim.kernel",
+                       "_launch")]) as fused, recorded_calls(
+            "repro_torch.kernels.fused_sim.ops",
+            ["simulate_charge_grid_rows"]) as calls:
+        stats = stream_simulate(cfg, events, batch_events, seed=0,
+                                device=dev, on_batch=on_batch, **kw)
+    if rows_calls is not None:
+        rows_calls.extend((a, k) for _, a, k in calls)
+    torch.cuda.synchronize()
+    launches = {name: n for module in counters
+                for name, n in module.LAUNCHES.items() if n}
+    return stats, launches, fused[0], adcs
+
+
+def plain_launch(name: str, args, kw):
+    """The plain version of one recorded multi-plane fused wrapper call
+    (the launch's own parameters, lists, seeds and geometry), cropped as
+    the wrapper crops."""
+    from repro_torch.kernels import tiles
+    from repro_torch.kernels.fused_sim import kernel, ref
+    from repro_torch.kernels.scatter_add.ops import tile_counts
+
+    rows, tw, tt = kw["num_planes"], kw["tw"], kw["tt"]
+    tiles_w, tiles_t, _ = tile_counts(kw["num_wires"], kw["num_ticks"], tw,
+                                      tt)
+    common = dict(seeds=kernel._plane_seeds(kw["seeds"], rows),
+                  fluctuate=kw["fluctuate"], tiles_t=tiles_t, tw=tw, tt=tt,
+                  k_max=kw["k_max"], pw=kw["pw"], pt=kw["pt"])
+    if name.endswith("_compact"):
+        active = args[7]
+        out = tiles.scatter_tiles_to_grid_planes(
+            ref.fused_rasterize_scatter_multiplane_compact_ref(
+                args[:7], active, args[8], **common),
+            active, rows, tiles_w, tiles_t, tw, tt)
+    else:
+        out = ref.fused_rasterize_scatter_multiplane_ref(
+            args[:7], args[7], tiles_w=tiles_w, **common)
+    return out[:, :kw["num_wires"], :kw["num_ticks"]]
+
+
+def check_rows_vs_plain(label: str, call, card: str):
+    """Run one batch's fused charge-grid call again on the card (the rows,
+    keys and valid counts the stream gave ``simulate_charge_grid_rows``),
+    and hold its grids against the plain version of each of its launches
+    on the same inputs, bit for bit; the launches split the rows 16 at a
+    time. Returns max |kernel - plain|."""
+    import torch
+
+    from repro_torch.kernels.fused_sim import ops
+
+    args, kw = call
+    with recorded_calls("repro_torch.kernels.fused_sim.kernel",
+                        ["fused_rasterize_scatter_multiplane",
+                         "fused_rasterize_scatter_multiplane_compact"]
+                        ) as launches:
+        grid, _ = ops.simulate_charge_grid_rows(*args, **kw)
+    rows = grid.shape[0]
+    sizes = [k["num_planes"] for _, _, k in launches]
+    plain = torch.cat([plain_launch(*launch) for launch in launches])
+    torch.cuda.synchronize()
+    err = float((grid - plain).abs().max())
+    want = [min(FUSED_ROWS_PER_LAUNCH, rows - lo)
+            for lo in range(0, rows, FUSED_ROWS_PER_LAUNCH)]
+    check(sizes == want, f"{label}: launches of {sizes} rows, want {want}")
+    check(torch.equal(grid, plain), f"{label}: the batch's {rows} fused "
+          f"rows != the plain version (max |delta| {err:.6g})")
+    print(f"stream {label}: one batch's {rows} fused rows (launches of "
+          f"{sizes} rows) == the plain version on the same rows and seeds, "
+          f"bit for bit (max |kernel - plain| {err:.6g}); {card}",
+          flush=True)
+    return err
+
+
+def check_streams(full, dev, counters, card: str):
+    """The stream phase: every STREAMS stream at full width against
+    run_events bit for bit, with ceil(rows / 16) fused launches a batch;
+    the fault plan (quarantine, a halved batch), journal resume through
+    the launcher's flags, the finite sentinel; events/s beside the loop.
+    Returns the launches per kernel over the clean streams."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_journals_") as tmp:
+        return stream_checks(full, dev, counters, card, Path(tmp))
+
+
+def stream_checks(full, dev, counters, card: str, tmp: Path):
+    """``check_streams``' body; the journals go under ``tmp``."""
+    import torch
+
+    from repro_torch.core.pipeline import make_sim_fn
+    from repro_torch.launch import sim as launcher
+    from repro_torch.launch.journal import load_journal_records
+    from repro_torch.launch.sim import run_events, stream_simulate
+    from repro_torch.testing.faults import FaultPlan
+
+    totals = {}
+    clean = {}
+    for (label, planes, strategy, scatter, recon, events,
+         batch_events) in STREAMS:
+        cfg = dataclasses.replace(full, num_planes=planes,
+                                  charge_grid_strategy=strategy,
+                                  scatter_strategy=scatter)
+        expect, loop = loop_outputs(cfg, events, dev, recon)
+        journal = str(tmp / f"{label.replace(' ', '_')}.jsonl")
+        rows_calls = []
+        stats, launches, fused, adcs = run_stream(
+            cfg, label, events, batch_events, dev, counters, expect=expect,
+            recon=recon, journal=journal, rows_calls=rows_calls)
+        batches = -(-events // batch_events)
+        want_fused = (batches * -(-batch_events * planes
+                                  // FUSED_ROWS_PER_LAUNCH)
+                      if strategy.startswith("fused") else 0)
+        check(fused == want_fused, f"{label}: {fused} fused launches, want "
+              f"{want_fused} (ceil(rows / 16) a batch)")
+        check(stats["events"] == events
+              and stats["batches"][-1]["events"]
+              == events - (batches - 1) * batch_events,
+              f"{label}: stream stats {stats['batches']}")
+        if recon:
+            check(launches.get("hitfind_pallas") == batches * batch_events
+                  * planes, f"{label}: hit-scan launches {launches}")
+            check(all(b["hits"] > 0 for b in stats["batches"]),
+                  f"{label}: a batch without hits")
+        for name, n in launches.items():
+            totals[name] = totals.get(name, 0) + n
+        if strategy.startswith("fused"):
+            check(len(rows_calls) == batches, f"{label}: "
+                  f"{len(rows_calls)} fused rows calls for {batches} batches")
+            check_rows_vs_plain(label, rows_calls[0], card)
+        del rows_calls
+        print(f"stream {label}: {events} events, {batch_events} a batch, "
+              f"every row == run_events bit for bit "
+              f"({', '.join(output_fields(expect[0]))}); fused launches "
+              f"{fused} ({want_fused // max(batches, 1)} a batch of "
+              f"{batch_events * planes} rows); launches {launches}; stream "
+              f"{stats['events'] / stats['wall_s']:.4g} events/s with the "
+              f"checks, loop {loop['events'] / loop['wall_s']:.4g} "
+              f"events/s; {card}", flush=True)
+        if label == "fused_pallas":
+            clean = dict(cfg=cfg, expect=expect, adcs=adcs,
+                         shas={r["batch"]: r["adc_sha"]
+                               for r in load_journal_records(journal)})
+        del expect
+        torch.cuda.empty_cache()
+
+    # faults on the card: event 1 quarantined, batch 0 halved by an OOM
+    cfg, expect = clean["cfg"], clean["expect"]
+    stats, _, _, adcs = run_stream(
+        cfg, "faults nan@1,oom@0", 8, 4, dev, counters, expect=expect,
+        kept=[0, 2, 3, 4, 5, 6, 7], faults=FaultPlan.parse("nan@1,oom@0"),
+        journal=str(tmp / "faults.jsonl"))
+    h = stats["health"]
+    check(h["quarantined"] == 1 and h["retries"] == 1 and h["halvings"] == 1
+          and stats["events"] == 7, f"fault plan health {h}")
+    counters_text = {k: v for k, v in h.items() if k != "dead_letters"}
+    print(f"stream faults nan@1,oom@0: event 1 quarantined, batch 0 halved "
+          f"(2 + 2 rows); the 7 survivors == the clean stream's rows bit "
+          f"for bit; health {counters_text}", flush=True)
+
+    # journal resume through the launcher: stopped at batch 1, resumed
+    jpath = str(tmp / "resume.jsonl")
+    argv = ["--events", "8", "--batch-events", "4", "--journal", jpath,
+            "--set", "charge_grid_strategy=fused_pallas"]
+    try:
+        launcher.main(argv + ["--inject-faults", "error@1"])
+        check(False, "the error@1 stream did not stop")
+    except SystemExit as e:
+        print(f"stream error@1: stopped: {e}", flush=True)
+    check([r["batch"] for r in load_journal_records(jpath)] == [0],
+          "the stopped stream's journal")
+    launcher.main(argv + ["--resume"])
+    resumed = {r["batch"]: r["adc_sha"] for r in load_journal_records(jpath)}
+    check(resumed == clean["shas"], f"resumed digests {resumed} != clean "
+          f"{clean['shas']}")
+    print("stream resume (--journal, --resume): the resumed digests == the "
+          "clean stream's", flush=True)
+
+    # the finite sentinel: on == off; it trips on a NaN event unvalidated
+    fin = dataclasses.replace(cfg, check_finite=True)
+    stats, _, _, adcs = run_stream(fin, "check_finite", 4, 4, dev, counters)
+    check(all(torch.equal(adcs[ev], clean["adcs"][ev]) for ev in range(4))
+          and stats["health"]["nonfinite_events"] == 0,
+          "check_finite on: ADC differs from off, or the sentinel tripped")
+    stats, _, _, adcs = run_stream(
+        fin, "check_finite nan@1 unvalidated", 4, 4, dev, counters,
+        validate=False, faults=FaultPlan.parse("nan@1"))
+    check(stats["batches"][0]["nonfinite"] == 1
+          and all(torch.equal(adcs[ev], clean["adcs"][ev])
+                  for ev in (0, 2, 3)),
+          f"the sentinel on nan@1: {stats['batches']}")
+    print("stream check_finite: ADC == off bit for bit; with validation off "
+          "the sentinel trips on event 1 (nan@1) alone, and events 0, 2, 3 "
+          "keep their bits", flush=True)
+    del expect, clean
+    torch.cuda.empty_cache()
+
+    # events/s: the loop, and streams of 1 and 4 events a batch, each run
+    # twice in the order A B C D D C B A (the host is shared: its pace
+    # drifts within a call)
+    for (label, planes, strategy, recon) in (
+            ("1 plane fused_pallas", 1, "fused_pallas", False),
+            ("3 planes fused_pallas_multiplane recon", PLANES,
+             "fused_pallas_multiplane", True)):
+        cfg = dataclasses.replace(full, num_planes=planes,
+                                  charge_grid_strategy=strategy)
+        sim = make_sim_fn(cfg, device=dev, recon=recon)
+
+        def events_per_s(name, events=8):
+            if name == "loop":
+                st = run_events(cfg, events, seed=0, device=dev, sim=sim)
+            else:
+                st = stream_simulate(cfg, events, int(name.split()[1]),
+                                     seed=0, device=dev, recon=recon,
+                                     validate="unvalidated" not in name)
+            return st["events"] / st["wall_s"]
+
+        names = ("loop", "batch 1", "batch 4", "batch 4 unvalidated")
+        rates = {name: [] for name in names}
+        for name in names + names[::-1]:
+            rates[name].append(events_per_s(name))
+        print(f"events/s, {label}, 8 full-width events a run (host clock, "
+              f"generation included), two runs each: " + ", ".join(
+                  f"{name} {r[0]:.4f} / {r[1]:.4f} "
+                  f"({1e3 / r[0]:.2f} / {1e3 / r[1]:.2f} ms/event)"
+                  for name, r in rates.items()) + f"; {card}", flush=True)
+        for name in names[:3]:
+            wall, busy, top = profiled(lambda: events_per_s(name, 4))
+            print(f"device busy, {label}, {name}, 4 events under "
+                  f"torch.profiler: {busy:.3f} ms of CUDA activity in "
+                  f"{wall:.3f} ms (host clock, synchronised), busy share "
+                  f"{busy / wall:.4f}; ops with the most device time: "
+                  + "; ".join(f"{k} {ms:.3f} ms x{n}" for k, ms, n in top)
+                  + f"; {card}", flush=True)
+        torch.cuda.empty_cache()
+    return totals
+
+
+def profiled(fn):
+    """(wall ms, device ms, top ops) of one call of ``fn`` under
+    torch.profiler: the host clock around the call (synchronised; the
+    profiler's own host cost included, so the busy share it gives is a
+    lower bound), the device time of every CUDA event (kernels, copies,
+    fills), and the five host ops whose kernels took the most device
+    time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    busy = sum(e.self_device_time_total for e in events
+               if e.device_type == DeviceType.CUDA
+               and not e.is_user_annotation) / 1e3
+    ops = [e for e in events if e.device_type == DeviceType.CPU
+           and e.self_device_time_total > 0]
+    top = sorted(ops, key=lambda e: -e.self_device_time_total)[:5]
+    return wall, busy, [(e.key, e.self_device_time_total / 1e3, e.count)
+                        for e in top]
+
+
+def check_oom_classification(dev) -> None:
+    """A real allocation failure on the card, and a kernel wrapper's launch
+    error for cudaErrorMemoryAllocation, both classify as OOM (the
+    stream's retry policy halves the batch for them)."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.core.validate import is_oom_error
+
+    try:
+        torch.empty(1 << 50, dtype=torch.uint8, device=dev)
+        check(False, "a 1 PiB allocation succeeded")
+    except torch.cuda.OutOfMemoryError as e:
+        check(is_oom_error(e), f"torch OOM not classified: {e}")
+    try:
+        kernels.raise_on(2, "fused_sim_dense")
+    except RuntimeError as e:
+        check(is_oom_error(e), f"launch error not classified: {e}")
+        print(f"OOM classification: torch.cuda.OutOfMemoryError and "
+              f"'{e}' both OOM-class", flush=True)
+    torch.cuda.empty_cache()
+
+
 def print_stages(label: str, sim, key, depos) -> None:
     _, timings = sim.timed(key, depos, warmup=1, iters=5)
     total = sum(timings.values())
@@ -1348,8 +1777,9 @@ def main() -> int:
           f"({', '.join(logs) or 'cached'})", flush=True)
 
     phase("division")
-    check(check_division(dev), "drift_depos on the card differs from its "
-          "float32 formulas")
+    check(check_division(dev), "drift_depos or from_mm on the card differs "
+          "from its float32 formulas")
+    check_oom_classification(dev)
 
     phase("kernels vs plain")
     full = get_config("lartpc-uboone")
@@ -1597,6 +2027,19 @@ def main() -> int:
           f"edge case (thresholds {HIT_THRESHOLDS}, caps {HIT_CAPS})",
           flush=True)
 
+    phase("stream")
+    stream_launches = check_streams(full, dev, [kernel, scatter_kernel,
+                                                hit_kernel], card)
+    on_path = ("fused_rasterize_scatter", "fused_rasterize_scatter_compact",
+               "fused_rasterize_scatter_multiplane",
+               "fused_rasterize_scatter_multiplane_compact",
+               "scatter_add_pallas", "scatter_add_pallas_compact",
+               "hitfind_pallas")
+    check(all(stream_launches.get(name, 0) > 0 for name in on_path),
+          f"a kernel of the stream path never launched: {stream_launches}")
+    print(f"stream launches over the clean streams: {stream_launches}",
+          flush=True)
+
     phase("kernel timing")
     rows = []
     fused_src = "src/repro_torch/csrc/fused_sim.cu"
@@ -1670,7 +2113,8 @@ def main() -> int:
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms, "ms_card": on_card_ms,
-            "host_ms": host_ms})
+            "host_ms": host_ms,
+            "stream_launches": stream_launches.get(name, 0)})
         support_text = ""
         if name in support_bounds:
             rows[-1]["bound_all_support_ms"] = support_bounds[name]

@@ -16,7 +16,7 @@ import torch
 
 from repro_torch.config import LArTPCConfig, PlaneSpec, plane_specs
 from repro_torch.core.depo import DepoSet
-from repro_torch.device import scalar
+from repro_torch.device import resolve_device, scalar
 from repro_torch.tune.registry import register_strategy, resolve, set_default
 
 
@@ -35,6 +35,31 @@ class PhysicalDepoSet(NamedTuple):
 
     def to(self, device) -> "PhysicalDepoSet":
         return PhysicalDepoSet(*(x.to(device) for x in self))
+
+    def x_mm(self, cfg: LArTPCConfig) -> torch.Tensor:
+        """Metric drift distance [mm] of each depo."""
+        return self.x * cfg.drift_speed_mm_us
+
+    def y_mm(self, cfg: LArTPCConfig) -> torch.Tensor:
+        """Metric transverse position [mm] of each depo."""
+        return self.y * cfg.wire_pitch_mm
+
+    @classmethod
+    def from_mm(cls, x_mm, y_mm, z_mm, t_us, q, cfg: LArTPCConfig,
+                device="cuda") -> "PhysicalDepoSet":
+        """Ingest metric-space depos (larnd-sim's track convention:
+        positions in mm, times in us, charge in electrons) as float32 on
+        ``device``. The one lossy unit conversion happens here, as true
+        float32 divisions by the drift speed and the wire pitch."""
+        dev = resolve_device(device)
+
+        def f(a):
+            return torch.as_tensor(a, dtype=torch.float32, device=dev)
+
+        x, y = f(x_mm), f(y_mm)
+        return cls(x=x / scalar(cfg.drift_speed_mm_us, x),
+                   y=y / scalar(cfg.wire_pitch_mm, y),
+                   z=f(z_mm), t=f(t_us), q=f(q))
 
 
 @register_strategy("drift", "jnp",

@@ -5,7 +5,8 @@ the event goes through one chain of device work (drift, charge grid,
 convolve, noise, digitize), with one upload of the depos and the ADC grid
 left on the device. The chain itself is ``repro_torch.core.stages``.
 
-Charge-grid strategies (each returns ``(grid, dropped)``):
+Charge-grid strategies (each returns ``(grid, dropped)``; ``n_valid``, the
+valid depo count of a padded row, limits ``dropped`` to the valid depos):
 
   unfused              : rasterize -> threefry fluctuation -> scatter_add
                          (``cfg.scatter_strategy``: xla, sort_segment, or the
@@ -27,11 +28,11 @@ same path in both packages.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
-from repro_torch.config import LArTPCConfig, plane_specs
+from repro_torch.config import LArTPCConfig, PlaneSpec, plane_specs
 from repro_torch.core import fluctuate as fl
 from repro_torch.core.depo import DepoSet
 from repro_torch.core.rasterize import rasterize
@@ -51,23 +52,25 @@ __all__ = ["SimOutput", "simulate_fig4", "make_sim_fn", "simulate",
 
 @register_strategy("charge_grid", "unfused",
                    note="rasterize -> fluctuate -> scatter_add")
-def charge_grid_unfused(k: torch.Tensor, depos: DepoSet, cfg: LArTPCConfig):
+def charge_grid_unfused(k: torch.Tensor, depos: DepoSet, cfg: LArTPCConfig,
+                        n_valid: Optional[int] = None):
     patches, w0, t0 = rasterize(depos, cfg)
     if cfg.fluctuate and cfg.rng_strategy == "counter":
         patches = fl.fluctuate_counter(k, patches, depos.charge)
-    return scatter_add(patches, w0, t0, cfg)
+    return scatter_add(patches, w0, t0, cfg, n_valid=n_valid)
 
 
 @register_strategy("charge_grid", "unfused_bf16",
                    note="unfused chain with bfloat16 patches (f32 accumulate)")
 def charge_grid_unfused_bf16(k: torch.Tensor, depos: DepoSet,
-                             cfg: LArTPCConfig):
+                             cfg: LArTPCConfig,
+                             n_valid: Optional[int] = None):
     """``unfused`` with bfloat16 patches. With fluctuation on, the patches
     meet the float32 charge and reach the scatter as float32 (bfloat16
     means, bfloat16 normals), as in the reference; without it the scatter
     takes the bfloat16 patches and adds them in float32."""
     return charge_grid_unfused(
-        k, depos, dataclasses.replace(cfg, patch_dtype="bfloat16"))
+        k, depos, dataclasses.replace(cfg, patch_dtype="bfloat16"), n_valid)
 
 
 def _fused_key(k: torch.Tensor, cfg: LArTPCConfig) -> Optional[torch.Tensor]:
@@ -85,20 +88,24 @@ def _fused_key(k: torch.Tensor, cfg: LArTPCConfig) -> Optional[torch.Tensor]:
 @register_strategy("charge_grid", "fused_pallas",
                    note="fused rasterize+fluctuate+scatter CUDA kernel",
                    differentiable=False)
-def charge_grid_fused(k: torch.Tensor, depos: DepoSet, cfg: LArTPCConfig):
+def charge_grid_fused(k: torch.Tensor, depos: DepoSet, cfg: LArTPCConfig,
+                      n_valid: Optional[int] = None):
     from repro_torch.kernels.fused_sim.ops import simulate_charge_grid
 
-    return simulate_charge_grid(depos, cfg, key=_fused_key(k, cfg))
+    return simulate_charge_grid(depos, cfg, key=_fused_key(k, cfg),
+                                n_valid=n_valid)
 
 
 @register_strategy("charge_grid", "fused_pallas_compact",
                    note="fused kernel over occupied tiles only",
                    differentiable=False)
 def charge_grid_fused_compact(k: torch.Tensor, depos: DepoSet,
-                              cfg: LArTPCConfig):
+                              cfg: LArTPCConfig,
+                              n_valid: Optional[int] = None):
     from repro_torch.kernels.fused_sim.ops import simulate_charge_grid_compact
 
-    return simulate_charge_grid_compact(depos, cfg, key=_fused_key(k, cfg))
+    return simulate_charge_grid_compact(depos, cfg, key=_fused_key(k, cfg),
+                                        n_valid=n_valid)
 
 
 def _plane_grid_keys(k: torch.Tensor, cfg: LArTPCConfig):
@@ -122,33 +129,37 @@ def _require_plane_axis(depos: DepoSet, cfg: LArTPCConfig) -> None:
                    note="one fused CUDA launch rasterises ALL planes",
                    differentiable=False)
 def charge_grid_fused_multiplane(k: torch.Tensor, depos: DepoSet,
-                                 cfg: LArTPCConfig):
+                                 cfg: LArTPCConfig,
+                                 n_valid: Optional[int] = None):
     from repro_torch.kernels.fused_sim.ops import \
         simulate_charge_grid_multiplane
 
     _require_plane_axis(depos, cfg)
     return simulate_charge_grid_multiplane(depos, cfg,
-                                           keys=_plane_grid_keys(k, cfg))
+                                           keys=_plane_grid_keys(k, cfg),
+                                           n_valid=n_valid)
 
 
 @register_strategy("charge_grid", "fused_pallas_multiplane_compact",
                    note="multi-plane fused kernel over occupied tiles only",
                    differentiable=False)
 def charge_grid_fused_multiplane_compact(k: torch.Tensor, depos: DepoSet,
-                                         cfg: LArTPCConfig):
+                                         cfg: LArTPCConfig,
+                                         n_valid: Optional[int] = None):
     from repro_torch.kernels.fused_sim.ops import \
         simulate_charge_grid_multiplane_compact
 
     _require_plane_axis(depos, cfg)
     return simulate_charge_grid_multiplane_compact(
-        depos, cfg, keys=_plane_grid_keys(k, cfg))
+        depos, cfg, keys=_plane_grid_keys(k, cfg), n_valid=n_valid)
 
 
 @register_strategy("charge_grid", "multiplane_xla",
                    note="plane-flattened chain; counter-hash fluctuation",
                    differentiable=False)
 def charge_grid_multiplane_xla(k: torch.Tensor, depos: DepoSet,
-                               cfg: LArTPCConfig):
+                               cfg: LArTPCConfig,
+                               n_valid: Optional[int] = None):
     """All planes as ONE flat depo batch: rasterise (P*N) patches, draw
     counter-hash normals (seeded per plane from ``fold_in(k, p)``, streamed
     per plane-local depo, countered per patch pixel, one hash and an erfinv
@@ -178,6 +189,47 @@ def charge_grid_multiplane_xla(k: torch.Tensor, depos: DepoSet,
     tall = dataclasses.replace(cfg, num_wires=n_planes * cfg.num_wires)
     grid, dropped = scatter_add(patches, w0 + off, t0, tall, strategy="xla")
     return grid.reshape(n_planes, cfg.num_wires, cfg.num_ticks), dropped
+
+
+#: the fused strategies -> (compact, one-plane rows): over a batch they
+#: hand every (event, plane) row to the fused kernel at once
+FUSED_ROWS = {"fused_pallas": (False, True),
+              "fused_pallas_compact": (True, True),
+              "fused_pallas_multiplane": (False, False),
+              "fused_pallas_multiplane_compact": (True, False)}
+
+
+def charge_grid_fused_rows(name: str, kfs: Sequence[torch.Tensor],
+                           depos: Sequence[DepoSet], cfg: LArTPCConfig,
+                           specs: Sequence[PlaneSpec],
+                           n_valid: Sequence[Optional[int]]):
+    """The fused strategy ``name`` over the events of a batch, all their
+    (event, plane) rows in ceil(rows / 16) launches (the port's counterpart
+    of the reference's ``vmap`` of the fused ``pallas_call``).
+
+    Event e has the charge-grid key ``kfs[e]``, the depos ``depos[e]``
+    ((N,), or one row per plane of ``specs`` for a multi-plane config) and
+    the valid depo count ``n_valid[e]``. Each row carries the seed the
+    per-event run gives it: ``kf_e`` for one plane, ``fold_in(kf_e,
+    spec.index)`` for several. Returns each event's ``(grid, dropped)`` as
+    the per-event charge-grid stage returns it, bit for bit."""
+    from repro_torch.kernels.fused_sim.ops import simulate_charge_grid_rows
+
+    compact, one_plane = FUSED_ROWS[name]
+    multi = cfg.num_planes > 1
+    rows = [d if multi else DepoSet(*(x[None] for x in d)) for d in depos]
+    per_event = rows[0].wire.shape[0]
+    keys = None
+    if _fused_key(kfs[0], cfg) is not None:
+        keys = torch.cat([plane_fold_keys(k, specs) if multi else k[None]
+                          for k in kfs])
+    grid, dropped = simulate_charge_grid_rows(
+        DepoSet(*(torch.cat(x) for x in zip(*rows))), cfg, compact=compact,
+        one_plane=one_plane, keys=keys,
+        n_valid=[n for n in n_valid for _ in range(per_event)])
+    grid = grid.view(len(rows), per_event, *grid.shape[1:])
+    dropped = dropped.view(len(rows), per_event).sum(1)
+    return [(g if multi else g[0], d) for g, d in zip(grid, dropped)]
 
 
 set_default("charge_grid", "unfused")

@@ -15,7 +15,8 @@ dropped)``:
 Patches arrive float32 or bfloat16 (``cfg.patch_dtype``); every strategy
 widens each value to float32 before its add and returns a float32 grid.
 ``dropped`` (a 0-d tensor) counts the (depo, tile) entries the tile
-binning could not fit; the library strategies drop nothing.
+binning could not fit, of depos below ``n_valid`` (the valid depos of a
+padded row; every depo when None); the library strategies drop nothing.
 ``depo_patch_origin`` clips every origin so no window leaves the grid.
 """
 from __future__ import annotations
@@ -50,7 +51,7 @@ def _flat_contributions(patches, w0, t0, cfg: LArTPCConfig):
 
 @register_strategy("scatter_add", "xla", note="one index_put_ accumulate")
 def scatter_xla(patches: torch.Tensor, w0: torch.Tensor, t0: torch.Tensor,
-                cfg: LArTPCConfig):
+                cfg: LArTPCConfig, n_valid=None):
     idx, vals = _flat_contributions(patches, w0, t0, cfg)
     grid = torch.zeros(cfg.num_wires * cfg.num_ticks, dtype=torch.float32,
                        device=patches.device)
@@ -61,7 +62,7 @@ def scatter_xla(patches: torch.Tensor, w0: torch.Tensor, t0: torch.Tensor,
 @register_strategy("scatter_add", "sort_segment",
                    note="sort by destination, segment sums, one write")
 def scatter_sort_segment(patches: torch.Tensor, w0: torch.Tensor,
-                         t0: torch.Tensor, cfg: LArTPCConfig):
+                         t0: torch.Tensor, cfg: LArTPCConfig, n_valid=None):
     idx, vals = _flat_contributions(patches, w0, t0, cfg)
     idx_s, order = torch.sort(idx, stable=True)
     dest, run = torch.unique_consecutive(idx_s, return_inverse=True)
@@ -82,31 +83,31 @@ def scatter_sort_segment(patches: torch.Tensor, w0: torch.Tensor,
                    note="owner-computes tile CUDA kernel",
                    differentiable=False)
 def scatter_pallas(patches: torch.Tensor, w0: torch.Tensor, t0: torch.Tensor,
-                   cfg: LArTPCConfig):
+                   cfg: LArTPCConfig, n_valid=None):
     from repro_torch.kernels.scatter_add.ops import scatter_add_tiles
 
     return scatter_add_tiles(patches, w0, t0, num_wires=cfg.num_wires,
-                             num_ticks=cfg.num_ticks)
+                             num_ticks=cfg.num_ticks, n_valid=n_valid)
 
 
 @register_strategy("scatter_add", "pallas_compact",
                    note="owner-computes kernel over occupied tiles only",
                    differentiable=False)
 def scatter_pallas_compact(patches: torch.Tensor, w0: torch.Tensor,
-                           t0: torch.Tensor, cfg: LArTPCConfig):
+                           t0: torch.Tensor, cfg: LArTPCConfig, n_valid=None):
     from repro_torch.kernels.scatter_add.ops import scatter_add_tiles_compact
 
     return scatter_add_tiles_compact(patches, w0, t0,
                                      num_wires=cfg.num_wires,
-                                     num_ticks=cfg.num_ticks)
+                                     num_ticks=cfg.num_ticks, n_valid=n_valid)
 
 
 set_default("scatter_add", "xla")
 
 
 def scatter_add(patches, w0, t0, cfg: LArTPCConfig,
-                strategy: str | None = None):
+                strategy: str | None = None, n_valid: int | None = None):
     """Dispatch to a registered scatter strategy (``"auto"``: the default);
     returns ``(grid, dropped)``."""
     return resolve("scatter_add", strategy or cfg.scatter_strategy).fn(
-        patches, w0, t0, cfg)
+        patches, w0, t0, cfg, n_valid=n_valid)

@@ -20,12 +20,27 @@ leaf. Every stage runs one plane at a time, except that ``plane_batching``
 charge-grid strategy all planes in one launch; ``loop`` dispatches its
 single-plane form per plane. Both give the same bits. ``planes`` restricts
 a multi-plane graph to some plane indices.
+
+``run_batch`` is the batched executor (the port's counterpart of the
+reference's ``vmap`` over events, ``repro_torch.core.batch``): it runs the
+same stages over the events of a batch, stage by stage. A stage with a
+``batch_fn`` takes all the batch's events at once: the charge-grid stage
+of the fused strategies hands every (event, plane) row to the fused kernel
+in ceil(rows / 16) launches. Every other stage runs one event (and within
+it one plane) at a time, so each event equals ``run`` on the same padded
+row, bit for bit. ``n_valid`` gives a padded row's valid depo count, so
+the tile binning does not count its padding as dropped.
+
+``cfg.check_finite`` turns on the reference's sentinel: after each float
+stage the graph ANDs ``isfinite(...).all()`` of the stage's output into
+``finite_ok``, a 0-d bool tensor left on the device (no host read).
 """
 from __future__ import annotations
 
 import statistics
 import time
-from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
+from typing import (Callable, Dict, List, NamedTuple, Optional, Sequence,
+                    Tuple)
 
 import torch
 from torch import nn
@@ -58,11 +73,14 @@ class SimOutput(NamedTuple):
     """Simulation result of one event. Multi-plane configs carry a leading
     plane axis on adc, signal and charge_grid: (P, num_wires, num_ticks).
 
-    ``dropped`` counts the (depo, tile) entries the tile binning of the
-    kernel strategies could not fit, over all planes (0-d tensor; always 0
-    for the library strategies). ``decon`` and ``hits`` are set only by
-    recon graphs (``build_sim_graph(..., recon=True)``); multi-plane hits
-    stack their leaves to (P, max_hits)."""
+    ``dropped`` counts the (depo, tile) entries of valid depos the tile
+    binning of the kernel strategies could not fit, over all planes (0-d
+    tensor; always 0 for the library strategies). ``decon`` and ``hits``
+    are set only by recon graphs (``build_sim_graph(..., recon=True)``);
+    multi-plane hits stack their leaves to (P, max_hits). ``finite_ok``
+    (0-d bool) is set only with ``cfg.check_finite``: True when every
+    float stage output was finite. The batched executor stacks every leaf
+    along a leading event axis."""
 
     adc: torch.Tensor          # (num_wires, num_ticks) int16
     signal: torch.Tensor       # (num_wires, num_ticks) float32
@@ -70,6 +88,7 @@ class SimOutput(NamedTuple):
     dropped: Optional[torch.Tensor] = None
     decon: Optional[torch.Tensor] = None  # S^(t,x) after deconvolve
     hits: Optional[object] = None         # HitSet after hit_find
+    finite_ok: Optional[torch.Tensor] = None  # check_finite sentinel
 
 
 class SimState(NamedTuple):
@@ -85,21 +104,54 @@ class SimState(NamedTuple):
     dropped: Optional[torch.Tensor] = None
     decon: Optional[torch.Tensor] = None
     hits: Optional[object] = None
+    n_valid: Optional[int] = None        # valid depos of a padded row
+    finite_ok: Optional[torch.Tensor] = None  # check_finite accumulator
 
 
 class Stage(nn.Module):
     """One named step: ``fn(SimState) -> SimState``; ``op`` names the
-    registry hot op it dispatches (None for fixed-function stages)."""
+    registry hot op it dispatches (None for fixed-function stages).
+    ``batch_fn`` (optional) runs the step over the states of a batch's
+    events at once, with each state's result bit for bit ``fn``'s.
+    ``finite_field`` names the state field the ``check_finite`` sentinel
+    inspects after the step (None: no check)."""
 
     def __init__(self, name: str, fn: Callable[[SimState], SimState],
-                 op: Optional[str] = None):
+                 op: Optional[str] = None,
+                 batch_fn: Optional[Callable[[List[SimState]],
+                                             List[SimState]]] = None):
         super().__init__()
         self.name = name
         self.fn = fn
         self.op = op
+        self.batch_fn = batch_fn
+        self.finite_field: Optional[str] = None
 
     def forward(self, state: SimState) -> SimState:
-        return self.fn(state)
+        return self._checked(self.fn(state))
+
+    def run_rows(self, states: List[SimState]) -> List[SimState]:
+        """The step over the states of a batch: ``batch_fn`` where the stage
+        has one, else ``fn`` one state at a time."""
+        out = (self.batch_fn(states) if self.batch_fn is not None
+               else [self.fn(s) for s in states])
+        return [self._checked(s) for s in out]
+
+    def _checked(self, state: SimState) -> SimState:
+        if self.finite_field is None:
+            return state
+        ok = state.finite_ok
+        for leaf in _tensor_leaves(getattr(state, self.finite_field)):
+            if leaf.is_floating_point():
+                flag = torch.isfinite(leaf).all()
+                ok = flag if ok is None else ok & flag
+        return state._replace(finite_ok=ok)
+
+
+def _tensor_leaves(value):
+    if isinstance(value, torch.Tensor):
+        return [value]
+    return [x for x in value if isinstance(x, torch.Tensor)]
 
 
 class SimGraph(nn.Module):
@@ -116,8 +168,9 @@ class SimGraph(nn.Module):
         return tuple(s.name for s in self.stages)
 
     def replace(self, **overrides) -> "SimGraph":
-        """A new graph with named stages replaced by a ``Stage`` or a
-        ``SimState -> SimState`` function."""
+        """A new graph with named stages replaced by a ``Stage`` (taken as
+        it is) or a ``SimState -> SimState`` function, which keeps the
+        replaced stage's name, op and ``check_finite`` field."""
         unknown = set(overrides) - set(self.stage_names)
         if unknown:
             raise KeyError(f"unknown stages {sorted(unknown)}; "
@@ -125,28 +178,51 @@ class SimGraph(nn.Module):
         stages = []
         for s in self.stages:
             new = overrides.get(s.name, s)
-            stages.append(new if isinstance(new, Stage)
-                          else Stage(s.name, new, s.op))
+            if not isinstance(new, Stage):
+                new = Stage(s.name, new, s.op)
+                new.finite_field = s.finite_field
+            stages.append(new)
         return SimGraph(stages, self.device)
 
-    def init_state(self, key: torch.Tensor, depos) -> SimState:
+    def init_state(self, key: torch.Tensor, depos,
+                   n_valid: Optional[int] = None) -> SimState:
         kf, kn = prng.split(key)
-        return SimState(key=key, kf=kf, kn=kn, depos=depos.to(self.device))
+        return SimState(key=key, kf=kf, kn=kn, depos=depos.to(self.device),
+                        n_valid=n_valid)
 
     @staticmethod
     def output(state: SimState) -> SimOutput:
         return SimOutput(adc=state.adc, signal=state.signal,
                          charge_grid=state.grid, dropped=state.dropped,
-                         decon=state.decon, hits=state.hits)
+                         decon=state.decon, hits=state.hits,
+                         finite_ok=state.finite_ok)
 
-    def run(self, key: torch.Tensor, depos) -> SimOutput:
-        """Execute the full chain for one event."""
-        state = self.init_state(key, depos)
+    def run(self, key: torch.Tensor, depos,
+            n_valid: Optional[int] = None) -> SimOutput:
+        """Execute the full chain for one event (a padded row: give its
+        valid depo count ``n_valid``)."""
+        state = self.init_state(key, depos, n_valid)
         for stage in self.stages:
             state = stage(state)
         return self.output(state)
 
     forward = run
+
+    def run_batch(self, keys: torch.Tensor, rows: Sequence,
+                  n_valid: Optional[Sequence[Optional[int]]] = None
+                  ) -> SimOutput:
+        """Execute the chain for the events of a batch, stage by stage:
+        ``keys`` (E, 2), one event key per row of ``rows`` (each a padded
+        ``DepoSet`` or ``PhysicalDepoSet``), ``n_valid`` their valid depo
+        counts. Event e equals ``run(keys[e], rows[e], n_valid[e])`` bit for
+        bit; every output leaf gains a leading event axis."""
+        if n_valid is None:
+            n_valid = [None] * len(rows)
+        states = [self.init_state(k, d, n)
+                  for k, d, n in zip(keys, rows, n_valid)]
+        for stage in self.stages:
+            states = stage.run_rows(states)
+        return join_outputs([self.output(s) for s in states])
 
     def timed(self, key: torch.Tensor, depos, *, warmup: int = 1,
               iters: int = 3) -> Tuple[SimOutput, Dict[str, float]]:
@@ -177,6 +253,24 @@ class SimGraph(nn.Module):
             timings[stage.name] = statistics.median(times)
             state = out
         return self.output(state), timings
+
+
+def join_outputs(outs: Sequence[SimOutput], join=torch.stack) -> SimOutput:
+    """Outputs joined leaf by leaf (a ``HitSet`` leaf by leaf; absent
+    fields stay None): per-event outputs stacked along a new leading event
+    axis, or with ``join=torch.cat`` batched outputs concatenated along
+    theirs."""
+
+    def joined(values):
+        first = values[0]
+        if first is None:
+            return None
+        if isinstance(first, torch.Tensor):
+            return join(values)
+        return type(first)(*(join(x) for x in zip(*values)))
+
+    return SimOutput(*(joined([getattr(o, f) for o in outs])
+                       for f in SimOutput._fields))
 
 
 def resolve_plane_batching(cfg: LArTPCConfig) -> str:
@@ -265,9 +359,12 @@ def drift_stage(cfg: LArTPCConfig,
     return Stage("drift", fn, op="drift")
 
 
-def compute_charge_grid(k: torch.Tensor, depos: DepoSet, cfg: LArTPCConfig):
-    """Dispatch depos -> (S(t,x), dropped) through the registered strategy."""
-    return resolve("charge_grid", cfg.charge_grid_strategy).fn(k, depos, cfg)
+def compute_charge_grid(k: torch.Tensor, depos: DepoSet, cfg: LArTPCConfig,
+                        n_valid: Optional[int] = None):
+    """Dispatch depos -> (S(t,x), dropped) through the registered strategy;
+    ``dropped`` counts entries of depos below ``n_valid`` only."""
+    return resolve("charge_grid", cfg.charge_grid_strategy).fn(
+        k, depos, cfg, n_valid=n_valid)
 
 
 def charge_grid_stage(cfg: LArTPCConfig,
@@ -278,31 +375,51 @@ def charge_grid_stage(cfg: LArTPCConfig,
     Multi-plane: plane i draws from ``fold_in(kf, index_i)`` and the grids
     stack to (P, W, T). ``stacked`` hands all planes of a full graph to a
     multi-plane strategy in one call; otherwise the stage dispatches per
-    plane (a multi-plane strategy through its single-plane form)."""
+    plane (a multi-plane strategy through its single-plane form).
+
+    Over a batch, a fused strategy takes every (event, plane) row of the
+    batch at once, each row with the seed the per-event run gives it
+    (``repro_torch.core.pipeline.charge_grid_fused_rows``); the other
+    strategies run one event at a time."""
     specs = _selected_specs(cfg, planes)
     multi = cfg.num_planes > 1
     stacked = multi and resolve_plane_batching(cfg) == "stacked"
     name = resolve("charge_grid", cfg.charge_grid_strategy).name
+    whole_stack = stacked and len(specs) == cfg.num_planes
 
-    def per_plane(keys, depos: DepoSet):
-        outs = [compute_charge_grid(k, DepoSet(*(x[i] for x in depos)), cfg)
+    def per_plane(keys, depos: DepoSet, n_valid):
+        outs = [compute_charge_grid(k, DepoSet(*(x[i] for x in depos)), cfg,
+                                    n_valid)
                 for i, k in enumerate(keys)]
         return (torch.stack([g for g, _ in outs]),
                 torch.stack([d for _, d in outs]).sum())
 
     def fn(state: SimState) -> SimState:
         if not multi:
-            grid, dropped = compute_charge_grid(state.kf, state.depos, cfg)
-        elif (stacked and name in MULTIPLANE_CHARGE_GRID
-              and len(specs) == cfg.num_planes):
+            grid, dropped = compute_charge_grid(state.kf, state.depos, cfg,
+                                                state.n_valid)
+        elif name in MULTIPLANE_CHARGE_GRID and whole_stack:
             grid, dropped = get_strategy("charge_grid", name).fn(
-                state.kf, state.depos, cfg)
+                state.kf, state.depos, cfg, n_valid=state.n_valid)
         else:
             grid, dropped = per_plane(_plane_keys(state.kf, specs),
-                                      state.depos)
+                                      state.depos, state.n_valid)
         return state._replace(grid=grid, dropped=dropped)
 
-    return Stage("charge_grid", fn, op="charge_grid")
+    def batch_fn(states: List[SimState]) -> List[SimState]:
+        from repro_torch.core.pipeline import (FUSED_ROWS,
+                                               charge_grid_fused_rows)
+
+        if name not in FUSED_ROWS or (name in MULTIPLANE_CHARGE_GRID
+                                      and not whole_stack):
+            return [fn(s) for s in states]
+        outs = charge_grid_fused_rows(
+            name, [s.kf for s in states], [s.depos for s in states], cfg,
+            specs, [s.n_valid for s in states])
+        return [s._replace(grid=g, dropped=d)
+                for s, (g, d) in zip(states, outs)]
+
+    return Stage("charge_grid", fn, op="charge_grid", batch_fn=batch_fn)
 
 
 def _spectra_stage(name: str, op: str, buffer: str, resps,
@@ -419,17 +536,33 @@ def hit_find_stage(cfg: LArTPCConfig,
     return Stage("hit_find", fn, op="hit_find")
 
 
+#: which SimState field each stage's finite sentinel inspects (digitize
+#: writes integers only; hit_find's float leaves are checked too)
+_FINITE_CHECK_FIELDS = {
+    "drift": "depos",
+    "charge_grid": "grid",
+    "convolve": "signal",
+    "noise": "signal",
+    "deconvolve": "decon",
+    "hit_find": "hits",
+}
+
+
+def _finite_checked(stage: Stage) -> Stage:
+    """Turn on the ``cfg.check_finite`` sentinel of ``stage``: after it
+    runs, AND ``isfinite(...).all()`` over the float leaves it wrote into
+    the state's ``finite_ok``. One reduction per leaf, on the device, and
+    never a branch or a host read."""
+    stage.finite_field = _FINITE_CHECK_FIELDS.get(stage.name)
+    return stage
+
+
 def check_supported(cfg: LArTPCConfig) -> None:
     """Raise for config features the port does not run yet, and for a bad
     plane geometry or batching mode."""
-    unsupported = {
-        "pipeline": (cfg.pipeline, "fig4"),
-        "check_finite": (cfg.check_finite, False),
-    }
-    for name, (value, supported) in unsupported.items():
-        if value != supported:
-            raise NotImplementedError(
-                f"the port runs {name}={supported!r} only (got {value!r})")
+    if cfg.pipeline != "fig4":
+        raise NotImplementedError(
+            f"the port runs pipeline='fig4' only (got {cfg.pipeline!r})")
     patch_dtype(cfg)
     if cfg.rng_strategy not in ("counter", "none"):
         raise NotImplementedError(
@@ -451,7 +584,8 @@ def build_sim_graph(cfg: LArTPCConfig, resp=None, add_noise: bool = True,
     ``planes`` restricts a multi-plane graph to those plane indices.
     ``recon=True`` appends ``deconvolve -> hit_find``, whose filters come
     from the same responses; the default graph has no recon stage and no
-    ``decon``/``hits`` output."""
+    ``decon``/``hits`` output. ``cfg.check_finite`` turns on the finite
+    sentinel of every stage (``finite_ok``); the ADC is the same bits."""
     check_supported(cfg)
     dev = resolve_device(device)
     resps = _as_plane_responses(cfg, resp, planes, dev)
@@ -463,4 +597,6 @@ def build_sim_graph(cfg: LArTPCConfig, resp=None, add_noise: bool = True,
     if recon:
         stages += [deconvolve_stage(cfg, resps, planes, dev),
                    hit_find_stage(cfg, planes)]
+    if cfg.check_finite:
+        stages = [_finite_checked(s) for s in stages]
     return SimGraph(stages, dev)

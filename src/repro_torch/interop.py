@@ -4,8 +4,9 @@ The simulation has no weights: its state is the config, the PRNG keys, the
 depos (with a leading plane axis (P, N) for multi-plane configs) and the
 detector responses, one per readout plane. These helpers build the port's
 objects from the JAX package's values once those are turned into numpy (the
-caller does that; nothing here imports JAX), and turn a port ``SimOutput``
-back into numpy for comparison. A deconvolution filter is a
+caller does that; nothing here imports JAX): single keys and stacked
+per-event keys, depos, padded event batches, responses; and turn a port
+``SimOutput`` back into numpy for comparison. A deconvolution filter is a
 ``DetectorResponse`` too, so ``response_from_numpy`` carries the
 reference's filters across as well. Like every entry point of the port,
 the builders put their tensors on the card unless ``device="cpu"`` is
@@ -20,6 +21,7 @@ import numpy as np
 import torch
 
 from repro_torch.config import LArTPCConfig
+from repro_torch.core.batch import EventBatch
 from repro_torch.core.depo import DepoSet
 from repro_torch.core.drift import PhysicalDepoSet
 from repro_torch.core.response import DetectorResponse
@@ -44,6 +46,25 @@ def key_from_data(data) -> torch.Tensor:
     if words.shape != (2,):
         raise ValueError(f"expected 2 key words, got {words.shape}")
     return torch.from_numpy(words.astype(np.int64))
+
+
+def keys_from_data(data) -> torch.Tensor:
+    """Stacked port keys (E, 2) from the reference's ``key_data`` of E keys
+    (e.g. of ``repro.core.batch.event_keys``)."""
+    words = np.asarray(data, dtype=np.uint32)
+    if words.ndim != 2 or words.shape[1] != 2:
+        raise ValueError(f"expected (E, 2) key words, got {words.shape}")
+    return torch.from_numpy(words.astype(np.int64))
+
+
+def event_batch_from_numpy(wire, tick, sigma_w, sigma_t, charge, n_depos,
+                           device="cuda") -> EventBatch:
+    """An ``EventBatch`` from the reference's numpy leaves: (E[, P], N_max)
+    depo fields on ``device`` and the (E,) valid counts on the host."""
+    return EventBatch(*depos_from_numpy(wire, tick, sigma_w, sigma_t, charge,
+                                        device=device),
+                      n_depos=torch.from_numpy(
+                          np.array(n_depos, dtype=np.int32)))
 
 
 def _f32(x, device) -> torch.Tensor:

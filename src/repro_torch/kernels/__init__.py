@@ -141,7 +141,16 @@ def kernel_device(x: torch.Tensor) -> torch.device:
     return x.device
 
 
+def error_string(err: int) -> str:
+    """``cudaGetErrorString``'s text for a cudaError_t (through torch's
+    binding of the CUDA runtime, which the card's launch initialised)."""
+    return str(torch.cuda.CudaError(err))
+
+
 def raise_on(err: int, what: str) -> None:
-    """Raise when a launch returned a cudaError_t other than 0."""
+    """Raise when a launch returned a cudaError_t other than 0, with the
+    runtime's text (an allocation failure reads "out of memory", which the
+    streaming launcher's retry policy classifies as OOM)."""
     if err != 0:
-        raise RuntimeError(f"{what} launch failed: cudaError_t {err}")
+        raise RuntimeError(f"{what} launch failed: cudaError_t {err}: "
+                           f"{error_string(err)}")

@@ -11,6 +11,12 @@ replace the reference's Pallas kernels of the same names
 version in ``ref.py``. ``LAUNCHES`` counts kernel launches per wrapper
 (plain-version calls do not count).
 
+The kernel's plane axis takes any independent rows, up to ``MAX_ROWS`` a
+launch: the planes of one event, or the (event, plane) rows of a batch
+(``repro_torch.core.batch``, the port's counterpart of the reference's
+``vmap`` over events). A launch of one-plane rows (``one_plane=True``)
+counts under the one-plane wrapper's name.
+
 The CTAs start longest list first (``kernels/tiles.py``, whose two small
 kernels this source compiles), and on the card the compact layout writes
 each occupied tile in place into a grid zeroed once
@@ -36,6 +42,10 @@ LAUNCHES: Dict[str, int] = {"fused_rasterize_scatter": 0,
                             "fused_rasterize_scatter_compact": 0,
                             "fused_rasterize_scatter_multiplane": 0,
                             "fused_rasterize_scatter_multiplane_compact": 0}
+
+#: the most rows (planes) one launch takes: ``kMaxPlanes`` of
+#: csrc/fused_sim.cu, whose seed words travel by value
+MAX_ROWS = 16
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -108,11 +118,20 @@ def _launch(entry: str, name: str, params, lists, seeds: Sequence[Seed], *,
     LAUNCHES[name] += 1
 
 
+def _check_rows(num_rows: int) -> None:
+    """Raise unless one launch can take ``num_rows`` rows (on every device,
+    so the CPU path holds callers to the card's limit)."""
+    if not 1 <= num_rows <= MAX_ROWS:
+        raise ValueError(f"{num_rows} rows in one launch; the fused kernel "
+                         f"takes 1 to {MAX_ROWS} (split the rows)")
+
+
 def _dense(name: str, params, tile_ids, seeds: Sequence[Seed], *,
            num_wires: int, num_ticks: int, tw: int, tt: int, k_max: int,
            pw: int, pt: int, fluctuate: bool = False) -> torch.Tensor:
     """The dense layout over len(seeds) planes of (P, N) parameters:
     (P, num_wires, num_ticks), counted under ``name``."""
+    _check_rows(len(seeds))
     dev = params[0].device
     tiles_w, tiles_t, n_tiles = tile_counts(num_wires, num_ticks, tw, tt)
     check_tensor("tile_ids", tile_ids, torch.int32,
@@ -138,6 +157,7 @@ def _compact(name: str, params, active_tiles, tile_ids,
     """The compact layout over len(seeds) planes of (P, N) parameters:
     (P, num_wires, num_ticks), counted under ``name``. On the card each
     occupied tile is written in place into a grid zeroed once."""
+    _check_rows(len(seeds))
     dev = params[0].device
     num_planes = len(seeds)
     tiles_w, tiles_t, n_tiles = tile_counts(num_wires, num_ticks, tw, tt)
@@ -202,7 +222,8 @@ def _plane_seeds(seeds, num_planes: int):
 
 def fused_rasterize_scatter_multiplane(wire, tick, sigma_w, sigma_t, charge,
                                        w0, t0, tile_ids, *, num_planes: int,
-                                       seeds=None, **geom) -> torch.Tensor:
+                                       seeds=None, one_plane: bool = False,
+                                       **geom) -> torch.Tensor:
     """All P planes' charge grids in ONE launch (dense tile layout).
 
     Depo parameters are (P, N); tile_ids is each plane's dense
@@ -210,25 +231,32 @@ def fused_rasterize_scatter_multiplane(wire, tick, sigma_w, sigma_t, charge,
     seeds holds P pairs of raw key words (``fold_in(kf, p)``). Returns
     (P, num_wires, num_ticks), plane p bit-identical to
     ``fused_rasterize_scatter`` with plane p's parameters and seed.
+    ``one_plane`` marks the rows as one-plane events (a batch's) and counts
+    the launch as ``fused_rasterize_scatter``.
     """
     params, _ = _checked_params(wire, tick, sigma_w, sigma_t, charge, w0,
                                 t0, num_planes)
-    return _dense("fused_rasterize_scatter_multiplane", params, tile_ids,
-                  _plane_seeds(seeds, num_planes), **geom)
+    return _dense("fused_rasterize_scatter" if one_plane
+                  else "fused_rasterize_scatter_multiplane", params,
+                  tile_ids, _plane_seeds(seeds, num_planes), **geom)
 
 
 def fused_rasterize_scatter_multiplane_compact(
         wire, tick, sigma_w, sigma_t, charge, w0, t0, active_tiles, tile_ids,
-        *, num_planes: int, seeds=None, **geom) -> torch.Tensor:
+        *, num_planes: int, seeds=None, one_plane: bool = False,
+        **geom) -> torch.Tensor:
     """Multi-plane fused kernel over each plane's OCCUPIED tiles.
 
     active_tiles: (P*n_cap,) int32 plane-LOCAL tile ids, n_cap slots per
     plane (-1 padded); tile_ids: (P*n_cap*k_max,) plane-local depo ids.
     Returns (P, num_wires, num_ticks), bit-identical per plane to
-    ``fused_rasterize_scatter_multiplane``.
+    ``fused_rasterize_scatter_multiplane``; ``one_plane`` counts the launch
+    as ``fused_rasterize_scatter_compact``.
     """
     params, _ = _checked_params(wire, tick, sigma_w, sigma_t, charge, w0,
                                 t0, num_planes)
-    return _compact("fused_rasterize_scatter_multiplane_compact", params,
-                    active_tiles, tile_ids, _plane_seeds(seeds, num_planes),
-                    **geom)
+    return _compact("fused_rasterize_scatter_compact" if one_plane
+                    else "fused_rasterize_scatter_multiplane_compact",
+                    params, active_tiles, tile_ids,
+                    _plane_seeds(seeds, num_planes), **geom)
+

@@ -15,9 +15,15 @@ Two layouts:
 
 Entries past ``k_max`` (or past ``n_cap`` occupied tiles) do not fit; the
 reference drops them silently, the port drops them too and returns their
-count so the caller can insist on 0.
+count so the caller can insist on 0. A padded row (``repro_torch.core.batch``)
+gives its valid depo count ``n_valid``: only the entries of depos below it
+count as dropped. Padding depos sit at wire 0, tick 0 and have the highest
+ids, so the stable sort puts them after every real depo of the corner tile
+and they are the first entries to overflow; what they drop is zero charge.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -84,11 +90,21 @@ def _sorted_tile_runs(w0, t0, pw_pad: int, pt_pad: int, num_wires: int,
     return tile_s, depo_s, is_first, rank, seg_id, n_tiles
 
 
+def _dropped(real, valid, depo_s, n_valid: Optional[int]) -> torch.Tensor:
+    """0-d count of the entries that did not fit, of depos below
+    ``n_valid`` only (every depo when None)."""
+    lost = real & ~valid
+    if n_valid is not None:
+        lost = lost & (depo_s < n_valid)
+    return lost.sum()
+
+
 def bin_depos_to_tiles(w0, t0, pw_pad: int, pt_pad: int, num_wires: int,
-                       num_ticks: int, tw: int, tt: int, k_max: int):
+                       num_ticks: int, tw: int, tt: int, k_max: int,
+                       n_valid: Optional[int] = None):
     """Per-tile depo id lists -> (ids (n_tiles*k_max,) int32 -1 padded,
     n_tiles, dropped): ``dropped`` is a 0-d tensor counting the (depo, tile)
-    entries that did not fit in ``k_max``."""
+    entries of depos below ``n_valid`` that did not fit in ``k_max``."""
     tile_s, depo_s, _, rank, _, n_tiles = _sorted_tile_runs(
         w0, t0, pw_pad, pt_pad, num_wires, num_ticks, tw, tt)
     real = tile_s < n_tiles
@@ -98,15 +114,16 @@ def bin_depos_to_tiles(w0, t0, pw_pad: int, pt_pad: int, num_wires: int,
     ids = torch.full((n_tiles * k_max + 1,), -1, dtype=torch.int32,
                      device=w0.device)
     ids[slot[valid]] = depo_s[valid].to(torch.int32)
-    dropped = (real & ~valid).sum()
-    return ids[:-1], n_tiles, dropped
+    return ids[:-1], n_tiles, _dropped(real, valid, depo_s, n_valid)
 
 
 def bin_depos_to_tiles_compact(w0, t0, pw_pad: int, pt_pad: int,
                                num_wires: int, num_ticks: int, tw: int,
-                               tt: int, k_max: int, n_cap: int):
+                               tt: int, k_max: int, n_cap: int,
+                               n_valid: Optional[int] = None):
     """Compacted binning -> (active (n_cap,) int32 global tile ids,
-    ids (n_cap*k_max,) int32 depo ids, dropped), all lists -1 padded."""
+    ids (n_cap*k_max,) int32 depo ids, dropped), all lists -1 padded;
+    ``dropped`` counts as in ``bin_depos_to_tiles``."""
     tile_s, depo_s, is_first, rank, seg_id, n_tiles = _sorted_tile_runs(
         w0, t0, pw_pad, pt_pad, num_wires, num_ticks, tw, tt)
     real = tile_s < n_tiles
@@ -117,8 +134,7 @@ def bin_depos_to_tiles_compact(w0, t0, pw_pad: int, pt_pad: int,
     head = is_first & real & (seg_id < n_cap)
     active = torch.full((n_cap,), -1, dtype=torch.int32, device=w0.device)
     active[seg_id[head]] = tile_s[head].to(torch.int32)
-    dropped = (real & ~valid).sum()
-    return active, ids, dropped
+    return active, ids, _dropped(real, valid, depo_s, n_valid)
 
 
 def count_active_tiles(w0, t0, *, pw_pad: int, pt_pad: int, num_wires: int,
@@ -133,24 +149,23 @@ def active_tile_cap(w0, pw_pad: int, pt_pad: int, num_wires: int,
                     num_ticks: int, tw: int, tt: int, t0) -> int:
     """Occupancy bucket of the compact layout: the measured count of
     occupied tiles rounded up to a power of two (one host read)."""
-    _, _, n_tiles = tile_counts(num_wires, num_ticks, tw, tt)
-    n_act = int(count_active_tiles(
-        w0, t0, pw_pad=pw_pad, pt_pad=pt_pad, num_wires=num_wires,
-        num_ticks=num_ticks, tw=tw, tt=tt))
-    return min(n_tiles, next_pow2(n_act))
+    return compact_n_cap(None, [w0], [t0], pw_pad, pt_pad, num_wires,
+                         num_ticks, tw, tt)
 
 
 def compact_n_cap(n_active: int | None, w0s, t0s, pw_pad: int, pt_pad: int,
                   num_wires: int, num_ticks: int, tw: int, tt: int) -> int:
-    """The compact layout's slots per plane: ``n_active`` bucketed to a power
-    of two, or the most occupied tiles of any plane in ``w0s``/``t0s`` (one
-    host read each), bucketed; never more than the tile count."""
-    if n_active is not None:
-        return min(tile_counts(num_wires, num_ticks, tw, tt)[2],
-                   next_pow2(n_active))
-    return max(active_tile_cap(w0, pw_pad, pt_pad, num_wires, num_ticks, tw,
-                               tt, t0=t0)
-               for w0, t0 in zip(w0s, t0s))
+    """The compact layout's slots per row: ``n_active`` bucketed to a power
+    of two, or the most occupied tiles of any row (plane, or event and
+    plane of a batch) in ``w0s``/``t0s``, counted on the device and read in
+    ONE host read for all rows, bucketed; never more than the tile count."""
+    n_tiles = tile_counts(num_wires, num_ticks, tw, tt)[2]
+    if n_active is None:
+        n_active = int(torch.stack([count_active_tiles(
+            w0, t0, pw_pad=pw_pad, pt_pad=pt_pad, num_wires=num_wires,
+            num_ticks=num_ticks, tw=tw, tt=tt)
+            for w0, t0 in zip(w0s, t0s)]).max())
+    return min(n_tiles, next_pow2(n_active))
 
 
 def default_k_max(n: int, num_wires: int, num_ticks: int, tw: int,
@@ -162,11 +177,13 @@ def default_k_max(n: int, num_wires: int, num_ticks: int, tw: int,
 
 
 def scatter_add_tiles(patches, w0, t0, *, num_wires: int, num_ticks: int,
-                      tw: int = 64, tt: int = 256, k_max: int = 0):
+                      tw: int = 64, tt: int = 256, k_max: int = 0,
+                      n_valid: Optional[int] = None):
     """Owner-computes scatter-add, dense layout: bin, then accumulate.
 
     Tiles are widened to cover a patch (``tw = max(tw, pw)``, the
-    reference's rule). Returns ((num_wires, num_ticks) f32 grid, dropped).
+    reference's rule). Returns ((num_wires, num_ticks) f32 grid, dropped),
+    ``dropped`` counting the entries of depos below ``n_valid``.
     """
     from repro_torch.kernels.scatter_add.kernel import scatter_add_pallas
 
@@ -174,7 +191,7 @@ def scatter_add_tiles(patches, w0, t0, *, num_wires: int, num_ticks: int,
     tw, tt = max(tw, pw), max(tt, pt)
     k_max = k_max or default_k_max(n, num_wires, num_ticks, tw, tt)
     ids, _, dropped = bin_depos_to_tiles(w0, t0, pw, pt, num_wires,
-                                         num_ticks, tw, tt, k_max)
+                                         num_ticks, tw, tt, k_max, n_valid)
     grid = scatter_add_pallas(patches, w0.to(torch.int32),
                               t0.to(torch.int32), ids, num_wires=num_wires,
                               num_ticks=num_ticks, tw=tw, tt=tt, k_max=k_max)
@@ -183,14 +200,15 @@ def scatter_add_tiles(patches, w0, t0, *, num_wires: int, num_ticks: int,
 
 def scatter_add_tiles_compact(patches, w0, t0, *, num_wires: int,
                               num_ticks: int, tw: int = 64, tt: int = 256,
-                              k_max: int = 0, n_active: int | None = None):
+                              k_max: int = 0, n_active: int | None = None,
+                              n_valid: Optional[int] = None):
     """Owner-computes scatter-add over the OCCUPIED tiles only.
 
     The occupancy is counted on the host (one read) and bucketed to a power
     of two unless ``n_active`` gives it. On the card the kernel writes each
     occupied tile in place into a grid zeroed once (no blocks buffer, no
     placement copy). Bit-identical to ``scatter_add_tiles``. Returns
-    ((num_wires, num_ticks) grid, dropped).
+    ((num_wires, num_ticks) grid, dropped), counted as there.
     """
     from repro_torch.kernels.scatter_add.kernel import (
         scatter_add_pallas_compact)
@@ -201,7 +219,7 @@ def scatter_add_tiles_compact(patches, w0, t0, *, num_wires: int,
     n_cap = compact_n_cap(n_active, [w0], [t0], pw, pt, num_wires, num_ticks,
                           tw, tt)
     active, ids, dropped = bin_depos_to_tiles_compact(
-        w0, t0, pw, pt, num_wires, num_ticks, tw, tt, k_max, n_cap)
+        w0, t0, pw, pt, num_wires, num_ticks, tw, tt, k_max, n_cap, n_valid)
     grid = scatter_add_pallas_compact(
         patches, w0.to(torch.int32), t0.to(torch.int32), active, ids,
         num_wires=num_wires, num_ticks=num_ticks, tw=tw, tt=tt, k_max=k_max,

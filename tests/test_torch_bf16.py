@@ -155,9 +155,9 @@ def test_patches_reach_the_scatter_in_the_reference_dtype(monkeypatch, fluct,
     seen = []
     scatter = tpipeline.scatter_add
 
-    def spy(patches, w0, t0, cfg, *args):
+    def spy(patches, w0, t0, cfg, *args, **kwargs):
         seen.append(patches.dtype)
-        return scatter(patches, w0, t0, cfg, *args)
+        return scatter(patches, w0, t0, cfg, *args, **kwargs)
 
     monkeypatch.setattr(tpipeline, "scatter_add", spy)
     cfg = dataclasses.replace(_tcfg(SMOKE), charge_grid_strategy="unfused_bf16",
@@ -199,7 +199,8 @@ def test_launcher_names_the_patch_dtype(capsys):
                    "charge_grid_strategy=unfused_bf16", "fluctuate=false",
                    "scatter_strategy=pallas_compact"])
     lines = capsys.readouterr().out.strip().splitlines()
-    assert lines[0].startswith("event 0: 256 depos -> (128, 512) ADC in ")
+    assert lines[0].startswith("batch 0: 1 events / 256 depos -> "
+                               "(1, 128, 512) ADC in ")
     assert lines[0].endswith(", patches bfloat16")
     assert lines[-1].startswith("total: 1 events / 256 depos in ")
 

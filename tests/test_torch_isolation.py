@@ -46,7 +46,9 @@ def test_import_leaves_jax_out_of_sys_modules():
             "repro_torch.core.scatter, repro_torch.core.drift, "
             "repro_torch.core.deconvolve, repro_torch.core.hitfind, "
             "repro_torch.kernels.hitfind.ops, "
-            "repro_torch.kernels.rasterize.ops; "
+            "repro_torch.kernels.rasterize.ops, repro_torch.core.batch, "
+            "repro_torch.core.validate, repro_torch.launch.journal, "
+            "repro_torch.testing.faults; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); sys.exit(bool(bad))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
@@ -57,13 +59,15 @@ def test_import_leaves_jax_out_of_sys_modules():
 
 def _entry_points():
     from repro_torch.core import prng
+    from repro_torch.core.batch import empty_event, make_batched_sim_fn
     from repro_torch.core.deconvolve import make_plane_deconv_filters
+    from repro_torch.core.drift import PhysicalDepoSet
     from repro_torch.core.depo import generate_depos, generate_plane_depos
     from repro_torch.core.pipeline import make_sim_fn, simulate, \
         simulate_fig4
     from repro_torch.core.response import make_plane_responses
     from repro_torch.kernels.rasterize.ops import rasterize_depos
-    from repro_torch.launch.sim import run_events
+    from repro_torch.launch.sim import run_events, stream_simulate
 
     cfg = tconfig.get_config("lartpc-uboone", smoke=True)
     cfg3 = dataclasses.replace(cfg, num_planes=3,
@@ -86,6 +90,13 @@ def _entry_points():
             cfg3, **kw),
         "rasterize_depos": lambda **kw: rasterize_depos(
             k, generate_depos(k, cfg, device="cpu"), cfg, **kw),
+        "make_batched_sim_fn": lambda **kw: make_batched_sim_fn(cfg, **kw),
+        "stream_simulate": lambda **kw: stream_simulate(cfg, 1, **kw),
+        "stream_simulate_3planes": lambda **kw: stream_simulate(
+            cfg3, 2, 2, recon=True, **kw),
+        "empty_event": lambda **kw: empty_event(3, **kw),
+        "from_mm": lambda **kw: PhysicalDepoSet.from_mm(
+            [1.0], [2.0], [3.0], [0.0], [9.0], cfg, **kw),
     }
 
 
@@ -96,7 +107,10 @@ def _entry_points():
                                   "run_events_3planes", "make_sim_fn_recon",
                                   "simulate_recon",
                                   "make_plane_deconv_filters",
-                                  "rasterize_depos"])
+                                  "rasterize_depos", "make_batched_sim_fn",
+                                  "stream_simulate",
+                                  "stream_simulate_3planes", "empty_event",
+                                  "from_mm"])
 def test_entry_points_default_to_the_card(name, monkeypatch):
     """Without a card the default device raises; device="cpu" runs."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -297,11 +297,11 @@ def test_launcher_prints_per_plane_lines(capsys):
                    "cpu", "--set",
                    "charge_grid_strategy=fused_pallas_multiplane"])
     lines = capsys.readouterr().out.strip().splitlines()
-    assert lines[0].startswith("event 0: 256 depos x 3 planes -> "
-                               "(3, 128, 512) ADC in ")
-    assert lines[0].endswith("dropped 0")
+    assert lines[0].startswith("batch 0: 1 events / 256 depos x 3 planes -> "
+                               "(1, 3, 128, 512) ADC in ")
+    assert lines[0].endswith("patches float32")
     for p, kind in enumerate(("induction", "induction", "collection")):
-        assert lines[1 + p].startswith(f"event 0 plane {p} ({kind}, ")
+        assert lines[1 + p].startswith(f"batch 0 plane {p} ({kind}, ")
         assert int(lines[1 + p].rsplit(" ", 1)[1]) > 0
     assert lines[-1].startswith("total: 1 events / 256 depos in ")
 

@@ -125,7 +125,8 @@ def test_launcher_main_prints_reference_lines(capsys):
     launcher.main(["--smoke", "--events", "1", "--device", "cpu", "--set",
                    "charge_grid_strategy=fused_pallas_compact"])
     lines = capsys.readouterr().out.strip().splitlines()
-    assert lines[0].startswith("event 0: 256 depos -> (128, 512) ADC in ")
+    assert lines[0].startswith("batch 0: 1 events / 256 depos -> "
+                               "(1, 128, 512) ADC in ")
     assert "depos/s), max dev " in lines[0]
     assert lines[-1].startswith("total: 1 events / 256 depos in ")
 
