@@ -103,7 +103,27 @@ Phases (any failure exits non-zero before the result line):
                 batch (and 4 without validation), one plane and three
                 planes with recon, and each one's device busy share
                 under torch.profiler with its top kernels
-  7. timing   : each kernel's wrapper (median of 5 rounds of 20 calls
+  7. tune     : the autotuner (repro_torch.tune) on a tuning cache of this
+                run's own: resolve_config_with_decisions(tune=True,
+                tune_explicit=True) at full width for one plane, then
+                three (whose drift, scatter-add, hit-finding and induction
+                transforms are cache hits), every board printed in us;
+                every record's backend is "cuda", its device kind the
+                card's and its timer host-paced CUDA events; every winner
+                is available for its context; a second resolution is all
+                cache hits with zero timer calls; one tuned event with
+                recon through run_events and through stream_simulate (4
+                rows a batch) dispatches every op to its decision (per
+                plane kind for the transforms; calls into the registered
+                strategies counted) and equals, bit for bit, the event of
+                the config naming the same strategies explicitly (per plane
+                kind where the kinds' winners differ) and the streamed row;
+                rows 1-7 launched while tuning; events/s of the default
+                and the tuned configs, one plane and three with recon, 8
+                events 4 a batch, A B B A (printed, not checked). Every
+                other phase runs on an empty cache of the run's own:
+                today's strategies
+  8. timing   : each kernel's wrapper (median of 5 rounds of 20 calls
                 timed with CUDA events as the host enqueues them, the
                 method of every version of this script, which reads the
                 host's pace where a call is shorter than its enqueueing,
@@ -126,9 +146,10 @@ Phases (any failure exits non-zero before the result line):
                 function (index_put_ with accumulate=True); for the
                 fused kernels also the SASS instructions per pixel of the
                 pixel loop (cuobjdump) and the issue-rate floor they imply
-  8. summary  : one JSON line {"kernels": [...]} (with each kernel's
-                launches over the clean streams, stream_launches)
-  9. result   : last line {"ok": true, "device": {...}}
+  9. summary  : one JSON line {"kernels": [...]} (with each kernel's
+                launches over the clean streams, stream_launches, and while
+                tuning, tune_launches)
+ 10. result   : last line {"ok": true, "device": {...}}
 
 The on-card checks live here rather than in pytest because the machine with
 the card has no JAX, which the repository's test configuration imports.
@@ -139,9 +160,11 @@ import contextlib
 import copy
 import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -1703,6 +1726,283 @@ def profiled(fn):
                         for e in top]
 
 
+#: the tune phase's rate cells: events a run and events a batch
+TUNE_EVENTS = 8
+TUNE_BATCH = 4
+#: the ops a recon event dispatches whatever the decisions
+TUNE_EVENT_OPS = {"drift", "charge_grid", "fft_convolve", "deconvolve",
+                  "hit_find"}
+
+
+@contextlib.contextmanager
+def strategy_calls(ops):
+    """Record (op, strategy, plane kind or None) of every call of a
+    registered strategy of ``ops`` inside the block (they still run): the
+    registry's entries are wrapped, so every dispatch site is seen, and so
+    is the batched form of the fused charge grids
+    (``charge_grid_fused_rows``, which takes the strategy's name)."""
+    from repro_torch.core import pipeline
+    from repro_torch.tune import registry
+
+    calls = []
+    rows = pipeline.charge_grid_fused_rows
+
+    def fused_rows(name, *args, **kwargs):
+        calls.append(("charge_grid", name, None))
+        return rows(name, *args, **kwargs)
+
+    pipeline.charge_grid_fused_rows = fused_rows
+    saved = {op: registry.strategies(op) for op in ops}
+    for op, table in saved.items():
+        for name, strat in table.items():
+            def fn(*args, _op=op, _name=name, _fn=strat.fn, **kwargs):
+                plane = getattr(args[1], "plane", None) if len(args) > 1 \
+                    else None
+                calls.append((_op, _name,
+                              plane if isinstance(plane, str) else None))
+                return _fn(*args, **kwargs)
+
+            registry._OPS[op][name] = dataclasses.replace(strat, fn=fn)
+    try:
+        yield calls
+    finally:
+        pipeline.charge_grid_fused_rows = rows
+        for op, table in saved.items():
+            registry._OPS[op].update(table)
+
+
+def decided(decisions):
+    """{(op, plane kind or None): strategy} of a resolution's decisions
+    (the plane-keyed ops by the kind in their cache key)."""
+    from repro_torch.tune.autotune import PLANE_KEYED_OPS
+
+    out = {}
+    for d in decisions:
+        kind = None
+        if d.op in PLANE_KEYED_OPS:
+            dims = dict(kv.split("=") for kv in
+                        d.cache_key.split("|")[3].split(";"))
+            kind = dims["plane"]
+        out[d.op, kind] = d.strategy
+    return out
+
+
+def check_dispatch(label: str, calls, want) -> None:
+    """Every recorded strategy call ran its op's decision (per plane kind
+    for the plane-keyed ops), and every op the event needs was called."""
+    from repro_torch.tune.autotune import PLANE_KEYED_OPS
+
+    grid = want["charge_grid", None]
+    for op, name, plane in calls:
+        allowed = {want[op, plane if op in PLANE_KEYED_OPS else None]}
+        if op == "scatter_add" and grid == "multiplane_xla":
+            allowed.add("xla")  # the flat chain names its scatter itself
+        check(name in allowed, f"{label}: {op} ran {name!r} on plane "
+              f"{plane}, the decision is {sorted(allowed)}")
+    need = set(TUNE_EVENT_OPS)
+    if grid in ("unfused", "unfused_bf16", "multiplane_xla"):
+        need.add("scatter_add")
+    seen = {op for op, _, _ in calls}
+    check(need <= seen, f"{label}: ops {sorted(need - seen)} never "
+          "dispatched")
+    print(f"{label}: {len(calls)} strategy calls, each the decision of its "
+          f"op (and plane kind): "
+          f"{sorted({(op, n, p) for op, n, p in calls}, key=str)}",
+          flush=True)
+
+
+def explicit_configs(cfg, want):
+    """Configs naming the tuned strategies explicitly, with the plane kinds
+    each covers: one when every plane-keyed op has one winner for all
+    kinds, else one per kind (a plane's bits do not depend on the planes
+    beside it, so plane p of the tuned event is plane p of its kind's
+    config)."""
+    from repro_torch.config import plane_specs
+    from repro_torch.tune.autotune import OP_FIELDS, PLANE_KEYED_OPS
+
+    fixed = {OP_FIELDS[op]: name for (op, kind), name in want.items()
+             if op not in PLANE_KEYED_OPS}
+    kinds = sorted({s.kind for s in plane_specs(cfg)})
+    per_kind = {k: {OP_FIELDS[op]: want[op, k] for op in PLANE_KEYED_OPS}
+                for k in kinds}
+    if all(per_kind[k] == per_kind[kinds[0]] for k in kinds):
+        return [(dataclasses.replace(cfg, **fixed, **per_kind[kinds[0]]),
+                 kinds)]
+    return [(dataclasses.replace(cfg, **fixed, **per_kind[k]), [k])
+            for k in kinds]
+
+
+def check_tuned_event(label: str, cfg, tuned, decisions, dev) -> None:
+    """One event of the tuned config through run_events and one batch of
+    TUNE_BATCH rows (the event and padding) through stream_simulate: each
+    dispatch ran its decision, and the event equals, bit for bit, the
+    event of the config naming the same strategies explicitly (per plane
+    kind where the kinds' winners differ) and the stream's row."""
+    import torch
+
+    from repro_torch.config import plane_specs
+    from repro_torch.core.pipeline import make_sim_fn
+    from repro_torch.launch.sim import run_events, stream_simulate
+    from repro_torch.tune.autotune import OP_FIELDS
+
+    want = decided(decisions)
+    outs = {}
+    with strategy_calls(OP_FIELDS) as calls:
+        run_events(tuned, 1, seed=0, device=dev,
+                   sim=make_sim_fn(tuned, device=dev, recon=True),
+                   on_event=lambda ev, out, dt: outs.update(loop=out))
+    check_dispatch(f"tune {label} run_events", calls, want)
+    with strategy_calls(OP_FIELDS) as calls:
+        stream_simulate(tuned, 1, TUNE_BATCH, seed=0, device=dev, recon=True,
+                        on_batch=lambda b, n, d, dt, out: outs.update(
+                            stream=out))
+    check_dispatch(f"tune {label} stream_simulate, batch {TUNE_BATCH}",
+                   calls, want)
+    got = output_fields(outs["loop"])
+    row = output_fields(outs["stream"], 0)
+    bad = [k for k in got if not torch.equal(got[k], row[k])]
+    check(not bad, f"tune {label}: the streamed row differs from "
+          f"run_events in {bad}")
+    specs = plane_specs(cfg)
+    for explicit, kinds in explicit_configs(cfg, want):
+        ref = {}
+        run_events(explicit, 1, seed=0, device=dev,
+                   sim=make_sim_fn(explicit, device=dev, recon=True),
+                   on_event=lambda ev, out, dt: ref.update(out=out))
+        ref = output_fields(ref["out"])
+        planes = [s.index for s in specs if s.kind in kinds]
+        for k in got:
+            if cfg.num_planes > 1:
+                same = all(torch.equal(got[k][p], ref[k][p])
+                           for p in planes)
+            else:
+                same = torch.equal(got[k], ref[k])
+            check(same, f"tune {label}: {k} differs from the explicit "
+                  f"config's on planes {planes}")
+        named = {f: getattr(explicit, f) for f in OP_FIELDS.values()}
+        print(f"tune {label}: the tuned event == the event of {named} on "
+              f"planes {planes}, bit for bit (ADC, grid, signal, decon, "
+              f"hits), and == the streamed row", flush=True)
+
+
+def check_tune(full, dev, counters, card: str):
+    """The tune phase, on a tuning cache of this call's own (tuned fresh
+    every run)."""
+    from repro_torch.tune.autotune import CACHE_ENV
+
+    saved = os.environ.get(CACHE_ENV)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tune_") as tmp:
+        os.environ[CACHE_ENV] = str(Path(tmp) / "tune_cache.json")
+        try:
+            return tune_checks(full, dev, counters, card, Path(tmp))
+        finally:
+            if saved is None:
+                del os.environ[CACHE_ENV]
+            else:
+                os.environ[CACHE_ENV] = saved
+
+
+def tune_checks(full, dev, counters, card: str, tmp: Path):
+    """``check_tune``'s body: tune every op at full width for one plane and
+    for three (explicit fields included), check the records, the
+    candidates and a second resolution (all cache hits, no timing), drive
+    one tuned event with recon through the loop and the stream and hold
+    it against the explicit names, then events/s of the default and the
+    tuned configs (A B B A). Returns each kernel's launches in the
+    tuning."""
+    import json
+
+    import torch
+
+    from repro_torch.launch.sim import stream_simulate
+    from repro_torch.tune import (TuneCache, available_strategies,
+                                  make_context, resolve_config,
+                                  resolve_config_with_decisions)
+
+    kind = torch.cuda.get_device_name().replace(" ", "_")
+    cache_path = str(tmp / "tune_cache.json")
+    full3 = dataclasses.replace(full, num_planes=PLANES)
+    for module in counters:
+        module.reset_launches()
+    tuned = {}
+    for label, cfg in (("1 plane", full), ("3 planes", full3)):
+        t0 = time.perf_counter()
+        tcfg, decisions = resolve_config_with_decisions(
+            cfg, tune=True, tune_explicit=True, cache=TuneCache(cache_path),
+            device=dev)
+        torch.cuda.synchronize()
+        print(f"tune {label} ({time.perf_counter() - t0:.2f} s, host-paced "
+              f"CUDA events, median of 3 after 1 warm-up; {card}):",
+              flush=True)
+        for d in decisions:
+            print(f"  {d.describe()}", flush=True)
+        tuned[label] = (cfg, tcfg, decisions)
+    launches = {name: n for module in counters
+                for name, n in module.LAUNCHES.items()}
+    launches.update({f"{name}_bf16": n for module in counters
+                     for name, n in getattr(module, "BF16_LAUNCHES",
+                                            {}).items()})
+    print(f"tune launches (both resolutions): {launches}", flush=True)
+
+    records = json.load(open(cache_path))
+    check(records, "the tune wrote no record")
+    for key, rec in records.items():
+        check(rec["backend"] == "cuda" and rec["device_kind"] == kind,
+              f"tune record {key}: backend {rec['backend']!r}, device kind "
+              f"{rec['device_kind']!r}, want 'cuda', {kind!r}")
+        check(rec["timer"].startswith("median_timer: host-paced CUDA "
+                                      "events"), f"tune record {key}: timer "
+              f"{rec['timer']!r}")
+    for label, (cfg, tcfg, decisions) in tuned.items():
+        for d in decisions:
+            check(d.source in ("tuned", "cache"), f"tune {label}: {d.op} "
+                  f"decided by {d.source}")
+            ctx = make_context(cfg, records[d.cache_key]["shape"], dev)
+            check(d.strategy in available_strategies(d.op, ctx),
+                  f"tune {label}: {d.op} winner {d.strategy!r} is not "
+                  "available for its context")
+        calls = []
+        _, again = resolve_config_with_decisions(
+            cfg, tune=True, tune_explicit=True, cache=TuneCache(cache_path),
+            timer=lambda name, thunk: calls.append(name) or 0.0, device=dev)
+        check(not calls and all(d.source == "cache" for d in again)
+              and [d.strategy for d in again]
+              == [d.strategy for d in decisions],
+              f"tune {label}: the second resolution timed {calls} or "
+              f"missed the cache: {[d.describe() for d in again]}")
+        print(f"tune {label}: second resolution: {len(again)} cache hits, "
+              "0 timer calls", flush=True)
+    for label, (cfg, tcfg, decisions) in tuned.items():
+        check_tuned_event(label, cfg, tcfg, decisions, dev)
+    torch.cuda.empty_cache()
+
+    # events/s of the default config (today's strategies: an empty cache)
+    # and of the tuned one, A B B A
+    empty = TuneCache(str(tmp / "empty.json"))
+    for label, recon in (("1 plane", False), ("3 planes", True)):
+        cfg, tcfg, _ = tuned[label]
+        cells = {"default": resolve_config(cfg, cache=empty, device=dev),
+                 "tuned": tcfg}
+        rates = {name: [] for name in cells}
+        for name in ("default", "tuned", "tuned", "default"):
+            st = stream_simulate(cells[name], TUNE_EVENTS, TUNE_BATCH,
+                                 seed=0, device=dev, recon=recon)
+            rates[name].append(st["events"] / st["wall_s"])
+        print(f"tune events/s, {label}{' recon' if recon else ''}, "
+              f"{TUNE_EVENTS} full-width events {TUNE_BATCH} a batch "
+              f"(stream_simulate, host clock, generation included), A B B "
+              f"A: " + ", ".join(
+                  f"{name} {r[0]:.4f} / {r[1]:.4f} ({1e3 / r[0]:.2f} / "
+                  f"{1e3 / r[1]:.2f} ms/event)" for name, r in rates.items())
+              + "; default strategies " + str({
+                  f: getattr(cells["default"], f) for f in (
+                      "charge_grid_strategy", "scatter_strategy",
+                      "fft_strategy", "deconv_strategy",
+                      "hitfind_strategy")}) + f"; {card}", flush=True)
+        torch.cuda.empty_cache()
+    return launches
+
+
 def check_oom_classification(dev) -> None:
     """A real allocation failure on the card, and a kernel wrapper's launch
     error for cudaErrorMemoryAllocation, both classify as OOM (the
@@ -2040,6 +2340,12 @@ def main() -> int:
     print(f"stream launches over the clean streams: {stream_launches}",
           flush=True)
 
+    phase("tune")
+    tune_launches = check_tune(full, dev, [kernel, scatter_kernel,
+                                           hit_kernel, raster_kernel], card)
+    check(all(tune_launches.get(name, 0) > 0 for name in on_path),
+          f"a kernel candidate never launched in the tuning: {tune_launches}")
+
     phase("kernel timing")
     rows = []
     fused_src = "src/repro_torch/csrc/fused_sim.cu"
@@ -2114,7 +2420,8 @@ def main() -> int:
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms, "ms_card": on_card_ms,
             "host_ms": host_ms,
-            "stream_launches": stream_launches.get(name, 0)})
+            "stream_launches": stream_launches.get(name, 0),
+            "tune_launches": tune_launches.get(name, 0)})
         support_text = ""
         if name in support_bounds:
             rows[-1]["bound_all_support_ms"] = support_bounds[name]
@@ -2178,7 +2485,12 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
-        sys.exit(main())
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_cache_") as tmp:
+            # every phase but the tune phase runs today's strategies: "auto"
+            # resolves through an empty tuning cache of this run's own
+            os.environ["REPRO_TORCH_TUNE_CACHE"] = str(Path(tmp)
+                                                       / "empty.json")
+            sys.exit(main())
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         sys.exit(1)

@@ -35,6 +35,7 @@ from repro_torch.core.depo import DepoSet
 from repro_torch.core.drift import PhysicalDepoSet
 from repro_torch.core.stages import SimGraph, SimOutput, build_sim_graph
 from repro_torch.device import resolve_device
+from repro_torch.tune.autotune import resolve_config
 
 
 class EventBatch(NamedTuple):
@@ -255,9 +256,12 @@ def make_batched_sim_fn(cfg: LArTPCConfig, resp=None, add_noise: bool = True,
     deconvolution filters included), as ``make_sim_fn`` is the single-event
     one.
 
+    ``"auto"`` strategy fields resolve here, from the tuning cache or the
+    device's defaults, so one set of strategies serves the whole stream.
     The reference's ``donate=`` has no counterpart: torch frees a batch's
     device memory when its last reference goes, and the streaming launcher
     builds a fresh batch for every launch."""
+    cfg = resolve_config(cfg, device=device)
     graph = build_sim_graph(cfg, resp, add_noise=add_noise, device=device,
                             recon=recon)
 

@@ -25,11 +25,12 @@ from typing import Optional
 import torch
 
 from repro_torch.config import LArTPCConfig
-from repro_torch.core.fft_conv import fft_convolve, fft_convolve_rfft2
+from repro_torch.core.fft_conv import (dispatch, fft_convolve,
+                                      fft_convolve_rfft2,
+                                      resolve_spectrum_strategy)
 from repro_torch.core.response import DetectorResponse, make_plane_responses
 from repro_torch.device import scalar
-from repro_torch.tune.registry import register_strategy, resolve, \
-    set_default, strategies
+from repro_torch.tune.registry import register_strategy, set_default
 
 #: filter families ``make_deconv_filter`` accepts
 DECONV_FILTERS = ("wiener", "gaussian")
@@ -100,9 +101,11 @@ def deconvolve_rfft2(meas: torch.Tensor,
 
 
 @register_strategy("deconvolve", "fft_reuse",
-                   note="the fft_convolve strategy table's default layout")
+                   note="the fft_convolve layout the tuning cache chose")
 def deconvolve_fft_reuse(meas: torch.Tensor,
                          filt: DetectorResponse) -> torch.Tensor:
+    # "auto" resolves from the fft_convolve cache (plane-keyed): the layout
+    # that won the forward convolve of this plane kind runs here too
     return fft_convolve(meas, filt, strategy="auto")
 
 
@@ -112,13 +115,10 @@ set_default("deconvolve", "rfft2")
 def deconvolve(meas: torch.Tensor, filt: DetectorResponse,
                strategy: Optional[str] = None) -> torch.Tensor:
     """Apply the inverse filter: measured signal (electrons, (W, T)) ->
-    charge estimate in the charge grid's layout. ``strategy`` None or
-    ``"auto"`` is the default; unknown names raise ``ValueError`` with the
-    valid list."""
-    try:
-        strat = resolve("deconvolve", strategy or "auto")
-    except KeyError:
-        valid = sorted(strategies("deconvolve")) + ["auto"]
-        raise ValueError(f"unknown deconvolve strategy {strategy!r}; valid: "
-                         f"{valid}") from None
-    return strat.fn(meas, filt)
+    charge estimate in the charge grid's layout. ``strategy`` None is the
+    default of the signal's device, ``"auto"`` the tuning cache's decision
+    (keyed by shape and plane kind like the forward convolve), else that
+    default; unknown names raise ``ValueError`` with the valid list."""
+    name = resolve_spectrum_strategy("deconvolve", strategy, meas.shape,
+                                     filt, meas.device)
+    return dispatch("deconvolve", name)(meas, filt)

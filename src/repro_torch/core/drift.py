@@ -17,7 +17,8 @@ import torch
 from repro_torch.config import LArTPCConfig, PlaneSpec, plane_specs
 from repro_torch.core.depo import DepoSet
 from repro_torch.device import resolve_device, scalar
-from repro_torch.tune.registry import register_strategy, resolve, set_default
+from repro_torch.tune import autotune, registry
+from repro_torch.tune.registry import register_strategy, set_default
 
 
 class PhysicalDepoSet(NamedTuple):
@@ -95,8 +96,10 @@ set_default("drift", "jnp")
 
 
 def transport(pdepos: PhysicalDepoSet, cfg: LArTPCConfig) -> DepoSet:
-    """Dispatch physical depos -> detector depos through the registry."""
-    return resolve("drift", cfg.drift_strategy).fn(pdepos, cfg)
+    """Dispatch physical depos -> detector depos through the registry
+    (``"auto"``: the tuning cache or the default of the depos' device)."""
+    strategy = autotune.resolve("drift", cfg, device=pdepos.x.device).strategy
+    return registry.get_strategy("drift", strategy).fn(pdepos, cfg)
 
 
 def project_to_plane(pdepos: PhysicalDepoSet, spec: PlaneSpec,

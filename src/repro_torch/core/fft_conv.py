@@ -15,7 +15,8 @@ import torch
 
 from repro_torch.config import LArTPCConfig
 from repro_torch.core.response import DetectorResponse
-from repro_torch.tune.registry import register_strategy, resolve, set_default
+from repro_torch.tune import autotune, registry
+from repro_torch.tune.registry import register_strategy, set_default
 
 
 def _pad_grid(grid: torch.Tensor, resp: DetectorResponse) -> torch.Tensor:
@@ -64,10 +65,46 @@ def fft_convolve_fft2(grid: torch.Tensor, resp: DetectorResponse) -> torch.Tenso
 set_default("fft_convolve", "rfft2")
 
 
+def resolve_spectrum_strategy(op: str, strategy: str | None, grid_shape,
+                              resp: DetectorResponse, device) -> str:
+    """A plane's strategy name for ``op`` (``fft_convolve`` or
+    ``deconvolve``): None is the default of ``device``, ``"auto"`` the
+    tuning cache's decision for the plane's grid and response dims and its
+    kind (induction and collection transforms are different problems to
+    the tuner), else that default; other names pass through."""
+    if strategy is None:
+        return registry.default_strategy(op, torch.device(device).type)
+    if strategy == "auto":
+        shape = {"num_wires": int(grid_shape[0]),
+                 "num_ticks": int(grid_shape[1]),
+                 "response_wires": int(resp.kernel.shape[0]),
+                 "response_ticks": int(resp.kernel.shape[1]),
+                 "plane": resp.plane}
+        return autotune.resolve(op, None, shape=shape, device=device).strategy
+    return strategy
+
+
+def dispatch(op: str, strategy: str):
+    """The registered function of ``strategy`` for ``op``; unknown names
+    raise ``ValueError`` with the valid list."""
+    try:
+        return registry.get_strategy(op, strategy).fn
+    except KeyError:
+        valid = sorted(registry.strategies(op)) + ["auto"]
+        raise ValueError(f"unknown {op} strategy {strategy!r}; valid: "
+                         f"{valid}") from None
+
+
 def fft_convolve(grid: torch.Tensor, resp: DetectorResponse,
                  strategy: str | None = None) -> torch.Tensor:
-    """Linear 2-D convolution of the charge grid with the response."""
-    return resolve("fft_convolve", strategy or "auto").fn(grid, resp)
+    """Linear 2-D convolution of the charge grid with the response.
+
+    ``strategy`` may be None (the default of the grid's device), ``"auto"``
+    (tuning cache, keyed by shape and plane kind, else that default) or a
+    registered name; unknown names raise ``ValueError``."""
+    name = resolve_spectrum_strategy("fft_convolve", strategy, grid.shape,
+                                     resp, grid.device)
+    return dispatch("fft_convolve", name)(grid, resp)
 
 
 def digitize(signal: torch.Tensor, cfg: LArTPCConfig) -> torch.Tensor:

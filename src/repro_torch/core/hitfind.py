@@ -13,9 +13,10 @@ wires. Two strategies of the ``hit_find`` op, as in the reference:
 
 The default is ``pallas`` on the card and ``scan`` elsewhere, so
 ``hitfind_strategy="auto"`` (the config default) runs the kernel on the
-card. Output contract (``HitSet``): capacity ``cfg.max_hits``, mask-padded,
-wire-major (ascending wire, then time); ``n_hits`` counts every run found,
-so ``n_hits > mask.sum()`` shows truncation.
+card unless the tuning cache holds another decision. Output contract
+(``HitSet``): capacity ``cfg.max_hits``, mask-padded, wire-major
+(ascending wire, then time); ``n_hits`` counts every run found, so
+``n_hits > mask.sum()`` shows truncation.
 """
 from __future__ import annotations
 
@@ -24,8 +25,8 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.config import LArTPCConfig
-from repro_torch.tune.registry import register_strategy, resolve, \
-    set_default, strategies
+from repro_torch.tune import autotune, registry
+from repro_torch.tune.registry import register_strategy, set_default
 
 
 class HitSet(NamedTuple):
@@ -113,7 +114,16 @@ def hit_find_scan(decon: torch.Tensor, cfg: LArTPCConfig):
                      int(cfg.max_hits_per_wire))
 
 
-@register_strategy("hit_find", "pallas",
+def _pallas_viable(ctx) -> bool:
+    # compiled on the card; elsewhere the wrapper runs the plain per-tick
+    # scan, so cap it to smoke-scale grids (the bound of fused_pallas)
+    if ctx.backend == "cuda":
+        return True
+    cells = ctx.shape.get("num_wires", 0) * ctx.shape.get("num_ticks", 0)
+    return cells <= (1 << 21)
+
+
+@register_strategy("hit_find", "pallas", available=_pallas_viable,
                    note="per-wire CUDA scan kernel (plain scan on the CPU)",
                    differentiable=False)
 def hit_find_pallas(decon: torch.Tensor, cfg: LArTPCConfig):
@@ -179,16 +189,24 @@ def find_hits(decon: torch.Tensor, cfg: LArTPCConfig,
               max_hits: Optional[int] = None) -> HitSet:
     """Threshold-scan one plane's deconvolved (W, T) grid into a HitSet.
 
-    ``strategy`` None or ``"auto"`` takes the default of the grid's device
-    (``pallas`` on the card, ``scan`` on the CPU; the port has no
-    autotuner); any other name must be registered, and unknown names raise
+    ``strategy`` None takes the default of the grid's device (``pallas`` on
+    the card, ``scan`` on the CPU); ``"auto"`` the tuning cache's decision
+    for the grid's shape and per-wire capacity on that device, else that
+    default; any other name must be registered, and unknown names raise
     ``ValueError`` with the valid list.
     """
+    if strategy is None:
+        strategy = registry.default_strategy("hit_find", decon.device.type)
+    elif strategy == "auto":
+        shape = {"num_wires": int(decon.shape[0]),
+                 "num_ticks": int(decon.shape[1]),
+                 "max_hits_per_wire": cfg.max_hits_per_wire}
+        strategy = autotune.resolve("hit_find", None, shape=shape,
+                                    device=decon.device).strategy
     try:
-        strat = resolve("hit_find", strategy or "auto",
-                        backend=decon.device.type)
+        strat = registry.get_strategy("hit_find", strategy)
     except KeyError:
-        valid = sorted(strategies("hit_find")) + ["auto"]
+        valid = sorted(registry.strategies("hit_find")) + ["auto"]
         raise ValueError(f"unknown hit_find strategy {strategy!r}; valid: "
                          f"{valid}") from None
     counts, charge, tick, peak = strat.fn(decon, cfg)

@@ -40,6 +40,7 @@ from repro_torch.core.response import DetectorResponse
 from repro_torch.core.scatter import scatter_add
 from repro_torch.core.stages import SimOutput, build_sim_graph, \
     plane_fold_keys
+from repro_torch.tune.autotune import resolve_config
 from repro_torch.tune.registry import register_strategy, set_default
 
 __all__ = ["SimOutput", "simulate_fig4", "make_sim_fn", "simulate",
@@ -73,6 +74,21 @@ def charge_grid_unfused_bf16(k: torch.Tensor, depos: DepoSet,
         k, depos, dataclasses.replace(cfg, patch_dtype="bfloat16"), n_valid)
 
 
+def _fused_viable(ctx) -> bool:
+    # the fused kernel draws counter-style fluctuation in kernel, so it
+    # competes in the physics-default config; the pre-computed "pool" and
+    # "relaxed" streams cannot be reproduced in kernel, and off the card
+    # the plain version makes production grids prohibitive
+    cfg = ctx.cfg
+    if cfg is None or (cfg.fluctuate
+                       and cfg.rng_strategy in ("pool", "relaxed")):
+        return False
+    if ctx.backend == "cuda":
+        return True
+    cells = ctx.shape.get("num_wires", 0) * ctx.shape.get("num_ticks", 0)
+    return cells <= (1 << 21)
+
+
 def _fused_key(k: torch.Tensor, cfg: LArTPCConfig) -> Optional[torch.Tensor]:
     """The in-kernel RNG key, or None when the config wants no fluctuation."""
     if cfg.fluctuate and cfg.rng_strategy == "counter":
@@ -85,7 +101,7 @@ def _fused_key(k: torch.Tensor, cfg: LArTPCConfig) -> Optional[torch.Tensor]:
     return None
 
 
-@register_strategy("charge_grid", "fused_pallas",
+@register_strategy("charge_grid", "fused_pallas", available=_fused_viable,
                    note="fused rasterize+fluctuate+scatter CUDA kernel",
                    differentiable=False)
 def charge_grid_fused(k: torch.Tensor, depos: DepoSet, cfg: LArTPCConfig,
@@ -97,6 +113,7 @@ def charge_grid_fused(k: torch.Tensor, depos: DepoSet, cfg: LArTPCConfig,
 
 
 @register_strategy("charge_grid", "fused_pallas_compact",
+                   available=_fused_viable,
                    note="fused kernel over occupied tiles only",
                    differentiable=False)
 def charge_grid_fused_compact(k: torch.Tensor, depos: DepoSet,
@@ -106,6 +123,22 @@ def charge_grid_fused_compact(k: torch.Tensor, depos: DepoSet,
 
     return simulate_charge_grid_compact(depos, cfg, key=_fused_key(k, cfg),
                                         n_valid=n_valid)
+
+
+def _fused_mp_viable(ctx) -> bool:
+    # the multi-plane kernels need a plane axis to batch over; fluctuation
+    # constraints match the single-plane fused kernels, and off the card
+    # the plain version's cost scales with the planes it rasterises
+    cfg = ctx.cfg
+    if cfg is None or cfg.num_planes < 2:
+        return False
+    if cfg.fluctuate and cfg.rng_strategy in ("pool", "relaxed"):
+        return False
+    if ctx.backend == "cuda":
+        return True
+    cells = (ctx.shape.get("num_wires", 0) * ctx.shape.get("num_ticks", 0)
+             * cfg.num_planes)
+    return cells <= (1 << 21)
 
 
 def _plane_grid_keys(k: torch.Tensor, cfg: LArTPCConfig):
@@ -126,6 +159,7 @@ def _require_plane_axis(depos: DepoSet, cfg: LArTPCConfig) -> None:
 
 
 @register_strategy("charge_grid", "fused_pallas_multiplane",
+                   available=_fused_mp_viable,
                    note="one fused CUDA launch rasterises ALL planes",
                    differentiable=False)
 def charge_grid_fused_multiplane(k: torch.Tensor, depos: DepoSet,
@@ -141,6 +175,7 @@ def charge_grid_fused_multiplane(k: torch.Tensor, depos: DepoSet,
 
 
 @register_strategy("charge_grid", "fused_pallas_multiplane_compact",
+                   available=_fused_mp_viable,
                    note="multi-plane fused kernel over occupied tiles only",
                    differentiable=False)
 def charge_grid_fused_multiplane_compact(k: torch.Tensor, depos: DepoSet,
@@ -154,7 +189,17 @@ def charge_grid_fused_multiplane_compact(k: torch.Tensor, depos: DepoSet,
         depos, cfg, keys=_plane_grid_keys(k, cfg), n_valid=n_valid)
 
 
-@register_strategy("charge_grid", "multiplane_xla",
+def _mp_xla_viable(ctx) -> bool:
+    # plane-flattened chain: needs a plane axis to amortise, and its
+    # counter-hash fluctuation cannot reproduce the pool/relaxed streams.
+    # No cell cap: plain torch ops scale to production grids everywhere.
+    cfg = ctx.cfg
+    if cfg is None or cfg.num_planes < 2:
+        return False
+    return not (cfg.fluctuate and cfg.rng_strategy in ("pool", "relaxed"))
+
+
+@register_strategy("charge_grid", "multiplane_xla", available=_mp_xla_viable,
                    note="plane-flattened chain; counter-hash fluctuation",
                    differentiable=False)
 def charge_grid_multiplane_xla(k: torch.Tensor, depos: DepoSet,
@@ -254,7 +299,10 @@ def make_sim_fn(cfg: LArTPCConfig, resp: Optional[DetectorResponse] = None,
     """The single-event executor: a ``SimGraph`` called as
     ``sim(key, depos) -> SimOutput``, built once (response spectra and, with
     ``recon``, the deconvolution filters included) and reused for every
-    event."""
+    event. ``"auto"`` strategy fields resolve first, from the tuning cache
+    or the device's defaults (``repro_torch.tune``), so every event runs
+    the same strategies."""
+    cfg = resolve_config(cfg, device=device)
     return build_sim_graph(cfg, resp, add_noise=add_noise, device=device,
                            recon=recon)
 

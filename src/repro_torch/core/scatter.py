@@ -24,7 +24,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.config import LArTPCConfig
-from repro_torch.tune.registry import register_strategy, resolve, set_default
+from repro_torch.tune import autotune, registry
+from repro_torch.tune.registry import register_strategy, set_default
 
 
 def flat_pixel_indices(w0: torch.Tensor, t0: torch.Tensor, pw: int, pt: int,
@@ -79,7 +80,17 @@ def scatter_sort_segment(patches: torch.Tensor, w0: torch.Tensor,
     return grid.reshape(cfg.num_wires, cfg.num_ticks), _no_drops(grid.device)
 
 
-@register_strategy("scatter_add", "pallas",
+def _pallas_viable(ctx) -> bool:
+    # compiled on the card; elsewhere the wrapper runs the plain version,
+    # a correctness tool: keep it out of the tuner's candidates once the
+    # grid is big enough that it would never win, only slow tuning down
+    if ctx.backend == "cuda":
+        return True
+    cells = ctx.shape.get("num_wires", 0) * ctx.shape.get("num_ticks", 0)
+    return cells <= (1 << 21)
+
+
+@register_strategy("scatter_add", "pallas", available=_pallas_viable,
                    note="owner-computes tile CUDA kernel",
                    differentiable=False)
 def scatter_pallas(patches: torch.Tensor, w0: torch.Tensor, t0: torch.Tensor,
@@ -90,7 +101,7 @@ def scatter_pallas(patches: torch.Tensor, w0: torch.Tensor, t0: torch.Tensor,
                              num_ticks=cfg.num_ticks, n_valid=n_valid)
 
 
-@register_strategy("scatter_add", "pallas_compact",
+@register_strategy("scatter_add", "pallas_compact", available=_pallas_viable,
                    note="owner-computes kernel over occupied tiles only",
                    differentiable=False)
 def scatter_pallas_compact(patches: torch.Tensor, w0: torch.Tensor,
@@ -107,7 +118,15 @@ set_default("scatter_add", "xla")
 
 def scatter_add(patches, w0, t0, cfg: LArTPCConfig,
                 strategy: str | None = None, n_valid: int | None = None):
-    """Dispatch to a registered scatter strategy (``"auto"``: the default);
-    returns ``(grid, dropped)``."""
-    return resolve("scatter_add", strategy or cfg.scatter_strategy).fn(
+    """Dispatch to a registered scatter strategy; returns ``(grid,
+    dropped)``. ``strategy`` (or ``cfg.scatter_strategy``) may be a
+    concrete name or ``"auto"``, which resolves through the tuning cache or
+    the default of the patches' device (``repro_torch.tune``)."""
+    strategy = strategy or cfg.scatter_strategy
+    if strategy == "auto":
+        shape = autotune.op_shape("scatter_add", cfg)
+        shape["num_depos"] = int(patches.shape[0])
+        strategy = autotune.resolve("scatter_add", cfg, shape=shape,
+                                    device=patches.device).strategy
+    return registry.get_strategy("scatter_add", strategy).fn(
         patches, w0, t0, cfg, n_valid=n_valid)

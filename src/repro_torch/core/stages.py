@@ -48,12 +48,14 @@ from torch import nn
 from repro_torch.config import LArTPCConfig, PlaneSpec, plane_specs
 from repro_torch.core import prng
 from repro_torch.core.depo import DepoSet
-from repro_torch.core.fft_conv import digitize, fft_convolve
+from repro_torch.core.fft_conv import digitize, fft_convolve, \
+    resolve_spectrum_strategy
 from repro_torch.core.noise import simulate_noise
 from repro_torch.core.rasterize import patch_dtype
 from repro_torch.core.response import DetectorResponse, make_response
 from repro_torch.device import resolve_device, scalar
-from repro_torch.tune.registry import get_strategy, resolve
+from repro_torch.tune import autotune
+from repro_torch.tune.registry import get_strategy
 
 #: canonical stage order of the simulation chain
 STAGE_ORDER = ("drift", "charge_grid", "convolve", "noise", "digitize")
@@ -360,15 +362,22 @@ def drift_stage(cfg: LArTPCConfig,
 
 
 def compute_charge_grid(k: torch.Tensor, depos: DepoSet, cfg: LArTPCConfig,
-                        n_valid: Optional[int] = None):
-    """Dispatch depos -> (S(t,x), dropped) through the registered strategy;
-    ``dropped`` counts entries of depos below ``n_valid`` only."""
-    return resolve("charge_grid", cfg.charge_grid_strategy).fn(
-        k, depos, cfg, n_valid=n_valid)
+                        n_valid: Optional[int] = None,
+                        strategy: Optional[str] = None):
+    """Dispatch depos -> (S(t,x), dropped) through the registered strategy
+    ``strategy`` (default: ``cfg.charge_grid_strategy``, where ``"auto"``
+    takes the tuning cache's decision or the default of the depos'
+    device); ``dropped`` counts entries of depos below ``n_valid`` only."""
+    if strategy is None:
+        strategy = autotune.resolve("charge_grid", cfg,
+                                    device=depos.wire.device).strategy
+    return get_strategy("charge_grid", strategy).fn(k, depos, cfg,
+                                                    n_valid=n_valid)
 
 
 def charge_grid_stage(cfg: LArTPCConfig,
-                      planes: Optional[Tuple[int, ...]] = None) -> Stage:
+                      planes: Optional[Tuple[int, ...]] = None,
+                      device="cuda") -> Stage:
     """depos -> S(t,x): rasterize + fluctuate + scatter-add, or a fused
     kernel, dispatched through the ``charge_grid`` registry.
 
@@ -380,16 +389,18 @@ def charge_grid_stage(cfg: LArTPCConfig,
     Over a batch, a fused strategy takes every (event, plane) row of the
     batch at once, each row with the seed the per-event run gives it
     (``repro_torch.core.pipeline.charge_grid_fused_rows``); the other
-    strategies run one event at a time."""
+    strategies run one event at a time. An ``"auto"`` strategy resolves
+    once, here, for ``device``."""
     specs = _selected_specs(cfg, planes)
     multi = cfg.num_planes > 1
     stacked = multi and resolve_plane_batching(cfg) == "stacked"
-    name = resolve("charge_grid", cfg.charge_grid_strategy).name
+    name = autotune.resolve("charge_grid", cfg, device=device).strategy
+    get_strategy("charge_grid", name)  # an unknown name fails at build
     whole_stack = stacked and len(specs) == cfg.num_planes
 
     def per_plane(keys, depos: DepoSet, n_valid):
         outs = [compute_charge_grid(k, DepoSet(*(x[i] for x in depos)), cfg,
-                                    n_valid)
+                                    n_valid, name)
                 for i, k in enumerate(keys)]
         return (torch.stack([g for g, _ in outs]),
                 torch.stack([d for _, d in outs]).sum())
@@ -397,7 +408,7 @@ def charge_grid_stage(cfg: LArTPCConfig,
     def fn(state: SimState) -> SimState:
         if not multi:
             grid, dropped = compute_charge_grid(state.kf, state.depos, cfg,
-                                                state.n_valid)
+                                                state.n_valid, name)
         elif name in MULTIPLANE_CHARGE_GRID and whole_stack:
             grid, dropped = get_strategy("charge_grid", name).fn(
                 state.kf, state.depos, cfg, n_valid=state.n_valid)
@@ -423,18 +434,25 @@ def charge_grid_stage(cfg: LArTPCConfig,
 
 
 def _spectra_stage(name: str, op: str, buffer: str, resps,
-                   apply: Callable[[torch.Tensor, DetectorResponse],
+                   apply: Callable[[torch.Tensor, DetectorResponse, str],
                                    torch.Tensor],
                    source: Callable[[SimState], torch.Tensor], target: str,
-                   multi: bool) -> Stage:
+                   cfg: LArTPCConfig, strategy: Optional[str],
+                   device) -> Stage:
     """A stage applying one spectrum per plane (held as the buffer
-    ``buffer``, (P, ...) for several planes) to ``source(state)`` and
-    writing the result to the state's ``target`` field: one call per plane
-    in either batching mode, so a plane's bits do not depend on the planes
-    beside it."""
+    ``buffer``, (P, ...) for several planes) to ``source(state)`` with
+    ``apply(x, resp, name)`` and writing the result to the state's
+    ``target`` field: one call per plane in either batching mode, so a
+    plane's bits do not depend on the planes beside it. Each plane's
+    strategy name of ``op`` resolves once, here, from ``strategy`` for its
+    own plane kind on ``device``."""
     if len({r.pad_shape for r in resps}) != 1:
         raise ValueError("the per-plane responses must share one padded "
                          f"shape, got {[r.pad_shape for r in resps]}")
+    multi = cfg.num_planes > 1
+    grid_shape = (cfg.num_wires, cfg.num_ticks)
+    names = [resolve_spectrum_strategy(op, strategy, grid_shape, r, device)
+             for r in resps]
     stage = Stage(name, None, op=op)
     stage.register_buffer(buffer, torch.stack(
         [r.freq for r in resps]) if multi else resps[0].freq)
@@ -443,9 +461,9 @@ def _spectra_stage(name: str, op: str, buffer: str, resps,
         freq = getattr(stage, buffer)
         x = source(state)
         if not multi:
-            out = apply(x, resps[0]._replace(freq=freq))
+            out = apply(x, resps[0]._replace(freq=freq), names[0])
         else:
-            out = torch.stack([apply(x[i], r._replace(freq=freq[i]))
+            out = torch.stack([apply(x[i], r._replace(freq=freq[i]), names[i])
                                for i, r in enumerate(resps)])
         return state._replace(**{target: out})
 
@@ -462,9 +480,8 @@ def convolve_stage(cfg: LArTPCConfig, resp,
     collection, one convolution per plane)."""
     resps = _as_plane_responses(cfg, resp, planes, device)
     return _spectra_stage(
-        "convolve", "fft_convolve", "response_freq", resps,
-        lambda grid, r: fft_convolve(grid, r, cfg.fft_strategy),
-        lambda state: state.grid, "signal", cfg.num_planes > 1)
+        "convolve", "fft_convolve", "response_freq", resps, fft_convolve,
+        lambda state: state.grid, "signal", cfg, cfg.fft_strategy, device)
 
 
 def noise_stage(cfg: LArTPCConfig,
@@ -510,28 +527,28 @@ def deconvolve_stage(cfg: LArTPCConfig, resp,
     filts = tuple(make_deconv_filter(r, cfg)
                   for r in _as_plane_responses(cfg, resp, planes, device))
     return _spectra_stage(
-        "deconvolve", "deconvolve", "filter_freq", filts,
-        lambda meas, f: deconvolve(meas, f, cfg.deconv_strategy),
-        lambda state: measured_signal(state.adc, cfg), "decon",
-        cfg.num_planes > 1)
+        "deconvolve", "deconvolve", "filter_freq", filts, deconvolve,
+        lambda state: measured_signal(state.adc, cfg), "decon", cfg,
+        cfg.deconv_strategy, device)
 
 
 def hit_find_stage(cfg: LArTPCConfig,
-                   planes: Optional[Tuple[int, ...]] = None) -> Stage:
+                   planes: Optional[Tuple[int, ...]] = None,
+                   device="cuda") -> Stage:
     """S^(t,x) -> HitSet: threshold-scan runs on every deconvolved wire
-    (``hit_find`` registry). Multi-plane: one scan per plane, the HitSet
-    leaves stacked to (P, max_hits)."""
+    (``hit_find`` registry; an ``"auto"`` strategy resolves once, here, for
+    ``device``). Multi-plane: one scan per plane, the HitSet leaves stacked
+    to (P, max_hits)."""
     from repro_torch.core.hitfind import find_hits, stack_hits
 
     n_planes = len(_selected_specs(cfg, planes))
+    name = autotune.resolve("hit_find", cfg, device=device).strategy
 
     def fn(state: SimState) -> SimState:
         if cfg.num_planes == 1:
-            return state._replace(
-                hits=find_hits(state.decon, cfg, cfg.hitfind_strategy))
+            return state._replace(hits=find_hits(state.decon, cfg, name))
         return state._replace(hits=stack_hits(
-            find_hits(state.decon[i], cfg, cfg.hitfind_strategy)
-            for i in range(n_planes)))
+            find_hits(state.decon[i], cfg, name) for i in range(n_planes)))
 
     return Stage("hit_find", fn, op="hit_find")
 
@@ -589,14 +606,14 @@ def build_sim_graph(cfg: LArTPCConfig, resp=None, add_noise: bool = True,
     check_supported(cfg)
     dev = resolve_device(device)
     resps = _as_plane_responses(cfg, resp, planes, dev)
-    stages = [drift_stage(cfg, planes), charge_grid_stage(cfg, planes),
+    stages = [drift_stage(cfg, planes), charge_grid_stage(cfg, planes, dev),
               convolve_stage(cfg, resps, planes, dev)]
     if add_noise:
         stages.append(noise_stage(cfg, planes))
     stages.append(digitize_stage(cfg))
     if recon:
         stages += [deconvolve_stage(cfg, resps, planes, dev),
-                   hit_find_stage(cfg, planes)]
+                   hit_find_stage(cfg, planes, dev)]
     if cfg.check_finite:
         stages = [_finite_checked(s) for s in stages]
     return SimGraph(stages, dev)

@@ -6,7 +6,8 @@
                                      [--journal PATH [--resume]]
                                      [--check-finite] [--no-validate]
                                      [--max-retries R] [--inject-faults SPEC]
-                                     [--device cuda|cpu]
+                                     [--device cuda|cpu] [--tune] [--retune]
+                                     [--strategy <scatter>]
                                      [--set key=value ...]
 
 The launcher streams batches of E events (``--batch-events``, default 1)
@@ -22,6 +23,17 @@ per batch, naming the dtype of the patches the charge grid rasterises
 (``--set charge_grid_strategy=unfused_bf16``: bfloat16), one line per plane
 of it, and a ``total:`` line. ``--stage-board`` first prints each stage's
 time (``SimGraph.timed``), and per plane for multi-plane configs.
+
+``--tune`` autotunes every registered hot op (drift, scatter-add, charge
+grid, convolve, deconvolve, hit finding) on ``--device`` at the config's
+shape, explicit fields included, and prints one ``tune[op]: ...`` line per
+decision; decisions persist in the port's tuning cache
+(``$REPRO_TORCH_TUNE_CACHE``, default
+``~/.cache/repro-torch-tune/tune_cache.json``), so a repeated run reports
+a cache hit; ``--retune`` re-measures. ``--strategy`` forces the
+scatter-add strategy over both the config and the tuner. Without
+``--tune``, ``"auto"`` fields resolve from the cache or the device's
+defaults.
 
 Fault tolerance, as in the reference: ingest validation quarantines bad
 events (``--no-validate`` skips it), OOM-class failures retry with halved
@@ -53,6 +65,8 @@ from repro_torch.core.stages import SimOutput, join_outputs
 from repro_torch.core.validate import RunHealth, SimBatchError, is_oom_error
 from repro_torch.device import resolve_device
 from repro_torch.launch.journal import RunJournal, run_fingerprint
+from repro_torch.tune import resolve_config, \
+    resolve_config_with_decisions, strategies
 
 
 def _sync(dev: torch.device) -> None:
@@ -372,10 +386,12 @@ def stage_board(cfg: LArTPCConfig, recon: bool, seed: int, device) -> None:
     """Print each stage's time (``SimGraph.timed``) on one event, and for a
     multi-plane config each plane's (the graph restricted to that plane;
     a multi-plane charge-grid strategy takes all planes in one launch, so
-    its per-plane rows are not printed)."""
+    its per-plane rows are not printed). ``"auto"`` fields resolve through
+    the tuning cache first."""
     from repro_torch.core.stages import MULTIPLANE_CHARGE_GRID, \
         build_sim_graph
 
+    cfg = resolve_config(cfg, device=device)
     key = prng.key(seed)
     pdepos = generate_physical_depos(key, cfg, device=device)
     _, timings = build_sim_graph(cfg, recon=recon, device=device).timed(
@@ -431,6 +447,16 @@ def main(argv=None):
                          "'nan@0,oversize@2,oom@1x2,error@3'")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; no silent fallback")
+    ap.add_argument("--tune", action="store_true",
+                    help="autotune kernel strategies for this config on "
+                         "--device (cached; repeated runs report a cache "
+                         "hit)")
+    ap.add_argument("--retune", action="store_true",
+                    help="with --tune: ignore the cache and re-measure")
+    ap.add_argument("--strategy", default=None,
+                    help="force the scatter-add strategy (see "
+                         "repro_torch.tune; 'auto' resolves via the tuning "
+                         "cache)")
     ap.add_argument("--set", nargs="*", default=[])
     args = ap.parse_args(argv)
 
@@ -448,6 +474,19 @@ def main(argv=None):
         cfg = apply_overrides(cfg, dict(kv.split("=", 1) for kv in args.set))
 
     device = resolve_device(args.device)
+    if args.tune:
+        cfg, decisions = resolve_config_with_decisions(
+            cfg, tune=True, force=args.retune, tune_explicit=True,
+            device=device)
+        for d in decisions:
+            print(d.describe())
+    if args.strategy:
+        known = sorted(strategies("scatter_add")) + ["auto"]
+        if args.strategy not in known:
+            raise SystemExit(f"unknown --strategy {args.strategy!r}; "
+                             f"known: {known}")
+        cfg = apply_overrides(cfg, {"scatter_strategy": args.strategy})
+
     if args.stage_board:
         stage_board(cfg, args.recon, args.seed, device)
 
@@ -457,7 +496,7 @@ def main(argv=None):
 
         faults = FaultPlan.parse(args.inject_faults)
 
-    patches = patch_dtype_name(cfg)
+    patches = patch_dtype_name(resolve_config(cfg, device=device))
 
     def report(b, n_valid, n_depos, dt, out):
         if n_valid == 0:

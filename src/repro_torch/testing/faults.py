@@ -133,3 +133,35 @@ class FaultPlan:
             raise InjectedOOM(
                 f"RESOURCE_EXHAUSTED: injected device OOM on batch {batch} "
                 f"({remaining - 1} more scheduled)")
+
+
+def corrupt_tune_cache(path: str, mode: str = "truncate") -> None:
+    """Corrupt an autotune cache file in place, the ways disks do:
+
+    truncate : cut the file mid-JSON (torn write)
+    garbage  : replace it with non-JSON bytes
+    foreign  : valid JSON, but entries from some other tool or schema,
+               which must be ignored per entry (the schema check), not
+               crash the run
+    """
+    if mode == "truncate":
+        with open(path, "rb") as f:
+            data = f.read()
+        with open(path, "wb") as f:
+            f.write(data[: max(len(data) // 2, 1)])
+    elif mode == "garbage":
+        with open(path, "wb") as f:
+            f.write(b"\x00\xffnot json at all{{{")
+    elif mode == "foreign":
+        import json
+
+        foreign = {
+            "some|other|tool|key": "just a string, not a record",
+            "scatter_add|cpu|cpu|num_depos=256": {
+                "strategy": "xla", "schema": "bogus-9000"},
+        }
+        with open(path, "w") as f:
+            json.dump(foreign, f)
+    else:
+        raise ValueError(f"unknown corruption mode {mode!r}; "
+                         "expected truncate|garbage|foreign")

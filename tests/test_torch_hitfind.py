@@ -27,6 +27,16 @@ from repro_torch.tune import registry
 
 torch.set_num_threads(1)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _tune_cache(tmp_path_factory):
+    """``"auto"`` strategy fields resolve through an empty tuning cache of
+    this module's own, never the default path."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("REPRO_TORCH_TUNE_CACHE",
+                  str(tmp_path_factory.mktemp("tune") / "tune_cache.json"))
+        yield
+
 CFG = JaxConfig(num_wires=24, num_ticks=96, hit_threshold=500.0,
                 max_hits_per_wire=4, max_hits=64)
 THR = CFG.hit_threshold

@@ -17,6 +17,17 @@ from repro.config import plane_specs as jax_plane_specs
 from repro_torch import config as tconfig
 from repro_torch import interop
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _tune_cache(tmp_path_factory):
+    """``"auto"`` strategy fields resolve through an empty tuning cache of
+    this module's own, never the default path."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("REPRO_TORCH_TUNE_CACHE",
+                  str(tmp_path_factory.mktemp("tune") / "tune_cache.json"))
+        yield
+
+
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
@@ -48,7 +59,8 @@ def test_import_leaves_jax_out_of_sys_modules():
             "repro_torch.kernels.hitfind.ops, "
             "repro_torch.kernels.rasterize.ops, repro_torch.core.batch, "
             "repro_torch.core.validate, repro_torch.launch.journal, "
-            "repro_torch.testing.faults; "
+            "repro_torch.testing.faults, repro_torch.tune, "
+            "repro_torch.tune.autotune; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); sys.exit(bool(bad))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")

@@ -48,6 +48,16 @@ from repro_torch.testing import parity
 
 torch.set_num_threads(1)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _tune_cache(tmp_path_factory):
+    """``"auto"`` strategy fields resolve through an empty tuning cache of
+    this module's own, never the default path."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("REPRO_TORCH_TUNE_CACHE",
+                  str(tmp_path_factory.mktemp("tune") / "tune_cache.json"))
+        yield
+
 CFG3 = dataclasses.replace(jax_get_config("lartpc-uboone", smoke=True),
                            num_planes=3)
 #: (charge_grid_strategy, scatter_strategy) of the whole-event cases

@@ -39,6 +39,16 @@ from repro_torch.testing import parity
 
 torch.set_num_threads(1)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _tune_cache(tmp_path_factory):
+    """``"auto"`` strategy fields resolve through an empty tuning cache of
+    this module's own, never the default path."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("REPRO_TORCH_TUNE_CACHE",
+                  str(tmp_path_factory.mktemp("tune") / "tune_cache.json"))
+        yield
+
 SMOKE = jax_get_config("lartpc-uboone", smoke=True)
 #: patches straddle tile edges in both axes, and the last tile row is ragged
 EDGE = JaxConfig(num_wires=96, num_ticks=768, num_depos=128,

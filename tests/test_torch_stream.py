@@ -50,6 +50,16 @@ from repro_torch.testing.faults import (FaultPlan, InjectedDispatchError,
 
 torch.set_num_threads(1)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _tune_cache(tmp_path_factory):
+    """``"auto"`` strategy fields resolve through an empty tuning cache of
+    this module's own, never the default path."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("REPRO_TORCH_TUNE_CACHE",
+                  str(tmp_path_factory.mktemp("tune") / "tune_cache.json"))
+        yield
+
 #: ``tests/test_robustness.py``'s config
 JCFG = JaxConfig(num_wires=64, num_ticks=256, num_depos=48,
                  response_wires=11, response_ticks=48)
