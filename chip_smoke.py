@@ -2003,6 +2003,173 @@ def tune_checks(full, dev, counters, card: str, tmp: Path):
     return launches
 
 
+#: the fit phase: full-width events, Adam steps of the short fit, and the
+#: identity-transform fields of the finite-difference check (the
+#: reference's e2e step and tolerances)
+FIT_EVENTS = 2
+FIT_STEPS = 20
+FIT_FD_FIELDS = ("electron_lifetime_us", "recombination")
+FIT_FD = dict(eps=2e-2, rtol=2e-1, atol=1e-3)
+
+
+def timed_step(loss_fn, theta):
+    """(loss, gradient, forward ms, backward ms) of one step, each half
+    ended by a synchronise and timed on the host clock."""
+    import torch
+
+    th = theta.detach().requires_grad_(True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    val = loss_fn(th)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    (grad,) = torch.autograd.grad(val, th)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return float(val.detach()), grad, (t1 - t0) * 1e3, (t2 - t1) * 1e3
+
+
+def check_fit(full, dev, counters, card: str):
+    """The calibration path (``repro_torch.core.fit``) at full width: the
+    launcher's smoke truth (lifetime 60 us, recombination 0.75, 150 000
+    electrons a depo) on the full grid and depo count, one plane, the
+    default strategies for the targets, fluctuation and noise on,
+    ``FIT_EVENTS`` events. Checks the self-calibration contract, the
+    gradient of every fittable field, a central difference, a short Adam
+    fit and the launcher's own gates; every kernel's launch counter stays
+    0 (the fit graph runs the differentiable fallbacks)."""
+    import torch
+
+    from repro_torch.core import fit, prng
+    from repro_torch.core.gradcheck import gradcheck
+    from repro_torch.core.stages import build_sim_graph
+    from repro_torch.launch import fit as fit_launcher
+
+    t_phase = time.perf_counter()
+    truth = dataclasses.replace(full, electrons_per_depo=150_000.0,
+                                **fit_launcher.SMOKE_TRUTH)
+    for module in counters:
+        module.reset_launches()
+    torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev)   # earlier phases' tensors
+    t0 = time.perf_counter()
+    targets = fit.make_fit_targets(truth, prng.key(42),
+                                   num_events=FIT_EVENTS, device=dev)
+    torch.cuda.synchronize()
+    targets_s = time.perf_counter() - t0
+    shape = (FIT_EVENTS, full.num_wires, full.num_ticks)
+    check(targets.adc.dtype == torch.int16
+          and tuple(targets.adc.shape) == shape,
+          f"fit targets {targets.adc.dtype} {tuple(targets.adc.shape)}")
+    print(f"fit targets: {FIT_EVENTS} events x {targets.batch.max_depos} "
+          f"depos -> {tuple(targets.adc.shape)} int16 ADC in "
+          f"{targets_s:.3f} s (strategies {truth.charge_grid_strategy} + "
+          f"{truth.scatter_strategy})", flush=True)
+
+    # the contract: the fit graph's STE ADC == the targets' int16 ADC, and
+    # the loss is exactly 0 at the truth with every field a tensor
+    fgraph = build_sim_graph(fit.fit_config(truth), None, device=dev)
+    with torch.no_grad():
+        for e in range(FIT_EVENTS):
+            soft = fgraph.run(targets.keys[e], targets.batch.event(e)).adc
+            check(soft.dtype == torch.float32
+                  and torch.equal(soft, targets.adc[e].to(torch.float32)),
+                  f"fit event {e}: the fit graph's ADC != the targets'")
+    every = fit.FitSpec(params=tuple(fit.FitParam(f)
+                                     for f in fit.FITTABLE_FIELDS))
+    every_loss = fit.make_fit_loss(truth, every, targets, device=dev)
+    with torch.no_grad():
+        at_truth = float(every_loss(every.true_theta(truth, device=dev)))
+    check(at_truth == 0.0, f"fit loss at the truth {at_truth} != 0")
+    two = fit.FitSpec(params=tuple(fit.FitParam(f) for f in FIT_FD_FIELDS))
+    two_loss = fit.make_fit_loss(truth, two, targets, device=dev)
+    off = dataclasses.replace(truth, electron_lifetime_us=90.0,
+                              recombination=0.6)
+    with torch.no_grad():
+        at_off = float(two_loss(two.true_theta(off, device=dev)))
+    check(at_off > 0.0, f"fit loss off the truth {at_off} is not > 0")
+    print(f"fit contract: the fit graph's ADC == the targets' int16 ADC bit "
+          f"for bit ({FIT_EVENTS} events); loss at the truth (all "
+          f"{every.n} fields tensors) {at_truth!r}, at lifetime 90, "
+          f"recombination 0.6: {at_off:.6g}", flush=True)
+
+    # the gradient of every fittable field at an off-truth theta
+    spec = fit.spec_from_names(fit.FITTABLE_FIELDS, truth)
+    theta = spec.true_theta(dataclasses.replace(truth, **{
+        f: getattr(truth, f) * 1.1 for f in fit.FITTABLE_FIELDS}),
+        device=dev)
+    loss_fn = fit.make_fit_loss(truth, spec, targets, device=dev)
+    timed_step(loss_fn, theta)                       # warm-up
+    steps = [timed_step(loss_fn, theta) for _ in range(3)]
+    val, grad = steps[-1][0], steps[-1][1].cpu()
+    fwd_ms = statistics.median(s[2] for s in steps)
+    bwd_ms = statistics.median(s[3] for s in steps)
+    check(bool(torch.isfinite(grad).all()) and bool((grad != 0).all()),
+          f"fit gradient not finite and non-zero: "
+          f"{dict(zip(spec.fields, grad.tolist()))}")
+    print(f"fit gradient at 1.1 x truth (loss {val:.6g}), all "
+          f"{spec.n} fields finite and non-zero: "
+          f"{dict(zip(spec.fields, grad.tolist()))}", flush=True)
+    print(f"fit step at full width ({FIT_EVENTS} events, {spec.n} "
+          f"fields): forward {fwd_ms:.1f} ms, backward {bwd_ms:.1f} ms "
+          f"(median of 3, host clock with synchronise); {card}", flush=True)
+    wall, busy, top = profiled(lambda: timed_step(loss_fn, theta))
+    print(f"fit step under torch.profiler: wall {wall:.1f} ms, device busy "
+          f"{busy:.1f} ms (share {busy / wall:.2f}, a lower bound); top ops "
+          f"by device ms (calls): "
+          f"{', '.join(f'{k} {ms:.1f} ({n})' for k, ms, n in top)}",
+          flush=True)
+
+    # a central difference of the full chain, the reference's e2e case
+    truth2 = torch.tensor([getattr(truth, f) for f in FIT_FD_FIELDS],
+                          dtype=torch.float32, device=dev)
+    res = gradcheck(lambda mult: two_loss(mult * truth2),
+                    torch.tensor([0.9, 1.1], device=dev),
+                    name="fit/full width", fields=FIT_FD_FIELDS, **FIT_FD)
+    print(f"{res}; analytic {res.analytic}, numeric {res.numeric}",
+          flush=True)
+    check(res.ok, f"fit finite-difference check failed: {res}")
+
+    # a short fit from 1.5 x truth, the launcher's general fit settings
+    fd_spec = fit.FitSpec(params=tuple(
+        fit.FitParam(f, init=1.5 * getattr(truth, f),
+                     lo=getattr(truth, f) / 8, hi=getattr(truth, f) * 8)
+        for f in FIT_FD_FIELDS))
+    fd_loss = fit.make_fit_loss(truth, fd_spec, targets, device=dev)
+    t0 = time.perf_counter()
+    result = fit.run_fit(fd_loss, fd_spec, fd_spec.init_theta(truth,
+                                                              device=dev),
+                         steps=FIT_STEPS, lr=0.2)
+    with torch.no_grad():
+        final = float(fd_loss(result.theta))
+    fit_s = time.perf_counter() - t0
+    start = result.history[0][1]
+    errors = result.relative_errors({f: getattr(truth, f)
+                                     for f in FIT_FD_FIELDS})
+    print(f"fit: {FIT_STEPS} Adam steps (lr 0.2) from 1.5 x truth: loss "
+          f"{start:.6g} -> {final:.6g} in {fit_s:.2f} s "
+          f"({fit_s / FIT_STEPS * 1e3:.1f} ms a step); values "
+          f"{result.values}; relative errors {errors}", flush=True)
+    check(final < 0.5 * start, f"fit: loss {start} -> {final}, not halved")
+
+    for argv in (["--smoke"], ["--gradcheck"]):
+        t0 = time.perf_counter()
+        rc = fit_launcher.main(argv)
+        print(f"launch.fit {' '.join(argv)}: rc {rc} in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        check(rc == 0, f"launch.fit {' '.join(argv)} failed")
+
+    launches = {name: n for module in counters
+                for name, n in module.LAUNCHES.items()}
+    check(not any(launches.values()), f"the fit path launched a kernel: "
+          f"{launches}")
+    peak = torch.cuda.max_memory_allocated(dev) - held
+    wall = time.perf_counter() - t_phase
+    print(f"fit phase: peak device memory {peak / 2**30:.2f} GiB above the "
+          f"{held / 2**30:.2f} GiB earlier phases still hold, wall "
+          f"{wall:.1f} s, no kernel launched; {card}", flush=True)
+
+
 def check_oom_classification(dev) -> None:
     """A real allocation failure on the card, and a kernel wrapper's launch
     error for cudaErrorMemoryAllocation, both classify as OOM (the
@@ -2345,6 +2512,10 @@ def main() -> int:
                                            hit_kernel, raster_kernel], card)
     check(all(tune_launches.get(name, 0) > 0 for name in on_path),
           f"a kernel candidate never launched in the tuning: {tune_launches}")
+
+    phase("fit")
+    check_fit(full, dev, [kernel, scatter_kernel, hit_kernel, raster_kernel],
+              card)
 
     phase("kernel timing")
     rows = []

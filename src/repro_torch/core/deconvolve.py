@@ -40,8 +40,8 @@ def measured_signal(adc: torch.Tensor, cfg: LArTPCConfig) -> torch.Tensor:
     """ADC counts -> measured signal in electrons: the inverse of
     ``digitize``'s affine map (baseline shift, then a division by the
     gain); the rounding and clipping are not recoverable."""
-    denom = max(float(cfg.adc_per_electron), 1e-30)
-    return (adc.to(torch.float32) - cfg.adc_baseline) / scalar(denom, adc)
+    denom = torch.clamp_min(scalar(cfg.adc_per_electron, adc), 1e-30)
+    return (adc.to(torch.float32) - cfg.adc_baseline) / denom
 
 
 def _bounded_inverse(freq: torch.Tensor, lam: float) -> torch.Tensor:

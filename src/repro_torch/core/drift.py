@@ -84,9 +84,13 @@ def drift_depos(pdepos: PhysicalDepoSet, cfg: LArTPCConfig) -> DepoSet:
                           (cfg.patch_ticks / 2 - 1) / cfg.nsigma)
 
     q = pdepos.q * cfg.recombination
-    if cfg.electron_lifetime_us > 0.0:
-        q = q * torch.exp(-t_drift / scalar(cfg.electron_lifetime_us,
-                                            t_drift))
+    # a lifetime <= 0 disables the attenuation; the guard is a `where` on
+    # the value, so a fitted (tensor) lifetime keeps a NaN-free gradient
+    # and a positive lifetime divides unchanged
+    lifetime = scalar(cfg.electron_lifetime_us, t_drift)
+    on = lifetime > 0.0
+    atten = torch.exp(-t_drift / torch.where(on, lifetime, 1.0))
+    q = q * torch.where(on, atten, 1.0)
 
     return DepoSet(wire=wire, tick=tick, sigma_w=sigma_w, sigma_t=sigma_t,
                    charge=q)

@@ -3,8 +3,9 @@
 The observed electron count of a patch pixel with mean ``p = q*w`` is
 Binomial(q, w); the simulation draws N(p, p*(1 - p/q)) instead, clamped at
 zero. ``counter`` fluctuation draws its normals from the threefry stream of
-the charge-grid key (``fluctuate_counter``); the fused kernel draws them
-from the stateless counter hash below, seeded per (depo, tile), and the
+the charge-grid key (``fluctuate_counter``; ``fluctuate_counter_relaxed``
+is its differentiable form, the same bits forward); the fused kernel draws
+them from the stateless counter hash below, seeded per (depo, tile), and the
 plane-flattened ``multiplane_xla`` charge grid from its one-hash erfinv
 form (``counter_normals_erfinv``).
 
@@ -49,6 +50,31 @@ def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return s.to(torch.float32)
 
 
+class _FusedMulAdd(torch.autograd.Function):
+    """``fma_f32`` forward; the derivative of ``a * b + c`` backward, so the
+    relaxed bfloat16 draw carries a gradient whatever autograd makes of
+    ``fma_f32``'s bit views and ``nextafter``."""
+
+    @staticmethod
+    def forward(ctx, a, b, c):
+        ctx.save_for_backward(a, b)
+        ctx.c_dtype = c.dtype
+        return fma_f32(a, b, c)
+
+    @staticmethod
+    def backward(ctx, grad):
+        a, b = ctx.saved_tensors
+        return ((grad * b).to(a.dtype), (grad * a).to(b.dtype),
+                grad.to(ctx.c_dtype))
+
+
+def _moments(patches: torch.Tensor, charge: torch.Tensor) -> torch.Tensor:
+    """The binomial variance p*(1 - p/q) of each patch pixel, >= 0."""
+    q = torch.clamp_min(charge[:, None, None], 1.0)
+    p = torch.clamp(patches / q, 0.0, 1.0)
+    return torch.clamp_min(patches * (1.0 - p), 0.0)
+
+
 def binomial_normal_approx(patches: torch.Tensor, charge: torch.Tensor,
                            normals: torch.Tensor) -> torch.Tensor:
     """patches (N, pw, pt) mean counts, charge (N,) totals, normals like
@@ -61,27 +87,56 @@ def binomial_normal_approx(patches: torch.Tensor, charge: torch.Tensor,
     ``sqrt`` on the CPU is not always one; the root of a float32 through
     float64 is). float32 patches keep the separately rounded form.
     """
-    q = torch.clamp_min(charge[:, None, None], 1.0)
-    p = torch.clamp(patches / q, 0.0, 1.0)
-    var = torch.clamp_min(patches * (1.0 - p), 0.0)
+    var = _moments(patches, charge)
     if patches.dtype == torch.bfloat16:
         sd = torch.sqrt(var.to(torch.float64)).to(torch.float32)  # repro-lint: disable=f64-literal — correctly rounded float32 root
         return torch.clamp_min(fma_f32(sd, normals, patches), 0.0)
     return torch.clamp_min(patches + torch.sqrt(var) * normals, 0.0)
 
 
+def binomial_normal_relaxed(patches: torch.Tensor, charge: torch.Tensor,
+                            normals: torch.Tensor) -> torch.Tensor:
+    """The reparameterised (differentiable) form of
+    ``binomial_normal_approx``, bit for bit the same forward in both its
+    float32 and its bfloat16 (fused multiply-add) forms: the zero-variance
+    pixels are masked before the square root, so the gradient through
+    padding depos and empty pixels is 0, not NaN. The normals are fixed
+    noise; gradients flow through the mean and the standard deviation."""
+    var = _moments(patches, charge)
+    pos = var > 0.0
+    safe = torch.where(pos, var, 1.0)
+    if patches.dtype == torch.bfloat16:
+        root = torch.sqrt(safe.to(torch.float64)).to(torch.float32)  # repro-lint: disable=f64-literal — correctly rounded float32 root
+        sd = torch.where(pos, root, 0.0)
+        return torch.clamp_min(_FusedMulAdd.apply(sd, normals, patches), 0.0)
+    std = torch.where(pos, torch.sqrt(safe), 0.0)
+    return torch.clamp_min(patches + std * normals, 0.0)
+
+
+def _counter_normals(k: torch.Tensor, patches: torch.Tensor) -> torch.Tensor:
+    """Threefry normals from key ``k`` in ``patches.dtype``: bfloat16
+    patches draw bfloat16 normals, held in float32 as the jitted reference
+    holds them (``prng.normal_bf16_wide``)."""
+    if patches.dtype == torch.bfloat16:
+        return prng.normal_bf16_wide(k, patches.shape, patches.device)
+    return prng.normal(k, patches.shape, patches.device, patches.dtype)
+
+
 def fluctuate_counter(k: torch.Tensor, patches: torch.Tensor,
                       charge: torch.Tensor) -> torch.Tensor:
-    """Fluctuate with threefry normals drawn from key ``k`` in
-    ``patches.dtype``: bfloat16 patches draw bfloat16 normals, held in
-    float32 as the jitted reference holds them
-    (``prng.normal_bf16_wide``), and come out float32."""
-    if patches.dtype == torch.bfloat16:
-        normals = prng.normal_bf16_wide(k, patches.shape, patches.device)
-    else:
-        normals = prng.normal(k, patches.shape, patches.device,
-                              patches.dtype)
-    return binomial_normal_approx(patches, charge, normals)
+    """Fluctuate with threefry normals drawn from key ``k``; bfloat16
+    patches come out float32."""
+    return binomial_normal_approx(patches, charge, _counter_normals(k, patches))
+
+
+def fluctuate_counter_relaxed(k: torch.Tensor, patches: torch.Tensor,
+                              charge: torch.Tensor) -> torch.Tensor:
+    """``fluctuate_counter`` with finite gradients (``rng_strategy=
+    "relaxed"``): the same normals from the same key, the same forward
+    bits; the calibration loss (``repro_torch.core.fit``) needs it when
+    ``cfg.fluctuate``."""
+    return binomial_normal_relaxed(patches, charge,
+                                   _counter_normals(k, patches))
 
 
 def mul32(x: torch.Tensor, c: int) -> torch.Tensor:

@@ -8,7 +8,8 @@ left on the device. The chain itself is ``repro_torch.core.stages``.
 Charge-grid strategies (each returns ``(grid, dropped)``; ``n_valid``, the
 valid depo count of a padded row, limits ``dropped`` to the valid depos):
 
-  unfused              : rasterize -> threefry fluctuation -> scatter_add
+  unfused              : rasterize -> threefry fluctuation (``counter``, or
+                         its differentiable form ``relaxed``) -> scatter_add
                          (``cfg.scatter_strategy``: xla, sort_segment, or the
                          owner-computes CUDA kernels pallas, pallas_compact)
   unfused_bf16         : the same chain with bfloat16 patches
@@ -56,9 +57,23 @@ __all__ = ["SimOutput", "simulate_fig4", "make_sim_fn", "simulate",
 def charge_grid_unfused(k: torch.Tensor, depos: DepoSet, cfg: LArTPCConfig,
                         n_valid: Optional[int] = None):
     patches, w0, t0 = rasterize(depos, cfg)
-    if cfg.fluctuate and cfg.rng_strategy == "counter":
-        patches = fl.fluctuate_counter(k, patches, depos.charge)
-    return scatter_add(patches, w0, t0, cfg, n_valid=n_valid)
+    return scatter_add(_fluctuate(k, patches, depos.charge, cfg), w0, t0, cfg,
+                       n_valid=n_valid)
+
+
+def _fluctuate(k: torch.Tensor, patches: torch.Tensor, charge: torch.Tensor,
+               cfg: LArTPCConfig) -> torch.Tensor:
+    """The unfused chain's fluctuation step for ``cfg.rng_strategy``:
+    ``counter``, its differentiable form ``relaxed`` (the same bits), or
+    none."""
+    if not cfg.fluctuate or cfg.rng_strategy == "none":
+        return patches
+    if cfg.rng_strategy == "relaxed":
+        return fl.fluctuate_counter_relaxed(k, patches, charge)
+    if cfg.rng_strategy == "counter":
+        return fl.fluctuate_counter(k, patches, charge)
+    raise NotImplementedError(
+        f"the port has no {cfg.rng_strategy!r} fluctuation stream")
 
 
 @register_strategy("charge_grid", "unfused_bf16",

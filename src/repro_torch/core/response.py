@@ -25,7 +25,7 @@ class DetectorResponse(NamedTuple):
     plane: str = "induction"
 
 
-def _semigaussian(t_us: torch.Tensor, shaping_us: float = 2.0) -> torch.Tensor:
+def _semigaussian(t_us: torch.Tensor, shaping_us=2.0) -> torch.Tensor:
     """CR-(RC)^4 semi-Gaussian electronics shaping response."""
     x = torch.clamp_min(t_us / scalar(shaping_us, t_us), 0.0)
     x2 = x * x
@@ -88,8 +88,8 @@ def make_response(cfg: LArTPCConfig, plane: str = "induction",
     wire_prof = wire_prof / torch.sum(wire_prof)
 
     kernel = wire_prof[:, None] * tr[None, :]
-    if cfg.response_gain != 1.0:
-        kernel = kernel * cfg.response_gain
+    # always applied (exact at 1.0), so a fitted gain has a gradient there
+    kernel = kernel * scalar(cfg.response_gain, kernel)
 
     w_pad = next_fast_len(cfg.num_wires + rw - 1)
     t_pad = next_fast_len(cfg.num_ticks + rt - 1)

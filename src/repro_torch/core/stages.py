@@ -488,7 +488,6 @@ def noise_stage(cfg: LArTPCConfig,
                 planes: Optional[Tuple[int, ...]] = None) -> Stage:
     """Add frequency-shaped electronics noise to the signal (multi-plane:
     an independent realisation per plane from the plane-folded subkeys)."""
-    denom = max(cfg.adc_per_electron, 1e-30)
     specs = _selected_specs(cfg, planes)
     multi = cfg.num_planes > 1
 
@@ -499,8 +498,8 @@ def noise_stage(cfg: LArTPCConfig,
         else:
             noise = torch.stack([simulate_noise(k, cfg, device=dev)
                                  for k in _plane_keys(state.kn, specs)])
-        return state._replace(signal=state.signal
-                              + noise / scalar(denom, noise))
+        denom = torch.clamp_min(scalar(cfg.adc_per_electron, noise), 1e-30)
+        return state._replace(signal=state.signal + noise / denom)
 
     return Stage("noise", fn)
 
@@ -581,10 +580,10 @@ def check_supported(cfg: LArTPCConfig) -> None:
         raise NotImplementedError(
             f"the port runs pipeline='fig4' only (got {cfg.pipeline!r})")
     patch_dtype(cfg)
-    if cfg.rng_strategy not in ("counter", "none"):
+    if cfg.rng_strategy not in ("counter", "relaxed", "none"):
         raise NotImplementedError(
-            f"the port runs rng_strategy 'counter' or 'none' only "
-            f"(got {cfg.rng_strategy!r})")
+            f"the port runs rng_strategy 'counter', 'relaxed' or 'none' "
+            f"only (got {cfg.rng_strategy!r})")
     plane_specs(cfg)
     resolve_plane_batching(cfg)
 

@@ -8,6 +8,8 @@ default is ``"cuda"``, and a missing card raises instead of falling back.
 off where the reference divides), and ``python_float / tensor`` is a
 reciprocal times the scalar on every device. Dividing by (or into) a
 float32 0-d tensor on the value's device is a true division everywhere.
+A config field the calibration fit holds as a tensor (``repro_torch.core.fit``)
+goes through ``scalar`` with its autograd history.
 """
 from __future__ import annotations
 
@@ -25,9 +27,12 @@ def resolve_device(device="cuda") -> torch.device:
     return dev
 
 
-def scalar(value: float, like: torch.Tensor) -> torch.Tensor:
+def scalar(value, like: torch.Tensor) -> torch.Tensor:
     """``value`` as a float32 0-d tensor on ``like``'s device: the operand
-    of a division the reference takes in float32. Made by a fill on that
-    device, not copied from the host, so the card's stream is not
-    synchronised."""
+    of a division the reference takes in float32. A Python number is made
+    by a fill on that device, not copied from the host, so the card's
+    stream is not synchronised; a tensor (a fitted config field) is cast
+    and moved, keeping its autograd history."""
+    if isinstance(value, torch.Tensor):
+        return value.to(dtype=torch.float32, device=like.device)
     return torch.full((), value, dtype=torch.float32, device=like.device)

@@ -8,7 +8,8 @@ caller does that; nothing here imports JAX): single keys and stacked
 per-event keys, depos, padded event batches, responses; and turn a port
 ``SimOutput`` back into numpy for comparison. A deconvolution filter is a
 ``DetectorResponse`` too, so ``response_from_numpy`` carries the
-reference's filters across as well. Like every entry point of the port,
+reference's filters across as well; ``fit_targets_from_numpy`` carries a
+calibration fit's targets. Like every entry point of the port,
 the builders put their tensors on the card unless ``device="cpu"`` is
 passed.
 """
@@ -21,9 +22,10 @@ import numpy as np
 import torch
 
 from repro_torch.config import LArTPCConfig
-from repro_torch.core.batch import EventBatch
+from repro_torch.core.batch import EventBatch, PhysicalEventBatch
 from repro_torch.core.depo import DepoSet
 from repro_torch.core.drift import PhysicalDepoSet
+from repro_torch.core.fit import FitTargets
 from repro_torch.core.response import DetectorResponse
 from repro_torch.core.stages import SimOutput
 from repro_torch.device import resolve_device
@@ -83,6 +85,25 @@ def depos_from_numpy(wire, tick, sigma_w, sigma_t, charge,
 def physical_depos_from_numpy(x, y, z, t, q,
                               device="cuda") -> PhysicalDepoSet:
     return PhysicalDepoSet(*(_f32(a, device) for a in (x, y, z, t, q)))
+
+
+def fit_targets_from_numpy(x, y, z, t, q, n_depos, keys, adc, decon=None,
+                           device="cuda"):
+    """A port ``FitTargets`` from the reference's: the (E, N_max) physical
+    batch leaves and (E,) valid counts, the per-event ``key_data`` (E, 2),
+    the (E, W, T) int16 ADC and, for recon targets, the deconvolved
+    charge. With it the port's fit loss runs on the reference's own
+    targets."""
+    dev = resolve_device(device)
+    batch = PhysicalEventBatch(
+        *physical_depos_from_numpy(x, y, z, t, q, device=dev),
+        n_depos=torch.from_numpy(np.array(n_depos, dtype=np.int32)))
+    adc = np.asarray(adc)
+    if adc.dtype != np.int16:
+        raise ValueError(f"expected int16 target ADC, got {adc.dtype}")
+    return FitTargets(batch=batch, keys=keys_from_data(keys),
+                      adc=torch.from_numpy(adc.copy()).to(dev),
+                      decon=None if decon is None else _f32(decon, dev))
 
 
 def response_from_numpy(kernel, freq, pad_shape, plane: str = "induction",

@@ -8,6 +8,8 @@ and may flip by one count where a float lands next to a rounding tie.
 """
 from __future__ import annotations
 
+import math
+
 import numpy as np
 
 #: float stages (patches, grids, signals, spectra): erf/log/cos ULPs of two
@@ -45,6 +47,55 @@ HIT_RTOL = 1e-5
 ADC_MAX_DELTA = 1
 #: ... on at most this fraction of pixels (rounding ties after float ULPs)
 ADC_MAX_FRAC = 1e-3
+
+
+#: analytic derivatives of one function on the same inputs (autograd against
+#: ``jax.grad``, and the Jacobians inside ``fit_grad_atol``): the forward's
+#: float error carried through the chain rule, the signal's. A component
+#: that comes out of a cancellation carries it as a fraction of the vector's
+#: largest one, so it is the ``atol_frac`` of such a comparison too.
+#: Measured worst on the CPU over the five stage cases of
+#: ``stage_gradcheck_cases``: 1.7e-5 relative (convolve, shaping); the
+#: collection plane's shaping gradient 4.5e-7 absolute = 1.5e-5 x max|grad|
+GRAD_RTOL = SIGNAL_ATOL_FRAC
+#: the same through bfloat16 patches: the patches of the two packages that
+#: differ (11.7 % of the pixels at the smoke config, see ``BF16_RTOL``)
+#: differ by one bfloat16 ulp or a few, so a derivative summed over them
+#: moves by about 0.117 x 2**-7 = 9.2e-4 of itself per ulp. Measured worst
+#: on the CPU 9.4e-4 (charge_grid, diffusion_scale); the other stage cases
+#: stay inside ``GRAD_RTOL``
+BF16_GRAD_RTOL = 2e-3
+
+
+def fit_loss_atol(res_ms: float, weight: float = 1.0,
+                  norm: float = 1.0) -> float:
+    """Tolerance of one term ``weight * mean(r^2)`` of the calibration loss
+    of two graphs that share their targets and whose ADCs keep the
+    +-1-count rule. ``r`` is the reference's residual (``res_ms`` =
+    mean(r^2)): the ADC's, or the deconvolved charge's, a linear map of the
+    ADC whose operator norm is ``norm`` (1 for the ADC). The ADCs differ by
+    d with mean(d^2) <= F = ``ADC_MAX_FRAC``, so the residual moves by e
+    with mean(e^2) <= norm^2 F and, by Cauchy-Schwarz, |mean(2 r e + e^2)|
+    <= 2 norm sqrt(F res_ms) + norm^2 F."""
+    f = ADC_MAX_FRAC
+    return weight * (2.0 * norm * math.sqrt(f * res_ms) + norm * norm * f)
+
+
+def fit_grad_atol(jac_ms: float, res_ms: float, abs_terms: float,
+                  weight: float = 1.0, norm: float = 1.0,
+                  dnorm: float = 0.0) -> float:
+    """Tolerance of one theta entry of the gradient ``weight * mean(2 r J)``
+    of that term, J the reference's Jacobian of the term's output with
+    respect to the entry (``jac_ms`` = mean(J^2)). The flips d move r by e
+    as in ``fit_loss_atol`` and J by the derivative of the map applied to d,
+    whose norm is ``dnorm`` (0 for the ADC: the STE's derivative does not
+    see the rounding), so the gradient moves by at most 2 (norm sqrt(F
+    jac_ms) + dnorm sqrt(F res_ms) + norm dnorm F); the Jacobian's float
+    error adds ``GRAD_RTOL`` of ``abs_terms`` = mean(|2 r J|)."""
+    f = ADC_MAX_FRAC
+    flips = 2.0 * (norm * math.sqrt(f * jac_ms) + dnorm * math.sqrt(f * res_ms)
+                   + norm * dnorm * f)
+    return weight * (flips + GRAD_RTOL * abs_terms)
 
 
 def assert_close(actual, reference, rtol: float = RTOL,

@@ -60,7 +60,8 @@ def test_import_leaves_jax_out_of_sys_modules():
             "repro_torch.kernels.rasterize.ops, repro_torch.core.batch, "
             "repro_torch.core.validate, repro_torch.launch.journal, "
             "repro_torch.testing.faults, repro_torch.tune, "
-            "repro_torch.tune.autotune; "
+            "repro_torch.tune.autotune, repro_torch.core.fit, "
+            "repro_torch.core.gradcheck, repro_torch.launch.fit; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); sys.exit(bool(bad))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
@@ -73,18 +74,24 @@ def _entry_points():
     from repro_torch.core import prng
     from repro_torch.core.batch import empty_event, make_batched_sim_fn
     from repro_torch.core.deconvolve import make_plane_deconv_filters
+    from repro_torch.core import fit
     from repro_torch.core.drift import PhysicalDepoSet
     from repro_torch.core.depo import generate_depos, generate_plane_depos
+    from repro_torch.core.gradcheck import (stage_gradcheck_cases,
+                                            stage_gradcheck_suite)
     from repro_torch.core.pipeline import make_sim_fn, simulate, \
         simulate_fig4
     from repro_torch.core.response import make_plane_responses
     from repro_torch.kernels.rasterize.ops import rasterize_depos
+    from repro_torch.launch import fit as launch_fit
     from repro_torch.launch.sim import run_events, stream_simulate
 
     cfg = tconfig.get_config("lartpc-uboone", smoke=True)
     cfg3 = dataclasses.replace(cfg, num_planes=3,
                                charge_grid_strategy="fused_pallas_multiplane")
     k = prng.key(0)
+    spec = fit.FitSpec(params=(fit.FitParam("recombination", init=0.9),))
+    cpu_targets = fit.make_fit_targets(cfg, k, num_events=1, device="cpu")
     return {
         "make_sim_fn": lambda **kw: make_sim_fn(cfg, **kw),
         "simulate_fig4": lambda **kw: simulate_fig4(
@@ -109,6 +116,17 @@ def _entry_points():
         "empty_event": lambda **kw: empty_event(3, **kw),
         "from_mm": lambda **kw: PhysicalDepoSet.from_mm(
             [1.0], [2.0], [3.0], [0.0], [9.0], cfg, **kw),
+        "make_fit_targets": lambda **kw: fit.make_fit_targets(
+            cfg, k, num_events=1, **kw),
+        "make_fit_loss": lambda **kw: fit.make_fit_loss(
+            cfg, spec, cpu_targets, **kw),
+        "calibrate": lambda **kw: fit.calibrate(cfg, spec, cpu_targets,
+                                                steps=1, **kw),
+        "stage_gradcheck_suite": lambda **kw: stage_gradcheck_suite(
+            cases=stage_gradcheck_cases()[:1], **kw),
+        "launch_fit": lambda device="cuda": launch_fit.main(
+            ["--smoke", "--optimizer", "bfgs", "--steps", "1", "--tol", "1",
+             "--device", device]),
     }
 
 
@@ -122,7 +140,9 @@ def _entry_points():
                                   "rasterize_depos", "make_batched_sim_fn",
                                   "stream_simulate",
                                   "stream_simulate_3planes", "empty_event",
-                                  "from_mm"])
+                                  "from_mm", "make_fit_targets",
+                                  "make_fit_loss", "calibrate",
+                                  "stage_gradcheck_suite", "launch_fit"])
 def test_entry_points_default_to_the_card(name, monkeypatch):
     """Without a card the default device raises; device="cpu" runs."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
