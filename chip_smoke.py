@@ -123,7 +123,26 @@ Phases (any failure exits non-zero before the result line):
                 events 4 a batch, A B B A (printed, not checked). Every
                 other phase runs on an empty cache of the run's own:
                 today's strategies
-  8. timing   : each kernel's wrapper (median of 5 rounds of 20 calls
+  8. fit      : the calibration path (repro_torch.core.fit) at full width:
+                the self-calibration contract, every fittable field's
+                gradient, a central difference, a short fit and the fit
+                launcher's gates; no kernel launched
+  9. fig3 and pool : the per-depo fig3 baseline on the first 2 000 depos
+                of a full-width event (after a warm-up) beside fig4
+                (unfused + pallas) on the same depos and on all 100 000:
+                ms, us a depo, depos/s from this one call; without
+                fluctuation the fig3 grid == fig4's within the reference's
+                fig3/fig4 rule. The standard normal pool on the card (its
+                threefry bits == the CPU's, normals within NORMAL_ATOL);
+                the scatter-add kernels (rows 5-6) on pool-fluctuated
+                patches == their plain versions bit for bit; full-width
+                pool events through the launcher loop, counters reset just
+                before and read just after each: one plane with pallas,
+                pallas_compact (== pallas bit for bit) and xla (within
+                parity), with per-stage times; three planes with recon
+                (row 7); unfused_bf16; and a pool stream of 4 events, 2 a
+                batch, every row == run_events' bit for bit
+ 10. timing   : each kernel's wrapper (median of 5 rounds of 20 calls
                 timed with CUDA events as the host enqueues them, the
                 method of every version of this script, which reads the
                 host's pace where a call is shorter than its enqueueing,
@@ -146,10 +165,11 @@ Phases (any failure exits non-zero before the result line):
                 function (index_put_ with accumulate=True); for the
                 fused kernels also the SASS instructions per pixel of the
                 pixel loop (cuobjdump) and the issue-rate floor they imply
-  9. summary  : one JSON line {"kernels": [...]} (with each kernel's
-                launches over the clean streams, stream_launches, and while
-                tuning, tune_launches)
- 10. result   : last line {"ok": true, "device": {...}}
+ 11. summary  : one JSON line {"kernels": [...]} (with each kernel's
+                launches over the clean streams, stream_launches, while
+                tuning, tune_launches, and over the pool events and
+                stream, pool_launches)
+ 12. result   : last line {"ok": true, "device": {...}}
 
 The on-card checks live here rather than in pytest because the machine with
 the card has no JAX, which the repository's test configuration imports.
@@ -764,13 +784,15 @@ class MultiPlaneCase:
 
 class ScatterCase:
     """One scatter-add problem: the unfused chain's fluctuated float32
-    patches of depos generated from ``key`` (or given), or with ``bf16``
-    the bfloat16 patches ``unfused_bf16`` hands the scatter without
-    fluctuation, with the dense and compact lists the ``pallas`` strategies
-    bin them into (at ``k_max`` when given, else the default)."""
+    patches of depos generated from ``key`` (or given), fluctuated from
+    the normal ``pool`` when one is given, else from the counter stream,
+    or with ``bf16`` the bfloat16 patches ``unfused_bf16`` hands the
+    scatter without fluctuation, with the dense and compact lists the
+    ``pallas`` strategies bin them into (at ``k_max`` when given, else the
+    default)."""
 
     def __init__(self, cfg, key, tw: int, tt: int, device, depos=None,
-                 k_max=None, bf16: bool = False):
+                 k_max=None, bf16: bool = False, pool=None):
         import torch
 
         from repro_torch.core import fluctuate as fl
@@ -787,8 +809,10 @@ class ScatterCase:
                 depos, dataclasses.replace(cfg, patch_dtype="bfloat16"))
         else:
             patches, self.w0, self.t0 = rasterize(depos, cfg)
-            self.patches = fl.fluctuate_counter(prng.split(key)[0], patches,
-                                                depos.charge)
+            self.patches = (
+                fl.fluctuate_counter(prng.split(key)[0], patches,
+                                     depos.charge) if pool is None
+                else fl.fluctuate_pool(pool, patches, depos.charge))
         _, pw, pt = self.patches.shape
         self.tw, self.tt = max(tw, pw), max(tt, pt)
         self.k_max = k_max or binning.default_k_max(
@@ -2170,6 +2194,211 @@ def check_fit(full, dev, counters, card: str):
           f"{wall:.1f} s, no kernel launched; {card}", flush=True)
 
 
+#: the fig3 cut: the per-depo loop on this many of the event's depos (the
+#: whole 100 000-depo event would take seconds at its rate), one in every
+#: num_depos / FIG3_DEPOS, so the cut spans every track as the event does
+#: (the first 2 000 depos are four dense tracks, whose tiles overflow the
+#: k_max fig4's scatter kernel sizes for 2 000 depos), and its warm-up
+FIG3_DEPOS = 2000
+FIG3_WARMUP_DEPOS = 200
+#: fig4 runs timed beside fig3 (median)
+FIG4_TIMED = 3
+#: scatter strategies of the one-plane pool event (the kernel routes first)
+POOL_SCATTERS = ("pallas", "pallas_compact", "xla")
+#: the pool stream: events, events a batch
+POOL_STREAM = (4, 2)
+
+
+def parity_check(fn, *args, what: str, **kw):
+    """A ``repro_torch.testing.parity`` assertion as a phase check."""
+    try:
+        return fn(*args, what=what, **kw)
+    except AssertionError as e:
+        raise PhaseError(f"{what}: outside the parity tolerance: {e}") from e
+
+
+def timed_event(fn):
+    """Seconds of one call of ``fn`` on the host clock, the card synced
+    before and after (as run_events times an event); returns (seconds,
+    the call's result)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+def check_fig3_pool(full, dev, counters, card: str):
+    """The fig3 per-depo baseline and the pool RNG at full width.
+
+    fig3 (``simulate`` with pipeline fig3) on ``FIG3_DEPOS`` depos of
+    event 0, after a warm-up on its first ``FIG3_WARMUP_DEPOS``
+    (``max_depos``), beside fig4 (unfused + pallas, no dropped entry) on
+    the same depos and on all of them: ms, us a depo, depos/s; without
+    fluctuation the fig3 grid == fig4's within the reference's fig3/fig4
+    rule (rtol 1e-4, atol 1e-2, ADC equal on > 99.9 % of pixels). The
+    card's standard pool: threefry bits == the CPU's, normals within
+    ``NORMAL_ATOL``. The scatter-add kernels (rows 5-6) on pool-fluctuated
+    patches against their plain versions (``check_scatter``). One pool
+    event per scatter strategy (the two kernel routes equal bit for bit,
+    xla within parity), a three-plane pool event with recon (row 7), an
+    unfused_bf16 pool event, and a pool stream whose rows == run_events'
+    bit for bit. Returns (the launches per kernel over the pool events and
+    the stream, max |kernel - plain| of the dense and compact scatter)."""
+    import torch
+
+    from repro_torch.core import fluctuate as fl
+    from repro_torch.core import prng
+    from repro_torch.core.depo import DepoSet, generate_depos
+    from repro_torch.core.pipeline import make_sim_fn, simulate
+    from repro_torch.core.response import make_response
+    from repro_torch.launch.sim import max_dev
+    from repro_torch.testing import parity
+
+    t_phase = time.perf_counter()
+    key0 = prng.fold_in(prng.key(0), 0)
+    depos = generate_depos(key0, full, device=dev)
+    cut = DepoSet(*(x[::full.num_depos // FIG3_DEPOS] for x in depos))
+    check(cut.n == FIG3_DEPOS, f"fig3 cut of {cut.n} depos")
+    resp = make_response(full, device=dev)
+    fig3 = dataclasses.replace(full, pipeline="fig3")
+    simulate(key0, depos, fig3, resp=resp, device=dev,
+             max_depos=FIG3_WARMUP_DEPOS)
+    fig3_s, out3 = timed_event(lambda: simulate(key0, cut, fig3, resp=resp,
+                                                device=dev))
+    check(out3.adc.dtype == torch.int16 and tuple(out3.adc.shape)
+          == (full.num_wires, full.num_ticks), f"fig3 ADC {out3.adc.dtype} "
+          f"{tuple(out3.adc.shape)}")
+    check(bool(torch.isfinite(out3.signal).all()), "fig3: non-finite signal")
+    check(max_dev(out3.adc, full) > 0, "fig3: max dev is 0")
+    fig4_cfg = dataclasses.replace(full, scatter_strategy="pallas")
+    sim4 = make_sim_fn(fig4_cfg, resp=resp, device=dev)
+    rates = {}
+    for label, d in (("same depos", cut), ("whole event", depos)):
+        sim4(key0, d)
+        runs = [timed_event(lambda d=d: sim4(key0, d))
+                for _ in range(FIG4_TIMED)]
+        check(all(int(out.dropped) == 0 for _, out in runs),
+              f"fig4 on the {label}: the binning dropped entries")
+        rates[label] = (statistics.median(sec for sec, _ in runs), d.n)
+        del runs
+    fig3_rate = FIG3_DEPOS / fig3_s
+    ratios = {label: n / sec / fig3_rate for label, (sec, n) in rates.items()}
+    print(f"fig3 (per-depo host loop, pool fluctuation, noise) on "
+          f"{FIG3_DEPOS} of {full.num_depos} depos (one in "
+          f"{full.num_depos // FIG3_DEPOS}): {fig3_s*1e3:.3f} ms, "
+          f"{fig3_s/FIG3_DEPOS*1e6:.2f} us a depo, {fig3_rate:.6g} depos/s; "
+          + "; ".join(f"fig4 unfused+pallas, {label} ({n} depos): median of "
+                      f"{FIG4_TIMED} {sec*1e3:.3f} ms, {sec/n*1e6:.4f} us a "
+                      f"depo, {n/sec:.6g} depos/s, {ratios[label]:.4g}x fig3"
+                      for label, (sec, n) in rates.items())
+          + f"; {card}", flush=True)
+
+    quiet = dataclasses.replace(fig4_cfg, fluctuate=False)
+    g3 = simulate(key0, cut, dataclasses.replace(quiet, pipeline="fig3"),
+                  resp=resp, add_noise=False, device=dev)
+    g4 = simulate(key0, cut, quiet, resp=resp, add_noise=False, device=dev)
+    check(int(g4.dropped) == 0, "fig4 without fluctuation dropped entries")
+    grid_err = float((g3.charge_grid - g4.charge_grid).abs().max())
+    adc_same = float((g3.adc == g4.adc).float().mean())
+    print(f"fig3 vs fig4 without fluctuation on {FIG3_DEPOS} depos: max "
+          f"|delta grid| {grid_err:.6g} (max |grid| "
+          f"{float(g4.charge_grid.abs().max()):.6g}), ADC equal on "
+          f"{adc_same:.6f} of pixels", flush=True)
+    check(torch.allclose(g3.charge_grid, g4.charge_grid, rtol=1e-4,
+                         atol=1e-2), "fig3 grid != fig4 grid within rtol "
+          "1e-4, atol 1e-2")
+    check(adc_same > 0.999, f"fig3/fig4 ADC equal on {adc_same} <= 0.999")
+    del out3, g3, g4
+
+    pool_key = prng.key(1234)
+    n_pool = 1 << 20
+    bits = prng.random_bits(pool_key, (n_pool,), dev).cpu()
+    check(torch.equal(bits, prng.random_bits(pool_key, (n_pool,), "cpu")),
+          "the card's pool bits != the CPU's")
+    pool = fl.make_pool(pool_key, device=dev)
+    pool_err = float((pool.cpu() - fl.make_pool(pool_key, device="cpu"))
+                     .abs().max())
+    print(f"make_pool(key(1234)) on the card: {n_pool} threefry words == "
+          f"the CPU's; max |normal card - CPU| {pool_err:.3g} (atol "
+          f"{parity.NORMAL_ATOL})", flush=True)
+    check(pool_err <= parity.NORMAL_ATOL, f"pool normals differ by "
+          f"{pool_err}")
+    scatter_errors = check_scatter(
+        ScatterCase(full, key0, 64, 256, dev, pool=pool),
+        "scatter-add pool-fluctuated full width 64x256 tiles")
+
+    launches = {}
+
+    def counted(cfg, label, recon=False):
+        adcs, ran, sim, first = run_main(cfg, label, 1, dev, counters,
+                                         recon=recon, card=card)
+        for name, n in ran.items():
+            launches[name] = launches.get(name, 0) + n
+        return adcs, ran, sim, first
+
+    pooled = dataclasses.replace(full, rng_strategy="pool")
+    firsts = {}
+    for scatter in POOL_SCATTERS:
+        cfg = dataclasses.replace(pooled, scatter_strategy=scatter)
+        _, ran, sim, firsts[scatter] = counted(cfg, f"pool unfused+{scatter}")
+        if scatter != "xla":
+            check(ran[f"scatter_add_{scatter}"] == 1, f"pool {scatter}: "
+                  f"launches {ran}")
+        if scatter == "pallas":
+            print_stages("pool unfused+pallas", sim, key0, depos)
+    kernel_routes = [firsts[s] for s in POOL_SCATTERS[:2]]
+    check(torch.equal(kernel_routes[0].charge_grid,
+                      kernel_routes[1].charge_grid)
+          and torch.equal(kernel_routes[0].adc, kernel_routes[1].adc),
+          "pool event: pallas and pallas_compact differ")
+    grid_frac = parity_check(
+        parity.assert_close, firsts["xla"].charge_grid.cpu().numpy(),
+        firsts["pallas"].charge_grid.cpu().numpy(),
+        atol_frac=parity.GRID_ATOL_FRAC, what="pool event xla vs pallas grid")
+    adc_frac = parity_check(
+        parity.assert_adc_close, firsts["xla"].adc.cpu().numpy(),
+        firsts["pallas"].adc.cpu().numpy(),
+        what="pool event xla vs pallas ADC")
+    print(f"pool event: pallas == pallas_compact bit for bit (grid, ADC); "
+          f"xla vs pallas: max |delta grid| {grid_frac:.6g}, ADC differs on "
+          f"{adc_frac:.6g} of pixels", flush=True)
+    del firsts, kernel_routes
+
+    recon_cfg = dataclasses.replace(pooled, num_planes=PLANES,
+                                    scatter_strategy="pallas")
+    _, ran, _, _ = counted(recon_cfg, "pool recon", recon=True)
+    check(ran["hitfind_pallas"] == PLANES
+          and ran["scatter_add_pallas"] == PLANES,
+          f"pool recon: launches {ran}")
+    bf16_cfg = dataclasses.replace(pooled, charge_grid_strategy="unfused_bf16",
+                                   scatter_strategy="pallas_compact")
+    _, ran, _, _ = counted(bf16_cfg, "pool unfused_bf16+pallas_compact")
+    check(ran["scatter_add_pallas_compact"] == 1
+          and ran["scatter_add_pallas_compact_bf16"] == 0,
+          f"pool unfused_bf16: the fluctuated patches are float32, launches "
+          f"{ran}")
+
+    events, batch = POOL_STREAM
+    stream_cfg = dataclasses.replace(pooled, scatter_strategy="pallas")
+    expect, _ = loop_outputs(stream_cfg, events, dev, recon=False)
+    _, ran, _, adcs = run_stream(stream_cfg, "pool stream", events, batch,
+                                 dev, counters, expect=expect)
+    check(sorted(adcs) == list(range(events))
+          and ran.get("scatter_add_pallas") == events,
+          f"pool stream: rows {sorted(adcs)}, launches {ran}")
+    for name, n in ran.items():
+        launches[name] = launches.get(name, 0) + n
+    print(f"pool stream: {events} events, {batch} a batch: every row == "
+          f"run_events' event bit for bit (ADC, grid, signal); launches "
+          f"{ran}", flush=True)
+    print(f"fig3 and pool phase: launches {launches}, wall "
+          f"{time.perf_counter() - t_phase:.1f} s; {card}", flush=True)
+    return launches, scatter_errors
+
+
 def check_oom_classification(dev) -> None:
     """A real allocation failure on the card, and a kernel wrapper's launch
     error for cudaErrorMemoryAllocation, both classify as OOM (the
@@ -2517,6 +2746,15 @@ def main() -> int:
     check_fit(full, dev, [kernel, scatter_kernel, hit_kernel, raster_kernel],
               card)
 
+    phase("fig3 and pool")
+    pool_launches, pool_errors = check_fig3_pool(
+        full, dev, [kernel, scatter_kernel, hit_kernel, raster_kernel], card)
+    pool_path = ("scatter_add_pallas", "scatter_add_pallas_compact",
+                 "hitfind_pallas")
+    check(all(pool_launches.get(name, 0) > 0 for name in pool_path),
+          f"a kernel of the pool path never launched: {pool_launches}")
+    scatter_errors = [max(a, b) for a, b in zip(scatter_errors, pool_errors)]
+
     phase("kernel timing")
     rows = []
     fused_src = "src/repro_torch/csrc/fused_sim.cu"
@@ -2592,7 +2830,8 @@ def main() -> int:
             "library_ms": library_ms, "ms_card": on_card_ms,
             "host_ms": host_ms,
             "stream_launches": stream_launches.get(name, 0),
-            "tune_launches": tune_launches.get(name, 0)})
+            "tune_launches": tune_launches.get(name, 0),
+            "pool_launches": pool_launches.get(name, 0)})
         support_text = ""
         if name in support_bounds:
             rows[-1]["bound_all_support_ms"] = support_bounds[name]

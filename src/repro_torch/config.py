@@ -43,7 +43,7 @@ class LArTPCConfig:
     # electrons per depo (mean), fluctuation model
     electrons_per_depo: float = 5000.0
     fluctuate: bool = True
-    # counter | pool | relaxed | none (the port runs counter and none)
+    # counter | pool | relaxed | none
     rng_strategy: str = "counter"
     # xla | sort_segment | pallas | pallas_compact | auto
     scatter_strategy: str = "xla"
@@ -53,7 +53,7 @@ class LArTPCConfig:
     patch_dtype: str = "float32"
     # rfft2 | fft2 | auto
     fft_strategy: str = "rfft2"
-    pipeline: str = "fig4"         # fig3 | fig4 (the port runs fig4)
+    pipeline: str = "fig4"         # fig3 | fig4
     # response
     response_ticks: int = 200
     response_wires: int = 21

@@ -235,22 +235,27 @@ def simulate_events(keys: torch.Tensor, batch: EventBatch, resp=None,
                     cfg: Optional[LArTPCConfig] = None,
                     add_noise: bool = True, recon: bool = False,
                     graph: Optional[SimGraph] = None,
-                    device="cuda") -> SimOutput:
+                    device="cuda",
+                    pool: Optional[torch.Tensor] = None) -> SimOutput:
     """The canonical ``SimGraph`` for all E events of ``batch`` through its
     batched executor. ``keys``: (E, 2), one key per event. Returns a
     ``SimOutput`` whose leaves carry a leading event axis: adc (E[, P], W,
-    T), dropped and finite_ok (E,), HitSet leaves (E[, P], max_hits)."""
+    T), dropped and finite_ok (E,), HitSet leaves (E[, P], max_hits).
+    Under ``rng_strategy="pool"`` every event takes the one ``pool`` (default:
+    the graph's standard pool) from offset 0: a padded row keeps its valid
+    depos first, so its fluctuations are the per-event run's."""
     if graph is None:
         if cfg is None:
             raise TypeError("simulate_events() needs cfg or graph")
         graph = build_sim_graph(cfg, resp, add_noise=add_noise,
-                                device=device, recon=recon)
+                                device=device, recon=recon, pool=pool)
     rows = [batch.event(e) for e in range(batch.num_events)]
     return graph.run_batch(keys, rows, n_valid=batch.n_depos.tolist())
 
 
 def make_batched_sim_fn(cfg: LArTPCConfig, resp=None, add_noise: bool = True,
-                        device="cuda", recon: bool = False):
+                        device="cuda", recon: bool = False,
+                        pool: Optional[torch.Tensor] = None):
     """``sim(keys, batch) -> SimOutput``: the batched executor over one
     ``SimGraph`` built once (responses and, with ``recon``, the
     deconvolution filters included), as ``make_sim_fn`` is the single-event
@@ -260,10 +265,11 @@ def make_batched_sim_fn(cfg: LArTPCConfig, resp=None, add_noise: bool = True,
     device's defaults, so one set of strategies serves the whole stream.
     The reference's ``donate=`` has no counterpart: torch frees a batch's
     device memory when its last reference goes, and the streaming launcher
-    builds a fresh batch for every launch."""
+    builds a fresh batch for every launch. ``pool``: as in
+    ``simulate_events``."""
     cfg = resolve_config(cfg, device=device)
     graph = build_sim_graph(cfg, resp, add_noise=add_noise, device=device,
-                            recon=recon)
+                            recon=recon, pool=pool)
 
     def sim(keys: torch.Tensor, batch: EventBatch) -> SimOutput:
         return simulate_events(keys, batch, graph=graph)

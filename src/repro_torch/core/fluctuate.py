@@ -4,7 +4,9 @@ The observed electron count of a patch pixel with mean ``p = q*w`` is
 Binomial(q, w); the simulation draws N(p, p*(1 - p/q)) instead, clamped at
 zero. ``counter`` fluctuation draws its normals from the threefry stream of
 the charge-grid key (``fluctuate_counter``; ``fluctuate_counter_relaxed``
-is its differentiable form, the same bits forward); the fused kernel draws
+is its differentiable form, the same bits forward); ``pool`` fluctuation
+takes them from a pre-computed pool indexed by pixel id (``make_pool``,
+``fluctuate_pool``); the fused kernel draws
 them from the stateless counter hash below, seeded per (depo, tile), and the
 plane-flattened ``multiplane_xla`` charge grid from its one-hash erfinv
 form (``counter_normals_erfinv``).
@@ -20,6 +22,7 @@ import math
 import torch
 
 from repro_torch.core import prng
+from repro_torch.device import resolve_device
 
 MASK32 = prng.MASK32
 #: fmix32 multipliers (murmur3's 32-bit finalizer)
@@ -137,6 +140,30 @@ def fluctuate_counter_relaxed(k: torch.Tensor, patches: torch.Tensor,
     ``cfg.fluctuate``."""
     return binomial_normal_relaxed(patches, charge,
                                    _counter_normals(k, patches))
+
+
+def make_pool(k: torch.Tensor, pool_size: int = 1 << 20,
+              device="cuda") -> torch.Tensor:
+    """The pre-computed pool of ``pool_size`` float32 standard normals drawn
+    from key ``k`` (``rng_strategy="pool"``, the paper's ref-CUDA/Kokkos
+    design): ``jax.random.normal(k, (pool_size,))``, its threefry bits
+    exact and its normals up to the ULPs of ``erfinv``."""
+    return prng.normal(k, (pool_size,), resolve_device(device))
+
+
+def fluctuate_pool(pool: torch.Tensor, patches: torch.Tensor,
+                   charge: torch.Tensor, offset: int = 0) -> torch.Tensor:
+    """Fluctuate with the normals of ``pool`` indexed by flat pixel id,
+    ``(i + offset) mod pool.numel()``: no random draw in the loop. The
+    normals stay float32 for bfloat16 patches too, which therefore take
+    ``binomial_normal_approx``'s fused multiply-add form."""
+    # the reference indexes in uint32; a full-width event has 100 000 x 400
+    # = 4e7 pixels, below 2**31, so the int64 index is the same number
+    idx = (torch.arange(patches.numel(), dtype=torch.int64,
+                        device=patches.device) + offset) % pool.numel()
+    normals = pool[idx].reshape(patches.shape)
+    del idx  # 320 MB at full width: gone before the moments are formed
+    return binomial_normal_approx(patches, charge, normals)
 
 
 def mul32(x: torch.Tensor, c: int) -> torch.Tensor:

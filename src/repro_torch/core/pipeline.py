@@ -1,15 +1,22 @@
-"""The fig4 executor and the registered ``charge_grid`` strategies.
+"""The fig3 and fig4 pipelines and the registered ``charge_grid`` strategies.
 
 fig4 is the batched, device-resident pipeline of the paper: every depo of
 the event goes through one chain of device work (drift, charge grid,
 convolve, noise, digitize), with one upload of the depos and the ADC grid
 left on the device. The chain itself is ``repro_torch.core.stages``.
 
-Charge-grid strategies (each returns ``(grid, dropped)``; ``n_valid``, the
-valid depo count of a padded row, limits ``dropped`` to the valid depos):
+fig3 is the paper's deliberately naive baseline: a host loop with one
+dispatch per depo, each patch copied back to the host and accumulated
+there, the grid uploaded once for the convolution, noise and digitisation.
+``simulate`` dispatches on ``cfg.pipeline``.
 
-  unfused              : rasterize -> threefry fluctuation (``counter``, or
-                         its differentiable form ``relaxed``) -> scatter_add
+Charge-grid strategies (each returns ``(grid, dropped)``; ``n_valid``, the
+valid depo count of a padded row, limits ``dropped`` to the valid depos;
+``pool`` is the pre-computed normal pool of ``rng_strategy="pool"``):
+
+  unfused              : rasterize -> fluctuation (threefry ``counter``, its
+                         differentiable form ``relaxed``, or the ``pool``)
+                         -> scatter_add
                          (``cfg.scatter_strategy``: xla, sort_segment, or the
                          owner-computes CUDA kernels pallas, pallas_compact)
   unfused_bf16         : the same chain with bfloat16 patches
@@ -23,6 +30,9 @@ and for multi-plane configs, taking the full (P, N) depos of one event:
   multiplane_xla                  : the planes as one flat depo batch,
                                     counter-hash fluctuation, one scatter
 
+Only the two unfused strategies take the pool; the others draw their
+normals in kernel or from the counter hash and refuse that stream.
+
 The names keep the reference's strategy names, so one config selects the
 same path in both packages.
 """
@@ -31,20 +41,26 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
 from repro_torch.config import LArTPCConfig, PlaneSpec, plane_specs
 from repro_torch.core import fluctuate as fl
-from repro_torch.core.depo import DepoSet
-from repro_torch.core.rasterize import rasterize
-from repro_torch.core.response import DetectorResponse
+from repro_torch.core import prng
+from repro_torch.core.depo import DepoSet, depo_patch_origin
+from repro_torch.core.fft_conv import digitize, fft_convolve
+from repro_torch.core.noise import simulate_noise
+from repro_torch.core.rasterize import rasterize, rasterize_one
+from repro_torch.core.response import DetectorResponse, make_response
 from repro_torch.core.scatter import scatter_add
 from repro_torch.core.stages import SimOutput, build_sim_graph, \
     plane_fold_keys
+from repro_torch.device import resolve_device, scalar
 from repro_torch.tune.autotune import resolve_config
 from repro_torch.tune.registry import register_strategy, set_default
 
-__all__ = ["SimOutput", "simulate_fig4", "make_sim_fn", "simulate",
+__all__ = ["SimOutput", "simulate_fig3", "simulate_fig4", "make_sim_fn",
+           "simulate",
            "charge_grid_unfused", "charge_grid_unfused_bf16",
            "charge_grid_fused",
            "charge_grid_fused_compact", "charge_grid_fused_multiplane",
@@ -55,19 +71,25 @@ __all__ = ["SimOutput", "simulate_fig4", "make_sim_fn", "simulate",
 @register_strategy("charge_grid", "unfused",
                    note="rasterize -> fluctuate -> scatter_add")
 def charge_grid_unfused(k: torch.Tensor, depos: DepoSet, cfg: LArTPCConfig,
-                        n_valid: Optional[int] = None):
+                        n_valid: Optional[int] = None,
+                        pool: Optional[torch.Tensor] = None):
     patches, w0, t0 = rasterize(depos, cfg)
-    return scatter_add(_fluctuate(k, patches, depos.charge, cfg), w0, t0, cfg,
-                       n_valid=n_valid)
+    return scatter_add(_fluctuate(k, patches, depos.charge, cfg, pool), w0,
+                       t0, cfg, n_valid=n_valid)
 
 
 def _fluctuate(k: torch.Tensor, patches: torch.Tensor, charge: torch.Tensor,
-               cfg: LArTPCConfig) -> torch.Tensor:
+               cfg: LArTPCConfig,
+               pool: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The unfused chain's fluctuation step for ``cfg.rng_strategy``:
-    ``counter``, its differentiable form ``relaxed`` (the same bits), or
-    none."""
+    ``counter``, its differentiable form ``relaxed`` (the same bits), the
+    pre-computed ``pool`` (which must be given), or none."""
     if not cfg.fluctuate or cfg.rng_strategy == "none":
         return patches
+    if cfg.rng_strategy == "pool":
+        if pool is None:
+            raise ValueError("pool strategy requires a pre-computed pool")
+        return fl.fluctuate_pool(pool, patches, charge)
     if cfg.rng_strategy == "relaxed":
         return fl.fluctuate_counter_relaxed(k, patches, charge)
     if cfg.rng_strategy == "counter":
@@ -80,13 +102,16 @@ def _fluctuate(k: torch.Tensor, patches: torch.Tensor, charge: torch.Tensor,
                    note="unfused chain with bfloat16 patches (f32 accumulate)")
 def charge_grid_unfused_bf16(k: torch.Tensor, depos: DepoSet,
                              cfg: LArTPCConfig,
-                             n_valid: Optional[int] = None):
+                             n_valid: Optional[int] = None,
+                             pool: Optional[torch.Tensor] = None):
     """``unfused`` with bfloat16 patches. With fluctuation on, the patches
     meet the float32 charge and reach the scatter as float32 (bfloat16
-    means, bfloat16 normals), as in the reference; without it the scatter
-    takes the bfloat16 patches and adds them in float32."""
+    means; bfloat16 normals, or the pool's float32 ones), as in the
+    reference; without it the scatter takes the bfloat16 patches and adds
+    them in float32."""
     return charge_grid_unfused(
-        k, depos, dataclasses.replace(cfg, patch_dtype="bfloat16"), n_valid)
+        k, depos, dataclasses.replace(cfg, patch_dtype="bfloat16"), n_valid,
+        pool)
 
 
 def _fused_viable(ctx) -> bool:
@@ -120,7 +145,8 @@ def _fused_key(k: torch.Tensor, cfg: LArTPCConfig) -> Optional[torch.Tensor]:
                    note="fused rasterize+fluctuate+scatter CUDA kernel",
                    differentiable=False)
 def charge_grid_fused(k: torch.Tensor, depos: DepoSet, cfg: LArTPCConfig,
-                      n_valid: Optional[int] = None):
+                      n_valid: Optional[int] = None,
+                      pool: Optional[torch.Tensor] = None):
     from repro_torch.kernels.fused_sim.ops import simulate_charge_grid
 
     return simulate_charge_grid(depos, cfg, key=_fused_key(k, cfg),
@@ -133,7 +159,8 @@ def charge_grid_fused(k: torch.Tensor, depos: DepoSet, cfg: LArTPCConfig,
                    differentiable=False)
 def charge_grid_fused_compact(k: torch.Tensor, depos: DepoSet,
                               cfg: LArTPCConfig,
-                              n_valid: Optional[int] = None):
+                              n_valid: Optional[int] = None,
+                              pool: Optional[torch.Tensor] = None):
     from repro_torch.kernels.fused_sim.ops import simulate_charge_grid_compact
 
     return simulate_charge_grid_compact(depos, cfg, key=_fused_key(k, cfg),
@@ -179,7 +206,8 @@ def _require_plane_axis(depos: DepoSet, cfg: LArTPCConfig) -> None:
                    differentiable=False)
 def charge_grid_fused_multiplane(k: torch.Tensor, depos: DepoSet,
                                  cfg: LArTPCConfig,
-                                 n_valid: Optional[int] = None):
+                                 n_valid: Optional[int] = None,
+                                 pool: Optional[torch.Tensor] = None):
     from repro_torch.kernels.fused_sim.ops import \
         simulate_charge_grid_multiplane
 
@@ -195,7 +223,8 @@ def charge_grid_fused_multiplane(k: torch.Tensor, depos: DepoSet,
                    differentiable=False)
 def charge_grid_fused_multiplane_compact(k: torch.Tensor, depos: DepoSet,
                                          cfg: LArTPCConfig,
-                                         n_valid: Optional[int] = None):
+                                         n_valid: Optional[int] = None,
+                                         pool: Optional[torch.Tensor] = None):
     from repro_torch.kernels.fused_sim.ops import \
         simulate_charge_grid_multiplane_compact
 
@@ -219,7 +248,8 @@ def _mp_xla_viable(ctx) -> bool:
                    differentiable=False)
 def charge_grid_multiplane_xla(k: torch.Tensor, depos: DepoSet,
                                cfg: LArTPCConfig,
-                               n_valid: Optional[int] = None):
+                               n_valid: Optional[int] = None,
+                               pool: Optional[torch.Tensor] = None):
     """All planes as ONE flat depo batch: rasterise (P*N) patches, draw
     counter-hash normals (seeded per plane from ``fold_in(k, p)``, streamed
     per plane-local depo, countered per patch pixel, one hash and an erfinv
@@ -297,33 +327,106 @@ set_default("charge_grid", "unfused")
 
 def simulate_fig4(key: torch.Tensor, depos, resp=None,
                   cfg: Optional[LArTPCConfig] = None, add_noise: bool = True,
-                  device="cuda", recon: bool = False) -> SimOutput:
+                  device="cuda", recon: bool = False,
+                  pool: Optional[torch.Tensor] = None) -> SimOutput:
     """One run of the canonical stage chain for one event. ``depos`` may be
     a detector-frame ``DepoSet`` (with a leading plane axis for multi-plane
     configs) or a ``PhysicalDepoSet``; ``resp`` one response, one per
     plane, or None for the config's defaults. ``recon=True`` appends the
-    deconvolve and hit_find stages and fills ``SimOutput.decon``/``hits``."""
+    deconvolve and hit_find stages and fills ``SimOutput.decon``/``hits``.
+    ``pool``: the normals of ``rng_strategy="pool"`` (default: the
+    graph's standard pool)."""
     if cfg is None:
         raise TypeError("simulate_fig4() missing required argument: 'cfg'")
     return build_sim_graph(cfg, resp, add_noise=add_noise, device=device,
-                           recon=recon).run(key, depos)
+                           recon=recon, pool=pool).run(key, depos)
+
+
+def _fig3_normals(pool_h: np.ndarray, i: int, pw: int, pt: int):
+    """Depo ``i``'s (pw, pt) normals from the host pool: the slice starting
+    at ``(i * pw * pt) % P``; where that slice would run past the pool's
+    end, the reference does not wrap but takes ``np.resize(pool, (pw,
+    pt))``, the pool's first pw * pt values."""
+    start = (i * pw * pt) % pool_h.shape[0]
+    if start + pw * pt <= pool_h.shape[0]:
+        return pool_h[start:start + pw * pt].reshape(pw, pt)
+    return np.resize(pool_h, (pw, pt))
+
+
+def simulate_fig3(key: torch.Tensor, depos: DepoSet, resp: DetectorResponse,
+                  cfg: LArTPCConfig, pool: Optional[torch.Tensor] = None,
+                  add_noise: bool = True, max_depos: Optional[int] = None,
+                  device="cuda") -> SimOutput:
+    """The per-depo host-loop pipeline (paper Fig. 3), deliberately naive.
+
+    One dispatch per depo (``rasterize_one``, then, with fluctuation on,
+    the binomial draw on the depo's slice of the normal pool, taken from
+    the pool even under the default ``counter`` strategy), the patch
+    copied to the host every depo and accumulated there into a float32
+    grid, and one upload of the grid; the convolution, the noise (key
+    ``fold_in(key, 1)``) and the digitisation run on ``device``. The
+    default pool is ``make_pool(fold_in(key, 7), 2**16)``, copied to the
+    host once. ``max_depos`` truncates the depos."""
+    dev = resolve_device(device)
+    pw, pt = cfg.patch_wires, cfg.patch_ticks
+    fluctuate = cfg.fluctuate and cfg.rng_strategy != "none"
+    w0s, t0s = depo_patch_origin(depos, cfg)
+    n = depos.n if max_depos is None else min(depos.n, max_depos)
+    host_grid = np.zeros((cfg.num_wires, cfg.num_ticks), np.float32)
+    w0s_h, t0s_h = w0s.cpu().numpy(), t0s.cpu().numpy()
+    w0f, t0f = w0s.to(torch.float32), t0s.to(torch.float32)
+    if fluctuate:
+        if pool is None:
+            pool = fl.make_pool(prng.fold_in(key, 7), 1 << 16, device=dev)
+        pool_h = pool.cpu().numpy()
+    for i in range(n):
+        patch = rasterize_one(depos.wire[i], depos.tick[i], depos.sigma_w[i],
+                              depos.sigma_t[i], depos.charge[i], w0f[i],
+                              t0f[i], pw, pt)
+        if fluctuate:
+            normals = torch.from_numpy(_fig3_normals(pool_h, i, pw, pt)).to(
+                dev)
+            patch = fl.binomial_normal_approx(
+                patch[None], depos.charge[i:i + 1], normals[None])[0]
+        w0, t0 = w0s_h[i], t0s_h[i]
+        host_grid[w0:w0 + pw, t0:t0 + pt] += patch.cpu().numpy()
+    grid = torch.from_numpy(host_grid).to(dev)
+    signal = fft_convolve(grid, resp, cfg.fft_strategy)
+    if add_noise:
+        noise = simulate_noise(prng.fold_in(key, 1), cfg, device=dev)
+        signal = signal + noise / torch.clamp_min(
+            scalar(cfg.adc_per_electron, noise), 1e-30)
+    return SimOutput(adc=digitize(signal, cfg), signal=signal,
+                     charge_grid=grid)
 
 
 def make_sim_fn(cfg: LArTPCConfig, resp: Optional[DetectorResponse] = None,
-                add_noise: bool = True, device="cuda", recon: bool = False):
+                add_noise: bool = True, device="cuda", recon: bool = False,
+                pool: Optional[torch.Tensor] = None):
     """The single-event executor: a ``SimGraph`` called as
     ``sim(key, depos) -> SimOutput``, built once (response spectra and, with
     ``recon``, the deconvolution filters included) and reused for every
     event. ``"auto"`` strategy fields resolve first, from the tuning cache
     or the device's defaults (``repro_torch.tune``), so every event runs
-    the same strategies."""
+    the same strategies. The graph is fig4's whatever ``cfg.pipeline``
+    says; ``simulate`` is the entry point that dispatches on it."""
     cfg = resolve_config(cfg, device=device)
     return build_sim_graph(cfg, resp, add_noise=add_noise, device=device,
-                           recon=recon)
+                           recon=recon, pool=pool)
 
 
 def simulate(key: torch.Tensor, depos, cfg: LArTPCConfig, resp=None,
-             add_noise: bool = True, device="cuda",
-             recon: bool = False) -> SimOutput:
+             add_noise: bool = True, device="cuda", **kw) -> SimOutput:
+    """One event through the pipeline ``cfg.pipeline`` names: ``fig3``
+    (one plane only; takes ``pool`` and ``max_depos``) or ``fig4`` (takes
+    ``pool`` and ``recon``)."""
+    if cfg.pipeline == "fig3":
+        if cfg.num_planes > 1:
+            raise ValueError(
+                "the fig3 per-depo host-loop baseline is single-plane only; "
+                "use pipeline='fig4' for multi-plane configs")
+        resp = resp if resp is not None else make_response(cfg, device=device)
+        return simulate_fig3(key, depos, resp, cfg, add_noise=add_noise,
+                             device=device, **kw)
     return simulate_fig4(key, depos, resp, cfg, add_noise=add_noise,
-                         device=device, recon=recon)
+                         device=device, **kw)

@@ -51,3 +51,20 @@ def rasterize(depos: DepoSet, cfg: LArTPCConfig):
     wt = axis_weights(depos.tick, depos.sigma_t, t0, cfg.patch_ticks)
     patches = depos.charge[:, None, None] * ww[:, :, None] * wt[:, None, :]
     return patches.to(dtype), w0, t0
+
+
+def rasterize_one(wire: torch.Tensor, tick: torch.Tensor,
+                  sigma_w: torch.Tensor, sigma_t: torch.Tensor,
+                  charge: torch.Tensor, w0: torch.Tensor, t0: torch.Tensor,
+                  pw: int, pt: int) -> torch.Tensor:
+    """One depo's (pw, pt) float32 patch (the fig3 per-depo dispatch unit):
+    0-d float32 depo fields and patch origin in, the same erf differences
+    and product order as the batched ``rasterize``."""
+    dev = wire.device
+    edges_w = w0 + torch.arange(pw + 1, dtype=torch.float32, device=dev)
+    edges_t = t0 + torch.arange(pt + 1, dtype=torch.float32, device=dev)
+    cw = torch.special.erf((edges_w - wire) / (sigma_w * SQRT2))
+    ct = torch.special.erf((edges_t - tick) / (sigma_t * SQRT2))
+    ww = torch.clamp_min(0.5 * (cw[1:] - cw[:-1]), 0.0)
+    wt = torch.clamp_min(0.5 * (ct[1:] - ct[:-1]), 0.0)
+    return charge * ww[:, None] * wt[None, :]

@@ -10,7 +10,9 @@ CUDA events on the card (host clock on the CPU); ``replace`` swaps stages.
 
 RNG contract (the reference's): the event key is split once,
 ``kf, kn = split(key)``; the charge-grid stage draws from ``kf``, the noise
-stage from ``kn``.
+stage from ``kn``. Under ``rng_strategy="pool"`` the charge grid takes its
+normals from one pre-computed pool instead, from offset 0 for every event
+and plane.
 
 Multi-plane configs (``cfg.num_planes > 1``) run every readout stage for
 each plane, drawing from the plane-folded subkeys ``fold_in(kf, index)``
@@ -50,6 +52,7 @@ from repro_torch.core import prng
 from repro_torch.core.depo import DepoSet
 from repro_torch.core.fft_conv import digitize, fft_convolve, \
     resolve_spectrum_strategy
+from repro_torch.core.fluctuate import make_pool
 from repro_torch.core.noise import simulate_noise
 from repro_torch.core.rasterize import patch_dtype
 from repro_torch.core.response import DetectorResponse, make_response
@@ -363,28 +366,34 @@ def drift_stage(cfg: LArTPCConfig,
 
 def compute_charge_grid(k: torch.Tensor, depos: DepoSet, cfg: LArTPCConfig,
                         n_valid: Optional[int] = None,
-                        strategy: Optional[str] = None):
+                        strategy: Optional[str] = None,
+                        pool: Optional[torch.Tensor] = None):
     """Dispatch depos -> (S(t,x), dropped) through the registered strategy
     ``strategy`` (default: ``cfg.charge_grid_strategy``, where ``"auto"``
     takes the tuning cache's decision or the default of the depos'
-    device); ``dropped`` counts entries of depos below ``n_valid`` only."""
+    device); ``dropped`` counts entries of depos below ``n_valid`` only.
+    ``pool`` is the normal pool of ``rng_strategy="pool"``."""
     if strategy is None:
         strategy = autotune.resolve("charge_grid", cfg,
                                     device=depos.wire.device).strategy
     return get_strategy("charge_grid", strategy).fn(k, depos, cfg,
-                                                    n_valid=n_valid)
+                                                    n_valid=n_valid,
+                                                    pool=pool)
 
 
 def charge_grid_stage(cfg: LArTPCConfig,
                       planes: Optional[Tuple[int, ...]] = None,
-                      device="cuda") -> Stage:
+                      device="cuda",
+                      pool: Optional[torch.Tensor] = None) -> Stage:
     """depos -> S(t,x): rasterize + fluctuate + scatter-add, or a fused
     kernel, dispatched through the ``charge_grid`` registry.
 
     Multi-plane: plane i draws from ``fold_in(kf, index_i)`` and the grids
     stack to (P, W, T). ``stacked`` hands all planes of a full graph to a
     multi-plane strategy in one call; otherwise the stage dispatches per
-    plane (a multi-plane strategy through its single-plane form).
+    plane (a multi-plane strategy through its single-plane form). The
+    ``pool`` stream gives every plane, and every event, the one pool from
+    offset 0, the paper's fixed pre-computed pool.
 
     Over a batch, a fused strategy takes every (event, plane) row of the
     batch at once, each row with the seed the per-event run gives it
@@ -400,7 +409,7 @@ def charge_grid_stage(cfg: LArTPCConfig,
 
     def per_plane(keys, depos: DepoSet, n_valid):
         outs = [compute_charge_grid(k, DepoSet(*(x[i] for x in depos)), cfg,
-                                    n_valid, name)
+                                    n_valid, name, pool)
                 for i, k in enumerate(keys)]
         return (torch.stack([g for g, _ in outs]),
                 torch.stack([d for _, d in outs]).sum())
@@ -408,10 +417,10 @@ def charge_grid_stage(cfg: LArTPCConfig,
     def fn(state: SimState) -> SimState:
         if not multi:
             grid, dropped = compute_charge_grid(state.kf, state.depos, cfg,
-                                                state.n_valid, name)
+                                                state.n_valid, name, pool)
         elif name in MULTIPLANE_CHARGE_GRID and whole_stack:
             grid, dropped = get_strategy("charge_grid", name).fn(
-                state.kf, state.depos, cfg, n_valid=state.n_valid)
+                state.kf, state.depos, cfg, n_valid=state.n_valid, pool=pool)
         else:
             grid, dropped = per_plane(_plane_keys(state.kf, specs),
                                       state.depos, state.n_valid)
@@ -574,16 +583,9 @@ def _finite_checked(stage: Stage) -> Stage:
 
 
 def check_supported(cfg: LArTPCConfig) -> None:
-    """Raise for config features the port does not run yet, and for a bad
+    """Raise for a patch dtype the port does not rasterise, and for a bad
     plane geometry or batching mode."""
-    if cfg.pipeline != "fig4":
-        raise NotImplementedError(
-            f"the port runs pipeline='fig4' only (got {cfg.pipeline!r})")
     patch_dtype(cfg)
-    if cfg.rng_strategy not in ("counter", "relaxed", "none"):
-        raise NotImplementedError(
-            f"the port runs rng_strategy 'counter', 'relaxed' or 'none' "
-            f"only (got {cfg.rng_strategy!r})")
     plane_specs(cfg)
     resolve_plane_batching(cfg)
 
@@ -591,7 +593,8 @@ def check_supported(cfg: LArTPCConfig) -> None:
 def build_sim_graph(cfg: LArTPCConfig, resp=None, add_noise: bool = True,
                     device="cuda",
                     planes: Optional[Tuple[int, ...]] = None,
-                    recon: bool = False) -> SimGraph:
+                    recon: bool = False,
+                    pool: Optional[torch.Tensor] = None) -> SimGraph:
     """Assemble the canonical ``drift -> charge_grid -> convolve -> noise ->
     digitize`` chain on ``device`` (the one place the order is written).
 
@@ -601,11 +604,18 @@ def build_sim_graph(cfg: LArTPCConfig, resp=None, add_noise: bool = True,
     ``recon=True`` appends ``deconvolve -> hit_find``, whose filters come
     from the same responses; the default graph has no recon stage and no
     ``decon``/``hits`` output. ``cfg.check_finite`` turns on the finite
-    sentinel of every stage (``finite_ok``); the ADC is the same bits."""
+    sentinel of every stage (``finite_ok``); the ADC is the same bits.
+    ``pool``: the normals of ``rng_strategy="pool"``; when the config
+    fluctuates from the pool and none is given, the standard pool,
+    ``make_pool(key(1234))`` (2**20 normals on ``device``). The graph is
+    fig4's whatever ``cfg.pipeline`` says."""
     check_supported(cfg)
     dev = resolve_device(device)
+    if pool is None and cfg.fluctuate and cfg.rng_strategy == "pool":
+        pool = make_pool(prng.key(1234), device=dev)
     resps = _as_plane_responses(cfg, resp, planes, dev)
-    stages = [drift_stage(cfg, planes), charge_grid_stage(cfg, planes, dev),
+    stages = [drift_stage(cfg, planes),
+              charge_grid_stage(cfg, planes, dev, pool),
               convolve_stage(cfg, resps, planes, dev)]
     if add_noise:
         stages.append(noise_stage(cfg, planes))

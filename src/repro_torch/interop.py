@@ -5,7 +5,8 @@ depos (with a leading plane axis (P, N) for multi-plane configs) and the
 detector responses, one per readout plane. These helpers build the port's
 objects from the JAX package's values once those are turned into numpy (the
 caller does that; nothing here imports JAX): single keys and stacked
-per-event keys, depos, padded event batches, responses; and turn a port
+per-event keys, depos, padded event batches, responses, the normal pool
+of ``rng_strategy="pool"``; and turn a port
 ``SimOutput`` back into numpy for comparison. A deconvolution filter is a
 ``DetectorResponse`` too, so ``response_from_numpy`` carries the
 reference's filters across as well; ``fit_targets_from_numpy`` carries a
@@ -120,6 +121,13 @@ def plane_responses_from_numpy(responses, device="cuda"):
     ``(kernel, freq, pad_shape, plane)`` tuples."""
     return tuple(response_from_numpy(kernel, freq, pad_shape, plane, device)
                  for kernel, freq, pad_shape, plane in responses)
+
+
+def pool_from_numpy(pool, device="cuda") -> torch.Tensor:
+    """The reference's normal pool (``make_pool``; ``rng_strategy="pool"``)
+    as a float32 tensor, so both packages fluctuate from the same
+    normals."""
+    return _f32(pool, device)
 
 
 def bf16_bits(x) -> np.ndarray:

@@ -8,6 +8,7 @@
                                      [--max-retries R] [--inject-faults SPEC]
                                      [--device cuda|cpu] [--tune] [--retune]
                                      [--strategy <scatter>]
+                                     [--pipeline fig3|fig4]
                                      [--set key=value ...]
 
 The launcher streams batches of E events (``--batch-events``, default 1)
@@ -23,6 +24,13 @@ per batch, naming the dtype of the patches the charge grid rasterises
 (``--set charge_grid_strategy=unfused_bf16``: bfloat16), one line per plane
 of it, and a ``total:`` line. ``--stage-board`` first prints each stage's
 time (``SimGraph.timed``), and per plane for multi-plane configs.
+
+``--pipeline fig3`` runs the paper's per-depo host-loop baseline instead
+(``repro_torch.core.pipeline.simulate_fig3``), one event at a time, and
+prints one ``event N: D depos -> (W, T) ADC in ...`` line per event; it
+takes none of ``--recon``, ``--journal``, ``--resume`` and
+``--inject-faults``. ``--set rng_strategy=pool`` streams the pre-computed
+normal pool through the unfused charge grid.
 
 ``--tune`` autotunes every registered hot op (drift, scatter-add, charge
 grid, convolve, deconvolve, hit finding) on ``--device`` at the config's
@@ -60,7 +68,8 @@ from repro_torch.core.batch import (empty_event, event_keys,
                                     screen_events)
 from repro_torch.core.depo import (generate_depos, generate_physical_depos,
                                    generate_plane_depos)
-from repro_torch.core.pipeline import make_sim_fn
+from repro_torch.core.pipeline import make_sim_fn, simulate
+from repro_torch.core.response import make_response
 from repro_torch.core.stages import SimOutput, join_outputs
 from repro_torch.core.validate import RunHealth, SimBatchError, is_oom_error
 from repro_torch.device import resolve_device
@@ -113,6 +122,27 @@ def run_events(cfg: LArTPCConfig, num_events: int, seed: int = 0,
             on_event(ev, out, dt)
     stats["wall_s"] = time.perf_counter() - t_start
     return stats
+
+
+def run_fig3(cfg: LArTPCConfig, num_events: int, seed: int = 0,
+             device="cuda") -> None:
+    """The per-depo host-loop baseline (paper Fig. 3): event ``ev`` with the
+    launcher's key and depos through ``simulate`` (``cfg.pipeline`` is
+    fig3), one line per event, as the reference prints it."""
+    dev = resolve_device(device)
+    resp = make_response(cfg, device=dev)
+    base = prng.key(seed)
+    for ev in range(num_events):
+        k = prng.fold_in(base, ev)
+        depos = generate_depos(k, cfg, device=dev)
+        _sync(dev)
+        t0 = time.perf_counter()
+        out = simulate(k, depos, cfg, resp=resp, device=dev)
+        _sync(dev)
+        dt = time.perf_counter() - t0
+        print(f"event {ev}: {depos.n} depos -> {tuple(out.adc.shape)} ADC in "
+              f"{dt*1e3:.0f} ms ({depos.n/dt:.3g} depos/s), "
+              f"max dev {max_dev(out.adc, cfg)}")
 
 
 def make_streaming_sim_fn(cfg: LArTPCConfig, recon: bool = False,
@@ -457,6 +487,7 @@ def main(argv=None):
                     help="force the scatter-add strategy (see "
                          "repro_torch.tune; 'auto' resolves via the tuning "
                          "cache)")
+    ap.add_argument("--pipeline", choices=["fig3", "fig4"], default=None)
     ap.add_argument("--set", nargs="*", default=[])
     args = ap.parse_args(argv)
 
@@ -468,6 +499,8 @@ def main(argv=None):
         cfg = apply_overrides(cfg, {"num_depos": args.depos})
     if args.planes:
         cfg = apply_overrides(cfg, {"num_planes": args.planes})
+    if args.pipeline:
+        cfg = apply_overrides(cfg, {"pipeline": args.pipeline})
     if args.check_finite:
         cfg = apply_overrides(cfg, {"check_finite": True})
     if args.set:
@@ -495,6 +528,18 @@ def main(argv=None):
         from repro_torch.testing.faults import FaultPlan
 
         faults = FaultPlan.parse(args.inject_faults)
+
+    if cfg.pipeline == "fig3":
+        if args.recon:
+            raise SystemExit("--recon needs the batched fig4 pipeline "
+                             "(drop --pipeline fig3)")
+        for flag in ("journal", "resume", "inject_faults"):
+            if getattr(args, flag):
+                raise SystemExit(f"--{flag.replace('_', '-')} needs the "
+                                 "batched fig4 pipeline (drop "
+                                 "--pipeline fig3)")
+        run_fig3(cfg, args.events, args.seed, device)
+        return
 
     patches = patch_dtype_name(resolve_config(cfg, device=device))
 

@@ -79,11 +79,13 @@ def _entry_points():
     from repro_torch.core.depo import generate_depos, generate_plane_depos
     from repro_torch.core.gradcheck import (stage_gradcheck_cases,
                                             stage_gradcheck_suite)
+    from repro_torch.core.fluctuate import make_pool
     from repro_torch.core.pipeline import make_sim_fn, simulate, \
         simulate_fig4
     from repro_torch.core.response import make_plane_responses
     from repro_torch.kernels.rasterize.ops import rasterize_depos
     from repro_torch.launch import fit as launch_fit
+    from repro_torch.launch import sim as launch_sim
     from repro_torch.launch.sim import run_events, stream_simulate
 
     cfg = tconfig.get_config("lartpc-uboone", smoke=True)
@@ -124,6 +126,14 @@ def _entry_points():
                                                 steps=1, **kw),
         "stage_gradcheck_suite": lambda **kw: stage_gradcheck_suite(
             cases=stage_gradcheck_cases()[:1], **kw),
+        "simulate_fig3": lambda **kw: simulate(
+            k, generate_depos(k, cfg, device="cpu"),
+            dataclasses.replace(cfg, pipeline="fig3"), max_depos=4, **kw),
+        "make_pool": lambda **kw: make_pool(k, 1 << 10, **kw),
+        "pool_from_numpy": lambda **kw: interop.pool_from_numpy([0.5], **kw),
+        "launch_fig3": lambda device="cuda": launch_sim.main(
+            ["--smoke", "--pipeline", "fig3", "--events", "1", "--depos",
+             "4", "--device", device]),
         "launch_fit": lambda device="cuda": launch_fit.main(
             ["--smoke", "--optimizer", "bfgs", "--steps", "1", "--tol", "1",
              "--device", device]),
@@ -142,7 +152,9 @@ def _entry_points():
                                   "stream_simulate_3planes", "empty_event",
                                   "from_mm", "make_fit_targets",
                                   "make_fit_loss", "calibrate",
-                                  "stage_gradcheck_suite", "launch_fit"])
+                                  "stage_gradcheck_suite", "launch_fit",
+                                  "simulate_fig3", "make_pool",
+                                  "pool_from_numpy", "launch_fig3"])
 def test_entry_points_default_to_the_card(name, monkeypatch):
     """Without a card the default device raises; device="cpu" runs."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

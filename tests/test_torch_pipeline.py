@@ -3,7 +3,8 @@
 Port ``make_sim_fn(cfg, device="cpu")`` and reference ``make_sim_fn(cfg)``
 get the same key and the same depos (carried across by ``interop``, so
 generator ULPs cannot flip a patch origin), with fluctuation and noise on,
-for each charge-grid strategy the port runs.
+for each charge-grid strategy the port runs; ``simulate`` likewise for the
+pool stream and the fig3 pipeline, which the port runs too.
 """
 import dataclasses
 
@@ -17,6 +18,7 @@ from repro.config import get_config as jax_get_config
 from repro.core.depo import generate_depos as j_generate
 from repro.core.depo import generate_physical_depos as j_generate_physical
 from repro.core.pipeline import make_sim_fn as j_make_sim_fn
+from repro.core.pipeline import simulate as j_simulate
 from repro_torch import interop
 from repro_torch.config import get_config
 from repro_torch.core import prng
@@ -64,7 +66,7 @@ def _run_both(cfg, ev=0, physical=False):
 
 def _compare(ref, out):
     assert out["adc"].dtype == np.int16
-    assert int(out["dropped"]) == 0
+    assert int(out.get("dropped", 0)) == 0  # fig3 bins no tiles
     parity.assert_close(out["charge_grid"], np.asarray(ref.charge_grid),
                         atol_frac=parity.GRID_ATOL_FRAC, what="grid")
     parity.assert_close(out["signal"], np.asarray(ref.signal),
@@ -176,16 +178,44 @@ def test_simulate_entry_point_matches_graph():
                        make_sim_fn(cfg, device="cpu")(k, depos).adc)
 
 
-@pytest.mark.parametrize("field,value", [("num_planes", 3),
-                                         ("rng_strategy", "pool"),
-                                         ("pipeline", "fig3"),
-                                         ("patch_dtype", "float16")])
+@pytest.mark.parametrize("field,value", [("patch_dtype", "float16")])
 def test_unported_features_raise(field, value):
     cfg = dataclasses.replace(get_config("lartpc-uboone", smoke=True),
                               **{field: value})
-    if field == "num_planes":
-        # three planes run now; their fig3 baseline stays refused, as the
-        # reference refuses it
-        cfg = dataclasses.replace(cfg, pipeline="fig3")
     with pytest.raises(NotImplementedError):
         make_sim_fn(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("field,value", [("rng_strategy", "pool"),
+                                         ("pipeline", "fig3")])
+def test_pool_and_fig3_run_like_reference(field, value):
+    """The configs the port refused before it ran them: ``simulate`` in
+    both packages on the same key and depos (each package's default pool:
+    the graph's ``make_pool(key(1234))`` for the pool stream, fig3's
+    ``make_pool(fold_in(key, 7), 2**16)``), under parity's rules."""
+    cfg = dataclasses.replace(SMOKE, **{field: value})
+    k = jax.random.fold_in(jax.random.key(0), 4)
+    d = j_generate(k, cfg)
+    ref = j_simulate(k, d, cfg)
+    out = simulate(interop.key_from_data(jax.random.key_data(k)),
+                   interop.depos_from_numpy(*(np.asarray(x) for x in d),
+                                            device="cpu"),
+                   interop.config_from_dict(dataclasses.asdict(cfg)),
+                   device="cpu")
+    _compare(ref, interop.to_numpy(out))
+
+
+def test_fig3_refuses_three_planes():
+    """The fig3 baseline is one plane only, in both packages, with the
+    reference's message."""
+    cfg = dataclasses.replace(SMOKE, pipeline="fig3", num_planes=3)
+    k = jax.random.key(0)
+    d = j_generate(k, dataclasses.replace(cfg, num_planes=1))
+    with pytest.raises(ValueError) as ref:
+        j_simulate(k, d, cfg)
+    tcfg = interop.config_from_dict(dataclasses.asdict(cfg))
+    with pytest.raises(ValueError) as port:
+        simulate(prng.key(0), generate_depos(prng.key(0), tcfg, device="cpu"),
+                 tcfg, device="cpu")
+    assert str(port.value) == str(ref.value)
+    assert "single-plane" in str(port.value)
