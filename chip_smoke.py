@@ -142,7 +142,24 @@ Phases (any failure exits non-zero before the result line):
                 parity), with per-stage times; three planes with recon
                 (row 7); unfused_bf16; and a pool stream of 4 events, 2 a
                 batch, every row == run_events' bit for bit
- 10. timing   : each kernel's wrapper (median of 5 rounds of 20 calls
+ 10. distributed : the distributed executor (repro_torch.core.distributed)
+                on one NCCL group at world size 1 (a FileStore in a
+                temporary directory, destroyed at the phase's end) at full
+                width: one plane, psum_scatter, noise and fluctuation off,
+                ADC against the reference test's card-side cyclic
+                construction (rasterize, xla scatter, rfft2 x response at
+                (W_pad, T), digitize) under the +-1 rule, the exact share
+                printed; halo against psum_scatter on the same event (a
+                ring of one); noise and fluctuation on, two runs bit for
+                bit; three planes with recon, stacked == loop bit for bit,
+                the hit scan (row 7) launched once a plane and event
+                (counters reset just before and read just after each run),
+                each plane's hits == the plain scan's on the gathered decon
+                with the padding wires zeroed, bit for bit; launch.fit
+                --grad-smoke --devices 1 passes; launch.distributed with
+                more ranks than cards raises; the distributed event's ms
+                beside run_events at the same config (printed, not checked)
+ 11. timing   : each kernel's wrapper (median of 5 rounds of 20 calls
                 timed with CUDA events as the host enqueues them, the
                 method of every version of this script, which reads the
                 host's pace where a call is shorter than its enqueueing,
@@ -165,11 +182,12 @@ Phases (any failure exits non-zero before the result line):
                 function (index_put_ with accumulate=True); for the
                 fused kernels also the SASS instructions per pixel of the
                 pixel loop (cuobjdump) and the issue-rate floor they imply
- 11. summary  : one JSON line {"kernels": [...]} (with each kernel's
+ 12. summary  : one JSON line {"kernels": [...]} (with each kernel's
                 launches over the clean streams, stream_launches, while
-                tuning, tune_launches, and over the pool events and
-                stream, pool_launches)
- 12. result   : last line {"ok": true, "device": {...}}
+                tuning, tune_launches, over the pool events and stream,
+                pool_launches, and over the distributed recon runs,
+                dist_launches)
+ 13. result   : last line {"ok": true, "device": {...}}
 
 The on-card checks live here rather than in pytest because the machine with
 the card has no JAX, which the repository's test configuration imports.
@@ -2399,6 +2417,188 @@ def check_fig3_pool(full, dev, counters, card: str):
     return launches, scatter_errors
 
 
+#: timed runs of the distributed event and of run_events beside it
+DIST_TIMED = 3
+
+
+def check_distributed(full, dev, card: str):
+    """The distributed executor (``repro_torch.core.distributed``) on one
+    NCCL group at world size 1 (a ``FileStore`` in a temporary directory,
+    destroyed at the end) at full width: one plane, ``psum_scatter``, noise
+    and fluctuation off, against the reference test's card-side cyclic
+    construction (rasterize, the ``xla`` scatter, ``rfft2`` x response at
+    (W_pad, T), digitize) under the +-1 rule; ``halo`` against
+    ``psum_scatter`` on the same event (a ring of one: the overhangs added
+    back by a local copy); noise and fluctuation on, two runs bit for bit;
+    three planes with recon, stacked and loop (equal bit for bit), the hit
+    scan (row 7) launched once a plane in each run, each plane's hits ==
+    the plain scan's on the gathered decon with the padding wires zeroed,
+    bit for bit; ``launch.fit --grad-smoke --devices 1`` passes and
+    ``launch.distributed`` with more ranks than cards raises. Prints the
+    distributed event's ms beside ``run_events`` at the same config.
+    Returns the hit-scan launches of the distributed recon runs."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.core.distributed import AXES
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_nccl_") as tmp:
+        torch.cuda.set_device(dev)
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                                rank=0, world_size=1)
+        try:
+            mesh = DeviceMesh("cuda", torch.tensor([[0]]),
+                              mesh_dim_names=AXES)
+            launches = distributed_checks(full, dev, mesh, card)
+        finally:
+            dist.destroy_process_group()
+    print(f"distributed phase: hit-scan launches {launches}, wall "
+          f"{time.perf_counter() - t_phase:.1f} s; {card}", flush=True)
+    return launches
+
+
+def distributed_checks(full, dev, mesh, card: str):
+    import torch
+
+    from repro_torch.core import prng
+    from repro_torch.core.depo import generate_depos, generate_physical_depos
+    from repro_torch.core.distributed import make_distributed_sim
+    from repro_torch.core.fft_conv import digitize
+    from repro_torch.core.hitfind import HitSet, find_hits
+    from repro_torch.core.pipeline import make_sim_fn
+    from repro_torch.core.rasterize import rasterize
+    from repro_torch.core.scatter import scatter_add
+    from repro_torch.kernels.hitfind import kernel as hit_kernel
+    from repro_torch.launch import distributed as launch_dist
+    from repro_torch.launch import fit as launch_fit
+    from repro_torch.launch.sim import max_dev, run_events
+    from repro_torch.testing import parity
+
+    w, t = full.num_wires, full.num_ticks
+    key0 = prng.fold_in(prng.key(0), 0)
+    depos = generate_depos(key0, full, device=dev)
+    quiet = dataclasses.replace(full, fluctuate=False)
+    resp, _ = launch_dist.event_inputs(mesh, quiet, depos)
+    w_pad = resp.freq.shape[0]
+    psum = launch_dist.distributed_event(mesh, quiet, key0, depos,
+                                         add_noise=False)
+    patches, w0, t0 = rasterize(depos, quiet)
+    grid, _ = scatter_add(patches, w0, t0, quiet, strategy="xla")
+    gpad = torch.zeros((w_pad, t), dtype=torch.float32, device=dev)
+    gpad[:w] = grid
+    sig = torch.fft.irfft2(torch.fft.rfft2(gpad) * resp.freq,
+                           s=(w_pad, t))[:w]
+    ref_adc = digitize(sig.to(torch.float32), quiet)
+    del patches, gpad, sig
+    exact = float((psum.adc[:w] == ref_adc).float().mean())
+    parity_check(parity.assert_adc_close, psum.adc[:w].cpu().numpy(),
+                 ref_adc.cpu().numpy(), what="distributed psum_scatter vs "
+                 "the cyclic reference")
+    grid_err = float((psum.charge_grid[:w] - grid).abs().max())
+    print(f"distributed one plane psum_scatter (noise, fluctuation off), "
+          f"grid ({w_pad}, {t}): ADC == the card-side cyclic reference on "
+          f"{exact:.7f} of pixels (+-1 rule: |delta| <= "
+          f"{parity.ADC_MAX_DELTA} on <= {parity.ADC_MAX_FRAC} of pixels); "
+          f"max |grid - single scatter| {grid_err:.6g}; {card}", flush=True)
+
+    halo = launch_dist.distributed_event(mesh, quiet, key0, depos, "halo",
+                                         add_noise=False)
+    halo_frac = parity_check(parity.assert_adc_close,
+                             halo.adc.cpu().numpy(), psum.adc.cpu().numpy(),
+                             what="distributed halo vs psum_scatter")
+    print(f"distributed halo vs psum_scatter: ADC differs on {halo_frac:.6g} "
+          f"of pixels, bit for bit: grid "
+          f"{torch.equal(halo.charge_grid, psum.charge_grid)}, ADC "
+          f"{torch.equal(halo.adc, psum.adc)}", flush=True)
+    del psum, halo
+
+    runs = [launch_dist.distributed_event(mesh, full, key0, depos)
+            for _ in range(2)]
+    check(torch.equal(runs[0].adc, runs[1].adc)
+          and torch.equal(runs[0].signal, runs[1].signal)
+          and torch.equal(runs[0].charge_grid, runs[1].charge_grid),
+          "distributed event with noise and fluctuation: two runs differ")
+    check(max_dev(runs[0].adc[:w], full) > 0, "distributed: max dev 0")
+    print("distributed one plane, noise and fluctuation on: two runs bit "
+          "for bit (grid, signal, ADC)", flush=True)
+    del runs
+
+    pdepos = generate_physical_depos(key0, full, device=dev)
+    outs, launches = {}, {}
+    for mode in ("stacked", "loop"):
+        cfg3 = dataclasses.replace(full, num_planes=PLANES,
+                                   plane_batching=mode)
+        hit_kernel.reset_launches()
+        outs[mode] = launch_dist.distributed_event(mesh, cfg3, key0, pdepos,
+                                                   recon=True)
+        torch.cuda.synchronize()
+        launches[mode] = hit_kernel.LAUNCHES["hitfind_pallas"]
+        check(launches[mode] == PLANES, f"distributed recon {mode}: "
+              f"hit-scan launches {launches[mode]} != {PLANES}")
+    same = all(torch.equal(a, b) for a, b in zip(
+        outs["stacked"][:3] + (outs["stacked"].decon,) + tuple(
+            outs["stacked"].hits),
+        outs["loop"][:3] + (outs["loop"].decon,) + tuple(outs["loop"].hits)))
+    check(same, "distributed recon: stacked and loop differ")
+    got = outs["stacked"]
+    real = (torch.arange(w_pad, device=dev) < w)[:, None]
+    stored = []
+    for p in range(PLANES):
+        masked = torch.where(real, got.decon[p], torch.zeros_like(
+            got.decon[p]))
+        plain = find_hits(masked, cfg3, "scan")
+        for f, a, b in zip(HitSet._fields, (x[p] for x in got.hits), plain):
+            check(torch.equal(a, b), f"distributed recon plane {p}: hits."
+                  f"{f} != the plain scan's on the gathered decon")
+        stored.append((int(plain.mask.sum()), int(plain.n_hits)))
+    print(f"distributed three planes with recon: stacked == loop bit for "
+          f"bit (ADC, signal, grid, decon, hits); hit-scan launches "
+          f"{launches}; every plane's hits == the plain scan's on the "
+          f"gathered decon (padding wires zeroed) bit for bit; (stored, "
+          f"found) per plane {stored}; {card}", flush=True)
+    del outs, got
+
+    timings = {}
+    cfg3 = dataclasses.replace(full, num_planes=PLANES)
+    for label, cfg, d, recon in (("one plane", full, depos, False),
+                                 ("three planes + recon", cfg3, pdepos,
+                                  True)):
+        resp, block = launch_dist.event_inputs(mesh, cfg, d)
+        sim = make_distributed_sim(mesh, cfg, resp, recon=recon)
+        sim(key0, block)
+        dist_s = statistics.median(timed_event(lambda: sim(key0, block))[0]
+                                   for _ in range(DIST_TIMED))
+        stats = run_events(cfg, DIST_TIMED, seed=0, device=dev,
+                           sim=make_sim_fn(cfg, device=dev, recon=recon))
+        loop_s = statistics.median(stats["event_s"])
+        timings[label] = (dist_s, loop_s)
+        print(f"distributed event, {label}, world size 1 (rasterize, "
+              f"counter fluctuation, xla scatter, pencil FFT, noise"
+              f"{', recon' if recon else ''}): median of {DIST_TIMED} "
+              f"{dist_s*1e3:.3f} ms; run_events at the same config "
+              f"(default strategies): median {loop_s*1e3:.3f} ms; {card}",
+              flush=True)
+        del sim, block
+
+    check(launch_fit.main(["--grad-smoke", "--devices", "1"]) == 0,
+          "launch.fit --grad-smoke --devices 1 failed")
+    cards = torch.cuda.device_count()
+    try:
+        launch_dist.main(["--devices", str(cards + 1), "--device", "cuda"])
+    except RuntimeError as e:
+        check(f"{cards + 1} CUDA devices, but {cards}" in str(e),
+              f"launch.distributed refused {cards + 1} ranks without "
+              f"naming the counts: {e}")
+        print(f"launch.distributed --devices {cards + 1} on {cards} card(s) "
+              f"raises: {e}", flush=True)
+    else:
+        raise PhaseError(f"launch.distributed ran {cards + 1} ranks on "
+                         f"{cards} card(s)")
+    return launches
+
+
 def check_oom_classification(dev) -> None:
     """A real allocation failure on the card, and a kernel wrapper's launch
     error for cudaErrorMemoryAllocation, both classify as OOM (the
@@ -2755,6 +2955,9 @@ def main() -> int:
           f"a kernel of the pool path never launched: {pool_launches}")
     scatter_errors = [max(a, b) for a, b in zip(scatter_errors, pool_errors)]
 
+    phase("distributed")
+    dist_launches = check_distributed(full, dev, card)
+
     phase("kernel timing")
     rows = []
     fused_src = "src/repro_torch/csrc/fused_sim.cu"
@@ -2831,7 +3034,9 @@ def main() -> int:
             "host_ms": host_ms,
             "stream_launches": stream_launches.get(name, 0),
             "tune_launches": tune_launches.get(name, 0),
-            "pool_launches": pool_launches.get(name, 0)})
+            "pool_launches": pool_launches.get(name, 0),
+            "dist_launches": (sum(dist_launches.values())
+                              if name == "hitfind_pallas" else 0)})
         support_text = ""
         if name in support_bounds:
             rows[-1]["bound_all_support_ms"] = support_bounds[name]

@@ -275,3 +275,30 @@ def make_batched_sim_fn(cfg: LArTPCConfig, resp=None, add_noise: bool = True,
         return simulate_events(keys, batch, graph=graph)
 
     return sim
+
+
+def shard_events(batch: EventBatch, device="cuda", mesh=None) -> EventBatch:
+    """Stage an EventBatch on ``device``: the whole batch without a mesh (a
+    no-op where it already lies there); with one (``repro_torch.core.
+    distributed``), this rank's contiguous block of the event axis, the
+    axis first padded with ``empty_event`` rows (n_depos 0) so the shard
+    count divides it. ``n_depos`` stays on the host."""
+    dev = resolve_device(device)
+    if mesh is None:
+        return EventBatch(*(x.to(dev) for x in batch[:-1]),
+                          n_depos=batch.n_depos)
+    from repro_torch.core.distributed import flat_index, num_shards
+
+    nshards = num_shards(mesh)
+    per = -(-batch.num_events // nshards)
+    lo = flat_index(mesh) * per
+    planes = batch.wire.shape[1] if batch.wire.ndim == 3 else 1
+    empty = pad_depos(empty_event(planes, batch.wire.device),
+                      batch.max_depos)
+    rows = [batch.event(e) if e < batch.num_events else empty
+            for e in range(lo, lo + per)]
+    counts = [batch.n_depos[e] if e < batch.num_events
+              else torch.zeros_like(batch.n_depos[0])
+              for e in range(lo, lo + per)]
+    return EventBatch(*(torch.stack(xs).to(dev) for xs in zip(*rows)),
+                      n_depos=torch.stack(counts))

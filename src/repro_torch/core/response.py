@@ -107,3 +107,29 @@ def make_plane_responses(cfg: LArTPCConfig, device="cuda"):
     (bipolar for induction planes, unipolar for the collection plane)."""
     return tuple(make_response(cfg, plane=s.kind, device=device)
                  for s in plane_specs(cfg))
+
+
+def make_distributed_response(cfg: LArTPCConfig, w_pad: int,
+                              plane: str = "induction",
+                              device="cuda") -> DetectorResponse:
+    """The response transform at the distributed grid shape (``w_pad``,
+    ``num_ticks``): cyclic convolution at the readout size, Wire-Cell's own
+    convention (the response support is tiny beside the readout window, and
+    the wrap lands in the pre-trigger padding). The kernel sits at the
+    origin, rolled by ``-(rw // 2)`` along wires, then ``rfft2``."""
+    base = make_response(cfg, plane, device=device)
+    rw, rt = base.kernel.shape
+    kpad = torch.zeros((w_pad, cfg.num_ticks), dtype=torch.float32,
+                       device=base.kernel.device)
+    kpad[:rw, :rt] = base.kernel
+    kpad = torch.roll(kpad, shifts=-(rw // 2), dims=0)
+    return DetectorResponse(kernel=base.kernel, freq=torch.fft.rfft2(kpad),
+                            pad_shape=(w_pad, cfg.num_ticks), plane=plane)
+
+
+def make_distributed_plane_responses(cfg: LArTPCConfig, w_pad: int,
+                                     device="cuda"):
+    """Per-plane responses at the distributed grid shape, in plane order."""
+    return tuple(make_distributed_response(cfg, w_pad, plane=s.kind,
+                                           device=device)
+                 for s in plane_specs(cfg))

@@ -3,6 +3,8 @@
     python -m repro_torch.launch.fit --smoke       # fit gate: recover 2
                                                    # seeded params to < 5 %
     python -m repro_torch.launch.fit --gradcheck   # per-stage FD gradchecks
+    python -m repro_torch.launch.fit --grad-smoke --devices N  # sharded
+                                                   # gradient == one rank's
     python -m repro_torch.launch.fit --params electron_lifetime_us,recombination \\
                                [--steps N] [--lr LR] [--optimizer adam|bfgs] \\
                                [--events E] [--perturb F] [--tol T] \\
@@ -15,20 +17,36 @@ descends the differentiable graph's loss with the targets' per-event keys,
 so the loss is exactly zero at the truth and the minimiser recovers the
 parameters instead of fitting noise. Runs on the card unless ``--device
 cpu``. The exit status is the gate: 0 on success, 1 on a violation.
+
+``--grad-smoke`` checks the loss gradient with the event batch split over
+``--devices`` ranks (``repro_torch.testing.ranks``: NCCL, one card a rank,
+or gloo on the CPU) against the one-rank gradient: each rank takes the
+gradient of its events' share of the mean loss, ``all_reduce`` sums them,
+and rank 0 also computes the gradient over every event.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import sys
+import tempfile
 import time
+
+import numpy as np
+import torch
+import torch.distributed as dist
 
 from repro_torch.config import apply_overrides, get_config
 from repro_torch.core import prng
-from repro_torch.core.fit import (FitParam, FitSpec, calibrate,
-                                  make_fit_targets)
+from repro_torch.core.batch import PhysicalEventBatch
+from repro_torch.core.distributed import (backend_for, flat_index,
+                                          mesh_device, num_shards)
+from repro_torch.core.fit import (FitParam, FitSpec, FitTargets, calibrate,
+                                  make_fit_loss, make_fit_targets,
+                                  value_and_grad)
 from repro_torch.core.gradcheck import stage_gradcheck_suite
 from repro_torch.device import resolve_device
+from repro_torch.testing.ranks import check_world, run_ranks
 
 #: the --smoke scenario: seeded truth, deliberately wrong starting points
 SMOKE_TRUTH = {"electron_lifetime_us": 60.0, "recombination": 0.75}
@@ -97,6 +115,59 @@ def run_gradcheck(args, device) -> int:
     return 0 if n_fail == 0 else 1
 
 
+def grad_smoke_rank(mesh, overrides, events: int, seed: int):
+    """One rank of ``--grad-smoke``: the gradient of this rank's events'
+    share of the mean ADC loss, summed over the ranks; rank 0 adds the
+    gradient over every event on its own."""
+    dev = mesh_device(mesh)
+    n, me = num_shards(mesh), flat_index(mesh)
+    cfg = smoke_config(overrides)
+    num_events = max(events, n)
+    num_events -= num_events % n  # the event axis must split evenly
+    targets = make_fit_targets(cfg, prng.key(seed), num_events=num_events,
+                               device=dev)
+    spec = FitSpec(params=(FitParam("electron_lifetime_us"),
+                           FitParam("recombination")))
+    theta0 = torch.tensor([50.0, 0.6], dtype=torch.float32, device=dev)
+    k = num_events // n
+    mine = slice(me * k, (me + 1) * k)
+    part = FitTargets(
+        batch=PhysicalEventBatch(*(x[mine] for x in targets.batch[:-1]),
+                                 n_depos=targets.batch.n_depos[mine]),
+        keys=targets.keys[mine], adc=targets.adc[mine])
+    loss_mine = make_fit_loss(cfg, spec, part, device=dev)
+    _, grad = value_and_grad(lambda th: loss_mine(th) * (k / num_events),
+                             theta0)
+    dist.all_reduce(grad)
+    out = {"sharded": grad.cpu().numpy(), "events": np.asarray(num_events)}
+    if me == 0:
+        _, single = value_and_grad(make_fit_loss(cfg, spec, targets,
+                                                 device=dev), theta0)
+        out["single"] = single.cpu().numpy()
+    return out
+
+
+def run_grad_smoke(args) -> int:
+    """The sharded gradient against the one-rank gradient (gate: rel <
+    1e-3)."""
+    backend = backend_for(args.device)
+    check_world(args.devices, backend)
+    with tempfile.TemporaryDirectory(prefix="repro_torch_grad_") as tmp:
+        res = run_ranks(grad_smoke_rank, args.devices, (args.devices, 1),
+                        backend, tmp, args.set, args.events, args.seed)[0]
+    single, sharded = res["single"], res["sharded"]
+    diff = float(np.max(np.abs(single - sharded)))
+    rel = diff / (float(np.max(np.abs(single))) + 1e-12)
+    print(f"grad-smoke: {int(res['events'])} events over {args.devices} "
+          f"{backend} ranks ({args.device})")
+    print(f"  single-rank grad {[float(x) for x in single]}")
+    print(f"  sharded grad     {[float(x) for x in sharded]}")
+    print(f"  max abs diff {diff:.3e} (rel {rel:.3e})")
+    ok = rel < 1e-3
+    print(f"grad-smoke: {'PASS' if ok else 'FAIL'}")
+    return 0 if ok else 1
+
+
 def run_fit(args, device) -> int:
     """General self-calibration: fit --params of the current config from
     inits at --perturb x truth."""
@@ -137,8 +208,9 @@ def main(argv=None) -> int:
     ap.add_argument("--gradcheck", action="store_true",
                     help="run the per-stage FD gradient checks")
     ap.add_argument("--grad-smoke", action="store_true",
-                    help="distributed-vs-single-device gradient agreement "
-                         "(not in the port yet)")
+                    help="sharded-vs-one-rank gradient agreement")
+    ap.add_argument("--devices", type=int, default=2,
+                    help="ranks for --grad-smoke (one card a rank on cuda)")
     ap.add_argument("--params", default="electron_lifetime_us,recombination",
                     help="comma-separated config fields to fit")
     ap.add_argument("--events", type=int, default=2)
@@ -158,9 +230,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     if args.grad_smoke:
-        raise NotImplementedError(
-            "--grad-smoke (the event batch's loss gradient across devices) "
-            "belongs to the distributed slice, ROADMAP queue 1 item 15")
+        return run_grad_smoke(args)
     device = resolve_device(args.device)
     if args.gradcheck:
         return run_gradcheck(args, device)

@@ -640,6 +640,12 @@ def test_launcher_smoke_recovers(args, capsys):
     assert "-> PASS" in capsys.readouterr().out
 
 
-def test_launcher_grad_smoke_is_for_the_distributed_slice():
-    with pytest.raises(NotImplementedError, match="item 15"):
-        launcher.main(["--grad-smoke", "--device", "cpu"])
+def test_launcher_grad_smoke_is_for_the_distributed_slice(monkeypatch):
+    """--grad-smoke runs on the distributed slice's ranks, one card a rank
+    on the card: without the cards it raises, naming both counts, and never
+    falls back to gloo on the CPU (tests/test_torch_distributed.py runs it
+    on gloo ranks)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="2 CUDA devices, but 0"):
+        launcher.main(["--grad-smoke", "--devices", "2", "--device",
+                       "cuda"])

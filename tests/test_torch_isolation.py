@@ -61,7 +61,9 @@ def test_import_leaves_jax_out_of_sys_modules():
             "repro_torch.core.validate, repro_torch.launch.journal, "
             "repro_torch.testing.faults, repro_torch.tune, "
             "repro_torch.tune.autotune, repro_torch.core.fit, "
-            "repro_torch.core.gradcheck, repro_torch.launch.fit; "
+            "repro_torch.core.gradcheck, repro_torch.launch.fit, "
+            "repro_torch.core.distributed, repro_torch.launch.distributed, "
+            "repro_torch.testing.ranks; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); sys.exit(bool(bad))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
@@ -72,7 +74,8 @@ def test_import_leaves_jax_out_of_sys_modules():
 
 def _entry_points():
     from repro_torch.core import prng
-    from repro_torch.core.batch import empty_event, make_batched_sim_fn
+    from repro_torch.core.batch import (empty_event, make_batched_sim_fn,
+                                        pack_events, shard_events)
     from repro_torch.core.deconvolve import make_plane_deconv_filters
     from repro_torch.core import fit
     from repro_torch.core.drift import PhysicalDepoSet
@@ -82,7 +85,9 @@ def _entry_points():
     from repro_torch.core.fluctuate import make_pool
     from repro_torch.core.pipeline import make_sim_fn, simulate, \
         simulate_fig4
-    from repro_torch.core.response import make_plane_responses
+    from repro_torch.core.response import (make_distributed_plane_responses,
+                                           make_distributed_response,
+                                           make_plane_responses)
     from repro_torch.kernels.rasterize.ops import rasterize_depos
     from repro_torch.launch import fit as launch_fit
     from repro_torch.launch import sim as launch_sim
@@ -134,6 +139,12 @@ def _entry_points():
         "launch_fig3": lambda device="cuda": launch_sim.main(
             ["--smoke", "--pipeline", "fig3", "--events", "1", "--depos",
              "4", "--device", device]),
+        "make_distributed_response": lambda **kw: make_distributed_response(
+            cfg, 136, **kw),
+        "make_distributed_plane_responses":
+            lambda **kw: make_distributed_plane_responses(cfg3, 128, **kw),
+        "shard_events": lambda **kw: shard_events(
+            pack_events([generate_depos(k, cfg, device="cpu")]), **kw),
         "launch_fit": lambda device="cuda": launch_fit.main(
             ["--smoke", "--optimizer", "bfgs", "--steps", "1", "--tol", "1",
              "--device", device]),
@@ -154,7 +165,10 @@ def _entry_points():
                                   "make_fit_loss", "calibrate",
                                   "stage_gradcheck_suite", "launch_fit",
                                   "simulate_fig3", "make_pool",
-                                  "pool_from_numpy", "launch_fig3"])
+                                  "pool_from_numpy", "launch_fig3",
+                                  "make_distributed_response",
+                                  "make_distributed_plane_responses",
+                                  "shard_events"])
 def test_entry_points_default_to_the_card(name, monkeypatch):
     """Without a card the default device raises; device="cpu" runs."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
