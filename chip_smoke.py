@@ -159,7 +159,21 @@ Phases (any failure exits non-zero before the result line):
                 --grad-smoke --devices 1 passes; launch.distributed with
                 more ranks than cards raises; the distributed event's ms
                 beside run_events at the same config (printed, not checked)
- 11. timing   : each kernel's wrapper (median of 5 rounds of 20 calls
+ 11. audit    : the static-analysis gate's programs on the card
+                (repro_torch.analysis.audit): single_fused (one plane) and
+                recon_kernels (three planes) at full width, two calls
+                each, a stream of 4 events 4 a batch (fused_pallas), and
+                distributed_psum on one NCCL rank, two calls, each under
+                torch.cuda.set_sync_debug_mode("warn") and a Census: every
+                wait the card reports sits at a census site with as many
+                reads of card tensors there; launches == the committed
+                AUDIT_torch_contracts.json's kernels (the stream: ceil(rows
+                / 16) fused launches a batch), collectives too; the two
+                calls have one census; host reads only at
+                KNOWN_HOST_SYNCS; float64 only at ALLOWED_F64, its bytes
+                an event printed per site; each host-read site printed as
+                "wait" or "host tensor"; the phase's wall time
+ 12. timing   : each kernel's wrapper (median of 5 rounds of 20 calls
                 timed with CUDA events as the host enqueues them, the
                 method of every version of this script, which reads the
                 host's pace where a call is shorter than its enqueueing,
@@ -182,12 +196,12 @@ Phases (any failure exits non-zero before the result line):
                 function (index_put_ with accumulate=True); for the
                 fused kernels also the SASS instructions per pixel of the
                 pixel loop (cuobjdump) and the issue-rate floor they imply
- 12. summary  : one JSON line {"kernels": [...]} (with each kernel's
+ 13. summary  : one JSON line {"kernels": [...]} (with each kernel's
                 launches over the clean streams, stream_launches, while
                 tuning, tune_launches, over the pool events and stream,
                 pool_launches, and over the distributed recon runs,
                 dist_launches)
- 13. result   : last line {"ok": true, "device": {...}}
+ 14. result   : last line {"ok": true, "device": {...}}
 
 The on-card checks live here rather than in pytest because the machine with
 the card has no JAX, which the repository's test configuration imports.
@@ -2599,6 +2613,181 @@ def distributed_checks(full, dev, mesh, card: str):
     return launches
 
 
+#: the audit phase's programs (``repro_torch.analysis.audit``) at full
+#: width, and its stream: events, events a batch
+AUDIT_RUNS = (("single_fused", 1), ("recon_kernels", 3))
+AUDIT_STREAM = (4, 4)
+#: the text of torch's sync debug warning
+SYNC_WARNING = "called a synchronizing CUDA operation"
+
+
+@contextlib.contextmanager
+def card_waits():
+    """Count, by site (the census's rule), every wait for the card that
+    torch's sync debug mode reports inside the block: yields the Counter.
+    It reports the copies and reads that synchronise a stream (``.item()``,
+    ``.tolist()``, ``.cpu()``, data-sized outputs, pageable copies either
+    way), not ``torch.cuda.synchronize()`` or ``Event.synchronize()``."""
+    import collections
+    import warnings
+
+    import torch
+
+    from repro_torch.analysis.census import site
+
+    waits = collections.Counter()
+    shown = warnings.showwarning
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        if SYNC_WARNING in str(message):
+            waits[site()] += 1
+        else:
+            shown(message, category, filename, lineno, file, line)
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield waits
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+
+def audit_run(label: str, fn, events: int, runs: list, problems: list):
+    """Run ``fn()`` once under ``card_waits`` and a ``Census`` and hold it
+    to (a) and (c): every wait the card reports sits at a site the census
+    recorded, with as many reads of card tensors there, and float64 is
+    written only at ``ALLOWED_F64``'s sites. Appends (label, census,
+    waits, events) to ``runs`` and what fails to ``problems``; returns the
+    census."""
+    import torch
+
+    from repro_torch.analysis.audit import ALLOWED_F64
+    from repro_torch.analysis.census import Census
+
+    with card_waits() as waits, Census() as census:
+        fn()
+        torch.cuda.synchronize()
+    reads = census.device_reads("cuda")
+    differ = {where: (reads.get(where, 0), waits.get(where, 0))
+              for where in set(reads) | set(waits)
+              if reads.get(where, 0) != waits.get(where, 0)}
+    if differ:
+        problems.append(f"{label}: census reads of card tensors != the "
+                        f"card's waits at {differ} (census, card)")
+    bad = set(census.f64_bytes) - set(ALLOWED_F64)
+    if bad:
+        problems.append(f"{label}: float64 written outside ALLOWED_F64 at "
+                        f"{sorted(bad)}")
+    runs.append((label, census, waits, events))
+    print(f"audit {label}: {sum(waits.values())} waits on the card at "
+          f"{len(waits)} site(s){'' if differ else ', == the census'}; "
+          f"kernels {dict(census.kernels)}; collectives "
+          f"{dict(census.collectives)}", flush=True)
+    return census
+
+
+def check_audit(dev, card: str) -> None:
+    """The "audit" phase: ``single_fused`` (one plane) and
+    ``recon_kernels`` (three planes) of ``repro_torch.analysis.audit`` at
+    full width, two calls each; a stream of 4 events, 4 a batch
+    (``fused_pallas``); ``distributed_psum`` on one NCCL rank, two calls.
+    Each run under ``torch.cuda.set_sync_debug_mode("warn")`` and a
+    ``Census``: (a) every wait the card reports sits at a census site with
+    the census's count of card-tensor reads there; (b) the launches equal
+    the committed baseline's ``kernels`` of the program (the stream: one
+    fused launch per ceil(rows / 16) a batch, nothing else), the two calls
+    of a program have one census, and a program reads the host only at
+    ``KNOWN_HOST_SYNCS``; (c) float64 only at ``ALLOWED_F64``, its bytes
+    an event printed per site; (d) the phase's wall time. Prints every
+    host-read site as "wait" or "host tensor", then fails on every
+    problem found."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.analysis import audit
+    from repro_torch.core.distributed import AXES
+    from repro_torch.launch.sim import stream_simulate
+
+    t_phase = time.perf_counter()
+    baseline = audit.load_baseline(str(ROOT / audit.DEFAULT_BASELINE))
+    runs, problems = [], []
+
+    def program(name: str, planes: int, **kw) -> None:
+        prog = audit.program_named(name)
+        ctx = audit.context_for(prog, planes, device=str(dev), smoke=False,
+                                **kw)
+        fn, make_args = prog.build(ctx)
+        label = f"p{planes}/{name}"
+        want = baseline[label]
+        contracts = []
+        for i in range(2):
+            args = make_args(i)
+            contract = audit_run(f"{label} call {i}", lambda: fn(*args), 1,
+                                 runs, problems).contract()
+            for field in ("kernels", "collectives"):
+                if contract[field] != want[field]:
+                    problems.append(f"{label} call {i}: {field} "
+                                    f"{contract[field]} != the baseline's "
+                                    f"{want[field]}")
+            unknown = set(contract["host_syncs"]) - set(
+                audit.KNOWN_HOST_SYNCS)
+            if unknown:
+                problems.append(f"{label} call {i}: host reads at "
+                                f"{sorted(unknown)}, outside "
+                                "KNOWN_HOST_SYNCS")
+            contracts.append(contract)
+        if contracts[0] != contracts[1]:
+            problems.append(f"{label}: the second call's census differs: "
+                            f"{contracts}")
+
+    for name, planes in AUDIT_RUNS:
+        program(name, planes)
+    events, per_batch = AUDIT_STREAM
+    cfg = audit.audit_config(1, smoke=False,
+                             charge_grid_strategy="fused_pallas")
+    census = audit_run(f"stream {events} events {per_batch} a batch",
+                       lambda: stream_simulate(cfg, events, per_batch,
+                                               device=dev),
+                       events, runs, problems)
+    batches = -(-events // per_batch)
+    want = {"fused_rasterize_scatter": batches * -(-per_batch // 16)}
+    if dict(census.kernels) != want:
+        problems.append(f"stream: launches {dict(census.kernels)} != "
+                        f"ceil(rows / 16) a batch: {want}")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_audit_") as tmp:
+        torch.cuda.set_device(dev)
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                                rank=0, world_size=1)
+        try:
+            mesh = DeviceMesh("cuda", torch.tensor([[0]]),
+                              mesh_dim_names=AXES)
+            program("distributed_psum", 1, mesh=mesh)
+        finally:
+            dist.destroy_process_group()
+
+    verdicts = {}
+    for label, census, waits, n_events in runs:
+        for where, ops in census.host_syncs.items():
+            waited = any(op.endswith("@cuda") for op in ops)
+            verdicts.setdefault(where, set()).add(
+                "wait" if waited else "host tensor")
+            print(f"audit {label}: {where} {dict(ops)} -> "
+                  f"{'wait' if waited else 'host tensor'} (card waits "
+                  f"{waits.get(where, 0)})")
+        for where, nbytes in census.f64_bytes.items():
+            print(f"audit {label}: float64 {nbytes / n_events:.0f} B an "
+                  f"event at {where}")
+    for where in sorted(verdicts):
+        print(f"audit host-read site {where}: "
+              f"{' / '.join(sorted(verdicts[where]))}")
+    print(f"audit phase: wall {time.perf_counter() - t_phase:.1f} s; "
+          f"{card}", flush=True)
+    check(not problems, "audit: " + "; ".join(problems))
+
+
 def check_oom_classification(dev) -> None:
     """A real allocation failure on the card, and a kernel wrapper's launch
     error for cudaErrorMemoryAllocation, both classify as OOM (the
@@ -2957,6 +3146,9 @@ def main() -> int:
 
     phase("distributed")
     dist_launches = check_distributed(full, dev, card)
+
+    phase("audit")
+    check_audit(dev, card)
 
     phase("kernel timing")
     rows = []

@@ -173,7 +173,7 @@ def compact_hits(counts: torch.Tensor, charge: torch.Tensor,
         return out[:m]
 
     nstored = torch.zeros((m + 1,), dtype=torch.int32, device=dev)
-    nstored.index_add_(0, tgt, valid.reshape(-1).to(torch.int32))
+    nstored.index_add_(0, tgt, valid.reshape(-1).to(torch.int32))  # torch-lint: disable=atomic-index-add — int32 counts: exact in any order
     return HitSet(
         wire=place(wires, torch.int32),
         tick=place(tick, torch.float32),

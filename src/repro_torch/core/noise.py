@@ -16,13 +16,13 @@ from repro_torch.device import resolve_device, scalar
 
 def _parseval_weights(num_ticks: int, device) -> torch.Tensor:
     """Per-rfft-bin weight: 2 for interior bins, 0.5 for DC (and the
-    Nyquist bin when ``num_ticks`` is even)."""
-    w = torch.full((num_ticks // 2 + 1,), 2.0, dtype=torch.float32,
-                   device=device)
-    w[0] = 0.5
-    if num_ticks % 2 == 0:
-        w[-1] = 0.5
-    return w
+    Nyquist bin when ``num_ticks`` is even). Made by a select on the
+    device: writing a Python number into one element of a card tensor
+    copies it from the host and waits for the card."""
+    nfreq = num_ticks // 2 + 1
+    bins = torch.arange(nfreq, device=device)
+    edge = (bins == 0) | ((bins == nfreq - 1) & (num_ticks % 2 == 0))
+    return torch.where(edge, 0.5, 2.0).to(torch.float32)
 
 
 def noise_spectrum(cfg: LArTPCConfig, device="cuda") -> torch.Tensor:

@@ -250,7 +250,7 @@ class SimGraph(nn.Module):
                     stage(state)
                     end.record()
                     end.synchronize()
-                    times.append(start.elapsed_time(end) / 1e3)
+                    times.append(start.elapsed_time(end) / 1e3)  # torch-lint: disable=scalar-division — a Python float
                 else:
                     t0 = time.perf_counter()
                     stage(state)

@@ -9,6 +9,7 @@ changed source is rebuilt. Nothing is compiled at import time.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -17,7 +18,7 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
-from typing import Dict, List, Tuple
+from typing import Callable, ContextManager, Dict, List, Optional, Tuple
 
 import torch
 
@@ -38,6 +39,19 @@ DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
+
+#: the watcher of the wrappers' plain versions (``repro_torch.analysis.
+#: census``): called with a kernel's name, it returns the context manager
+#: the plain version runs in; None when nothing watches
+PLAIN_WATCH: Optional[Callable[[str], ContextManager]] = None
+
+
+def plain_version(name: str) -> ContextManager:
+    """The context a wrapper runs its plain version in, on CPU tensors,
+    where on the card it would launch kernel ``name`` (and count it in
+    ``LAUNCHES``): a null context unless ``PLAIN_WATCH`` is set."""
+    watch = PLAIN_WATCH
+    return contextlib.nullcontext() if watch is None else watch(name)
 
 
 def nvcc_path() -> str:

@@ -31,7 +31,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 
 from repro_torch.kernels import (check_tensor, declare, kernel_device,
-                                 load_library, raise_on)
+                                 load_library, plain_version, raise_on)
 from repro_torch.kernels.fused_sim import ref
 from repro_torch.kernels.scatter_add.ops import tile_counts
 from repro_torch.kernels.tiles import (ORDER_ARGS, lengths_and_order,
@@ -138,9 +138,10 @@ def _dense(name: str, params, tile_ids, seeds: Sequence[Seed], *,
                  (len(seeds) * n_tiles * k_max,), dev)
     geom = dict(tiles_t=tiles_t, tw=tw, tt=tt, pw=pw, pt=pt, k_max=k_max)
     if dev.type == "cpu":
-        out = ref.fused_rasterize_scatter_multiplane_ref(
-            params, tile_ids, tiles_w=tiles_w, seeds=seeds,
-            fluctuate=fluctuate, **geom)
+        with plain_version(name):
+            out = ref.fused_rasterize_scatter_multiplane_ref(
+                params, tile_ids, tiles_w=tiles_w, seeds=seeds,
+                fluctuate=fluctuate, **geom)
     else:
         out = torch.empty((len(seeds), tiles_w * tw, tiles_t * tt),
                           dtype=torch.float32, device=dev)
@@ -169,11 +170,12 @@ def _compact(name: str, params, active_tiles, tile_ids,
     check_tensor("tile_ids", tile_ids, torch.int32, (n_slots * k_max,), dev)
     geom = dict(tiles_t=tiles_t, tw=tw, tt=tt, pw=pw, pt=pt, k_max=k_max)
     if dev.type == "cpu":
-        out = scatter_tiles_to_grid_planes(
-            ref.fused_rasterize_scatter_multiplane_compact_ref(
-                params, active_tiles, tile_ids, seeds=seeds,
-                fluctuate=fluctuate, **geom),
-            active_tiles, num_planes, tiles_w, tiles_t, tw, tt)
+        with plain_version(name):
+            out = scatter_tiles_to_grid_planes(
+                ref.fused_rasterize_scatter_multiplane_compact_ref(
+                    params, active_tiles, tile_ids, seeds=seeds,
+                    fluctuate=fluctuate, **geom),
+                active_tiles, num_planes, tiles_w, tiles_t, tw, tt)
     else:
         out = torch.zeros((num_planes, tiles_w * tw, tiles_t * tt),
                           dtype=torch.float32, device=dev)

@@ -15,7 +15,7 @@ from typing import Dict
 import torch
 
 from repro_torch.kernels import (check_tensor, declare, kernel_device,
-                                 load_library, raise_on)
+                                 load_library, plain_version, raise_on)
 from repro_torch.kernels.hitfind import ref
 
 #: kernel launches per wrapper since the last ``reset_launches``
@@ -61,7 +61,8 @@ def hitfind_pallas(decon: torch.Tensor, *, threshold: float, cap: int):
     if cap < 1:
         raise ValueError(f"cap must be >= 1, got {cap}")
     if dev.type == "cpu":
-        return ref.hitfind_ref(decon, threshold=threshold, cap=cap)
+        with plain_version("hitfind_pallas"):
+            return ref.hitfind_ref(decon, threshold=threshold, cap=cap)
     w, t = decon.shape
     counts = torch.empty((w, 1), dtype=torch.int32, device=dev)
     charge, tick, peak = (torch.empty((w, cap), dtype=torch.float32,

@@ -16,7 +16,7 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.kernels import (check_tensor, declare, kernel_device,
-                                 load_library, raise_on)
+                                 load_library, plain_version, raise_on)
 from repro_torch.kernels.rasterize import ref
 
 #: kernel launches per wrapper since the last ``reset_launches``
@@ -74,8 +74,9 @@ def rasterize_pallas(wire, tick, sigma_w, sigma_t, charge, w0, t0,
     kw = dict(pw=pw, pt=pt, pw_pad=pw_pad, pt_pad=pt_pad,
               fluctuate=fluctuate)
     if dev.type == "cpu":
-        return ref.rasterize_ref(wire, tick, sigma_w, sigma_t, charge, w0, t0,
-                                 u1, u2, **kw)
+        with plain_version("rasterize_pallas"):
+            return ref.rasterize_ref(wire, tick, sigma_w, sigma_t, charge, w0,
+                                     t0, u1, u2, **kw)
     out = torch.empty((n, pw_pad, pt_pad), dtype=torch.float32, device=dev)
     pools = (u1.data_ptr(), u2.data_ptr()) if fluctuate else (None, None)
     with torch.cuda.device(dev):

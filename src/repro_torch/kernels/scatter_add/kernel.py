@@ -25,7 +25,7 @@ from typing import Dict
 import torch
 
 from repro_torch.kernels import (check_tensor, declare, kernel_device,
-                                 load_library, raise_on)
+                                 load_library, plain_version, raise_on)
 from repro_torch.kernels.scatter_add import ref
 from repro_torch.kernels.scatter_add.ops import tile_counts
 from repro_torch.kernels.tiles import (lengths_and_order,
@@ -117,8 +117,10 @@ def scatter_add_pallas(patches, w0, t0, tile_ids, *, num_wires: int,
     tiles_w, tiles_t, n_tiles = tile_counts(num_wires, num_ticks, tw, tt)
     check_tensor("tile_ids", tile_ids, torch.int32, (n_tiles * k_max,), dev)
     if dev.type == "cpu":
-        return ref.scatter_add_ref(patches, w0, t0, tile_ids, tiles_w=tiles_w,
-                                   tiles_t=tiles_t, tw=tw, tt=tt, k_max=k_max)
+        with plain_version("scatter_add_pallas"):
+            return ref.scatter_add_ref(patches, w0, t0, tile_ids,
+                                       tiles_w=tiles_w, tiles_t=tiles_t,
+                                       tw=tw, tt=tt, k_max=k_max)
     out = torch.empty((tiles_w * tw, tiles_t * tt), dtype=torch.float32,
                       device=dev)
     _launch("scatter_add_pallas", patches, w0, t0, None, tile_ids,
@@ -150,13 +152,14 @@ def scatter_add_pallas_compact(patches, w0, t0, active_tiles, tile_ids, *,
     check_tensor("active_tiles", active_tiles, torch.int32, (n_cap,), dev)
     check_tensor("tile_ids", tile_ids, torch.int32, (n_cap * k_max,), dev)
     if dev.type == "cpu":
-        blocks = ref.scatter_add_compact_ref(patches, w0, t0, active_tiles,
-                                             tile_ids, tiles_t=tiles_t,
-                                             tw=tw, tt=tt, k_max=k_max)
-        if layout == "blocks":
-            return blocks
-        return scatter_tiles_to_grid(blocks, active_tiles, tiles_w, tiles_t,
-                                     tw, tt)
+        with plain_version("scatter_add_pallas_compact"):
+            blocks = ref.scatter_add_compact_ref(
+                patches, w0, t0, active_tiles, tile_ids, tiles_t=tiles_t,
+                tw=tw, tt=tt, k_max=k_max)
+            if layout == "blocks":
+                return blocks
+            return scatter_tiles_to_grid(blocks, active_tiles, tiles_w,
+                                         tiles_t, tw, tt)
     grid = torch.zeros((tiles_w * tw, tiles_t * tt), dtype=torch.float32,
                        device=dev)
     _launch("scatter_add_pallas_compact", patches, w0, t0, active_tiles,

@@ -63,7 +63,9 @@ def test_import_leaves_jax_out_of_sys_modules():
             "repro_torch.tune.autotune, repro_torch.core.fit, "
             "repro_torch.core.gradcheck, repro_torch.launch.fit, "
             "repro_torch.core.distributed, repro_torch.launch.distributed, "
-            "repro_torch.testing.ranks; "
+            "repro_torch.testing.ranks, repro_torch.analysis, "
+            "repro_torch.analysis.census, repro_torch.analysis.audit, "
+            "repro_torch.analysis.lint, repro_torch.launch.audit; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); sys.exit(bool(bad))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
