@@ -173,7 +173,24 @@ Phases (any failure exits non-zero before the result line):
                 KNOWN_HOST_SYNCS; float64 only at ALLOWED_F64, its bytes
                 an event printed per site; each host-read site printed as
                 "wait" or "host tensor"; the phase's wall time
- 12. timing   : each kernel's wrapper (median of 5 rounds of 20 calls
+ 12. serve    : LM serving (repro_torch.launch.serve.run) of gemma2-2b at
+                full width (26 layers, d_model 2304, vocab 256 000, bfloat16
+                activations, float32 parameters drawn on the card from
+                prng.key(0)): (A) 8 requests, 4 slots, prompt 128, 32 new
+                tokens, max_len 256, twice; (B) one request, prompt 4 608,
+                16 new tokens, max_len 4 672 (the 4 096-token window masks
+                its first 512 positions). Checks: blockwise flash ==
+                direct attention at (B)'s layer-0 q/k/v; at every step of
+                (A)'s first wave and of (B), decode_step's logits ==
+                Model.forward's last position over the tokens fed so far
+                (max |delta logit| printed); two runs of (A) bit-identical
+                (tokens and final logits); the qwen3 smoke config in
+                float32 gives the CPU's tokens, logits within 1e-4. Prints
+                init seconds, parameter bytes, peak memory, prefill ms,
+                decode ms a step (median), tokens/s and decode's bytes
+                bound beside the card's name and power limit; the busy
+                share of one wave under torch.profiler, its top ops
+ 13. timing   : each kernel's wrapper (median of 5 rounds of 20 calls
                 timed with CUDA events as the host enqueues them, the
                 method of every version of this script, which reads the
                 host's pace where a call is shorter than its enqueueing,
@@ -196,12 +213,12 @@ Phases (any failure exits non-zero before the result line):
                 function (index_put_ with accumulate=True); for the
                 fused kernels also the SASS instructions per pixel of the
                 pixel loop (cuobjdump) and the issue-rate floor they imply
- 13. summary  : one JSON line {"kernels": [...]} (with each kernel's
+ 14. summary  : one JSON line {"kernels": [...]} (with each kernel's
                 launches over the clean streams, stream_launches, while
                 tuning, tune_launches, over the pool events and stream,
                 pool_launches, and over the distributed recon runs,
                 dist_launches)
- 14. result   : last line {"ok": true, "device": {...}}
+ 15. result   : last line {"ok": true, "device": {...}}
 
 The on-card checks live here rather than in pytest because the machine with
 the card has no JAX, which the repository's test configuration imports.
@@ -2788,6 +2805,258 @@ def check_audit(dev, card: str) -> None:
     check(not problems, "audit: " + "; ".join(problems))
 
 
+#: the serve phase: gemma2-2b at full width through launch.serve.run.
+#: (A) waves: 8 requests, 4 slots, prompt 128, 32 new tokens, max_len 256;
+#: (B) one long request: prompt 4 608, 16 new tokens, max_len 4 672 (the
+#: local layers' 4 096-token window masks its first 512 positions)
+SERVE_ARCH = "gemma2-2b"
+SERVE_WAVES = dict(requests=8, slots=4, prompt_len=128, new_tokens=32,
+                   max_len=256)
+SERVE_LONG = dict(requests=1, slots=1, prompt_len=4608, new_tokens=16,
+                  max_len=4672)
+#: card against CPU: the qwen3 smoke config in float32, logits within this
+SERVE_CPU_ATOL = 1e-4
+
+
+def serve_args(arch: str, smoke: bool, device: str, **traffic):
+    from repro_torch.launch import serve
+
+    argv = ["--arch", arch, "--smoke" if smoke else "--no-smoke",
+            "--device", device]
+    for name, value in traffic.items():
+        argv += [f"--{name.replace('_', '-')}", str(value)]
+    return serve.build_parser().parse_args(argv)
+
+
+@contextlib.contextmanager
+def captured_logits(model):
+    """Record (tokens fed, start index, last-position logits) of every
+    ``prefill`` and ``decode_step`` of ``model`` inside the block."""
+    rec = []
+    prefill, decode = model.prefill, model.decode_step
+
+    def prefill_(params, batch, caches):
+        out = prefill(params, batch, caches)
+        rec.append((batch["tokens"], 0, out[0][:, -1].clone()))
+        return out
+
+    def decode_(params, batch, caches, index):
+        out = decode(params, batch, caches, index)
+        rec.append((batch["tokens"], index, out[0][:, -1].clone()))
+        return out
+
+    model.prefill, model.decode_step = prefill_, decode_
+    try:
+        yield rec
+    finally:
+        del model.prefill, model.decode_step
+
+
+def serve_run(args, model, dev):
+    """One launch.serve.run of ``model`` with its logits recorded and the
+    card's peak memory of the run."""
+    import torch
+
+    from repro_torch.launch import serve
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    with captured_logits(model) as rec:
+        done, stats = serve.run(args, model=model)
+    stats["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    return done, stats, rec
+
+
+def cache_vs_forward(model, params, rec, steps: int, tol_frac: float):
+    """The first ``steps`` recorded calls (a prefill and the decode steps
+    of its wave) against ``Model.forward`` over the tokens fed so far: the
+    last position's logits. Returns (max |delta logit|, max |logit|,
+    argmax agreements, steps)."""
+    import torch
+
+    vocab = model.cfg.vocab_size
+    seq = None
+    worst, top, agree = 0.0, 0.0, 0
+    for tokens, _, logits in rec[:steps]:
+        seq = tokens if seq is None else torch.cat([seq, tokens], dim=1)
+        full, _ = model.forward(params, {"tokens": seq})
+        ref = full[:, -1, :vocab].float()
+        got = logits[:, :vocab].float()
+        worst = max(worst, (got - ref).abs().max().item())
+        top = max(top, ref.abs().max().item())
+        agree += int((got.argmax(-1) == ref.argmax(-1)).all().item())
+        del full
+    check(worst <= tol_frac * top,
+          f"serve: decode_step logits differ from the forward's by "
+          f"{worst} > {tol_frac:.4g} x max|logit| {top}")
+    return worst, top, agree, min(steps, len(rec))
+
+
+def check_serve(dev, card: str) -> None:
+    """The "serve" phase: gemma2-2b at full width (26 layers, d_model 2304,
+    vocab 256 000, bfloat16 activations, float32 parameters drawn on the
+    card from prng.key(0)) through ``launch.serve.run``: traffic (A) twice
+    and (B) once. Checks, each failing the run: (1) at (B)'s layer-0
+    q/k/v the blockwise flash attention == the direct form within
+    BF16_RTOL x max|v| (a probability rounded to bfloat16 before the PV
+    product moves an output by at most 2**-9 of sum p|v| on either side,
+    and each side's output rounding by 2**-9 of it); (2) at every step of
+    (A)'s first wave and of (B), decode_step's logits == Model.forward's
+    last position over the tokens fed so far, within
+    ``parity.lm_bf16_atol_frac(26)`` of max|logit|; (3) two runs of (A)
+    give bit-identical tokens and final logits; (4) the qwen3 smoke config
+    in float32 gives equal tokens on the card and on the CPU, logits
+    within SERVE_CPU_ATOL. Prints init seconds, parameter bytes, peak
+    memory, prefill ms, decode ms a step (median), tokens/s and decode's
+    bytes bound, each beside the card's name and power limit, and the
+    device busy share of one wave under torch.profiler."""
+    import dataclasses as dc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.config import get_config
+    from repro_torch.core import prng
+    from repro_torch.launch import serve
+    from repro_torch.models import attention as attn
+    from repro_torch.models import layers as L
+    from repro_torch.models.model import Model
+    from repro_torch.testing import parity
+
+    t_phase = time.perf_counter()
+    torch.zeros((), device=dev)     # the allocator's state exists from here
+    held = torch.cuda.memory_allocated(dev)
+    waves = serve_args(SERVE_ARCH, False, str(dev), **SERVE_WAVES)
+    long_ = serve_args(SERVE_ARCH, False, str(dev), **SERVE_LONG)
+    torch.cuda.reset_peak_memory_stats(dev)
+    model, init_s = serve.build_model(waves)
+    init_peak = torch.cuda.max_memory_allocated(dev)
+    params = model.params()
+    cfg = model.cfg
+    param_bytes = sum(p.numel() * p.element_size()
+                      for p in model.parameters())
+    print(f"serve: {cfg.name} at full width ({cfg.num_layers} layers, "
+          f"d_model {cfg.d_model}, vocab {cfg.vocab_size}, {cfg.dtype} "
+          f"activations, {cfg.param_dtype} parameters): init {init_s:.2f} s "
+          f"on the card, parameter bytes {param_bytes} "
+          f"({param_bytes / 1e9:.3f} GB), peak memory of the draw "
+          f"{(init_peak - held) / 2**30:.2f} GiB above the {held / 2**30:.2f}"
+          f" GiB earlier phases hold; {card}", flush=True)
+
+    tol = parity.lm_bf16_atol_frac(cfg.num_layers)
+    runs = []
+    for label, args in (("A", waves), ("B", long_), ("A again", waves)):
+        done, stats, rec = serve_run(args, model, dev)
+        runs.append((label, args, done, stats, rec))
+        kv_bytes = (2 * cfg.num_layers * args.slots * args.max_len
+                    * cfg.num_kv_heads * cfg.resolved_head_dim
+                    * torch.finfo(L.dtype_of(cfg.dtype)).bits // 8)
+        bound_ms = (param_bytes + kv_bytes) / PEAK_BYTES_S * 1e3
+        print(f"serve ({label}): {args.requests} requests x prompt "
+              f"{args.prompt_len} + {args.new_tokens} new tokens, "
+              f"{args.slots} slots, max_len {args.max_len}: "
+              f"{stats['tokens']} tokens in {stats['seconds']:.3f} s, "
+              f"{stats['tokens_per_s']:.1f} tokens/s; prefill ms "
+              f"{', '.join(f'{t:.1f}' for t in stats['prefill_ms'])}; "
+              f"decode {stats['decode_ms_median']:.3f} ms a step (median "
+              f"of {len(stats['decode_ms'])}; min "
+              f"{min(stats['decode_ms']):.3f}, max "
+              f"{max(stats['decode_ms']):.3f}); decode bytes bound "
+              f"{bound_ms:.3f} ms (float32 parameters {param_bytes} B + KV "
+              f"cache {kv_bytes} B at {PEAK_BYTES_S / 1e12:.2f} TB/s); peak "
+              f"memory {stats['peak_bytes'] / 2**30:.2f} GiB (the "
+              f"{held / 2**30:.2f} GiB of earlier phases included); {card}",
+              flush=True)
+
+    # (1) blockwise against direct at (B)'s layer-0 q/k/v
+    prompt = torch.from_numpy(np.stack(
+        [r.prompt for r in serve.make_requests(long_, cfg.vocab_size)])).to(
+        dev)
+    with torch.no_grad():
+        layer = {k: v[0] for k, v in params["layers"]["mix"].items()}
+        x = L.embed(params["embed"], prompt, cfg)
+        h = L.apply_norm({"scale": params["layers"]["ln_mix"]["scale"][0]},
+                         x, cfg.norm_kind)
+        pos = torch.arange(prompt.shape[1], dtype=torch.int32,
+                           device=dev)[None]
+        cos, sin = L.rope_table(pos, cfg.resolved_head_dim, cfg.rope_theta)
+        q = L.apply_rope(attn._project(h, layer["wq"]), cos, sin)
+        k = L.apply_rope(attn._project(h, layer["wk"]), cos, sin)
+        v = attn._project(h, layer["wv"])
+        window = cfg.window_size
+        blockwise = attn.flash_attention(
+            q, k, v, pos, pos, causal=True, window=window,
+            logit_cap=cfg.attn_logit_softcap)
+        direct = attn._direct_attention(
+            q, k, v, pos, pos, causal=True, window=window,
+            logit_cap=cfg.attn_logit_softcap, kv_valid=None)
+        diff = (blockwise.float() - direct.float()).abs().max().item()
+        vmax = v.float().abs().max().item()
+    check(diff <= parity.BF16_RTOL * vmax,
+          f"serve: blockwise flash differs from direct attention by {diff} "
+          f"> 2**-7 x max|v| {vmax}")
+    print(f"serve check 1, blockwise == direct at (B)'s layer 0 (q "
+          f"{tuple(q.shape)}, Hkv {k.shape[2]}, cap "
+          f"{cfg.attn_logit_softcap}, window {window}): max |delta| {diff} "
+          f"<= 2**-7 x max|v| = {parity.BF16_RTOL * vmax}", flush=True)
+    del q, k, v, blockwise, direct, x, h
+
+    # (2) cache against forward: (A)'s first wave and (B)
+    with torch.no_grad():
+        for (label, args, _, _, rec) in runs[:2]:
+            worst, top, agree, n = cache_vs_forward(
+                model, params, rec, args.new_tokens, tol)
+            print(f"serve check 2 ({label}, first wave): decode_step logits "
+                  f"== the forward's last position at {n} steps: max "
+                  f"|delta logit| {worst} <= {tol:.5f} x max|logit| {top} = "
+                  f"{tol * top:.4f}; argmax equal at {agree} of {n} steps",
+                  flush=True)
+
+    # (3) repeatability: two runs of (A)
+    a1, a2 = runs[0], runs[2]
+    same_tokens = [r.out_tokens for r in a1[2]] == [r.out_tokens
+                                                    for r in a2[2]]
+    same_logits = torch.equal(a1[4][-1][2], a2[4][-1][2])
+    check(same_tokens and same_logits,
+          f"serve: two runs of (A) differ (tokens equal {same_tokens}, "
+          f"final logits equal {same_logits})")
+    print(f"serve check 3: two runs of (A) give identical tokens and final "
+          f"logits (bit for bit)", flush=True)
+
+    # where the time goes: one wave of (A)'s shape, 8 new tokens
+    prof = serve_args(SERVE_ARCH, False, str(dev), requests=4, slots=4,
+                      prompt_len=128, new_tokens=8, max_len=256)
+    wall, busy, top = profiled(lambda: serve.run(prof, model=model))
+    print(f"serve profile, one wave of 4 x (128 + 8) under torch.profiler: "
+          f"{busy:.3f} ms of CUDA activity in {wall:.3f} ms (host clock, "
+          f"synchronised), busy share {busy / wall:.4f}; ops with the most "
+          f"device time: " + "; ".join(f"{k} {ms:.3f} ms x{n}"
+                                       for k, ms, n in top) + f"; {card}",
+          flush=True)
+    del runs, a1, a2, params, model
+    torch.cuda.empty_cache()
+
+    # (4) card against CPU: qwen3 smoke in float32
+    small = dc.replace(get_config("qwen3-32b", smoke=True), dtype="float32")
+    outs = []
+    for device in (str(dev), "cpu"):
+        m = Model(small, device)
+        m.init(prng.key(0))
+        args = serve_args("qwen3-32b", True, device)
+        with captured_logits(m) as rec:
+            done, _ = serve.run(args, model=m)
+        outs.append(([r.out_tokens for r in done],
+                     torch.stack([r[2].float().cpu() for r in rec])))
+    cpu_diff = (outs[0][1] - outs[1][1]).abs().max().item()
+    check(outs[0][0] == outs[1][0] and cpu_diff <= SERVE_CPU_ATOL,
+          f"serve: qwen3 smoke float32 on the card against the CPU: tokens "
+          f"equal {outs[0][0] == outs[1][0]}, max |delta logit| {cpu_diff}")
+    print(f"serve check 4: qwen3 smoke float32, {len(outs[0][0])} requests: "
+          f"tokens equal on the card and the CPU, max |delta logit| "
+          f"{cpu_diff} <= {SERVE_CPU_ATOL}", flush=True)
+    print(f"serve phase: wall {time.perf_counter() - t_phase:.1f} s; "
+          f"{card}", flush=True)
+
+
 def check_oom_classification(dev) -> None:
     """A real allocation failure on the card, and a kernel wrapper's launch
     error for cudaErrorMemoryAllocation, both classify as OOM (the
@@ -2828,6 +3097,8 @@ def main() -> int:
         return 1
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    # bfloat16 products sum in float32, as the reference's XLA sums them
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
     from repro_torch import kernels
     from repro_torch.config import get_config
@@ -3149,6 +3420,9 @@ def main() -> int:
 
     phase("audit")
     check_audit(dev, card)
+
+    phase("serve")
+    check_serve(dev, card)
 
     phase("kernel timing")
     rows = []

@@ -22,8 +22,9 @@ break the calibration path on another:
                      ``device.scalar``, the one place a config field forks
                      between a float and a tensor
   scalar-division  : ``tensor / number`` (a literal with an inexact
-                     reciprocal, or a config field) in ``core/`` and
-                     ``kernels/``: torch on the card multiplies by the
+                     reciprocal, or a config field) in ``core/``,
+                     ``kernels/``, ``models/`` and ``serve/``: torch on
+                     the card multiplies by the
                      reciprocal, one ULP off the reference's division;
                      divide by ``device.scalar(value, like)``
   atomic-index-add : ``index_add_``: on the card it adds colliding indices
@@ -89,8 +90,9 @@ RULES: Dict[str, str] = {
                      "tensor with autograd history on the calibration path)",
     "tensor-fork": "isinstance(config field, torch.Tensor) outside "
                    "device.scalar",
-    "scalar-division": "tensor / Python number in core/ or kernels/ (the "
-                       "card multiplies by the reciprocal: one ULP off)",
+    "scalar-division": "tensor / Python number in core/, kernels/, "
+                       "models/ or serve/ (the card multiplies by the "
+                       "reciprocal: one ULP off)",
     "atomic-index-add": "index_add_ (atomic adds: run-to-run different "
                         "bits on the card)",
 }
@@ -122,7 +124,7 @@ _HOST_SYNC_METHODS = {"item", "tolist", "cpu", "numpy"}
 _HOST_SYNC_CALLS = {"float", "int", "bool"}
 _SCALAR_CALLS = {"float", "int", "len", "round", "abs"}
 #: scalar-division applies to files in (a package under) these folders
-_DIVISION_DIRS = ("core", "kernels")
+_DIVISION_DIRS = ("core", "kernels", "models", "serve")
 
 
 @dataclasses.dataclass(frozen=True)

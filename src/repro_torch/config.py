@@ -1,15 +1,142 @@
-"""LArTPC simulation config: the port's own copy of the reference's fields.
+"""Configs: the port's own copy of the reference's dataclasses and registry.
 
-Same field names and defaults as the JAX package's ``LArTPCConfig``, so a
-config round-trips between the two packages as a plain dict
-(``repro_torch.interop.config_from_dict``). Only the simulation config is
-carried here; the LM ``ModelConfig`` family waits for its own slice.
+Same field names and defaults as the JAX package's ``LArTPCConfig`` and LM
+``ModelConfig`` (with its ``MoEConfig``, ``MLAConfig``, ``SSMConfig`` and
+``RGLRUConfig``), so a config round-trips between the two packages as a
+plain dict (``repro_torch.interop.config_from_dict``). Every architecture
+registers a full and a smoke factory under its ``--arch <id>``:
+``lartpc-uboone`` here, the LM architectures in ``repro_torch.configs``.
+The training configs (shapes, parallelism, optimizer, checkpoints) wait for
+the training slice.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, replace
-from typing import Any, Callable, Dict, NamedTuple, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Sequence, Tuple
+
+
+# ---------------------------------------------------------------------------
+# Model configs
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    """Mixture-of-experts block config (DeepSeek-style fine-grained MoE)."""
+
+    num_experts: int = 0          # routed experts
+    num_shared: int = 0           # always-on shared experts
+    top_k: int = 0
+    expert_ff: int = 0            # per-expert hidden size
+    router_aux_weight: float = 0.001
+    # layers [first_moe_layer, num_layers) are MoE; earlier layers are dense
+    first_moe_layer: int = 1
+    dense_ff: int = 0             # ff size of the dense (non-MoE) layers
+    capacity_factor: float = 1.25  # per-expert token capacity multiplier
+
+
+@dataclass(frozen=True)
+class MLAConfig:
+    """Multi-head latent attention (DeepSeek-V2)."""
+
+    kv_lora_rank: int = 512
+    q_lora_rank: int = 0          # 0 = full-rank q projection
+    rope_head_dim: int = 64
+    nope_head_dim: int = 128
+    v_head_dim: int = 128
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    """Mamba-2 SSD block config."""
+
+    state_dim: int = 128
+    head_dim: int = 64
+    expand: int = 2
+    conv_width: int = 4
+    chunk: int = 256              # SSD chunk length
+
+
+@dataclass(frozen=True)
+class RGLRUConfig:
+    """RecurrentGemma RG-LRU block config."""
+
+    lru_width: int = 0            # 0 -> d_model
+    conv_width: int = 4
+    block_pattern: Tuple[str, ...] = ("recurrent", "recurrent", "attention")
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str = "model"
+    family: str = "dense"         # dense | moe | ssm | hybrid | vlm | audio | lartpc
+    num_layers: int = 2
+    d_model: int = 128
+    num_heads: int = 2
+    num_kv_heads: int = 2
+    head_dim: int = 0             # 0 -> d_model // num_heads
+    d_ff: int = 256
+    vocab_size: int = 1000
+    max_seq_len: int = 8192
+    # attention details
+    attn_kind: str = "global"     # global | local | local_global | none
+    window_size: int = 4096       # for local attention
+    qk_norm: bool = False
+    attn_logit_softcap: float = 0.0
+    final_logit_softcap: float = 0.0
+    rope_theta: float = 10000.0
+    # mlp
+    mlp_kind: str = "swiglu"      # swiglu | squared_relu | gelu | relu
+    # norm / embeddings
+    norm_kind: str = "rmsnorm"    # rmsnorm | layernorm
+    tie_embeddings: bool = False
+    embedding_scale: bool = False  # gemma-style sqrt(d_model) input scaling
+    # sub-configs
+    moe: Optional[MoEConfig] = None
+    mla: Optional[MLAConfig] = None
+    ssm: Optional[SSMConfig] = None
+    rglru: Optional[RGLRUConfig] = None
+    # enc-dec
+    is_encoder_decoder: bool = False
+    num_encoder_layers: int = 0
+    # multimodal stub frontends: number of precomputed embedding positions
+    frontend: str = "none"        # none | vision | speech
+    frontend_tokens: int = 0
+    # numerics
+    dtype: str = "bfloat16"
+    param_dtype: str = "float32"
+    # remat: none | full | selective
+    remat: str = "selective"
+
+    #: embedding/unembedding tables are padded to a multiple of this so the
+    #: vocab dim shards cleanly over the model axis (Megatron convention)
+    vocab_pad_to: int = 256
+
+    @property
+    def padded_vocab(self) -> int:
+        m = self.vocab_pad_to
+        return (self.vocab_size + m - 1) // m * m
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or (self.d_model // self.num_heads)
+
+    def param_count(self) -> int:
+        """Approximate parameter count (used for 6ND model flops)."""
+        from repro_torch.models.model import count_params_analytic
+
+        return count_params_analytic(self)
+
+    def active_param_count(self) -> int:
+        from repro_torch.models.model import count_params_analytic
+
+        return count_params_analytic(self, active_only=True)
+
+
+# ---------------------------------------------------------------------------
+# LArTPC sim config (the paper's own workload)
+# ---------------------------------------------------------------------------
 
 
 @dataclass(frozen=True)
@@ -129,11 +256,25 @@ _SMOKE_REGISTRY: Dict[str, Callable[[], Any]] = {
     "lartpc-uboone": _uboone_smoke}
 
 
-def get_config(arch_id: str, smoke: bool = False) -> LArTPCConfig:
+def register(arch_id: str, full: Callable[[], Any],
+             smoke: Callable[[], Any]) -> None:
+    _REGISTRY[arch_id] = full
+    _SMOKE_REGISTRY[arch_id] = smoke
+
+
+def get_config(arch_id: str, smoke: bool = False):
+    import repro_torch.configs  # noqa: F401  (registers the LM archs)
+
     table = _SMOKE_REGISTRY if smoke else _REGISTRY
     if arch_id not in table:
         raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(table)}")
     return table[arch_id]()
+
+
+def list_archs() -> Sequence[str]:
+    import repro_torch.configs  # noqa: F401
+
+    return sorted(_REGISTRY)
 
 
 def apply_overrides(cfg, overrides: Dict[str, Any]):

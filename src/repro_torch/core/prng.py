@@ -67,9 +67,9 @@ def _words(k: torch.Tensor) -> Tuple[int, int]:
     return int(k0), int(k1)
 
 
-def _iota_2x32(n: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
-    """High and low words of the 64-bit row-major iota of ``n`` elements."""
-    counts = torch.arange(n, dtype=torch.int64, device=device)
+def _iota_2x32(n: int, device, offset=0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """High and low words of the 64-bit iota of ``n`` elements from ``offset``."""
+    counts = torch.arange(offset, offset + n, dtype=torch.int64, device=device)
     return counts >> 32, counts & MASK32
 
 
@@ -89,12 +89,12 @@ def fold_in(k: torch.Tensor, data: int) -> torch.Tensor:
 
 
 def random_bits(k: torch.Tensor, shape: Sequence[int],
-                device) -> torch.Tensor:
+                device, offset: int = 0) -> torch.Tensor:
     """32 random bits per element (int64 in [0, 2**32)), partitionable mode:
-    ``bits1 ^ bits2`` of threefry over the 64-bit element index."""
+    ``bits1 ^ bits2`` of threefry over the 64-bit element index, the
+    elements from ``offset`` on: a draw taken in ranges equals one draw."""
     k0, k1 = _words(k)
-    shape = tuple(int(s) for s in shape)
-    hi, lo = _iota_2x32(math.prod(shape), device)
+    hi, lo = _iota_2x32(math.prod(shape := tuple(map(int, shape))), device, offset)
     b0, b1 = threefry2x32(k0, k1, hi, lo)
     return (b0 ^ b1).reshape(shape)
 
@@ -132,18 +132,18 @@ def _uniform_bf16(bits: torch.Tensor, minval: float,
     return torch.clamp_min(_bits_to_unit_bf16(bits) * span + lo, lo)
 
 
-def uniform(k: torch.Tensor, shape: Sequence[int], minval: float,
-            maxval: float, device, dtype=torch.float32) -> torch.Tensor:
+def uniform(k: torch.Tensor, shape: Sequence[int], minval: float, maxval: float,
+            device, dtype=torch.float32, offset: int = 0) -> torch.Tensor:
     """``jax.random.uniform(k, shape, dtype, minval, maxval)``, bit exact,
-    for ``dtype`` float32 or bfloat16."""
+    for ``dtype`` float32 or bfloat16 (``offset`` as in ``random_bits``)."""
     if dtype == torch.bfloat16:
-        return _uniform_bf16(random_bits(k, shape, device), minval, maxval)
+        return _uniform_bf16(random_bits(k, shape, device, offset), minval, maxval)
     if dtype != torch.float32:
         raise NotImplementedError(f"uniform draws float32 or bfloat16, "
                                   f"not {dtype}")
     lo = _f32(minval)
     span = _f32(np.float32(maxval) - np.float32(minval))
-    floats = _bits_to_unit(random_bits(k, shape, device))
+    floats = _bits_to_unit(random_bits(k, shape, device, offset))
     # the reference's XLA contracts floats * span + lo into one FMA; the
     # product and the sum are exact in float64 (floats is a multiple of
     # 2**-23 below 1), so one rounding to float32 reproduces the FMA
@@ -173,22 +173,23 @@ def _bf16_normal_table(device: str) -> torch.Tensor:
     return (erfinv.to(torch.float32) * SQRT2_BF16).to(device)
 
 
-def normal_bf16_wide(k: torch.Tensor, shape: Sequence[int],
-                     device) -> torch.Tensor:
+def normal_bf16_wide(k: torch.Tensor, shape: Sequence[int], device,
+                     offset: int = 0) -> torch.Tensor:
     """The bfloat16 normals of ``jax.random.normal(k, shape, bfloat16)`` as a
     jitted computation that consumes them holds them: float32, the last
     product not rounded to bfloat16 (``fluctuate_counter`` on bfloat16
     patches). Bit exact on every device: a table lookup of 7 random bits."""
-    index = (random_bits(k, shape, device) & 0xFF) >> 1
+    index = (random_bits(k, shape, device, offset) & 0xFF) >> 1
     return _bf16_normal_table(str(torch.device(device)))[index]
 
 
 def normal(k: torch.Tensor, shape: Sequence[int], device,
-           dtype=torch.float32) -> torch.Tensor:
+           dtype=torch.float32, offset: int = 0) -> torch.Tensor:
     """``jax.random.normal(k, shape, dtype)``: ``sqrt(2) * erfinv(u)`` with
     ``u`` uniform in [nextafter(-1, 0), 1) of ``dtype``. bfloat16 normals
-    are bit exact; float32 ones agree up to the ULPs of ``erfinv``."""
+    are bit exact; float32 ones agree up to the ULPs of ``erfinv``.
+    ``offset`` as in ``random_bits``."""
     if dtype == torch.bfloat16:
-        return normal_bf16_wide(k, shape, device).to(torch.bfloat16)
-    u = uniform(k, shape, NORMAL_LO, 1.0, device, dtype)
+        return normal_bf16_wide(k, shape, device, offset).to(torch.bfloat16)
+    u = uniform(k, shape, NORMAL_LO, 1.0, device, dtype, offset)
     return torch.erfinv(u) * SQRT2_F32

@@ -10,7 +10,10 @@ of ``rng_strategy="pool"``; and turn a port
 ``SimOutput`` back into numpy for comparison. A deconvolution filter is a
 ``DetectorResponse`` too, so ``response_from_numpy`` carries the
 reference's filters across as well; ``fit_targets_from_numpy`` carries a
-calibration fit's targets. Like every entry point of the port,
+calibration fit's targets. The LM slice carries weights:
+``model_params_from_numpy`` builds the port's parameter tree from the
+reference's, key for key, and ``kv_cache_to_numpy`` turns a port KV cache
+back into numpy. Like every entry point of the port,
 the builders put their tensors on the card unless ``device="cpu"`` is
 passed.
 """
@@ -164,3 +167,29 @@ def to_numpy(out: SimOutput) -> Dict[str, np.ndarray]:
         elif value is not None:
             arrays[name] = value.detach().cpu().numpy()
     return arrays
+
+
+def model_params_from_numpy(tree, device="cuda"):
+    """The reference's LM parameter tree (nested dicts of numpy arrays) as
+    the port's, key for key, each leaf at its dtype (bfloat16 carried as
+    its bits)."""
+    if isinstance(tree, Mapping):
+        return {k: model_params_from_numpy(v, device) for k, v in tree.items()}
+    arr = np.asarray(tree)
+    if arr.dtype.name == "bfloat16":
+        return bf16_from_numpy(arr, device)
+    return torch.from_numpy(np.array(arr)).to(resolve_device(device))
+
+
+def kv_cache_to_numpy(caches) -> Dict[str, Dict[str, np.ndarray]]:
+    """A port cache tree ``{stack: {"kv": KVCache}}`` as ``{stack:
+    {field: array}}``: k and v widened to float32 (exact for bfloat16), pos
+    and index as int32."""
+    out = {}
+    for name, entry in caches.items():
+        cache = entry["kv"]
+        out[name] = {"k": cache.k.detach().float().cpu().numpy(),
+                     "v": cache.v.detach().float().cpu().numpy(),
+                     "pos": cache.pos.cpu().numpy().astype(np.int32),
+                     "index": cache.index.cpu().numpy().astype(np.int32)}
+    return out

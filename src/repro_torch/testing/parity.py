@@ -121,3 +121,30 @@ def assert_adc_close(actual, reference, what: str = "") -> float:
     frac = float(np.count_nonzero(delta)) / max(delta.size, 1)
     assert frac <= ADC_MAX_FRAC, (what, frac)
     return frac
+
+
+#: LM activations and logits in float32, as a fraction of max|reference|
+#: (``assert_close``'s ``atol_frac``; padded-vocab logits excluded, they
+#: are -1e9 on both sides): matmul summation order and the rsqrt, exp,
+#: tanh, pow and sin/cos ULPs of two libraries. Measured worst 5.3e-7 of
+#: max|reference| over the model and engine comparisons of
+#: ``tests/test_torch_models.py`` and ``tests/test_torch_serve.py``
+LM_ATOL_FRAC = ATOL_FRAC
+#: the same in bfloat16: each bfloat16 rounding of an activation can land
+#: on a neighbouring value (one ulp, 2**-8 to 2**-7 of it) where the two
+#: libraries' float32 sums differ in their last bits, and a logit sums
+#: d_model such products, so the logits differ by about one ulp of their
+#: largest magnitude: measured worst 8.1e-3 of max|reference| (a decode
+#: cache's v in ``test_forward_prefill_and_decode_match``), against one
+#: ulp's 2**-7 = 7.8e-3
+LM_BF16_ATOL_FRAC = 2.0 ** -6
+
+
+def lm_bf16_atol_frac(num_layers: int) -> float:
+    """``LM_BF16_ATOL_FRAC`` for a model of ``num_layers`` layers. The smoke
+    configs that set it have 2; the roundings of one layer are independent
+    of another's, so their effects on the logits add in quadrature:
+    sqrt(num_layers / 2) times as much. ``tests/test_torch_models.py``
+    holds a 26-layer model's cache path to its own forward with it
+    (measured 8.6e-3 of max|logit| against 5.6e-2)."""
+    return LM_BF16_ATOL_FRAC * math.sqrt(max(num_layers, 2) / 2)

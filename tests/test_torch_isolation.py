@@ -8,6 +8,7 @@ import sys
 from pathlib import Path
 
 import jax  # noqa: F401  (the port's tests run beside the reference)
+import numpy as np
 import pytest
 import torch
 
@@ -65,7 +66,11 @@ def test_import_leaves_jax_out_of_sys_modules():
             "repro_torch.core.distributed, repro_torch.launch.distributed, "
             "repro_torch.testing.ranks, repro_torch.analysis, "
             "repro_torch.analysis.census, repro_torch.analysis.audit, "
-            "repro_torch.analysis.lint, repro_torch.launch.audit; "
+            "repro_torch.analysis.lint, repro_torch.launch.audit, "
+            "repro_torch.configs, repro_torch.models.params, "
+            "repro_torch.models.layers, repro_torch.models.attention, "
+            "repro_torch.models.transformer, repro_torch.models.model, "
+            "repro_torch.serve.engine, repro_torch.launch.serve; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); sys.exit(bool(bad))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
@@ -94,11 +99,15 @@ def _entry_points():
     from repro_torch.launch import fit as launch_fit
     from repro_torch.launch import sim as launch_sim
     from repro_torch.launch.sim import run_events, stream_simulate
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models.model import Model
+    from repro_torch.models.params import init_params
 
     cfg = tconfig.get_config("lartpc-uboone", smoke=True)
     cfg3 = dataclasses.replace(cfg, num_planes=3,
                                charge_grid_strategy="fused_pallas_multiplane")
     k = prng.key(0)
+    lm_cfg = tconfig.get_config("qwen3-32b", smoke=True)
     spec = fit.FitSpec(params=(fit.FitParam("recombination", init=0.9),))
     cpu_targets = fit.make_fit_targets(cfg, k, num_events=1, device="cpu")
     return {
@@ -150,6 +159,15 @@ def _entry_points():
         "launch_fit": lambda device="cuda": launch_fit.main(
             ["--smoke", "--optimizer", "bfgs", "--steps", "1", "--tol", "1",
              "--device", device]),
+        "lm_model": lambda **kw: Model(lm_cfg, **kw).init(k),
+        "init_params": lambda **kw: init_params(
+            lambda make: make("w", (2,), ("embed",)), k, **kw),
+        "model_params_from_numpy": lambda **kw:
+            interop.model_params_from_numpy({"w": np.zeros(2, np.float32)},
+                                            **kw),
+        "launch_serve": lambda device="cuda": launch_serve.main(
+            ["--arch", "qwen3-32b", "--requests", "1", "--new-tokens", "1",
+             "--device", device]),
     }
 
 
@@ -170,7 +188,9 @@ def _entry_points():
                                   "pool_from_numpy", "launch_fig3",
                                   "make_distributed_response",
                                   "make_distributed_plane_responses",
-                                  "shard_events"])
+                                  "shard_events", "lm_model", "init_params",
+                                  "model_params_from_numpy",
+                                  "launch_serve"])
 def test_entry_points_default_to_the_card(name, monkeypatch):
     """Without a card the default device raises; device="cpu" runs."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

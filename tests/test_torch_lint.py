@@ -276,6 +276,15 @@ class TestScalarDivision:
         assert findings("def f(x):\n    return x / 3.0\n",
                         str(PORT / "launch" / "x.py")) == []
 
+    def test_models_and_serve_flagged(self):
+        """The LM code divides on the card too (softcap's x / cap)."""
+        for sub in ("models", "serve"):
+            fs = findings("""
+                def softcap(x, cfg):
+                    return torch.tanh(x / cfg.attn_logit_softcap) * 30.0
+            """, str(PORT / sub / "x.py"))
+            assert rules_of(fs) == ["scalar-division"], sub
+
 
 class TestAtomicIndexAdd:
     def test_index_add_flagged(self):
