@@ -190,7 +190,39 @@ Phases (any failure exits non-zero before the result line):
                 decode ms a step (median), tokens/s and decode's bytes
                 bound beside the card's name and power limit; the busy
                 share of one wave under torch.profiler, its top ops
- 13. timing   : each kernel's wrapper (median of 5 rounds of 20 calls
+ 13. families : ROADMAP item 17(b)'s LM families at full width, one model
+                on the card at a time, float32 parameters drawn on the card
+                from prng.key(0), bfloat16 activations: deepseek-moe-16b
+                through launch.serve.run, (A) twice at capacity factor 1.25
+                (each prefill's dropped (token, expert) pairs printed) and
+                (A') at 64 / 6, where nothing drops; deepseek-v2's widths
+                at 2 layers (a dense MLA layer and an MLA + 160-expert
+                layer; 60 layers do not fit one card), (A') with 2 requests;
+                mamba2-780m and recurrentgemma-2b, (A) and (B) one request
+                of 3 840 (15 SSD chunks) / 2 560 (the 2 048 window masks
+                its first 512 positions) + 16; seamless-m4t-large-v2
+                through Model.prefill / decode_step (the engine refuses
+                enc-dec, as the reference's fails on it), 2 sequences of
+                1 024 encoder frames, a 64-token prompt and 16 greedy
+                steps. Checks: at every step, decode_step's logits ==
+                Model.forward's at that position within
+                lm_bf16_atol_frac(L) (deepseek-moe on A', and deepseek-v2,
+                the forward replaying the cache path's experts, each of
+                its own choices that differs a near-tie; recurrentgemma;
+                seamless); mamba2's forward padded at the end to its 256
+                chunk, within lm_atol_frac(48) in float32 activations,
+                the bfloat16 distance printed (it grows with depth past
+                the square-root rule, the reference's alike); two runs of deepseek-moe (A) bit-identical (tokens, final
+                logits, drops); the five smoke configs in float32 on the
+                card and the CPU (logits within 1e-4, the untied deepseek
+                tokens equal); 0 waits for the card in one decode_step of
+                each family. Prints each model's init seconds, parameter
+                bytes, peak memory, prefill ms, decode ms a step (median,
+                range), tokens/s and decode bytes bounds (deepseek-moe:
+                every parameter, as its dispatch reads every expert, and
+                the active ones) beside the card's name and power limit,
+                one MoE wave's busy share and top ops, the phase's wall
+ 14. timing   : each kernel's wrapper (median of 5 rounds of 20 calls
                 timed with CUDA events as the host enqueues them, the
                 method of every version of this script, which reads the
                 host's pace where a call is shorter than its enqueueing,
@@ -213,12 +245,12 @@ Phases (any failure exits non-zero before the result line):
                 function (index_put_ with accumulate=True); for the
                 fused kernels also the SASS instructions per pixel of the
                 pixel loop (cuobjdump) and the issue-rate floor they imply
- 14. summary  : one JSON line {"kernels": [...]} (with each kernel's
+ 15. summary  : one JSON line {"kernels": [...]} (with each kernel's
                 launches over the clean streams, stream_launches, while
                 tuning, tune_launches, over the pool events and stream,
                 pool_launches, and over the distributed recon runs,
                 dist_launches)
- 15. result   : last line {"ok": true, "device": {...}}
+ 16. result   : last line {"ok": true, "device": {...}}
 
 The on-card checks live here rather than in pytest because the machine with
 the card has no JAX, which the repository's test configuration imports.
@@ -2830,19 +2862,26 @@ def serve_args(arch: str, smoke: bool, device: str, **traffic):
 
 @contextlib.contextmanager
 def captured_logits(model):
-    """Record (tokens fed, start index, last-position logits) of every
-    ``prefill`` and ``decode_step`` of ``model`` inside the block."""
+    """Record (tokens fed, start index, last-position logits, MoE
+    ``routing_log`` entries) of every ``prefill`` and ``decode_step`` of
+    ``model`` inside the block (card tensors, read after the block)."""
+    from repro_torch.models import moe
+
     rec = []
     prefill, decode = model.prefill, model.decode_step
+    saved = {k: model.__dict__[k] for k in ("prefill", "decode_step")
+             if k in model.__dict__}
 
     def prefill_(params, batch, caches):
-        out = prefill(params, batch, caches)
-        rec.append((batch["tokens"], 0, out[0][:, -1].clone()))
+        with moe.routing_log() as log:
+            out = prefill(params, batch, caches)
+        rec.append((batch["tokens"], 0, out[0][:, -1].clone(), log))
         return out
 
-    def decode_(params, batch, caches, index):
-        out = decode(params, batch, caches, index)
-        rec.append((batch["tokens"], index, out[0][:, -1].clone()))
+    def decode_(params, batch, caches, index, extras=None):
+        with moe.routing_log() as log:
+            out = decode(params, batch, caches, index, extras)
+        rec.append((batch["tokens"], index, out[0][:, -1].clone(), log))
         return out
 
     model.prefill, model.decode_step = prefill_, decode_
@@ -2850,6 +2889,8 @@ def captured_logits(model):
         yield rec
     finally:
         del model.prefill, model.decode_step
+        for name, fn in saved.items():
+            setattr(model, name, fn)
 
 
 def serve_run(args, model, dev):
@@ -2866,29 +2907,89 @@ def serve_run(args, model, dev):
     return done, stats, rec
 
 
-def cache_vs_forward(model, params, rec, steps: int, tol_frac: float):
+@contextlib.contextmanager
+def replayed_routing(calls, b: int, n: int):
+    """Inside the block, the forward over the ``n`` positions fed so far
+    takes in every MoE layer the experts the cache path chose (``calls``:
+    the ``routing_log`` of the prefill and of each decode step so far); each
+    position where the forward's own top-k differs must sit at a near-tie
+    (``parity.moe_flips``: the two paths' bfloat16 roundings of the
+    router's input cross it). Yields a one-item list: the count of such
+    (position, layer) rows."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import moe
+    from repro_torch.testing import parity
+
+    layers = []
+    for entries in zip(*calls):
+        ids = torch.cat([e["ids"].reshape(b, -1, e["ids"].shape[-1])
+                         for e in entries], dim=1)[:, :n]
+        probs = torch.cat([e["probs"].reshape(b, -1, e["probs"].shape[-1])
+                           for e in entries], dim=1)[:, :n]
+        layers.append((ids.reshape(b * n, -1), probs.reshape(b * n, -1)))
+    queue = iter(layers)
+    route = moe.route
+    flips = [0]
+
+    def replay(router, xf, top_k):
+        probs, _, own = route(router, xf, top_k)
+        ids, cache_probs = next(queue)
+        flips[0] += int(np.sum(parity.moe_flips(
+            ids.cpu().numpy(), own.cpu().numpy(),
+            cache_probs.cpu().numpy(), probs.cpu().numpy())))
+        weights = torch.gather(probs, 1, ids)
+        return probs, weights / torch.sum(weights, dim=-1, keepdim=True), ids
+
+    moe.route = replay
+    try:
+        yield flips
+    finally:
+        moe.route = route
+
+
+def cache_vs_forward(model, params, rec, steps: int, tol_frac: float,
+                     chunk: int = 1, extra=None, label: str = "serve"):
     """The first ``steps`` recorded calls (a prefill and the decode steps
     of its wave) against ``Model.forward`` over the tokens fed so far: the
-    last position's logits. Returns (max |delta logit|, max |logit|,
-    argmax agreements, steps)."""
+    logits at the last fed position. ``chunk``: the forward runs over the
+    tokens padded at the end to a multiple of it where they exceed it
+    (mamba2's SSD chunk; the model is causal, so the padding leaves the
+    earlier positions as they are); ``extra``: more batch entries (an
+    enc-dec model's ``enc_embeds``). An MoE model's forward replays each
+    recorded call's routing (``replayed_routing``). Returns (max
+    |delta logit|, max |logit|, argmax agreements, steps, MoE rows whose
+    own choice the forward replaced at a near-tie)."""
     import torch
 
     vocab = model.cfg.vocab_size
+    routes = [r[3] for r in rec] if model.cfg.moe is not None else None
     seq = None
-    worst, top, agree = 0.0, 0.0, 0
-    for tokens, _, logits in rec[:steps]:
+    worst, top, agree, flips = 0.0, 0.0, 0, 0
+    for j, (tokens, _, logits, _) in enumerate(rec[:steps]):
         seq = tokens if seq is None else torch.cat([seq, tokens], dim=1)
-        full, _ = model.forward(params, {"tokens": seq})
-        ref = full[:, -1, :vocab].float()
+        b, n = seq.shape
+        pad = -n % chunk if n > chunk else 0
+        with contextlib.ExitStack() as stack:
+            if routes is not None:
+                replaced = stack.enter_context(
+                    replayed_routing(routes[:j + 1], b, n))
+            full, _ = model.forward(params, {
+                "tokens": torch.nn.functional.pad(seq, (0, pad)),
+                **(extra or {})})
+        if routes is not None:
+            flips += replaced[0]
+        ref = full[:, n - 1, :vocab].float()
         got = logits[:, :vocab].float()
         worst = max(worst, (got - ref).abs().max().item())
         top = max(top, ref.abs().max().item())
         agree += int((got.argmax(-1) == ref.argmax(-1)).all().item())
         del full
     check(worst <= tol_frac * top,
-          f"serve: decode_step logits differ from the forward's by "
+          f"{label}: decode_step logits differ from the forward's by "
           f"{worst} > {tol_frac:.4g} x max|logit| {top}")
-    return worst, top, agree, min(steps, len(rec))
+    return worst, top, agree, min(steps, len(rec)), flips
 
 
 def check_serve(dev, card: str) -> None:
@@ -3003,7 +3104,7 @@ def check_serve(dev, card: str) -> None:
     # (2) cache against forward: (A)'s first wave and (B)
     with torch.no_grad():
         for (label, args, _, _, rec) in runs[:2]:
-            worst, top, agree, n = cache_vs_forward(
+            worst, top, agree, n, _ = cache_vs_forward(
                 model, params, rec, args.new_tokens, tol)
             print(f"serve check 2 ({label}, first wave): decode_step logits "
                   f"== the forward's last position at {n} steps: max "
@@ -3054,6 +3155,487 @@ def check_serve(dev, card: str) -> None:
           f"tokens equal on the card and the CPU, max |delta logit| "
           f"{cpu_diff} <= {SERVE_CPU_ATOL}", flush=True)
     print(f"serve phase: wall {time.perf_counter() - t_phase:.1f} s; "
+          f"{card}", flush=True)
+
+
+#: the families phase (ROADMAP item 17(b)): the moe (GQA and MLA), ssm,
+#: hybrid and enc-dec families at full width, float32 parameters drawn on
+#: the card from prng.key(0), bfloat16 activations. (A) is the serve
+#: phase's waves (8 requests x 128 + 32, 4 slots, max_len 256); (A') the
+#: same at capacity factor E / k, where every expert's capacity is at least
+#: the token count and nothing drops; (B) one long request: mamba2's 3 840
+#: prompt is 15 SSD chunks of 256, recurrentgemma's 2 560 has its 2 048
+#: window mask the first 512 positions (its bulk prefill keeps the last
+#: 2 048)
+FAMILY_MOE = "deepseek-moe-16b"
+FAMILY_LONG = {
+    "mamba2-780m": dict(requests=1, slots=1, prompt_len=3840, new_tokens=16,
+                        max_len=3856),
+    "recurrentgemma-2b": dict(requests=1, slots=1, prompt_len=2560,
+                              new_tokens=16, max_len=2576)}
+#: deepseek-v2's widths at 2 of its 60 layers (a dense MLA layer and an
+#: MLA + 160-expert layer; 60 layers, 240.6 G parameters, do not fit one
+#: card), (A') traffic with 2 requests
+V2_LAYERS = 2
+V2_WAVES = dict(SERVE_WAVES, requests=2)
+#: seamless, driven through Model.prefill / decode_step (the engine
+#: refuses enc-dec, as the reference's fails on it): sequences, encoder
+#: frames from a numpy seed, decoder prompt, greedy tokens
+SEAMLESS = dict(batch=2, frames=1024, prompt=64, new=16)
+#: the card-against-CPU configs, smoke size in float32
+FAMILY_SMOKE = ("deepseek-moe-16b", "deepseek-v2-236b", "mamba2-780m",
+                "recurrentgemma-2b", "seamless-m4t-large-v2")
+def tree_bytes(tree) -> int:
+    """Bytes of every tensor in a nested dict / NamedTuple tree."""
+    import torch
+
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    if isinstance(tree, tuple):
+        return sum(tree_bytes(v) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    return 0
+
+
+def cache_bytes(cfg, slots: int, max_len: int) -> int:
+    """Bytes of the decode caches of ``slots`` x ``max_len`` (meta
+    tensors: nothing allocated)."""
+    from repro_torch.models import layers as L
+    from repro_torch.models.transformer import init_caches
+
+    return tree_bytes(init_caches(cfg, slots, max_len,
+                                  L.dtype_of(cfg.dtype), "meta"))
+
+
+def no_drop(cfg):
+    """``cfg`` at capacity factor E / k: every expert's capacity is at
+    least the token count, so no (token, expert) pair drops."""
+    import dataclasses as dc
+
+    m = cfg.moe
+    return dc.replace(cfg, moe=dc.replace(
+        m, capacity_factor=m.num_experts / m.top_k))
+
+
+def decode_waits(model, params, dev):
+    """One ``decode_step`` after an 8-token prefill of 2 sequences, under
+    the card's wait count (``card_waits``): the Counter of waits by
+    site."""
+    import torch
+
+    batch = {"tokens": torch.zeros((2, 8), dtype=torch.int32, device=dev)}
+    if model.is_encdec:
+        batch["enc_embeds"] = torch.zeros((2, 16, model.cfg.d_model),
+                                          device=dev)
+    with torch.no_grad():
+        caches = model.init_caches(2, 32)
+        _, caches, extras = model.prefill(params, batch, caches)
+        torch.cuda.synchronize(dev)
+        with card_waits() as waits:
+            model.decode_step(params, {"tokens": batch["tokens"][:, :1]},
+                              caches, 8, extras)
+            torch.cuda.synchronize(dev)
+    return waits
+
+
+def print_run(label: str, args, stats, bound_bytes, bounds, card) -> None:
+    """One serve run's line: tokens/s, prefill ms, decode ms a step
+    (median, range), the decode bytes bounds, peak memory."""
+    dec = stats["decode_ms"]
+    print(f"families {label}: {args.requests} requests x prompt "
+          f"{args.prompt_len} + {args.new_tokens} new tokens, {args.slots} "
+          f"slots, max_len {args.max_len}: {stats['tokens']} tokens in "
+          f"{stats['seconds']:.3f} s, {stats['tokens_per_s']:.1f} tokens/s;"
+          f" prefill ms {', '.join(f'{t:.1f}' for t in stats['prefill_ms'])}"
+          f"; decode {statistics.median(dec):.3f} ms a step (median of "
+          f"{len(dec)}; min {min(dec):.3f}, max {max(dec):.3f}); decode "
+          f"bytes bound " + "; ".join(
+              f"{name} {nbytes / PEAK_BYTES_S * 1e3:.3f} ms ({nbytes} B)"
+              for name, nbytes in bounds) + f" at "
+          f"{PEAK_BYTES_S / 1e12:.2f} TB/s (caches {bound_bytes} B "
+          f"included); peak memory {stats['peak_bytes'] / 2**30:.2f} GiB; "
+          f"{card}", flush=True)
+
+
+def print_model(model, init_s, init_peak, held, card) -> int:
+    cfg = model.cfg
+    param_bytes = sum(p.numel() * p.element_size()
+                      for p in model.parameters())
+    print(f"families {cfg.name}: {cfg.family}, {cfg.num_layers} layers, "
+          f"d_model {cfg.d_model}, vocab {cfg.vocab_size}, {cfg.dtype} "
+          f"activations, {cfg.param_dtype} parameters: init {init_s:.2f} s "
+          f"on the card, parameter bytes {param_bytes} "
+          f"({param_bytes / 1e9:.3f} GB), peak memory of the draw "
+          f"{(init_peak - held) / 2**30:.2f} GiB above the "
+          f"{held / 2**30:.2f} GiB held before; {card}", flush=True)
+    return param_bytes
+
+
+def drawn(cfg, dev):
+    """(Model of ``cfg`` on ``dev`` with parameters from prng.key(0), draw
+    seconds, peak bytes of the draw)."""
+    import torch
+
+    from repro_torch.core import prng
+    from repro_torch.models.model import Model
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = Model(cfg, dev)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    model.init(prng.key(0))
+    torch.cuda.synchronize(dev)
+    return model, time.perf_counter() - t0, torch.cuda.max_memory_allocated(dev)
+
+
+def check_cache(label, model, params, rec, args, chunk=1, extra=None,
+                tol=None):
+    """Check 1 on one recorded wave, printed: within ``tol`` of max|logit|
+    (default ``parity.lm_bf16_atol_frac(L)``; inf prints the distance
+    without a check)."""
+    import torch
+
+    from repro_torch.testing import parity
+
+    if tol is None:
+        tol = parity.lm_bf16_atol_frac(model.cfg.num_layers)
+    with torch.no_grad():
+        worst, top, agree, n, flips = cache_vs_forward(
+            model, params, rec, args.new_tokens, tol, chunk=chunk,
+            extra=extra, label=f"families {label}")
+    print(f"families check 1 ({label}, first wave, {model.cfg.dtype}): "
+          f"decode_step logits == the forward's at the same position at {n} "
+          f"steps"
+          + (f" (the forward over the tokens padded at the end to a "
+             f"multiple of {chunk}: the model is causal, so the padding "
+             f"leaves the earlier positions as they are)" if chunk > 1
+             else "")
+          + (f": max |delta logit| {worst} = {worst / top:.4g} x max|logit| "
+             f"{top} (printed, not checked)" if tol == float("inf") else
+             f": max |delta logit| {worst} <= {tol:.5g} x max|logit| {top} = "
+             f"{tol * top:.4g}") + f"; argmax equal at {agree} of {n} steps"
+          + (f"; the forward replays the cache path's experts (its own "
+             f"top-k differed at {flips} (position, layer) rows, each a "
+             f"near-tie)" if model.cfg.moe is not None else ""), flush=True)
+
+
+def check_waits(label, model, params, dev) -> None:
+    """Check 4: 0 waits inside one decode_step."""
+    waits = decode_waits(model, params, dev)
+    check(not waits, f"families {label}: decode_step waits for the card "
+          f"at {dict(waits)}")
+    print(f"families check 4 ({label}): one decode_step under "
+          f"set_sync_debug_mode: 0 waits", flush=True)
+
+
+def family_serve(label, model, args, dev):
+    """One launch.serve.run of ``model``: (requests, stats with the run's
+    peak memory, recorded calls, each prefill's dropped MoE pairs)."""
+    from repro_torch.models import moe
+
+    done, stats, rec = serve_run(args, model, dev)
+    drops = [int(sum(moe.dropped_pairs(e) for e in log))
+             for _, index, _, log in rec if index == 0 and log]
+    if drops:
+        print(f"families {label}: dropped (token, expert) pairs of each "
+              f"prefill: {drops} (capacity factor "
+              f"{model.cfg.moe.capacity_factor:.6g})", flush=True)
+    return done, stats, rec, drops
+
+
+def drive_encdec(model, params, dev, batch, frames, prompt, new, seed=0):
+    """seamless through ``Model.prefill`` / ``decode_step``: ``batch``
+    sequences of ``frames`` encoder frames and ``prompt`` decoder tokens
+    from a numpy seed, ``new`` greedy tokens. Returns (tokens per sequence,
+    recorded calls, stats as ``launch.serve.run`` gives them but the peak
+    memory, the batch's enc_embeds)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.serve.engine import greedy_sample
+
+    cfg = model.cfg
+    rng = np.random.default_rng(seed)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (batch, prompt),
+                                         dtype=np.int32)).to(dev)
+    enc = torch.from_numpy(rng.standard_normal(
+        (batch, frames, cfg.d_model)).astype(np.float32)).to(dev)
+    out, prefill_s, decode_s = [], [], []
+    t_all = time.perf_counter()
+    with torch.no_grad(), captured_logits(model) as rec:
+        caches = model.init_caches(batch, prompt + new)
+        logits, caches, extras = model.prefill(
+            params, {"tokens": toks, "enc_embeds": enc}, caches)
+        tok = greedy_sample(logits)
+        out.append(tok.tolist())
+        prefill_s.append(time.perf_counter() - t_all)
+        for i in range(new - 1):
+            t0 = time.perf_counter()
+            logits, caches = model.decode_step(
+                params, {"tokens": tok[:, None]}, caches, prompt + i, extras)
+            tok = greedy_sample(logits)
+            out.append(tok.tolist())
+            decode_s.append(time.perf_counter() - t0)
+    seconds = time.perf_counter() - t_all
+    stats = {"seconds": seconds, "tokens": batch * new,
+             "tokens_per_s": batch * new / seconds,
+             "prefill_ms": [1e3 * t for t in prefill_s],
+             "decode_ms": [1e3 * t for t in decode_s]}
+    return [list(t) for t in zip(*out)], rec, stats, enc
+
+
+def families_moe(dev, card, held):
+    """deepseek-moe-16b at full width: (A) twice and (A') through
+    launch.serve.run; checks 1 (on A'), 2 and 4; the profile of a wave."""
+    import torch
+
+    from repro_torch.launch import serve
+    from repro_torch.models.model import Model, count_params_analytic
+
+    arch = FAMILY_MOE
+    waves = serve_args(arch, False, str(dev), **SERVE_WAVES)
+    torch.cuda.reset_peak_memory_stats(dev)
+    model, init_s = serve.build_model(waves)
+    param_bytes = print_model(model, init_s,
+                              torch.cuda.max_memory_allocated(dev), held, card)
+    params = model.params()
+    cfg = model.cfg
+    active = count_params_analytic(cfg, active_only=True) * 4
+    runs = {}
+    kv = cache_bytes(cfg, waves.slots, waves.max_len)
+    flat = no_drop(cfg)
+    flat_model = Model(flat, dev)
+    flat_model.load_params(params)      # the same tensors, no copy
+    for label, m in (("A", model), ("A again", model), ("A'", flat_model)):
+        runs[label] = family_serve(f"{arch} ({label})", m, waves, dev)
+        stats = runs[label][1]
+        print_run(f"{arch} ({label}, capacity factor "
+                  f"{m.cfg.moe.capacity_factor:.6g})", waves, stats, kv,
+                  [("every parameter (the dispatch multiplies every expert "
+                    "at capacity >= 8)", param_bytes + kv),
+                   ("active parameters only", active + kv)], card)
+    flat_drops = runs["A'"][3]
+    check(not any(flat_drops), f"families {arch} (A'): pairs dropped at "
+          f"capacity factor E / k: {flat_drops}")
+    a1, a2 = runs["A"], runs["A again"]
+    same = ([r.out_tokens for r in a1[0]] == [r.out_tokens for r in a2[0]],
+            torch.equal(a1[2][-1][2], a2[2][-1][2]), a1[3] == a2[3])
+    check(all(same), f"families {arch}: two runs of (A) differ (tokens, "
+          f"final logits, drops equal: {same})")
+    print(f"families check 2 ({arch}): two runs of (A) give identical "
+          f"tokens, final logits (bit for bit) and drops {a1[3]}",
+          flush=True)
+    check_cache(f"{arch} (A')", flat_model, params, runs["A'"][2], waves)
+    prof = serve_args(arch, False, str(dev), requests=4, slots=4,
+                      prompt_len=128, new_tokens=8, max_len=256)
+    wall, busy, top = profiled(lambda: serve.run(prof, model=model))
+    print(f"families profile ({arch}), one MoE wave of 4 x (128 + 8) "
+          f"under torch.profiler: {busy:.3f} ms of CUDA activity in "
+          f"{wall:.3f} ms (host clock, synchronised), busy share "
+          f"{busy / wall:.4f}; ops with the most device time: "
+          + "; ".join(f"{k} {ms:.3f} ms x{n}" for k, ms, n in top)
+          + f"; {card}", flush=True)
+    check_waits(arch, model, params, dev)
+
+
+def families_v2(dev, card, held):
+    """deepseek-v2's widths at V2_LAYERS layers, (A') with 2 requests;
+    checks 1 and 4."""
+    import dataclasses as dc
+
+    from repro_torch.config import get_config
+
+    arch = "deepseek-v2-236b"
+    cfg = no_drop(dc.replace(get_config(arch), num_layers=V2_LAYERS))
+    model, init_s, init_peak = drawn(cfg, dev)
+    param_bytes = print_model(model, init_s, init_peak, held, card)
+    params = model.params()
+    args = serve_args(arch, False, str(dev), **V2_WAVES)
+    kv = cache_bytes(cfg, args.slots, args.max_len)
+    done, stats, rec, drops = family_serve(f"{arch} (A')", model, args, dev)
+    check(not any(drops), f"families {arch} (A'): pairs dropped: {drops}")
+    print_run(f"{arch} ({V2_LAYERS} layers, A', capacity factor "
+              f"{cfg.moe.capacity_factor:.6g})", args, stats, kv,
+              [("every parameter", param_bytes + kv)], card)
+    check_cache(f"{arch} ({V2_LAYERS} layers, A')", model, params, rec, args)
+    check_waits(arch, model, params, dev)
+
+
+def families_recurrent(arch, dev, card, held):
+    """mamba2 or recurrentgemma at full width: (A) and (B) through
+    launch.serve.run; checks 1 and 4. mamba2's check 1 runs on the same
+    parameters with float32 activations, within ``parity.lm_atol_frac(L)``,
+    and prints the bfloat16 distance: in bfloat16 the departure of its
+    cache path from its forward grows about linearly with depth, in the
+    reference's as in the port's, past the square-root rule of
+    ``lm_bf16_atol_frac`` (``tests/torch_ssm_drift.py`` measures both at
+    full width and cut depths; ROADMAP queue 3)."""
+    import dataclasses as dc
+
+    import torch
+
+    from repro_torch.launch import serve
+    from repro_torch.models.model import Model
+    from repro_torch.testing import parity
+
+    waves = serve_args(arch, False, str(dev), **SERVE_WAVES)
+    long_ = serve_args(arch, False, str(dev), **FAMILY_LONG[arch])
+    torch.cuda.reset_peak_memory_stats(dev)
+    model, init_s = serve.build_model(waves)
+    param_bytes = print_model(model, init_s,
+                              torch.cuda.max_memory_allocated(dev), held, card)
+    params = model.params()
+    cfg = model.cfg
+    ssm = cfg.ssm is not None
+    chunk = cfg.ssm.chunk if ssm else 1
+    for label, args in (("A", waves), ("B", long_)):
+        done, stats, rec, _ = family_serve(f"{arch} ({label})", model, args,
+                                           dev)
+        kv = cache_bytes(cfg, args.slots, args.max_len)
+        print_run(f"{arch} ({label})", args, stats, kv,
+                  [("every parameter", param_bytes + kv)], card)
+        check_cache(f"{arch} ({label})", model, params, rec, args,
+                    chunk=chunk, tol=float("inf") if ssm else None)
+        del rec
+    if ssm:
+        exact = Model(dc.replace(cfg, dtype="float32"), dev)
+        exact.load_params(params)       # the same tensors, no copy
+        first = serve_args(arch, False, str(dev),
+                           **dict(SERVE_WAVES, requests=SERVE_WAVES["slots"]))
+        for label, args in (("A", first), ("B", long_)):
+            _, _, rec, _ = family_serve(f"{arch} float32 ({label})", exact,
+                                        args, dev)
+            check_cache(f"{arch} ({label})", exact, params, rec, args,
+                        chunk=chunk, tol=parity.lm_atol_frac(cfg.num_layers))
+            del rec
+        del exact
+    check_waits(arch, model, params, dev)
+
+
+def families_encdec(dev, card, held):
+    """seamless at full width through Model.prefill / decode_step; checks
+    1 and 4."""
+    import argparse
+
+    import torch
+
+    from repro_torch.config import get_config
+
+    arch = "seamless-m4t-large-v2"
+    model, init_s, init_peak = drawn(get_config(arch), dev)
+    param_bytes = print_model(model, init_s, init_peak, held, card)
+    params = model.params()
+    cfg = model.cfg
+    t = SEAMLESS
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize(dev)
+    tokens, rec, stats, enc = drive_encdec(model, params, dev, t["batch"],
+                                           t["frames"], t["prompt"],
+                                           t["new"])
+    stats["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    args = argparse.Namespace(requests=t["batch"], slots=t["batch"],
+                              prompt_len=t["prompt"], new_tokens=t["new"],
+                              max_len=t["prompt"] + t["new"])
+    kv = cache_bytes(cfg, t["batch"], t["prompt"] + t["new"])
+    enc_bytes = t["batch"] * t["frames"] * cfg.d_model * 2
+    print_run(f"{arch} ({t['batch']} x {t['frames']} frames, "
+              f"Model.prefill / decode_step)", args, stats, kv + enc_bytes,
+              [("every parameter + the encoder states",
+                param_bytes + kv + enc_bytes)], card)
+    check_cache(arch, model, params, rec, args, extra={"enc_embeds": enc})
+    check_waits(arch, model, params, dev)
+
+
+def families_card_vs_cpu(dev) -> None:
+    """Check 3: each FAMILY_SMOKE config at smoke size in float32 on the
+    card and on the CPU: logits within SERVE_CPU_ATOL, equal tokens for the
+    untied deepseek configs."""
+    import dataclasses as dc
+
+    import torch
+
+    from repro_torch.config import get_config
+    from repro_torch.core import prng
+    from repro_torch.launch import serve
+    from repro_torch.models.model import Model
+
+    for arch in FAMILY_SMOKE:
+        small = dc.replace(get_config(arch, smoke=True), dtype="float32")
+        outs = []
+        for device in (str(dev), "cpu"):
+            m = Model(small, device)
+            params = m.init(prng.key(0))
+            if m.is_encdec:
+                toks, rec, _, _ = drive_encdec(m, params,
+                                               torch.device(device), 2, 24,
+                                               12, 8)
+            else:
+                with captured_logits(m) as rec:
+                    done, _ = serve.run(serve_args(arch, True, device),
+                                        model=m)
+                toks = [r.out_tokens for r in done]
+            outs.append((toks, torch.stack([r[2].float().cpu()
+                                            for r in rec])))
+        diff = (outs[0][1] - outs[1][1]).abs().max().item()
+        untied = not small.tie_embeddings and not small.is_encoder_decoder
+        same = outs[0][0] == outs[1][0]
+        check(diff <= SERVE_CPU_ATOL and (same or not untied),
+              f"families {arch} smoke float32, card against CPU: tokens "
+              f"equal {same}, max |delta logit| {diff}")
+        print(f"families check 3 ({arch} smoke, float32): card against CPU "
+              f"max |delta logit| {diff} <= {SERVE_CPU_ATOL}; tokens equal "
+              f"{same}" + (" (required: untied)" if untied else ""),
+              flush=True)
+
+
+def check_families(dev, card: str) -> None:
+    """The "families" phase: ROADMAP item 17(b)'s families at full width
+    (module constants above), one model on the card at a time. Checks,
+    each failing the run: (1) at every decode step, decode_step's logits
+    == Model.forward's at that position over the tokens fed so far,
+    within ``parity.lm_bf16_atol_frac(L)`` of max|logit| (deepseek-moe on
+    (A') and deepseek-v2, the forward replaying the experts the cache
+    path chose, each of its own choices that differs a near-tie;
+    recurrentgemma (A) and (B); seamless); mamba2 (A) and (B), the forward
+    padded to the SSD chunk, within ``parity.lm_atol_frac(L)`` with
+    float32 activations, the bfloat16 distance printed
+    (``families_recurrent``); (2) two runs of
+    deepseek-moe (A) give bit-identical tokens, final logits and drops;
+    (3) the five smoke configs in float32 on the card and on the CPU
+    (logits within SERVE_CPU_ATOL, the untied deepseek configs' tokens
+    equal); (4) one decode_step of each family waits 0 times for the card.
+    Prints each model's init seconds, parameter bytes, peak memory,
+    prefill ms, decode ms a step, tokens/s and decode bytes bound beside
+    the card's name and power limit, the dropped pairs of each MoE
+    prefill, one MoE wave's busy share and top ops, and the phase's wall
+    time."""
+    import gc
+
+    import torch
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.zeros((), device=dev)
+    held = torch.cuda.memory_allocated(dev)
+    steps = (("deepseek-moe-16b", lambda: families_moe(dev, card, held)),
+             ("deepseek-v2-236b", lambda: families_v2(dev, card, held)),
+             ("mamba2-780m", lambda: families_recurrent(
+                 "mamba2-780m", dev, card, held)),
+             ("recurrentgemma-2b", lambda: families_recurrent(
+                 "recurrentgemma-2b", dev, card, held)),
+             ("seamless-m4t-large-v2", lambda: families_encdec(dev, card,
+                                                                held)),
+             ("card against CPU", lambda: families_card_vs_cpu(dev)))
+    for name, step in steps:
+        t0 = time.perf_counter()
+        step()
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"families {name}: wall {time.perf_counter() - t0:.1f} s",
+              flush=True)
+    print(f"families phase: wall {time.perf_counter() - t_phase:.1f} s; "
           f"{card}", flush=True)
 
 
@@ -3423,6 +4005,9 @@ def main() -> int:
 
     phase("serve")
     check_serve(dev, card)
+
+    phase("families")
+    check_families(dev, card)
 
     phase("kernel timing")
     rows = []

@@ -3,9 +3,8 @@ from the reference's ``configs`` package.
 
 Importing this package registers every arch under its ``--arch <id>``;
 ``lartpc-uboone``, the simulator's own config, is registered by
-``repro_torch.config`` itself. All ten LM families register, because
-``count_params_analytic`` and ``list_archs`` cover every family; building a
-model of a family the port does not run yet raises (``models/transformer.py``).
+``repro_torch.config`` itself. ``Model`` builds every one of the ten
+architectures (``models/model.py``).
 """
 from repro_torch.configs import (  # noqa: F401
     deepseek_moe_16b,

@@ -12,8 +12,9 @@ of ``rng_strategy="pool"``; and turn a port
 reference's filters across as well; ``fit_targets_from_numpy`` carries a
 calibration fit's targets. The LM slice carries weights:
 ``model_params_from_numpy`` builds the port's parameter tree from the
-reference's, key for key, and ``kv_cache_to_numpy`` turns a port KV cache
-back into numpy. Like every entry point of the port,
+reference's, key for key (every family's tree), and ``caches_to_numpy``
+turns a port cache tree of any kind (KV, MLA, SSM, RG-LRU) back into
+numpy. Like every entry point of the port,
 the builders put their tensors on the card unless ``device="cpu"`` is
 passed.
 """
@@ -181,15 +182,29 @@ def model_params_from_numpy(tree, device="cuda"):
     return torch.from_numpy(np.array(arr)).to(resolve_device(device))
 
 
-def kv_cache_to_numpy(caches) -> Dict[str, Dict[str, np.ndarray]]:
-    """A port cache tree ``{stack: {"kv": KVCache}}`` as ``{stack:
-    {field: array}}``: k and v widened to float32 (exact for bfloat16), pos
-    and index as int32."""
+def _cache_to_numpy(cache) -> Dict[str, np.ndarray]:
+    """One stacked cache NamedTuple as ``{field: array}``: floats widened to
+    float32 (exact for bfloat16), integers as int32, and the host ``index``
+    as the reference's (layers,) int32 array."""
+    fields = cache._asdict()
+    layers = next(v.shape[0] for v in fields.values()
+                  if isinstance(v, torch.Tensor))
     out = {}
-    for name, entry in caches.items():
-        cache = entry["kv"]
-        out[name] = {"k": cache.k.detach().float().cpu().numpy(),
-                     "v": cache.v.detach().float().cpu().numpy(),
-                     "pos": cache.pos.cpu().numpy().astype(np.int32),
-                     "index": cache.index.cpu().numpy().astype(np.int32)}
+    for name, value in fields.items():
+        if not isinstance(value, torch.Tensor):
+            out[name] = np.full((layers,), value, dtype=np.int32)
+        elif value.is_floating_point():
+            out[name] = value.detach().float().cpu().numpy()
+        else:
+            out[name] = value.cpu().numpy().astype(np.int32)
     return out
+
+
+def caches_to_numpy(caches) -> Dict[str, Any]:
+    """A port cache tree (``Model.init_caches``' layout: ``{stack: {entry:
+    cache}}``, entries ``kv``, ``mla``, ``ssm`` or a griffin group's
+    ``g{j}``) as the same tree with every cache a ``{field: array}`` dict,
+    the reference's field names and shapes."""
+    if isinstance(caches, Mapping):
+        return {k: caches_to_numpy(v) for k, v in caches.items()}
+    return _cache_to_numpy(caches)

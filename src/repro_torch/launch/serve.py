@@ -8,8 +8,10 @@ counterpart of the reference's ``repro.launch.serve``: the same flags, plus
 ``--device`` (default ``cuda``; raises without a card instead of falling
 back). Parameters are random, drawn from ``prng.key(0)``; the prompts are
 ``--requests`` uniform draws of ``--prompt-len`` tokens from
-``numpy.random.default_rng(0)``, as the reference's are. The port serves
-the dense and vlm families; the others raise (ROADMAP item 17(b)).
+``numpy.random.default_rng(0)``, as the reference's are. Every
+decoder-only family serves (dense, vlm, moe, ssm, hybrid); an enc-dec
+``--arch`` is refused before any parameter is drawn
+(``serve.engine.refuse_encdec``).
 """
 from __future__ import annotations
 
@@ -25,7 +27,7 @@ from repro_torch.config import get_config, list_archs
 from repro_torch.core import prng
 from repro_torch.device import resolve_device
 from repro_torch.models.model import Model
-from repro_torch.serve.engine import Request, ServeEngine
+from repro_torch.serve.engine import Request, ServeEngine, refuse_encdec
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -56,6 +58,7 @@ def build_model(args) -> Tuple[Model, float]:
     cfg = get_config(args.arch, smoke=args.smoke)
     if cfg.family == "lartpc":
         raise SystemExit("use repro_torch.launch.sim for the lartpc workload")
+    refuse_encdec(cfg)
     model = Model(cfg, device)
     _sync(device)
     t0 = time.perf_counter()

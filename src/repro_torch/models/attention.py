@@ -1,4 +1,4 @@
-"""Attention: GQA (+qk-norm, softcap, sliding window), cross-attention.
+"""Attention: GQA (+qk-norm, softcap, sliding window), MLA, cross-attention.
 
 All softmax attention goes through ``flash_attention``: for ``Sq > 8`` the
 reference's blockwise forward, an online softmax over KV blocks of
@@ -12,7 +12,12 @@ widened, which is exact.
 
 The backward (the reference's ``_flash_bwd``) waits for the training slice
 (ROADMAP item 17(c)); ``_maybe_repeat_kv`` and the sharding constraints for
-the parallel slice (17(d)); MLA for 17(b).
+the parallel slice (17(d)).
+
+A cache's ``index`` (the tokens written so far) is a Python int, the same
+for every layer of a stacked cache: it picks the slots a step writes, which
+the reference's ``dynamic_update_slice`` takes as a traced value, so no
+step reads the card to find them.
 """
 from __future__ import annotations
 
@@ -20,7 +25,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from repro_torch.config import ModelConfig
+from repro_torch.config import MLAConfig, ModelConfig
 from repro_torch.models.layers import apply_rope, rmsnorm, rope_table, softcap
 
 NEG_INF = -2.0e38
@@ -194,14 +199,13 @@ def make_gqa(make, path: str, cfg: ModelConfig):
 class KVCache(NamedTuple):
     """Ring-buffer KV cache. ``pos`` holds the absolute position in each
     slot (-1 = empty), so windowed layers can use a cache of only
-    ``window_size`` slots and wrap around. ``index`` (the tokens written so
-    far) lives on the host: it picks the slots a step writes, which the
-    reference's ``dynamic_update_slice`` takes as a traced value."""
+    ``window_size`` slots and wrap around. ``index`` is the host int of
+    tokens written so far (module docstring)."""
 
     k: torch.Tensor       # (B, S_max, Hkv, Dh)
     v: torch.Tensor
     pos: torch.Tensor     # (S_max,) int32 absolute position per slot, -1 empty
-    index: torch.Tensor   # host int32 scalar: tokens written so far
+    index: int            # tokens written so far
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, layers: int,
@@ -212,7 +216,7 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, layers: int,
                    v=torch.zeros(shape, dtype=dtype, device=device),
                    pos=torch.full((layers, max_len), -1, dtype=torch.int32,
                                   device=device),
-                   index=torch.zeros((layers,), dtype=torch.int32))
+                   index=0)
 
 
 def _project(x, w):
@@ -242,7 +246,7 @@ def gqa_attention(params, x, positions, cfg: ModelConfig, *,
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
 
-    index = 0 if cache is None else int(cache.index)
+    index = 0 if cache is None else cache.index
     if cache is None:
         out = flash_attention(q, k, v, positions, positions, causal=causal,
                               window=window, logit_cap=cfg.attn_logit_softcap)
@@ -256,7 +260,7 @@ def gqa_attention(params, x, positions, cfg: ModelConfig, *,
         cache.k.copy_(k[:, sq - smax:])
         cache.v.copy_(v[:, sq - smax:])
         cache.pos.copy_(positions[0, sq - smax:])
-        new_cache = cache._replace(index=cache.index + sq)
+        new_cache = cache._replace(index=index + sq)
     else:
         # decode/append: write k,v at slot index % S_max (ring buffer for
         # windowed caches; plain append while index < S_max). The
@@ -273,7 +277,7 @@ def gqa_attention(params, x, positions, cfg: ModelConfig, *,
                               positions, kv_pos, causal=causal, window=window,
                               logit_cap=cfg.attn_logit_softcap,
                               kv_valid=kv_pos >= 0)
-        new_cache = cache._replace(index=cache.index + sq)
+        new_cache = cache._replace(index=index + sq)
 
     wo = params["wo"]
     out = torch.matmul(out.flatten(-2), wo.to(x.dtype).reshape(-1, d))
@@ -304,3 +308,161 @@ def encode_cross_kv(params, enc_out, cfg: ModelConfig):
     if cfg.qk_norm:
         k = rmsnorm(k, params["k_norm"])
     return k, v
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2 multi-head latent attention)
+# ---------------------------------------------------------------------------
+
+def make_mla(make, path: str, cfg: ModelConfig):
+    m: MLAConfig = cfg.mla
+    d, h = cfg.d_model, cfg.num_heads
+    dn, dr, dv, dc = (m.nope_head_dim, m.rope_head_dim, m.v_head_dim,
+                      m.kv_lora_rank)
+    s = d ** -0.5
+    return {
+        "wq": make(f"{path}.wq", (d, h, dn + dr),
+                   ("embed", "heads", "head_dim"), s),
+        "w_dkv": make(f"{path}.w_dkv", (d, dc), ("embed", "kv_lora"), s),
+        "w_kr": make(f"{path}.w_kr", (d, dr), ("embed", "head_dim"), s),
+        "kv_norm": make(f"{path}.kv_norm", (dc,), ("kv_lora",),
+                        init="zeros"),
+        "w_uk": make(f"{path}.w_uk", (dc, h, dn),
+                     ("kv_lora", "heads", "head_dim"), dc ** -0.5),
+        "w_uv": make(f"{path}.w_uv", (dc, h, dv),
+                     ("kv_lora", "heads", "head_dim"), dc ** -0.5),
+        "wo": make(f"{path}.wo", (h, dv, d), ("heads", "head_dim", "embed"),
+                   (h * dv) ** -0.5),
+    }
+
+
+class MLACache(NamedTuple):
+    """The compressed cache: the latent and the shared rope key of every
+    position (slot = position, no ring); ``index`` a host int as in
+    ``KVCache``."""
+
+    c_kv: torch.Tensor    # (B, S_max, dc)
+    k_rope: torch.Tensor  # (B, S_max, dr)
+    index: int
+
+
+def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int, layers: int,
+                   dtype, device) -> MLACache:
+    m = cfg.mla
+    return MLACache(
+        c_kv=torch.zeros((layers, batch, max_len, m.kv_lora_rank),
+                         dtype=dtype, device=device),
+        k_rope=torch.zeros((layers, batch, max_len, m.rope_head_dim),
+                           dtype=dtype, device=device),
+        index=0)
+
+
+def _heads_in(x, w):
+    """einsum("bshk,chk->bshc", x, w): every head's (B,S,k) against its
+    (c,k) slice of ``w`` (cast to ``x``'s dtype), one batched product over
+    the heads."""
+    b, s, h, _ = x.shape
+    out = torch.bmm(x.permute(2, 0, 1, 3).reshape(h, b * s, -1),
+                    w.to(x.dtype).permute(1, 2, 0))          # (H, B*S, c)
+    return out.reshape(h, b, s, -1).permute(1, 2, 0, 3)
+
+
+def _heads_out(x, w):
+    """einsum("bshc,chk->bshk", x, w), one batched product over the
+    heads."""
+    b, s, h, _ = x.shape
+    out = torch.bmm(x.permute(2, 0, 1, 3).reshape(h, b * s, -1),
+                    w.to(x.dtype).permute(1, 0, 2))          # (H, B*S, k)
+    return out.reshape(h, b, s, -1).permute(1, 2, 0, 3)
+
+
+def _latent_up(c_kv, w):
+    """einsum("bsc,chk->bshk", c_kv, w): the latent expanded to every
+    head."""
+    c, h, k = w.shape
+    return torch.matmul(c_kv, w.to(c_kv.dtype).reshape(c, h * k)).unflatten(
+        -1, (h, k))
+
+
+def _mla_expanded(params, x, qn, qr, kr, c_kv, positions, cfg: ModelConfig):
+    """Expanded (training/prefill) MLA attention: (B,S,H,dv)."""
+    m: MLAConfig = cfg.mla
+    b, sq = x.shape[0], x.shape[1]
+    h = cfg.num_heads
+    dn, dr, dv = m.nope_head_dim, m.rope_head_dim, m.v_head_dim
+    kn = _latent_up(c_kv, params["w_uk"])
+    v = _latent_up(c_kv, params["w_uv"])
+    k_full = torch.cat([kn, kr[:, :, None, :].expand(b, sq, h, dr)], dim=-1)
+    q_full = torch.cat([qn, qr], dim=-1)
+    # pad v to the score head-dim so the flash kernel sees uniform D
+    v_pad = torch.nn.functional.pad(v, (0, dn + dr - dv))
+    return flash_attention(q_full, k_full, v_pad, positions, positions,
+                           causal=True)[..., :dv]
+
+
+def mla_attention(params, x, positions, cfg: ModelConfig, *,
+                  cache: Optional[MLACache] = None):
+    """x: (B,S,D); positions: (B,S). cache -> (out, new_cache_entry).
+
+    Three branches, as the reference's: no cache runs the expanded form; a
+    prefill of at least S_max tokens runs it too and keeps the last S_max
+    latents; any shorter write (decode, and the engine's prefill) runs the
+    absorbed form over the compressed cache, written in place at
+    ``index`` (clamped so that the write fits, as ``dynamic_update_slice``
+    clamps its start)."""
+    m: MLAConfig = cfg.mla
+    b, sq, d = x.shape
+    dn, dr = m.nope_head_dim, m.rope_head_dim
+    dc = m.kv_lora_rank
+
+    q = _project(x, params["wq"])
+    qn, qr = q[..., :dn], q[..., dn:]
+    cos, sin = rope_table(positions, dr, cfg.rope_theta)
+    qr = apply_rope(qr, cos, sin)
+
+    c_kv = rmsnorm(torch.matmul(x, params["w_dkv"].to(x.dtype)),
+                   params["kv_norm"])
+    kr = torch.matmul(x, params["w_kr"].to(x.dtype))
+    kr = apply_rope(kr[:, :, None, :], cos, sin)[:, :, 0, :]  # shared head
+
+    if cache is None:
+        out, new_cache = _mla_expanded(params, x, qn, qr, kr, c_kv,
+                                       positions, cfg), None
+    elif sq >= cache.c_kv.shape[1]:
+        # bulk prefill: expanded attention + one-shot compressed cache write
+        smax = cache.c_kv.shape[1]
+        out = _mla_expanded(params, x, qn, qr, kr, c_kv, positions, cfg)
+        cache.c_kv.copy_(c_kv[:, sq - smax:])
+        cache.k_rope.copy_(kr[:, sq - smax:])
+        new_cache = cache._replace(index=cache.index + sq)
+    else:
+        # absorbed form: score via latent space, cache stays compressed
+        smax = cache.c_kv.shape[1]
+        write = min(cache.index, smax - sq)
+        cache.c_kv[:, write:write + sq] = c_kv.to(cache.c_kv.dtype)
+        cache.k_rope[:, write:write + sq] = kr.to(cache.k_rope.dtype)
+        new_index = cache.index + sq
+        kv_pos = torch.arange(smax, dtype=torch.int32,
+                              device=x.device)[None].expand(b, smax)
+        # absorb W_uk into q: q_lat (B,S,H,dc)
+        q_lat = _heads_in(qn, params["w_uk"])
+        q_cat = torch.cat([q_lat, qr], dim=-1)              # (B,S,H,dc+dr)
+        k_cat = torch.cat([cache.c_kv, cache.k_rope], dim=-1).to(
+            x.dtype)[:, :, None, :]                         # Hkv = 1
+        # value = latent, padded to match score dim for the flash kernel
+        v_lat = torch.nn.functional.pad(cache.c_kv.to(x.dtype),
+                                        (0, dr))[:, :, None, :]
+        # flash divides by sqrt(dc+dr); rescale so the net scale is the
+        # expanded form's 1/sqrt(dn+dr). The reference multiplies by a
+        # weak-typed Python float, which JAX rounds to q's dtype first: a
+        # 0-d tensor of that dtype does the same
+        rescale = torch.full((), ((dc + dr) ** 0.5) * ((dn + dr) ** -0.5),
+                             dtype=q_cat.dtype, device=x.device)
+        out_lat = flash_attention(q_cat * rescale, k_cat, v_lat, positions,
+                                  kv_pos, causal=True,
+                                  kv_valid=kv_pos < new_index)[..., :dc]
+        out = _heads_out(out_lat, params["w_uv"])
+        new_cache = cache._replace(index=new_index)
+
+    y = torch.matmul(out.flatten(-2), params["wo"].to(x.dtype).reshape(-1, d))
+    return y, new_cache

@@ -1,4 +1,4 @@
-"""Shared NN layers: norms, MLPs, RoPE, embeddings, softcap.
+"""Shared NN layers: norms, MLPs, RoPE, embeddings, softcap, causal conv.
 
 Weights are float32 and are cast to the activations' dtype at each use, as
 the reference's ``params[...].astype(x.dtype)`` does; elementwise math runs
@@ -154,3 +154,24 @@ def unembed(params, x, cfg: ModelConfig):
                              torch.full((), -1e9, dtype=logits.dtype,
                                         device=logits.device))
     return logits
+
+
+def causal_conv1d(x, w, cache=None):
+    """Depthwise causal temporal conv. x (B,S,C), w (K,C); cache (B,K-1,C).
+
+    The reference's K shifted multiply-adds in the same order, in ``x``'s
+    dtype (the weight and the cache cast to it); the new cache is the last
+    K-1 inputs. Returns (out, new_cache)."""
+    k = w.shape[0]
+    if cache is None:
+        pad = torch.zeros((x.shape[0], k - 1, x.shape[2]), dtype=x.dtype,
+                          device=x.device)
+    else:
+        pad = cache.to(x.dtype)
+    xp = torch.cat([pad, x], dim=1)
+    out = torch.zeros_like(x)
+    for i in range(k):
+        out = out + xp[:, i:i + x.shape[1]] * w[i][None, None, :].to(x.dtype)
+    new_cache = xp[:, xp.shape[1] - (k - 1):] if k > 1 else torch.zeros(
+        (x.shape[0], 0, x.shape[2]), dtype=x.dtype, device=x.device)
+    return out, new_cache

@@ -1,10 +1,10 @@
-"""Top-level model API of the LM families the port runs.
+"""Top-level model API of every LM family the reference builds.
 
   model = Model(cfg)                    # on the card; Model(cfg, "cpu")
   params = model.init(key)              # nested dict of tensors
   logits, aux = model.forward(params, batch)
-  logits, caches, _ = model.prefill(params, batch, caches)
-  logits, caches = model.decode_step(params, batch, caches, index)
+  logits, caches, extras = model.prefill(params, batch, caches)
+  logits, caches = model.decode_step(params, batch, caches, index, extras)
 
 ``Model`` is an ``nn.Module`` whose parameters sit under the reference's
 dotted paths: ``state_dict()`` keys equal the flattened reference tree
@@ -13,10 +13,14 @@ as the reference's do; ``init`` and ``load_params`` register it on the
 module, and ``params()`` reads it back.
 
 `batch` is a dict:
-  tokens           (B, S) int32            — LM tokens
+  tokens           (B, S) int32            — LM tokens (decoder side)
   frontend_embeds  (B, F, D)               — VLM patch embeddings (optional)
+  enc_embeds       (B, S_enc, D)           — audio frame embeddings (enc-dec)
 
-The loss functions wait for the training slice (ROADMAP item 17(c)).
+``aux`` is the float32 sum of the MoE layers' load-balance losses (0 for
+the other families). An enc-dec prefill returns ``{"enc_out": ...}`` in
+its extras, and its decode steps take them back. The loss functions wait
+for the training slice (ROADMAP item 17(c)).
 """
 from __future__ import annotations
 
@@ -27,9 +31,10 @@ import torch
 from repro_torch.config import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import params as P
+from repro_torch.models.encdec import build_encdec_params, encdec_forward
 from repro_torch.models.layers import dtype_of
 from repro_torch.models.transformer import (build_params, init_caches,
-                                            lm_forward, stacks_for)
+                                            lm_forward)
 
 
 def _register(module: torch.nn.Module, tree: Dict[str, Any]) -> None:
@@ -53,12 +58,14 @@ def _tree(module: torch.nn.Module) -> Dict[str, Any]:
 class Model(torch.nn.Module):
     def __init__(self, cfg: ModelConfig, device="cuda"):
         super().__init__()
-        stacks_for(cfg)  # raises for a family the port does not run
         self.cfg = cfg
+        self.is_encdec = cfg.is_encoder_decoder
         self.device = resolve_device(device)
 
     # -- parameter builders ------------------------------------------------
     def _build(self, make):
+        if self.is_encdec:
+            return build_encdec_params(make, self.cfg)
         return build_params(make, self.cfg)
 
     def init(self, key: torch.Tensor):
@@ -85,6 +92,11 @@ class Model(torch.nn.Module):
     # -- forward -----------------------------------------------------------
     def forward(self, params, batch: Dict[str, Any], features_only=False):
         """Training/scoring forward (no cache). Returns (logits, aux)."""
+        if self.is_encdec:
+            out, _, aux, _ = encdec_forward(
+                params, batch["tokens"], batch["enc_embeds"], self.cfg,
+                features_only=features_only)
+            return out, aux
         out, _, aux = lm_forward(
             params, batch["tokens"], self.cfg,
             frontend_embeds=batch.get("frontend_embeds"),
@@ -102,14 +114,28 @@ class Model(torch.nn.Module):
 
     def prefill(self, params, batch, caches):
         """Prefill the cache with a full prompt; returns (logits, caches,
-        extras). The caches are written in place."""
+        extras). The caches are written in place; an enc-dec model encodes
+        ``batch["enc_embeds"]`` and returns the encoder output as
+        ``extras["enc_out"]``."""
+        if self.is_encdec:
+            logits, caches, _, enc_out = encdec_forward(
+                params, batch["tokens"], batch["enc_embeds"], self.cfg,
+                caches=caches, start_index=0)
+            return logits, caches, {"enc_out": enc_out}
         logits, caches, _ = lm_forward(
             params, batch["tokens"], self.cfg, caches=caches,
             frontend_embeds=batch.get("frontend_embeds"), start_index=0)
         return logits, caches, {}
 
-    def decode_step(self, params, batch, caches, index):
-        """One decode step. batch["tokens"]: (B, 1). index: host position."""
+    def decode_step(self, params, batch, caches, index, extras=None):
+        """One decode step. batch["tokens"]: (B, 1). index: host position.
+        extras: the prefill's (an enc-dec model reads its ``enc_out``)."""
+        if self.is_encdec:
+            logits, caches, _, _ = encdec_forward(
+                params, batch["tokens"], batch.get("enc_embeds"), self.cfg,
+                caches=caches, enc_out=(extras or {}).get("enc_out"),
+                start_index=index)
+            return logits, caches
         logits, caches, _ = lm_forward(params, batch["tokens"], self.cfg,
                                        caches=caches, start_index=index)
         return logits, caches

@@ -10,10 +10,11 @@ is. Two interpreters:
 
 The per-path key is the md5 of the path folded into the model's key, and
 the normals are the port's threefry draws, so ``init_params`` gives the
-reference's parameters: zeros and ones exactly, normals up to the ULPs of
-``erfinv``. (The reference's ``uniform_angle`` init belongs to the RG-LRU
-of ROADMAP item 17(b).) The logical dim names are ignored until the parallel slice
-(ROADMAP item 17(d)) maps them to shardings.
+reference's parameters: zeros, ones and the RG-LRU's ``uniform_angle``
+draws exactly (``prng.uniform`` reproduces ``jax.random.uniform``'s
+bits), normals up to the ULPs of ``erfinv``. The logical dim names are
+ignored until the parallel slice (ROADMAP item 17(d)) maps them to
+shardings.
 """
 from __future__ import annotations
 
@@ -62,8 +63,15 @@ def init_params(build: Callable, key: torch.Tensor, dtype=torch.float32,
         if init == "ones":
             return torch.ones(shape, dtype=dt, device=device)
         k = _path_key(key, path)
-        return (_draw(lambda s, o: prng.normal(k, s, device, offset=o),
-                      shape, device) * scale).to(dt)
+        if init == "uniform_angle":
+            # jax.random.uniform(k, shape, dt, -3.14159, 3.14159)
+            return _draw(lambda s, o: prng.uniform(k, s, -3.14159, 3.14159,
+                                                   device, dt, offset=o),
+                         shape, device).to(dt)
+        # scaled in place: a second full-size tensor would not fit beside
+        # deepseek-moe-16b's 61 GiB of experts
+        return _draw(lambda s, o: prng.normal(k, s, device, offset=o),
+                     shape, device).mul_(scale).to(dt)
 
     return build(make)
 

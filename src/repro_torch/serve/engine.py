@@ -7,6 +7,13 @@ fresh caches, and decodes on one shared clock until the wave's longest
 ``max_new_tokens``; a request stops collecting tokens at its own limit.
 A step's tokens are read to the host with one ``.tolist()``: one wait for
 the card a step, not one per slot.
+
+Every decoder-only family serves (dense, vlm, moe, ssm, hybrid). The
+enc-dec (``audio``) family is refused: the engine prefills tokens only,
+and the reference's engine fails on it the same way (its ``Model.prefill``
+raises ``KeyError: 'enc_embeds'``), so serving it would be a feature the
+reference lacks; drive ``Model.prefill`` / ``decode_step`` with encoder
+embeddings instead.
 """
 from __future__ import annotations
 
@@ -17,6 +24,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.config import ModelConfig
 from repro_torch.models.model import Model
 
 
@@ -26,6 +34,16 @@ class Request:
     max_new_tokens: int = 16
     out_tokens: List[int] = field(default_factory=list)
     done: bool = False
+
+
+def refuse_encdec(cfg: ModelConfig) -> None:
+    """Raise ``ValueError`` for an enc-dec config (module docstring)."""
+    if cfg.is_encoder_decoder:
+        raise ValueError(
+            f"{cfg.name} is an encoder-decoder ({cfg.family}): the slot "
+            "engine prefills tokens only, and the reference's engine raises "
+            "KeyError: 'enc_embeds' on it (ROADMAP queue 3, reference "
+            "caveats); drive Model.prefill / decode_step with enc_embeds")
 
 
 def greedy_sample(logits):
@@ -41,6 +59,7 @@ class ServeEngine:
     step's read of its tokens (which waits for the card)."""
 
     def __init__(self, model: Model, batch_slots: int, max_len: int):
+        refuse_encdec(model.cfg)
         self.model = model
         self.b = batch_slots
         self.max_len = max_len

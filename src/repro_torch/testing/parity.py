@@ -148,3 +148,44 @@ def lm_bf16_atol_frac(num_layers: int) -> float:
     holds a 26-layer model's cache path to its own forward with it
     (measured 8.6e-3 of max|logit| against 5.6e-2)."""
     return LM_BF16_ATOL_FRAC * math.sqrt(max(num_layers, 2) / 2)
+
+
+def lm_atol_frac(num_layers: int) -> float:
+    """``LM_ATOL_FRAC`` for a float32 model of ``num_layers`` layers, by
+    ``lm_bf16_atol_frac``'s rule: the smoke configs that set it have 2
+    layers, and independent roundings of the layers add in quadrature.
+    ``chip_smoke.py`` holds mamba2-780m's float32 cache path (48 layers) to
+    its forward with it: measured 1.8e-5 and 9.1e-6 of max|logit| on the
+    H100 against 4.9e-5. (In bfloat16 that model's cache path departs from
+    its forward by 3.9-10.1 % of max|logit| there, above
+    ``lm_bf16_atol_frac(48)``'s 7.7 %: the departure grows about linearly
+    with depth, not as its square root, and the reference's own cache path
+    breaks the rule alike, 9.5 % against 6.6 % at 36 layers of full width
+    on the CPU; ``tests/torch_ssm_drift.py`` measures both packages.)"""
+    return LM_ATOL_FRAC * math.sqrt(max(num_layers, 2) / 2)
+
+
+def moe_flips(port_ids, ref_ids, port_probs, ref_probs) -> np.ndarray:
+    """The tokens whose top-k expert set differs between the packages,
+    (T,) bool, each allowed only at a near-tie. A bfloat16 model's router
+    reads activations that differ by bfloat16 roundings
+    (``LM_BF16_ATOL_FRAC``), so its float32 probabilities differ too, and
+    where the reference's k-th and (k+1)-th probabilities lie closer than
+    that difference the choice may flip: a discontinuity of the function,
+    not a tolerance. Asserts that every flipped token's reference margin is
+    at most twice its largest probability difference (either side may
+    move), and returns the flips for the caller, which compares outputs
+    only where no flip reaches them."""
+    port_ids, ref_ids = np.asarray(port_ids), np.asarray(ref_ids)
+    port_probs = np.asarray(port_probs, np.float32)
+    ref_probs = np.asarray(ref_probs, np.float32)
+    k = ref_ids.shape[-1]
+    flipped = np.any(np.sort(port_ids, -1) != np.sort(ref_ids, -1), axis=-1)
+    ranked = -np.sort(-ref_probs, axis=-1)
+    margin = ranked[:, k - 1] - ranked[:, k] if ranked.shape[-1] > k \
+        else np.full(len(ranked), np.inf, np.float32)
+    moved = np.max(np.abs(port_probs - ref_probs), axis=-1)
+    bad = flipped & (margin > 2.0 * moved)
+    assert not bad.any(), ("top-k flips away from a near-tie",
+                           np.nonzero(bad)[0], margin[bad], moved[bad])
+    return flipped

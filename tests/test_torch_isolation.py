@@ -70,6 +70,8 @@ def test_import_leaves_jax_out_of_sys_modules():
             "repro_torch.configs, repro_torch.models.params, "
             "repro_torch.models.layers, repro_torch.models.attention, "
             "repro_torch.models.transformer, repro_torch.models.model, "
+            "repro_torch.models.moe, repro_torch.models.ssm, "
+            "repro_torch.models.rglru, repro_torch.models.encdec, "
             "repro_torch.serve.engine, repro_torch.launch.serve; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); sys.exit(bool(bad))")

@@ -31,7 +31,8 @@ from repro_torch.testing import parity
 
 torch.set_num_threads(1)
 
-#: the dense and vlm smoke configs the port serves
+#: the dense and vlm smoke configs (tests/test_torch_families.py holds the
+#: moe, ssm, hybrid and audio ones)
 SERVED = ("gemma2-2b", "qwen3-32b", "nemotron-4-15b", "stablelm-12b",
           "internvl2-1b")
 DTYPES = ("float32", "bfloat16")
@@ -164,16 +165,21 @@ def test_apply_overrides_reaches_nested_fields():
 @pytest.mark.parametrize("arch", ["mamba2-780m", "deepseek-moe-16b",
                                   "deepseek-v2-236b", "recurrentgemma-2b",
                                   "seamless-m4t-large-v2"])
-def test_unported_family_raises(arch):
-    with pytest.raises(NotImplementedError, match=r"17\(b\)"):
-        TModel(tconfig.get_config(arch, smoke=True), "cpu")
+def test_formerly_unported_family_builds(arch):
+    """The moe (GQA and MLA), ssm, hybrid and audio families, which raised
+    before ROADMAP item 17(b), build with the reference's stacks."""
+    jcfg, tcfg = smoke(arch)
+    model = TModel(tcfg, "cpu")
+    assert model.is_encdec == JModel(jcfg).is_encdec
+    assert [tuple(s) for s in TT.stacks_for(tcfg)] == [
+        tuple(s) for s in JT.stacks_for(jcfg)]
 
 
 # ---------------------------------------------------------------------------
 # Parameters
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", SERVED)
+@pytest.mark.parametrize("arch", LM_ARCHS)
 def test_param_shapes_match_at_full_width(arch):
     """Keys, shapes and dtypes of the full configs (no values drawn)."""
     ref = flatten(JModel(jconfig.get_config(arch)).shapes())
@@ -433,8 +439,7 @@ def _caches(jcfg, tcfg, rng, b, smax, index):
                     pos=jnp.asarray(pos), index=jnp.asarray(index, jnp.int32))
     tc = TA.KVCache(k=torch.from_numpy(k).to(TDT[dt]),
                     v=torch.from_numpy(v).to(TDT[dt]),
-                    pos=torch.from_numpy(pos),
-                    index=torch.tensor(index, dtype=torch.int32))
+                    pos=torch.from_numpy(pos), index=index)
     return jc, tc
 
 
@@ -473,7 +478,7 @@ def test_gqa_attention(case, dtype):
         for field in ("k", "v"):
             close(getattr(tnew, field), getattr(jnew, field), dtype, field)
         np.testing.assert_array_equal(to_np(tnew.pos), to_np(jnew.pos))
-        assert int(tnew.index) == int(jnew.index) == index + sq
+        assert tnew.index == int(jnew.index) == index + sq
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -505,7 +510,7 @@ def test_window_schedule_matches():
         js = JT.stacks_for(jcfg)[0]
         ts = TT.stacks_for(tcfg)[0]
         assert tuple(ts) == tuple(js)[:len(ts)]
-        np.testing.assert_array_equal(TT.window_schedule(tcfg, ts).numpy(),
+        np.testing.assert_array_equal(np.asarray(TT.windows_of(tcfg, ts)),
                                       np.asarray(JT.window_schedule(jcfg,
                                                                     js)))
 
@@ -533,7 +538,7 @@ def _ref_cache(jcaches):
 
 
 def _close_caches(tcaches, jcaches, dtype, what):
-    port = interop.kv_cache_to_numpy(tcaches)["layers"]
+    port = interop.caches_to_numpy(tcaches)["layers"]["kv"]
     ref = _ref_cache(jcaches)
     for field in ("k", "v"):
         close(port[field], ref[field], dtype, f"{what} cache {field}")

@@ -148,13 +148,20 @@ def test_launch_serve_run_returns_stats():
 
 @pytest.mark.parametrize("argv,error", [
     (["--arch", "lartpc-uboone", "--device", "cpu"], SystemExit),
-    (["--arch", "mamba2-780m", "--device", "cpu"], NotImplementedError),
-    (["--arch", "seamless-m4t-large-v2", "--device", "cpu"],
-     NotImplementedError),
+    (["--arch", "seamless-m4t-large-v2", "--no-smoke", "--device", "cpu"],
+     ValueError),
+    (["--arch", "seamless-m4t-large-v2", "--device", "cpu"], ValueError),
     (["--arch", "qwen3-32b"], RuntimeError)])
 def test_launch_serve_refuses(argv, error, monkeypatch):
-    """The simulator's config, an unported family, and the default card
-    when there is none."""
+    """The simulator's config; the enc-dec family, which the reference's
+    engine cannot serve either (refused before any parameter is drawn, so
+    the full config costs nothing); and the default card when there is
+    none."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(error):
+    drawn = []
+    monkeypatch.setattr(TModel, "init", lambda self, key: drawn.append(key))
+    with pytest.raises(error) as info:
         launch_serve.main(argv)
+    if error is ValueError:
+        assert "enc_embeds" in str(info.value)
+    assert not drawn
