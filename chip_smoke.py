@@ -245,12 +245,36 @@ Phases (any failure exits non-zero before the result line):
                 function (index_put_ with accumulate=True); for the
                 fused kernels also the SASS instructions per pixel of the
                 pixel loop (cuobjdump) and the issue-rate floor they imply
- 15. summary  : one JSON line {"kernels": [...]} (with each kernel's
+ 15. train    : LM training (ROADMAP item 17(c)) of gemma2-2b at full
+                width, nothing cut but the batch and the steps: float32
+                parameters drawn on the card from prng.key(0), bfloat16
+                activations, remat "selective", sequence 4 096
+                (SHAPES["train_4k"]), a global batch of 8 in 4 microbatches
+                of 2 (train_4k has 256), AdamW at lr TRAIN_LR with 2
+                warmup steps over 6 cosine steps, 6 steps of
+                DataPipeline(seed=0) through make_train_step, the loss read
+                once a step. Prints each step's loss, forward + backward
+                ms and update ms (CUDA events), step ms (host clock, ending
+                in the loss read) and tokens/s; the peak memory; one
+                step's busy share under torch.profiler with its top ops;
+                the waits of one step by site (torch's sync debug mode;
+                only the loss read expected); the step against 6 N D
+                FLOPs at BF16_DENSE_PEAK. Checks: every loss finite, the
+                mean of the last two below the first. Then at gemma2-2b's
+                smoke config: 4 steps (2 microbatches) on the card and on
+                the CPU from the same float32 parameters, the losses within
+                parity.LM_GRAD_ATOL_FRAC relative, every parameter within
+                it of its leaf's max|CPU value|; an unbroken 10-step Trainer.run == 8 steps, a checkpoint at 8
+                and a resumed run to 10, the last losses and every
+                parameter bit for bit; remat none, full and selective give
+                the same loss and gradients bit for bit. No kernel
+                launches; the phase's wall time
+ 16. summary  : one JSON line {"kernels": [...]} (with each kernel's
                 launches over the clean streams, stream_launches, while
                 tuning, tune_launches, over the pool events and stream,
                 pool_launches, and over the distributed recon runs,
                 dist_launches)
- 16. result   : last line {"ok": true, "device": {...}}
+ 17. result   : last line {"ok": true, "device": {...}}
 
 The on-card checks live here rather than in pytest because the machine with
 the card has no JAX, which the repository's test configuration imports.
@@ -3639,6 +3663,313 @@ def check_families(dev, card: str) -> None:
           f"{card}", flush=True)
 
 
+#: the train phase: gemma2-2b at full width, SHAPES["train_4k"]'s sequence,
+#: the batch and the steps cut (the chip's time, not its memory: 4 x 8.25
+#: GB of parameters, gradients and moments fit)
+TRAIN_ARCH = "gemma2-2b"
+TRAIN_BATCH = 8
+TRAIN_MICRO = 4
+TRAIN_STEPS = 6
+TRAIN_LR = 1e-3
+#: the step profiled and the step whose waits are counted (0-based)
+TRAIN_PROFILED = 4
+TRAIN_WAITS = 5
+#: NVIDIA's H100 SXM data sheet: dense bfloat16 tensor-core peak at 700 W
+BF16_DENSE_PEAK = 989e12
+#: the smoke checks' shape: sequence, batch
+TRAIN_SMOKE = (64, 4)
+
+
+@contextlib.contextmanager
+def update_events(records):
+    """Inside the block each ``adamw_update`` of a train step records a
+    CUDA event before and one after it into ``records`` (no host wait)."""
+    import torch
+
+    from repro_torch.train import train_step
+
+    update = train_step.adamw_update
+
+    def timed(*args, **kwargs):
+        before = torch.cuda.Event(enable_timing=True)
+        before.record()
+        out = update(*args, **kwargs)
+        after = torch.cuda.Event(enable_timing=True)
+        after.record()
+        records.append((before, after))
+        return out
+
+    train_step.adamw_update = timed
+    try:
+        yield records
+    finally:
+        train_step.adamw_update = update
+
+
+def train_full(dev, card: str) -> None:
+    """Check and measure 1 of the train phase: gemma2-2b at full width."""
+    import numpy as np
+    import torch
+
+    from repro_torch.config import (OptimizerConfig, ParallelConfig, SHAPES,
+                                    ShapeConfig, get_config)
+    from repro_torch.core import prng
+    from repro_torch.data.tokens import DataPipeline
+    from repro_torch.models.model import Model, count_params_analytic
+    from repro_torch.optim.adamw import init_opt_state
+    from repro_torch.train.train_step import make_train_step
+
+    torch.zeros((), device=dev)
+    held = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg = get_config(TRAIN_ARCH)
+    shape = ShapeConfig("train_4k cut to a batch of 8", "train",
+                        SHAPES["train_4k"].seq_len, TRAIN_BATCH)
+    model = Model(cfg, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = model.init(prng.key(0), trainable=True)
+    state = init_opt_state(params)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    opt = OptimizerConfig(lr=TRAIN_LR, warmup_steps=2,
+                          total_steps=TRAIN_STEPS)
+    step_fn = make_train_step(model, opt,
+                              ParallelConfig(microbatches=TRAIN_MICRO))
+    n_params = count_params_analytic(cfg)
+    tokens = shape.global_batch * shape.seq_len
+    flops = 6.0 * n_params * tokens
+    print(f"train: {cfg.name} at full width ({cfg.num_layers} layers, "
+          f"d_model {cfg.d_model}, vocab {cfg.vocab_size}, {cfg.dtype} "
+          f"activations, {cfg.param_dtype} parameters, remat {cfg.remat}), "
+          f"sequence {shape.seq_len}, global batch {shape.global_batch} in "
+          f"{TRAIN_MICRO} microbatches, AdamW lr {opt.lr} warmup "
+          f"{opt.warmup_steps} {opt.schedule} over {opt.total_steps} steps; "
+          f"N = {n_params} (count_params_analytic), D = {tokens} tokens a "
+          f"step, 6 N D = {flops:.4e} FLOPs; parameters and optimizer "
+          f"state drawn in {init_s:.2f} s; {card}", flush=True)
+
+    pipe = DataPipeline(cfg, shape, seed=0, device=dev)
+    losses, rows, updates = [], [], []
+    try:
+        with update_events(updates):
+            for i in range(TRAIN_STEPS):
+                def one_step():
+                    nonlocal params, state
+                    batch = next(pipe)
+                    start = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    params, state, metrics = step_fn(params, state, batch)
+                    loss = float(metrics["loss"])   # the step's host read
+                    return start, loss, metrics
+
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if i == TRAIN_PROFILED:
+                    out = []
+                    wall, busy, top = profiled(lambda: out.append(
+                        one_step()))
+                    start, loss, metrics = out[0]
+                elif i == TRAIN_WAITS:
+                    with card_waits() as waits:
+                        start, loss, metrics = one_step()
+                else:
+                    start, loss, metrics = one_step()
+                step_ms = (time.perf_counter() - t0) * 1e3
+                before, after = updates[-1]
+                fb_ms = start.elapsed_time(before)
+                up_ms = before.elapsed_time(after)
+                losses.append(loss)
+                rows.append((step_ms, fb_ms, up_ms))
+                note = (" (under torch.profiler)" if i == TRAIN_PROFILED
+                        else " (sync debug mode on)" if i == TRAIN_WAITS
+                        else "")
+                print(f"train step {i + 1}: loss {loss:.6f}, forward + "
+                      f"backward {fb_ms:.1f} ms, update {up_ms:.1f} ms "
+                      f"(CUDA events), step {step_ms:.1f} ms (host clock, "
+                      f"ending in the loss read){note}, "
+                      f"{tokens / step_ms * 1e3:.0f} tokens/s, lr "
+                      f"{float(metrics['lr']):.3e}, grad norm "
+                      f"{float(metrics['grad_norm']):.4e}", flush=True)
+    finally:
+        pipe.close()
+    peak = torch.cuda.max_memory_allocated(dev)
+    steady = [r for i, r in enumerate(rows)
+              if i not in (0, TRAIN_PROFILED, TRAIN_WAITS)]
+    step_ms = statistics.median(r[0] for r in steady)
+    bound_ms = flops / BF16_DENSE_PEAK * 1e3
+    print(f"train: steady step (median of steps "
+          f"{[i + 1 for i in range(TRAIN_STEPS) if i not in (0, TRAIN_PROFILED, TRAIN_WAITS)]}) "
+          f"{step_ms:.1f} ms, forward + backward "
+          f"{statistics.median(r[1] for r in steady):.1f} ms, update "
+          f"{statistics.median(r[2] for r in steady):.1f} ms; first step "
+          f"{rows[0][0]:.1f} ms; 6 N D at {BF16_DENSE_PEAK / 1e12:.0f} "
+          f"TFLOP/s (dense bfloat16, NVIDIA H100 SXM data sheet) "
+          f"{bound_ms:.1f} ms, {bound_ms / step_ms:.4f} of the step "
+          f"({flops / step_ms * 1e3 / 1e12:.1f} TFLOP/s of model FLOPs); "
+          f"peak memory {peak / 2**30:.2f} GiB ({(peak - held) / 2**30:.2f} "
+          f"GiB above the {held / 2**30:.2f} GiB earlier phases hold); "
+          f"{card}", flush=True)
+    print(f"train: step {TRAIN_PROFILED + 1} under torch.profiler: wall "
+          f"{wall:.1f} ms, device busy {busy:.1f} ms, busy share "
+          f"{busy / wall:.3f}; top ops by device time: "
+          + "; ".join(f"{k} {ms:.1f} ms x{n}" for k, ms, n in top),
+          flush=True)
+    print(f"train: waits for the card in step {TRAIN_WAITS + 1} (next "
+          f"batch, step, loss read): {sum(waits.values())} "
+          f"{dict(waits)}", flush=True)
+    check(all(np.isfinite(losses)), f"train: a loss is not finite: {losses}")
+    check(np.mean(losses[-2:]) < losses[0],
+          f"train: the mean of the last two losses is not below the first: "
+          f"{losses}")
+    del params, state, step_fn, model
+
+
+def train_card_vs_cpu(dev) -> None:
+    """Check 2a: gemma2-2b's smoke config in float32, 4 steps (2
+    microbatches) on the card and on the CPU from the same parameters."""
+    import dataclasses as dc
+
+    import torch
+
+    from repro_torch.config import (OptimizerConfig, ParallelConfig,
+                                    ShapeConfig, get_config)
+    from repro_torch.core import prng
+    from repro_torch.data.tokens import make_batch, to_device
+    from repro_torch.models.model import Model
+    from repro_torch.optim.adamw import init_opt_state
+    from repro_torch.tree import tree_leaves, tree_map
+    from repro_torch.testing import parity
+    from repro_torch.train.train_step import make_train_step
+
+    cfg = dc.replace(get_config(TRAIN_ARCH, smoke=True), dtype="float32")
+    shape = ShapeConfig("smoke", "train", *TRAIN_SMOKE)
+    opt = OptimizerConfig(lr=TRAIN_LR, warmup_steps=2, total_steps=6)
+    drawn = Model(cfg, "cpu").init(prng.key(0))
+    runs = []
+    for device in (dev, torch.device("cpu")):
+        model = Model(cfg, device)
+        params = model.load_params(tree_map(
+            lambda t: t.detach().to(device, copy=True), drawn),
+            trainable=True)
+        state = init_opt_state(params)
+        step = make_train_step(model, opt, ParallelConfig(microbatches=2))
+        losses = []
+        for i in range(4):
+            params, state, metrics = step(
+                params, state, to_device(make_batch(cfg, shape, 0, i),
+                                         device))
+            losses.append(float(metrics["loss"]))
+        runs.append((losses, [p.detach().cpu() for p in tree_leaves(params)]))
+    (card_l, card_p), (cpu_l, cpu_p) = runs
+    rel = max(abs(a - b) / abs(b) for a, b in zip(card_l, cpu_l))
+    check(rel <= parity.LM_GRAD_ATOL_FRAC,
+          f"train card against CPU: losses {card_l} against {cpu_l}")
+    worst = 0.0
+    for a, b in zip(card_p, cpu_p):
+        frac = float((a - b).abs().max()) / float(b.abs().max())
+        check(frac <= parity.LM_GRAD_ATOL_FRAC,
+              f"train card against CPU: a parameter differs by {frac:.3e} "
+              f"of its leaf's max")
+        worst = max(worst, frac)
+    print(f"train check 2a (smoke, float32, 4 steps): card against CPU "
+          f"losses max relative difference {rel:.3e}, parameters max "
+          f"|delta| {worst:.3e} of their leaf's max, both <= "
+          f"{parity.LM_GRAD_ATOL_FRAC} (parity.LM_GRAD_ATOL_FRAC)",
+          flush=True)
+
+
+def train_resume(dev, tmp: Path) -> None:
+    """Check 2b: an unbroken 10-step Trainer.run == 8 steps + resume."""
+    import torch
+
+    from repro_torch.config import (CheckpointConfig, OptimizerConfig,
+                                    ShapeConfig, TrainConfig, get_config)
+    from repro_torch.tree import tree_leaves
+    from repro_torch.train.trainer import Trainer
+
+    def cfg(d):
+        return TrainConfig(
+            model=get_config(TRAIN_ARCH, smoke=True),
+            shape=ShapeConfig("smoke", "train", *TRAIN_SMOKE),
+            optimizer=OptimizerConfig(lr=3e-3, warmup_steps=2,
+                                      total_steps=10),
+            checkpoint=CheckpointConfig(directory=str(tmp / d),
+                                        every_steps=4, keep=2,
+                                        async_save=True),
+            log_every=1000)
+
+    whole = Trainer(cfg("whole"), dev)
+    r1 = whole.run(max_steps=10)
+    Trainer(cfg("split"), dev).run(max_steps=8)
+    resumed = Trainer(cfg("split"), dev)
+    r2 = resumed.run(max_steps=10)
+    same = all(torch.equal(a, b) for a, b in
+               zip(tree_leaves(whole.model.params()),
+                   tree_leaves(resumed.model.params())))
+    check(r2.resumed_from == 8 and r1.losses[-2:] == r2.losses and same,
+          f"train resume: resumed from {r2.resumed_from}, losses "
+          f"{r1.losses[-2:]} against {r2.losses}, parameters equal {same}")
+    print(f"train check 2b (smoke, {whole.model.cfg.dtype}): Trainer.run "
+          f"10 steps == 8 steps + checkpoint + resume to 10, bit for bit "
+          f"(last losses {r2.losses}, every parameter)", flush=True)
+
+
+def train_remat(dev) -> None:
+    """Check 2c: remat none, full and selective give the same bits."""
+    import dataclasses as dc
+
+    import torch
+
+    from repro_torch.config import ShapeConfig, get_config
+    from repro_torch.core import prng
+    from repro_torch.data.tokens import make_batch, to_device
+    from repro_torch.models.model import Model
+    from repro_torch.tree import tree_leaves
+    from repro_torch.train.train_step import make_loss_fn
+
+    out = []
+    for remat in ("none", "full", "selective"):
+        cfg = dc.replace(get_config(TRAIN_ARCH, smoke=True), remat=remat)
+        model = Model(cfg, dev)
+        params = model.init(prng.key(0), trainable=True)
+        batch = to_device(make_batch(cfg, ShapeConfig(
+            "smoke", "train", *TRAIN_SMOKE), 0, 0), dev)
+        total, _ = make_loss_fn(model)(params, batch)
+        grads = torch.autograd.grad(total, tree_leaves(params))
+        out.append((total.detach(), grads))
+    same = all(torch.equal(loss, out[0][0]) and
+               all(torch.equal(a, b) for a, b in zip(grads, out[0][1]))
+               for loss, grads in out[1:])
+    check(same, "train remat: none, full and selective differ")
+    print(f"train check 2c (smoke, {cfg.dtype}): remat none, full and "
+          f"selective give the same loss ({float(out[0][0]):.6f}) and "
+          f"gradients, bit for bit", flush=True)
+
+
+def check_train(dev, card: str) -> None:
+    """The "train" phase (docstring): full-width steps, then the smoke
+    checks; each check fails the run."""
+    import gc
+
+    import torch
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_full(dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    train_card_vs_cpu(dev)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        train_resume(dev, Path(tmp))
+    train_remat(dev)
+    print(f"train smoke checks: wall {time.perf_counter() - t0:.1f} s; "
+          f"train phase: wall {time.perf_counter() - t_phase:.1f} s; {card}",
+          flush=True)
+
+
 def check_oom_classification(dev) -> None:
     """A real allocation failure on the card, and a kernel wrapper's launch
     error for cudaErrorMemoryAllocation, both classify as OOM (the
@@ -4140,6 +4471,9 @@ def main() -> int:
                   f"{issue_floor_ms(per_pixel, evaluated):.4f} ms at the top "
                   f"SM clock ({issue_floor_ms(per_pixel, support):.4f} ms "
                   f"for every in-support pixel)", flush=True)
+
+    phase("train")
+    check_train(dev, card)
 
     print(f"chip_smoke wall: {time.perf_counter() - t_all:.1f} s")
     print(card)

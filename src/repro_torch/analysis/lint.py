@@ -23,7 +23,9 @@ break the calibration path on another:
                      between a float and a tensor
   scalar-division  : ``tensor / number`` (a literal with an inexact
                      reciprocal, or a config field) in ``core/``,
-                     ``kernels/``, ``models/`` and ``serve/``: torch on
+                     ``kernels/``, ``models/``, ``serve/``, ``optim/``,
+                     ``train/``, ``ckpt/``, ``data/`` and
+                     ``launch/train.py``: torch on
                      the card multiplies by the
                      reciprocal, one ULP off the reference's division;
                      divide by ``device.scalar(value, like)``
@@ -91,7 +93,8 @@ RULES: Dict[str, str] = {
     "tensor-fork": "isinstance(config field, torch.Tensor) outside "
                    "device.scalar",
     "scalar-division": "tensor / Python number in core/, kernels/, "
-                       "models/ or serve/ (the card multiplies by the "
+                       "models/, serve/, optim/, train/, ckpt/, data/ or "
+                       "launch/train.py (the card multiplies by the "
                        "reciprocal: one ULP off)",
     "atomic-index-add": "index_add_ (atomic adds: run-to-run different "
                         "bits on the card)",
@@ -123,8 +126,11 @@ _STATIC_ATTRS = {"shape", "ndim", "dtype", "device", "is_cuda", "n_valid",
 _HOST_SYNC_METHODS = {"item", "tolist", "cpu", "numpy"}
 _HOST_SYNC_CALLS = {"float", "int", "bool"}
 _SCALAR_CALLS = {"float", "int", "len", "round", "abs"}
-#: scalar-division applies to files in (a package under) these folders
-_DIVISION_DIRS = ("core", "kernels", "models", "serve")
+#: scalar-division applies to files in (a package under) these folders,
+#: and to these files
+_DIVISION_DIRS = ("core", "kernels", "models", "serve", "optim", "train",
+                  "ckpt", "data")
+_DIVISION_FILES = (("launch", "train.py"),)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -608,7 +614,9 @@ def _number_names(nodes) -> Set[str]:
 
 
 def _rule_scalar_division(tree: ast.Module, path: str) -> List[Finding]:
-    if not any(part in _DIVISION_DIRS for part in Path(path).parts[-3:-1]):
+    parts = Path(path).parts
+    if not (any(part in _DIVISION_DIRS for part in parts[-3:-1])
+            or parts[-2:] in _DIVISION_FILES):
         return []
     out = []
     for scope in [tree] + _functions(tree):

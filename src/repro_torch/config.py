@@ -6,13 +6,17 @@ Same field names and defaults as the JAX package's ``LArTPCConfig`` and LM
 plain dict (``repro_torch.interop.config_from_dict``). Every architecture
 registers a full and a smoke factory under its ``--arch <id>``:
 ``lartpc-uboone`` here, the LM architectures in ``repro_torch.configs``.
-The training configs (shapes, parallelism, optimizer, checkpoints) wait for
-the training slice.
+The training configs (``ShapeConfig`` and ``SHAPES``, ``ParallelConfig``,
+``OptimizerConfig``, ``CheckpointConfig``, ``TrainConfig``) copy the
+reference's too, but for the checkpoint directory's default
+(``default_ckpt_dir``).
 """
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass, replace
+import os
+import tempfile
+from dataclasses import dataclass, field, replace
 from typing import Any, Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
 
@@ -240,6 +244,86 @@ def plane_specs(cfg: LArTPCConfig) -> Tuple[PlaneSpec, ...]:
     return tuple(
         PlaneSpec(p, cfg.plane_types[p], cfg.plane_angles_deg[p], pitches[p])
         for p in range(cfg.num_planes))
+
+
+# ---------------------------------------------------------------------------
+# Shapes (assigned input-shape set)
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    kind: str                     # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+
+SHAPES: Dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", "train", 4_096, 256),
+    "prefill_32k": ShapeConfig("prefill_32k", "prefill", 32_768, 32),
+    "decode_32k": ShapeConfig("decode_32k", "decode", 32_768, 128),
+    "long_500k": ShapeConfig("long_500k", "decode", 524_288, 1),
+}
+
+
+# ---------------------------------------------------------------------------
+# Run/training config
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ParallelConfig:
+    data_axis: str = "data"
+    model_axis: str = "model"
+    pod_axis: str = "pod"
+    fsdp: bool = True              # shard params over data axis
+    expert_axis: str = "model"     # EP placement
+    sequence_parallel: bool = False
+    grad_compression: str = "none"  # none | int8_ef
+    microbatches: int = 1
+    remat_policy: str = "selective"
+
+
+@dataclass(frozen=True)
+class OptimizerConfig:
+    name: str = "adamw"
+    lr: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    weight_decay: float = 0.1
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    schedule: str = "cosine"       # cosine | linear | constant
+
+
+def default_ckpt_dir() -> str:
+    """``repro_torch_ckpt`` under the temp directory (``TMPDIR``): the
+    reference's default is ``/tmp/repro_ckpt``; the port keeps to the
+    directory its environment names."""
+    return os.path.join(tempfile.gettempdir(), "repro_torch_ckpt")
+
+
+@dataclass(frozen=True)
+class CheckpointConfig:
+    directory: str = field(default_factory=default_ckpt_dir)
+    every_steps: int = 50
+    keep: int = 3
+    async_save: bool = True
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    model: Any = None
+    shape: ShapeConfig = SHAPES["train_4k"]
+    parallel: ParallelConfig = ParallelConfig()
+    optimizer: OptimizerConfig = OptimizerConfig()
+    checkpoint: CheckpointConfig = field(default_factory=CheckpointConfig)
+    seed: int = 0
+    log_every: int = 10
+    straggler_deadline_s: float = 0.0   # 0 disables
 
 
 def _uboone_full() -> LArTPCConfig:

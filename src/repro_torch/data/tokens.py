@@ -1,0 +1,115 @@
+"""Synthetic LM data pipeline, as the reference's ``src/repro/data/tokens.py``.
+
+Deterministic, seekable token stream (restart-safe: the checkpoint stores
+the step counter and the pipeline resumes at exactly the next batch),
+zipf-like unigram statistics plus local structure so losses actually
+decrease. Generation is the reference's numpy code, so the tokens are the
+same bits by construction. A prefetch thread generates ahead; ``__next__``
+moves a batch to the device (pinned and asynchronous on the card, so the
+host does not wait for the copy). The reference's mesh argument (its
+batch sharding) waits for the parallel slice (ROADMAP item 17(d)).
+"""
+from __future__ import annotations
+
+import queue
+import threading
+from typing import Any, Dict, Iterator
+
+import numpy as np
+import torch
+
+from repro_torch.config import ModelConfig, ShapeConfig
+from repro_torch.device import resolve_device
+
+
+def _batch_rng(seed: int, step: int) -> np.random.Generator:
+    return np.random.default_rng(np.random.SeedSequence([seed, step]))
+
+
+def synth_tokens(rng: np.random.Generator, batch: int, seq: int,
+                 vocab: int) -> np.ndarray:
+    """Zipf-ish tokens with Markov-ish local structure (learnable)."""
+    base = rng.zipf(1.3, size=(batch, seq)).astype(np.int64)
+    toks = (base - 1) % vocab
+    # inject copy structure: second half partially repeats the first half
+    half = seq // 2
+    mask = rng.random((batch, half)) < 0.5
+    toks[:, half:half * 2][mask] = toks[:, :half][mask]
+    return toks.astype(np.int32)
+
+
+def make_batch(cfg: ModelConfig, shape: ShapeConfig, seed: int,
+               step: int) -> Dict[str, np.ndarray]:
+    rng = _batch_rng(seed, step)
+    b, s = shape.global_batch, shape.seq_len
+    batch: Dict[str, Any] = {}
+    if cfg.frontend == "vision" and cfg.frontend_tokens:
+        f = cfg.frontend_tokens
+        s_text = s - f
+        batch["tokens"] = synth_tokens(rng, b, s_text, cfg.vocab_size)
+        batch["frontend_embeds"] = rng.standard_normal(
+            (b, f, cfg.d_model), dtype=np.float32)
+    elif cfg.is_encoder_decoder:
+        batch["tokens"] = synth_tokens(rng, b, s, cfg.vocab_size)
+        batch["enc_embeds"] = rng.standard_normal(
+            (b, s, cfg.d_model), dtype=np.float32) * 0.02
+    else:
+        batch["tokens"] = synth_tokens(rng, b, s, cfg.vocab_size)
+    return batch
+
+
+def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, Any]:
+    """A numpy batch as tensors on ``device``; on the card through pinned
+    memory without a wait."""
+    dev = torch.device(device)
+    out = {}
+    for k, v in batch.items():
+        t = torch.from_numpy(np.ascontiguousarray(v))
+        if dev.type == "cuda":
+            t = t.pin_memory().to(dev, non_blocking=True)
+        else:
+            t = t.to(dev)
+        out[k] = t
+    return out
+
+
+class DataPipeline:
+    """Prefetching, seekable pipeline. `state()` -> step for checkpointing."""
+
+    def __init__(self, cfg: ModelConfig, shape: ShapeConfig, seed: int = 0,
+                 start_step: int = 0, prefetch: int = 2, device="cuda"):
+        self.cfg, self.shape, self.seed = cfg, shape, seed
+        self.step = start_step
+        self.device = resolve_device(device)
+        self._q: queue.Queue = queue.Queue(maxsize=prefetch)
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._worker, daemon=True)
+        self._thread.start()
+
+    def _worker(self):
+        step = self.step
+        while not self._stop.is_set():
+            batch = make_batch(self.cfg, self.shape, self.seed, step)
+            try:
+                self._q.put((step, batch), timeout=1.0)
+                step += 1
+            except queue.Full:
+                continue
+
+    def __next__(self):
+        while True:
+            step, batch = self._q.get()
+            if step < self.step:
+                continue  # discard stale prefetches after a seek
+            self.step = step + 1
+            return to_device(batch, self.device)
+
+    def __iter__(self) -> Iterator:
+        return self
+
+    def state(self) -> int:
+        return self.step
+
+    def close(self):
+        self._stop.set()
+        self._thread.join(timeout=5.0)

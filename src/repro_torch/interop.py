@@ -14,7 +14,9 @@ calibration fit's targets. The LM slice carries weights:
 ``model_params_from_numpy`` builds the port's parameter tree from the
 reference's, key for key (every family's tree), and ``caches_to_numpy``
 turns a port cache tree of any kind (KV, MLA, SSM, RG-LRU) back into
-numpy. Like every entry point of the port,
+numpy. The training slice carries the optimizer state both ways:
+``opt_state_from_numpy`` / ``opt_state_to_numpy``. Like every entry point
+of the port,
 the builders put their tensors on the card unless ``device="cpu"`` is
 passed.
 """
@@ -34,6 +36,8 @@ from repro_torch.core.fit import FitTargets
 from repro_torch.core.response import DetectorResponse
 from repro_torch.core.stages import SimOutput
 from repro_torch.device import resolve_device
+from repro_torch.optim.adamw import OptState
+from repro_torch.tree import tree_map
 
 
 def config_from_dict(d: Mapping[str, Any]) -> LArTPCConfig:
@@ -208,3 +212,30 @@ def caches_to_numpy(caches) -> Dict[str, Any]:
     if isinstance(caches, Mapping):
         return {k: caches_to_numpy(v) for k, v in caches.items()}
     return _cache_to_numpy(caches)
+
+
+def opt_state_from_numpy(state, device="cuda") -> OptState:
+    """The reference's ``OptState`` (``step``, ``m``, ``v``, ``master``;
+    its leaves as numpy, a NamedTuple or a mapping) as the port's: the
+    step a 0-d int32 tensor, the trees key for key (``master`` None where
+    the reference's is)."""
+    fields = state if isinstance(state, Mapping) else state._asdict()
+    master = fields.get("master")
+    return OptState(
+        step=torch.as_tensor(np.array(fields["step"], np.int32)).to(
+            resolve_device(device)),
+        m=model_params_from_numpy(fields["m"], device),
+        v=model_params_from_numpy(fields["v"], device),
+        master=(None if master is None
+                else model_params_from_numpy(master, device)))
+
+
+def opt_state_to_numpy(state: OptState) -> Dict[str, Any]:
+    """A port ``OptState`` as ``{"step", "m", "v", "master"}`` of numpy
+    (float32 trees; ``master`` None without a master copy), the fields of
+    the reference's ``OptState``."""
+    def to_numpy(tree):
+        return tree_map(lambda t: t.detach().cpu().numpy(), tree)
+
+    return {"step": state.step.cpu().numpy(), "m": to_numpy(state.m),
+            "v": to_numpy(state.v), "master": to_numpy(state.master)}

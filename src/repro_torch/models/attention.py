@@ -8,11 +8,16 @@ direct form. Scores and the softmax state are float32; the probabilities
 are rounded to the values' dtype before the PV product, as the reference's
 ``p.astype(vblk.dtype)`` does. The products of bfloat16 inputs are taken in
 float32 (the reference's ``preferred_element_type``): the inputs are
-widened, which is exact.
+widened, which is exact. float64 inputs stay float64 (``_wide``), so a
+float64 ``gradcheck`` sees the function itself.
 
-The backward (the reference's ``_flash_bwd``) waits for the training slice
-(ROADMAP item 17(c)); ``_maybe_repeat_kv`` and the sharding constraints for
-the parallel slice (17(d)).
+The blockwise form runs as ``_FlashCore``, an autograd function: its
+forward also keeps the log-sum-exp, and its backward is the reference's
+``_flash_bwd``, which recomputes each block's scores instead of keeping the
+(Sq x Skv) probabilities autograd would save. Where no input takes a
+gradient, ``apply`` runs the forward alone and records nothing.
+``_maybe_repeat_kv`` and the sharding constraints wait for the parallel
+slice (ROADMAP item 17(d)).
 
 A cache's ``index`` (the tokens written so far) is a Python int, the same
 for every layer of a stacked cache: it picks the slots a step writes, which
@@ -26,6 +31,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.config import MLAConfig, ModelConfig
+from repro_torch.device import scalar
 from repro_torch.models.layers import apply_rope, rmsnorm, rope_table, softcap
 
 NEG_INF = -2.0e38
@@ -62,8 +68,9 @@ def flash_attention(q, k, v, q_pos, kv_pos, *, causal: bool,
         v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
         kv_pos = torch.nn.functional.pad(kv_pos, (0, pad), value=-1)
         kv_valid = torch.nn.functional.pad(kv_valid, (0, pad), value=False)
-    return _flash_fwd_impl(q, k, v, q_pos, kv_pos, kv_valid, window,
-                           causal, logit_cap, kv_block)
+    # the pad's own backward drops the padded rows of dk and dv
+    return _FlashCore.apply(q, k, v, q_pos, kv_pos, kv_valid, window,
+                            causal, logit_cap, kv_block)
 
 
 def _blk_mask(pblk, q_pos, vldblk, causal, window):
@@ -79,20 +86,25 @@ def _blk_mask(pblk, q_pos, vldblk, causal, window):
     return mask
 
 
+def _wide(x):
+    """``x`` widened to float32 (float64 stays)."""
+    return x if x.dtype == torch.float64 else x.float()
+
+
 def _grouped(q, hkv):
     """(B,Sq,H,D) -> float32 (B,Hkv,G*Sq,D): the query heads of each kv
     head stacked, so one batched product serves the group."""
     b, sq, h, d = q.shape
     g = h // hkv
-    return q.reshape(b, sq, hkv, g, d).permute(0, 2, 3, 1, 4).reshape(
-        b, hkv, g * sq, d).float()
+    return _wide(q.reshape(b, sq, hkv, g, d).permute(0, 2, 3, 1, 4).reshape(
+        b, hkv, g * sq, d))
 
 
 def _blk_scores(qf, kblk, scale, logit_cap, g):
     """(B,Hkv,G,Sq,C) float32 scores of qf (B,Hkv,G*Sq,D) against kblk
     (B,Hkv,C,D)."""
     b, hkv, gsq, _ = qf.shape
-    s = torch.matmul(qf, kblk.float().transpose(-1, -2)) * scale
+    s = torch.matmul(qf, _wide(kblk).transpose(-1, -2)) * scale
     s = s.view(b, hkv, g, gsq // g, -1)
     if logit_cap:
         s = softcap(s, logit_cap)
@@ -103,8 +115,8 @@ def _weighted(p, vblk):
     """sum_c p[..., q, c] v[..., c, :] in float32, with ``p`` (B,Hkv,G,Sq,C)
     rounded to ``vblk``'s dtype first; vblk (B,Hkv,C,D)."""
     b, hkv, g, sq, c = p.shape
-    pv = torch.matmul(p.to(vblk.dtype).float().reshape(b, hkv, g * sq, c),
-                      vblk.float())
+    pv = torch.matmul(_wide(p.to(vblk.dtype)).reshape(b, hkv, g * sq, c),
+                      _wide(vblk))
     return pv.view(b, hkv, g, sq, -1)
 
 
@@ -122,20 +134,18 @@ def _to_blocks(k, v, kv_pos, kv_valid, nblk, kv_block):
 def _flash_fwd_impl(q, k, v, q_pos, kv_pos, kv_valid, window, causal,
                     logit_cap, kv_block):
     """The online softmax over the KV blocks, one block a step (the
-    reference's ``lax.scan``); (B,Sq,H,D). The log-sum-exp the reference
-    also returns is its backward's, which the training slice adds."""
+    reference's ``lax.scan``): (out (B,Sq,H,D), the float32 log-sum-exp
+    (B,Hkv,G,Sq) of each query's scores, the backward's)."""
     b, sq, h, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     g = h // hkv
     nblk = skv // kv_block
     scale = d ** -0.5
     qf = _grouped(q, hkv)
-    m = torch.full((b, hkv, g, sq), NEG_INF, dtype=torch.float32,
-                   device=q.device)
-    l = torch.zeros((b, hkv, g, sq), dtype=torch.float32, device=q.device)
-    acc = torch.zeros((b, hkv, g, sq, d), dtype=torch.float32,
-                      device=q.device)
-    neg = torch.full((), NEG_INF, dtype=torch.float32, device=q.device)
+    m = torch.full((b, hkv, g, sq), NEG_INF, dtype=qf.dtype, device=q.device)
+    l = torch.zeros((b, hkv, g, sq), dtype=qf.dtype, device=q.device)
+    acc = torch.zeros((b, hkv, g, sq, d), dtype=qf.dtype, device=q.device)
+    neg = torch.full((), NEG_INF, dtype=qf.dtype, device=q.device)
     for kblk, vblk, pblk, vldblk in zip(*_to_blocks(k, v, kv_pos, kv_valid,
                                                     nblk, kv_block)):
         s = _blk_scores(qf, kblk, scale, logit_cap, g)
@@ -147,8 +157,74 @@ def _flash_fwd_impl(q, k, v, q_pos, kv_pos, kv_valid, window, causal,
         l = l * corr + torch.sum(p, dim=-1)
         acc = acc * corr[..., None] + _weighted(p, vblk)
         m = m_new
+    lse = m + torch.log(torch.clamp_min(l, 1e-30))
     out = acc / torch.clamp_min(l[..., None], 1e-30)
-    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d).to(q.dtype)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d).to(q.dtype), lse
+
+
+def _flash_bwd_impl(q, k, v, q_pos, kv_pos, kv_valid, window, causal,
+                    logit_cap, kv_block, out, lse, dout):
+    """The reference's ``_flash_bwd``: per KV block the scores again,
+    p = exp(s - lse) (masked), delta = sum(dout * out), ds = p (dp - delta)
+    times the softcap's derivative 1 - (s / cap)**2; dq summed over the
+    blocks, dk and dv a block each. Everything in float32; returns dq, dk,
+    dv in their inputs' dtypes."""
+    b, sq, h, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    g = h // hkv
+    nblk = skv // kv_block
+    scale = d ** -0.5
+    qf = _grouped(q, hkv)                                  # (B,Hkv,G*Sq,D)
+    dof = _grouped(dout, hkv)
+    delta = torch.sum(dof * _grouped(out, hkv), dim=-1).view(b, hkv, g, sq)
+    cap = scalar(logit_cap, qf).to(qf.dtype) if logit_cap else None
+    dq = torch.zeros_like(qf)
+    dks, dvs = [], []
+    for kblk, vblk, pblk, vldblk in zip(*_to_blocks(k, v, kv_pos, kv_valid,
+                                                    nblk, kv_block)):
+        kf = _wide(kblk)
+        s = _blk_scores(qf, kblk, scale, logit_cap, g)
+        mask = _blk_mask(pblk, q_pos, vldblk, causal, window)
+        p = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
+        pf = p.reshape(b, hkv, g * sq, -1)
+        dvs.append(torch.matmul(pf.transpose(-1, -2), dof))   # (B,Hkv,C,D)
+        dp = torch.matmul(dof, _wide(vblk).transpose(-1, -2)).view_as(p)
+        ds = p * (dp - delta[..., None])
+        if cap is not None:
+            # d/dx softcap(x) = 1 - (softcap(x)/cap)^2; s holds softcap(x)
+            ds = ds * (1.0 - torch.square(s / cap))
+        ds = ds.reshape(b, hkv, g * sq, -1)
+        dq = dq + torch.matmul(ds, kf) * scale
+        dks.append(torch.matmul(ds.transpose(-1, -2), qf) * scale)
+    dq = dq.view(b, hkv, g, sq, d).permute(0, 3, 1, 2, 4).reshape(b, sq, h, d)
+    # (B,Hkv,C,D) blocks -> (B,Skv,Hkv,D)
+    dk = torch.cat(dks, dim=2).permute(0, 2, 1, 3)
+    dv = torch.cat(dvs, dim=2).permute(0, 2, 1, 3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _FlashCore(torch.autograd.Function):
+    """The blockwise attention with the reference's custom VJP: the
+    forward keeps q, k, v, out and the log-sum-exp, never a block's
+    scores, so its memory is O(Sq * block) in the backward too."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_pos, kv_pos, kv_valid, window, causal,
+                logit_cap, kv_block):
+        out, lse = _flash_fwd_impl(q, k, v, q_pos, kv_pos, kv_valid, window,
+                                   causal, logit_cap, kv_block)
+        ctx.save_for_backward(q, k, v, q_pos, kv_pos, kv_valid, out, lse)
+        ctx.static = (window, causal, logit_cap, kv_block)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, q_pos, kv_pos, kv_valid, out, lse = ctx.saved_tensors
+        window, causal, logit_cap, kv_block = ctx.static
+        dq, dk, dv = _flash_bwd_impl(q, k, v, q_pos, kv_pos, kv_valid,
+                                     window, causal, logit_cap, kv_block,
+                                     out, lse, dout)
+        return dq, dk, dv, None, None, None, None, None, None, None
 
 
 def _direct_attention(q, k, v, q_pos, kv_pos, *, causal, window, logit_cap,

@@ -6,21 +6,25 @@ The speech frontend is a stub, as in the reference: ``enc_embeds`` are
 precomputed frame embeddings (B, S_enc, D); the encoder is the transformer
 stack on top of them. Every decoder layer computes its cross-attention
 (k, v) from the encoder states on every call, decode steps included, as
-the reference's scan body does.
+the reference's scan body does. Under remat (``cfg.remat`` not ``none``,
+training only) each encoder layer runs under ``torch.utils.checkpoint``, and
+the decoder's stacks follow ``transformer.remat_policy``: the memory the
+reference's policies keep differs, the numbers do not.
 """
 from __future__ import annotations
 
 from typing import Any, Dict
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
-from repro_torch.models.transformer import (Stack, build_params, layer_slice,
-                                            logits_of, make_block,
-                                            positions_for, run_stack,
-                                            stacks_for)
+from repro_torch.models.transformer import (Stack, build_params, logits_of,
+                                            make_block, positions_for,
+                                            remat_policy, run_stack,
+                                            stacks_for, unstack)
 
 
 def _enc_stack(cfg: ModelConfig) -> Stack:
@@ -59,9 +63,13 @@ def encode(params, enc_embeds, cfg: ModelConfig):
     b, s, _ = enc_embeds.shape
     positions = positions_for(b, s, None, enc_embeds.device)
     x = enc_embeds.to(L.dtype_of(cfg.dtype))
-    for i in range(_enc_stack(cfg).n):
-        x = apply_block_bidir(layer_slice(params["encoder"], i), x,
-                              positions, cfg)
+    remat = remat_policy(cfg, None, params["encoder"]) != "none"
+    for lp in unstack(params["encoder"], _enc_stack(cfg).n):
+        if remat:
+            x = checkpoint(apply_block_bidir, lp, x, positions, cfg,
+                           use_reentrant=False)
+        else:
+            x = apply_block_bidir(lp, x, positions, cfg)
     return L.apply_norm(params["enc_final_norm"], x, cfg.norm_kind), positions
 
 

@@ -19,33 +19,35 @@ module, and ``params()`` reads it back.
 
 ``aux`` is the float32 sum of the MoE layers' load-balance losses (0 for
 the other families). An enc-dec prefill returns ``{"enc_out": ...}`` in
-its extras, and its decode steps take them back. The loss functions wait
-for the training slice (ROADMAP item 17(c)).
+its extras, and its decode steps take them back. ``chunked_lm_loss`` (the
+trainer's) and ``lm_loss`` are the reference's losses.
 """
 from __future__ import annotations
 
 from typing import Any, Dict
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ModelConfig
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, scalar
 from repro_torch.models import params as P
 from repro_torch.models.encdec import build_encdec_params, encdec_forward
-from repro_torch.models.layers import dtype_of
+from repro_torch.models.layers import dtype_of, softcap
 from repro_torch.models.transformer import (build_params, init_caches,
                                             lm_forward)
 
 
-def _register(module: torch.nn.Module, tree: Dict[str, Any]) -> None:
+def _register(module: torch.nn.Module, tree: Dict[str, Any],
+              trainable: bool) -> None:
     for name, value in tree.items():
         if isinstance(value, dict):
             child = torch.nn.Module()
             module.add_module(name, child)
-            _register(child, value)
+            _register(child, value, trainable)
         else:
             module.register_parameter(
-                name, torch.nn.Parameter(value, requires_grad=False))
+                name, torch.nn.Parameter(value, requires_grad=trainable))
 
 
 def _tree(module: torch.nn.Module) -> Dict[str, Any]:
@@ -68,18 +70,21 @@ class Model(torch.nn.Module):
             return build_encdec_params(make, self.cfg)
         return build_params(make, self.cfg)
 
-    def init(self, key: torch.Tensor):
+    def init(self, key: torch.Tensor, trainable: bool = False):
         """Random parameters from the port's threefry ``key`` (the
-        reference's ``Model.init``), registered on the module."""
+        reference's ``Model.init``), registered on the module
+        (``load_params``)."""
         tree = P.init_params(self._build, key,
                              dtype=dtype_of(self.cfg.param_dtype),
                              device=self.device)
-        return self.load_params(tree)
+        return self.load_params(tree, trainable)
 
-    def load_params(self, tree: Dict[str, Any]):
+    def load_params(self, tree: Dict[str, Any], trainable: bool = False):
         """Register a parameter tree (e.g. ``interop.model_params_from_numpy``
-        of the reference's) on the module; returns the registered tree."""
-        _register(self, tree)
+        of the reference's) on the module; returns the registered tree.
+        ``trainable`` leaves require a gradient (the trainer's); serving's
+        do not, so a decode step builds no autograd graph."""
+        _register(self, tree, trainable)
         return self.params()
 
     def params(self) -> Dict[str, Any]:
@@ -139,6 +144,67 @@ class Model(torch.nn.Module):
         logits, caches, _ = lm_forward(params, batch["tokens"], self.cfg,
                                        caches=caches, start_index=index)
         return logits, caches
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+def _chunk_nll(xb, table, lb, mb, cfg: ModelConfig):
+    """(sum of the masked NLL, sum of the mask) of one chunk: the unembed
+    in the features' dtype (the table cast inside the chunk, so each
+    chunk's table gradient widens to float32 before the chunks add, as the
+    reference's scan adds them), the softcap, the padded-vocab mask, then
+    float32 log-sum-exp against the label's logit."""
+    logits = torch.matmul(xb, table.to(xb.dtype).t())
+    logits = softcap(logits, cfg.final_logit_softcap).float()
+    if cfg.padded_vocab != cfg.vocab_size:
+        viota = torch.arange(logits.shape[-1], device=logits.device)
+        logits = torch.where(viota < cfg.vocab_size, logits,
+                             torch.full((), -1e9, dtype=torch.float32,
+                                        device=logits.device))
+    logz = torch.logsumexp(logits, dim=-1)
+    # the reference's iota-compare sum has one nonzero term: the gather
+    ll = torch.gather(logits, -1, lb[..., None].long())[..., 0]
+    return torch.sum((logz - ll) * mb), torch.sum(mb)
+
+
+def chunked_lm_loss(features, table, labels, cfg: ModelConfig,
+                    loss_mask=None, n_chunks: int = 8):
+    """Fused unembed + cross-entropy over sequence chunks (the reference's
+    scan): ``n_chunks`` lowered until it divides S (S - 1 = 4 095 gives 7
+    chunks of 585), the chunks' sums added in order, and each chunk under
+    ``torch.utils.checkpoint``, so no (B, S, V) logits are kept for the
+    backward (the reference's ``nothing_saveable``)."""
+    b, s, _ = features.shape
+    while s % n_chunks:
+        n_chunks -= 1
+    cs = s // n_chunks
+    if loss_mask is None:
+        loss_mask = torch.ones((b, s), dtype=torch.float32,
+                               device=features.device)
+    tot = torch.zeros((), dtype=torch.float32, device=features.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=features.device)
+    for i in range(n_chunks):
+        sl = slice(i * cs, (i + 1) * cs)
+        nll, m = checkpoint(_chunk_nll, features[:, sl], table,
+                            labels[:, sl], loss_mask[:, sl], cfg,
+                            use_reentrant=False)
+        tot, cnt = tot + nll, cnt + m
+    return tot / torch.clamp_min(cnt, 1.0)
+
+
+def lm_loss(logits, labels, loss_mask=None):
+    """Cross-entropy of full logits. labels: (B, S) int; mask optional
+    (B, S)."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = logz - ll
+    if loss_mask is not None:
+        nll = nll * loss_mask
+        return torch.sum(nll) / torch.clamp_min(torch.sum(loss_mask), 1.0)
+    return torch.sum(nll) / scalar(nll.numel(), nll)
 
 
 # ---------------------------------------------------------------------------

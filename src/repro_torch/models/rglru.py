@@ -16,7 +16,9 @@ multiply-add where the reference runs jitted (inside its layer scan): in
 the scan's combine, in the fold of ``h0`` into the first step and in the
 decode step (probed: the eager reference rounds the product apart, the
 jitted one does not). The port takes every one of them through
-``fma_f32``, so ``_lru_scan`` equals the jitted reference bit for bit.
+``_FusedMulAdd``, whose forward is ``fma_f32``, so ``_lru_scan`` equals the
+jitted reference bit for bit; its backward is the derivative of
+``a * b + c`` (``fma_f32`` works on bit views, which carry no gradient).
 """
 from __future__ import annotations
 
@@ -26,7 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig, RGLRUConfig
-from repro_torch.core.fluctuate import fma_f32
+from repro_torch.core.fluctuate import _FusedMulAdd
 from repro_torch.models.layers import causal_conv1d
 from repro_torch.models.ssm import softplus
 
@@ -71,7 +73,7 @@ def _combine(x, y):
     (a1 a2, a2 b1 + b2), the second an FMA."""
     a1, b1 = x
     a2, b2 = y
-    return a1 * a2, fma_f32(a2, b1, b2)
+    return a1 * a2, _FusedMulAdd.apply(a2, b1, b2)
 
 
 def _interleave(evens, odds):
@@ -107,8 +109,8 @@ def _associative_scan(elems):
 def _lru_scan(a, b, h0=None):
     """h_t = a_t h_{t-1} + b_t via associative scan. a,b: (B,S,W)."""
     if h0 is not None:
-        b = b.clone()
-        b[:, 0] = fma_f32(a[:, 0], h0, b[:, 0])
+        first = _FusedMulAdd.apply(a[:, 0], h0, b[:, 0])
+        b = torch.cat([first[:, None], b[:, 1:]], dim=1)
     return _associative_scan([a, b])[1]
 
 
@@ -139,7 +141,7 @@ def apply_rglru(params, x, cfg: ModelConfig,
     else:
         h0 = cache.h
         if s == 1:
-            h = fma_f32(a[:, 0], h0, gated[:, 0])[:, None]
+            h = _FusedMulAdd.apply(a[:, 0], h0, gated[:, 0])[:, None]
         else:
             h = _lru_scan(a, gated, h0)
         cache.h.copy_(h[:, -1])

@@ -12,14 +12,22 @@ separate stacks or grouped layers.
 Every family of the reference runs: ``dense`` and ``vlm`` (GQA + MLP),
 ``moe`` (GQA or MLA + a dense first stack and MoE stacks), ``ssm``
 (Mamba-2), ``hybrid`` (griffin groups of RG-LRU and local attention) and
-the ``audio`` decoder with cross-attention (``models/encdec.py``). Remat
-waits for the training slice (ROADMAP item 17(c)).
+the ``audio`` decoder with cross-attention (``models/encdec.py``).
+
+Remat (``cfg.remat``, the reference's ``_remat_wrap``) applies where a
+forward builds a graph and writes no cache: ``full`` runs each layer under
+``torch.utils.checkpoint`` (recomputed in the backward); ``selective``
+checkpoints each block's mixer and its FFN as two segments, so only the
+tensors between segments are kept (the residual stream, ``mix_out`` and
+``ffn_out``: the reference's ``SAVE_NAMES``); ``none`` keeps everything.
+The policies differ in memory only, never in a number.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, List, NamedTuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ModelConfig
 from repro_torch.models import attention as attn
@@ -27,6 +35,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
+from repro_torch.tree import tree_leaves
 
 
 # ---------------------------------------------------------------------------
@@ -118,68 +127,92 @@ def make_block(make, path: str, cfg: ModelConfig, stack: Stack,
     return p
 
 
-def _griffin_group(p, x, positions, cfg: ModelConfig, stack: Stack, cache):
+def _segment(remat: bool, fn, *args):
+    """``fn(*args)``; under ``torch.utils.checkpoint`` when ``remat``, so
+    the segment's inside is recomputed in the backward and only its inputs
+    and outputs are kept."""
+    if remat:
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def _griffin_group(p, x, positions, cfg: ModelConfig, stack: Stack, cache,
+                   selective: bool):
     new_cache: Dict[str, Any] = {}
     for j, kind in enumerate(stack.pattern or cfg.rglru.block_pattern):
-        h = L.apply_norm(p[f"g{j}_ln_mix"], x, cfg.norm_kind)
         sub = cache.get(f"g{j}") if cache else None
-        if kind == "recurrent":
-            out, nc = rglru_mod.apply_rglru(p[f"g{j}_mix"], h, cfg, sub)
-        else:
-            out, nc = attn.gqa_attention(
-                p[f"g{j}_mix"], h, positions, cfg, causal=True,
-                window=cfg.window_size, cache=sub)
+
+        def mixer(x, j=j, kind=kind, sub=sub):
+            h = L.apply_norm(p[f"g{j}_ln_mix"], x, cfg.norm_kind)
+            if kind == "recurrent":
+                return rglru_mod.apply_rglru(p[f"g{j}_mix"], h, cfg, sub)
+            return attn.gqa_attention(p[f"g{j}_mix"], h, positions, cfg,
+                                      causal=True, window=cfg.window_size,
+                                      cache=sub)
+
+        def ffn(x, j=j):
+            h = L.apply_norm(p[f"g{j}_ln_ffn"], x, cfg.norm_kind)
+            return L.apply_mlp(p[f"g{j}_ffn"], h, cfg.mlp_kind)
+
+        out, nc = _segment(selective, mixer, x)
         if nc is not None:
             new_cache[f"g{j}"] = nc
         x = x + out
-        h = L.apply_norm(p[f"g{j}_ln_ffn"], x, cfg.norm_kind)
-        x = x + L.apply_mlp(p[f"g{j}_ffn"], h, cfg.mlp_kind)
+        x = x + _segment(selective, ffn, x)
     return x, new_cache
 
 
 def apply_block(p, x, positions, cfg: ModelConfig, stack: Stack,
-                window: int, cache, cross_kv=None, enc_positions=None):
-    """Apply one layer. window: 0 = global. Returns (x, new_cache, aux)."""
+                window: int, cache, cross_kv=None, enc_positions=None,
+                selective: bool = False):
+    """Apply one layer. window: 0 = global. ``selective``: checkpoint the
+    mixer, the cross-attention and the FFN as segments (module
+    docstring). Returns (x, new_cache, aux)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if stack.mixer == "griffin_group":
-        x, new_cache = _griffin_group(p, x, positions, cfg, stack, cache)
+        x, new_cache = _griffin_group(p, x, positions, cfg, stack, cache,
+                                      selective)
         return x, new_cache, aux
     new_cache: Dict[str, Any] = {}
+    key = {"gqa": "kv", "mla": "mla"}.get(stack.mixer, "ssm")
+    sub = cache.get(key) if cache else None
+
+    def mixer(x):
+        h = L.apply_norm(p["ln_mix"], x, cfg.norm_kind)
+        if stack.mixer == "gqa":
+            return attn.gqa_attention(p["mix"], h, positions, cfg,
+                                      causal=True, window=window, cache=sub)
+        if stack.mixer == "mla":
+            return attn.mla_attention(p["mix"], h, positions, cfg, cache=sub)
+        return ssm_mod.apply_ssm(p["mix"], h, cfg, cache=sub)
+
+    def cross(x):
+        h = L.apply_norm(p["ln_cross"], x, cfg.norm_kind)
+        return attn.cross_attention(p["cross"], h, cross_kv, positions,
+                                    enc_positions, cfg)
+
+    def ffn(x):
+        h = L.apply_norm(p["ln_ffn"], x, cfg.norm_kind)
+        if stack.ffn == "moe":
+            return moe_mod.apply_moe(p["ffn"], h, cfg)
+        return L.apply_mlp(p["ffn"], h, cfg.mlp_kind), None
 
     # --- mixer ---
-    h = L.apply_norm(p["ln_mix"], x, cfg.norm_kind)
-    if stack.mixer == "gqa":
-        out, nc = attn.gqa_attention(p["mix"], h, positions, cfg, causal=True,
-                                     window=window,
-                                     cache=cache.get("kv") if cache else None)
-        key = "kv"
-    elif stack.mixer == "mla":
-        out, nc = attn.mla_attention(p["mix"], h, positions, cfg,
-                                     cache=cache.get("mla") if cache else None)
-        key = "mla"
-    else:
-        out, nc = ssm_mod.apply_ssm(p["mix"], h, cfg,
-                                    cache=cache.get("ssm") if cache else None)
-        key = "ssm"
+    out, nc = _segment(selective, mixer, x)
     if nc is not None:
         new_cache[key] = nc
     x = x + out
 
     # --- cross attention (enc-dec decoder) ---
     if cross_kv is not None:
-        h = L.apply_norm(p["ln_cross"], x, cfg.norm_kind)
-        x = x + attn.cross_attention(p["cross"], h, cross_kv, positions,
-                                     enc_positions, cfg)
+        x = x + _segment(selective, cross, x)
 
     # --- ffn ---
-    if stack.ffn == "mlp":
-        h = L.apply_norm(p["ln_ffn"], x, cfg.norm_kind)
-        x = x + L.apply_mlp(p["ffn"], h, cfg.mlp_kind)
-    elif stack.ffn == "moe":
-        h = L.apply_norm(p["ln_ffn"], x, cfg.norm_kind)
-        out, aux_l = moe_mod.apply_moe(p["ffn"], h, cfg)
+    if stack.ffn != "none":
+        out, aux_l = _segment(selective, ffn, x)
         x = x + out
-        aux = aux + aux_l
+        if aux_l is not None:
+            aux = aux + aux_l
     return x, new_cache, aux
 
 
@@ -264,20 +297,40 @@ def run_stacks(params, x, positions, cfg: ModelConfig, caches=None,
     return x, new_caches, aux_total
 
 
+def unstack(tree, n: int) -> List[Any]:
+    """The ``n`` layer slices of a stacked parameter tree, each leaf split
+    by one ``unbind`` (views), so its gradient is one stack of the layers'
+    gradients."""
+    if isinstance(tree, dict):
+        per_key = {k: unstack(v, n) for k, v in tree.items()}
+        return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
+    return list(tree.unbind(0))
+
+
+def remat_policy(cfg: ModelConfig, cache, params) -> str:
+    """``cfg.remat`` where the forward writes no cache and builds a graph
+    for a gradient of ``params`` (a tree of tensors), else ``"none"``: a
+    serving forward has nothing to recompute."""
+    if (cache is None and torch.is_grad_enabled()
+            and any(t.requires_grad for t in tree_leaves(params))):
+        return cfg.remat
+    return "none"
+
+
 def run_stack(sp, x, positions, cfg: ModelConfig, stack: Stack, windows,
               cache, cross_kv_of, enc_positions=None):
     """The layers of one stack in order: ``sp`` its stacked parameters,
     ``cache`` its stacked cache or None, ``cross_kv_of(layer params)`` the
-    layer's cross-attention (k, v) or None. Returns (x, new stacked cache or
-    None, the stack's summed aux)."""
+    layer's cross-attention (k, v) or None; remat by ``remat_policy``.
+    Returns (x, new stacked cache or None, the stack's summed aux)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_c = None
-    for i in range(stack.n):
-        lp = layer_slice(sp, i)
-        x, new_c, aux_l = apply_block(
-            lp, x, positions, cfg, stack, windows[i],
-            layer_slice(cache, i) if cache is not None else None,
-            cross_kv=cross_kv_of(lp), enc_positions=enc_positions)
+    policy = remat_policy(cfg, cache, sp)
+    for i, lp in enumerate(unstack(sp, stack.n)):
+        args = (lp, x, positions, cfg, stack, windows[i],
+                layer_slice(cache, i) if cache is not None else None,
+                cross_kv_of(lp), enc_positions, policy == "selective")
+        x, new_c, aux_l = _segment(policy == "full", apply_block, *args)
         aux = aux + aux_l
     if cache is None:
         return x, None, aux

@@ -189,3 +189,33 @@ def moe_flips(port_ids, ref_ids, port_probs, ref_probs) -> np.ndarray:
     assert not bad.any(), ("top-k flips away from a near-tie",
                            np.nonzero(bad)[0], margin[bad], moved[bad])
     return flipped
+
+
+#: LM gradients in float32 (the loss's gradient with respect to every
+#: parameter leaf, and the flash backward's dq, dk, dv), as a fraction of
+#: the leaf's max|reference gradient|: the forward's float error
+#: (``LM_ATOL_FRAC``) carried through the backward's products. Measured
+#: worst 2.1e-6 (recurrentgemma-2b smoke, ``groups.g1_mix.lam``) over the
+#: family smoke configs of ``tests/test_torch_train_grads.py`` and
+#: ``tests/test_torch_train_families.py``, 5.2e-7 in
+#: ``tests/test_torch_train_flash.py``. The float32 loss is held to it as a
+#: relative tolerance (measured worst 1.8e-7)
+LM_GRAD_ATOL_FRAC = 1e-5
+#: the same in bfloat16: the backward's bfloat16 cotangents round again
+#: where the forward's activations did (``LM_BF16_ATOL_FRAC``, one ulp of
+#: the logits), and a small leaf whose gradient cancels (the RG-LRU's
+#: ``lam`` and ``w_a``, Mamba-2's ``d_skip``) carries that as a fraction of
+#: its own largest component: 2**-4, eight ulps of 2**-7, at 2 layers.
+#: Measured worst over the same files 3.1e-2 at 5 layers
+#: (recurrentgemma-2b smoke, ``tail_group.g1_mix.w_a``, against 9.9e-2)
+#: and 1.4e-2 at 2 (mamba2-780m smoke, ``layers.mix.d_skip``); 5.7e-2 at
+#: recurrentgemma's ``groups.g0_mix.lam`` on the reference's own draw of
+#: the same seed (its normals differ from the port's by ULPs)
+LM_BF16_GRAD_ATOL_FRAC = 2.0 ** -4
+
+
+def lm_bf16_grad_atol_frac(num_layers: int) -> float:
+    """``LM_BF16_GRAD_ATOL_FRAC`` for a model of ``num_layers`` layers, by
+    ``lm_bf16_atol_frac``'s rule (2 layers set it; independent layers add
+    in quadrature)."""
+    return LM_BF16_GRAD_ATOL_FRAC * math.sqrt(max(num_layers, 2) / 2)

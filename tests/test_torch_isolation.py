@@ -5,6 +5,7 @@ import dataclasses
 import os
 import subprocess
 import sys
+import tempfile
 from pathlib import Path
 
 import jax  # noqa: F401  (the port's tests run beside the reference)
@@ -17,6 +18,7 @@ from repro.config import get_config as jax_get_config
 from repro.config import plane_specs as jax_plane_specs
 from repro_torch import config as tconfig
 from repro_torch import interop
+from repro_torch.launch import train as launch_train
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -72,13 +74,47 @@ def test_import_leaves_jax_out_of_sys_modules():
             "repro_torch.models.transformer, repro_torch.models.model, "
             "repro_torch.models.moe, repro_torch.models.ssm, "
             "repro_torch.models.rglru, repro_torch.models.encdec, "
-            "repro_torch.serve.engine, repro_torch.launch.serve; "
+            "repro_torch.serve.engine, repro_torch.launch.serve, "
+            "repro_torch.optim.adamw, repro_torch.train.train_step, "
+            "repro_torch.train.trainer, repro_torch.data.tokens, "
+            "repro_torch.ckpt.checkpoint, repro_torch.launch.train, "
+            "repro_torch.tree; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); sys.exit(bool(bad))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
     res = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+def _launch_train(device="cuda"):
+    with tempfile.TemporaryDirectory() as ckpt:
+        return launch_train.main(
+            ["--arch", "gemma2-2b", "--smoke", "--steps", "1", "--batch",
+             "2", "--seq", "16", "--ckpt-dir", ckpt, "--device", device])
+
+
+def _trainer(device="cuda"):
+    from repro_torch.train.trainer import Trainer
+
+    with tempfile.TemporaryDirectory() as ckpt:
+        cfg = tconfig.TrainConfig(
+            model=tconfig.get_config("gemma2-2b", smoke=True),
+            shape=tconfig.ShapeConfig("t", "train", 16, 2),
+            checkpoint=tconfig.CheckpointConfig(directory=ckpt))
+        return Trainer(cfg, device).run(max_steps=1)
+
+
+def _data_pipeline(device="cuda"):
+    from repro_torch.data.tokens import DataPipeline
+
+    pipe = DataPipeline(tconfig.get_config("gemma2-2b", smoke=True),
+                        tconfig.ShapeConfig("t", "train", 16, 2),
+                        device=device)
+    try:
+        return next(pipe)
+    finally:
+        pipe.close()
 
 
 def _entry_points():
@@ -170,6 +206,12 @@ def _entry_points():
         "launch_serve": lambda device="cuda": launch_serve.main(
             ["--arch", "qwen3-32b", "--requests", "1", "--new-tokens", "1",
              "--device", device]),
+        "launch_train": _launch_train,
+        "trainer": _trainer,
+        "data_pipeline": _data_pipeline,
+        "opt_state_from_numpy": lambda **kw: interop.opt_state_from_numpy(
+            {"step": np.int32(0), "m": {"w": np.zeros(2, np.float32)},
+             "v": {"w": np.zeros(2, np.float32)}, "master": None}, **kw),
     }
 
 
@@ -192,7 +234,9 @@ def _entry_points():
                                   "make_distributed_plane_responses",
                                   "shard_events", "lm_model", "init_params",
                                   "model_params_from_numpy",
-                                  "launch_serve"])
+                                  "launch_serve", "launch_train",
+                                  "trainer", "data_pipeline",
+                                  "opt_state_from_numpy"])
 def test_entry_points_default_to_the_card(name, monkeypatch):
     """Without a card the default device raises; device="cpu" runs."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

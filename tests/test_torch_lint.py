@@ -286,6 +286,18 @@ class TestScalarDivision:
             assert rules_of(fs) == ["scalar-division"], sub
 
 
+    def test_training_packages_flagged(self):
+        """The training slice divides on the card too (``g / micro``,
+        ``step / warmup``): its packages and its launcher."""
+        for sub in (("optim", "x.py"), ("train", "x.py"), ("ckpt", "x.py"),
+                    ("data", "x.py"), ("launch", "train.py")):
+            fs = findings("""
+                def f(g, cfg):
+                    return g / 3.0 + g / cfg.warmup_steps
+            """, str(PORT.joinpath(*sub)))
+            assert rules_of(fs) == ["scalar-division"] * 2, sub
+
+
 class TestAtomicIndexAdd:
     def test_index_add_flagged(self):
         fs = findings("""
