@@ -269,12 +269,37 @@ Phases (any failure exits non-zero before the result line):
                 parameter bit for bit; remat none, full and selective give
                 the same loss and gradients bit for bit. No kernel
                 launches; the phase's wall time
- 16. summary  : one JSON line {"kernels": [...]} (with each kernel's
+ 16. parallel : the parallel layer (ROADMAP item 17(d)) on one NCCL + gloo
+                group of one rank. (a) the train phase's gemma2-2b
+                configuration, PAR_STEPS steps each of build_train's
+                sharded step on a (1, 1) mesh and its zero1=True step,
+                each from prng.key(0) with one full-width training state
+                on the card at a time, against the train phase's first
+                PAR_STEPS plain steps (their losses and a host copy of the
+                parameters after them, TRAIN_REFERENCE): the losses bit
+                for bit, the parameters bit for bit (or within
+                parity.LM_GRAD_ATOL_FRAC of their leaf's max); each run's
+                step ms (host clock) and peak memory, the sharded step's
+                busy share (one step under torch.profiler, CUDA activity;
+                the plain step's is the train phase's), and the parallel
+                layer's dispatch (gathered calls and their host
+                time). (b) the compressed step (int8 error
+                feedback, a pod group of one) at batch PAR_DP_BATCH beside
+                the exact step: its loss drift, a reading. (c) at
+                gemma2-2b's smoke config in float32: the sharded step on
+                the card against the CPU (4 steps, parity.LM_GRAD_ATOL_FRAC),
+                the compressed step against the exact one (PAR_DP_STEPS
+                steps, the reference test's drift and gap bounds),
+                quantize_int8 card == CPU bit for bit, pipeline_apply on
+                one stage == the sequential loop bit for bit, and the
+                unsharded Trainer's checkpoint restored onto the (1, 1)
+                mesh bit for bit. No kernel launches; the phase's wall time
+ 17. summary  : one JSON line {"kernels": [...]} (with each kernel's
                 launches over the clean streams, stream_launches, while
                 tuning, tune_launches, over the pool events and stream,
                 pool_launches, and over the distributed recon runs,
                 dist_launches)
- 17. result   : last line {"ok": true, "device": {...}}
+ 18. result   : last line {"ok": true, "device": {...}}
 
 The on-card checks live here rather than in pytest because the machine with
 the card has no JAX, which the repository's test configuration imports.
@@ -1826,20 +1851,22 @@ def stream_checks(full, dev, counters, card: str, tmp: Path):
     return totals
 
 
-def profiled(fn):
+def profiled(fn, ops: bool = True):
     """(wall ms, device ms, top ops) of one call of ``fn`` under
     torch.profiler: the host clock around the call (synchronised; the
     profiler's own host cost included, so the busy share it gives is a
     lower bound), the device time of every CUDA event (kernels, copies,
     fills), and the five host ops whose kernels took the most device
-    time."""
+    time. ``ops=False`` records CUDA activity alone (no host ops: half
+    the processing of a full-width train step) and returns no top ops."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = ([ProfilerActivity.CPU, ProfilerActivity.CUDA] if ops
+                  else [ProfilerActivity.CUDA])
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -1848,9 +1875,11 @@ def profiled(fn):
     busy = sum(e.self_device_time_total for e in events
                if e.device_type == DeviceType.CUDA
                and not e.is_user_annotation) / 1e3
-    ops = [e for e in events if e.device_type == DeviceType.CPU
-           and e.self_device_time_total > 0]
-    top = sorted(ops, key=lambda e: -e.self_device_time_total)[:5]
+    if not ops:
+        return wall, busy, []
+    host = [e for e in events if e.device_type == DeviceType.CPU
+            and e.self_device_time_total > 0]
+    top = sorted(host, key=lambda e: -e.self_device_time_total)[:5]
     return wall, busy, [(e.key, e.self_device_time_total / 1e3, e.count)
                         for e in top]
 
@@ -3678,6 +3707,9 @@ TRAIN_WAITS = 5
 BF16_DENSE_PEAK = 989e12
 #: the smoke checks' shape: sequence, batch
 TRAIN_SMOKE = (64, 4)
+#: the train phase's first PAR_STEPS losses and the parameters after them
+#: (host copies in tree order): the parallel phase's plain step
+TRAIN_REFERENCE: dict = {}
 
 
 @contextlib.contextmanager
@@ -3718,6 +3750,7 @@ def train_full(dev, card: str) -> None:
     from repro_torch.models.model import Model, count_params_analytic
     from repro_torch.optim.adamw import init_opt_state
     from repro_torch.train.train_step import make_train_step
+    from repro_torch.tree import tree_leaves
 
     torch.zeros((), device=dev)
     held = torch.cuda.memory_allocated(dev)
@@ -3776,6 +3809,10 @@ def train_full(dev, card: str) -> None:
                 else:
                     start, loss, metrics = one_step()
                 step_ms = (time.perf_counter() - t0) * 1e3
+                if i + 1 == PAR_STEPS:      # the parallel phase's reference
+                    TRAIN_REFERENCE["params"] = [
+                        p.detach().to("cpu", copy=True)
+                        for p in tree_leaves(params)]
                 before, after = updates[-1]
                 fb_ms = start.elapsed_time(before)
                 up_ms = before.elapsed_time(after)
@@ -3818,6 +3855,8 @@ def train_full(dev, card: str) -> None:
     print(f"train: waits for the card in step {TRAIN_WAITS + 1} (next "
           f"batch, step, loss read): {sum(waits.values())} "
           f"{dict(waits)}", flush=True)
+    TRAIN_REFERENCE["losses"] = losses[:PAR_STEPS]
+    TRAIN_REFERENCE["ms"] = [r[0] for r in rows[:PAR_STEPS]]
     check(all(np.isfinite(losses)), f"train: a loss is not finite: {losses}")
     check(np.mean(losses[-2:]) < losses[0],
           f"train: the mean of the last two losses is not below the first: "
@@ -3968,6 +4007,429 @@ def check_train(dev, card: str) -> None:
     print(f"train smoke checks: wall {time.perf_counter() - t0:.1f} s; "
           f"train phase: wall {time.perf_counter() - t_phase:.1f} s; {card}",
           flush=True)
+
+
+#: the parallel phase: the train phase's gemma2-2b configuration, 3 steps
+#: of each step (sharded on a (1, 1) mesh, ZeRO-1; the plain step's are the
+#: train phase's first 3), the step profiled (0-based, the sharded run only)
+#: and the compressed step's batch (one microbatch's sequences: it takes no
+#: microbatches, as the reference's)
+PAR_STEPS = 3
+PAR_PROFILED = 2
+PAR_DP_BATCH = 2
+#: the compressed step's smoke run (the reference test's 10 steps) and its
+#: bounds against the exact run (tests/test_compressed_dp.py)
+PAR_DP_STEPS = 10
+PAR_DP_DRIFT = 0.08
+PAR_DP_GAP = 0.05
+
+
+def par_run(label, make, dev, card, profile=True, keep=True,
+            steps=PAR_STEPS):
+    """``steps`` steps of the step ``make()`` builds -> (step, params,
+    state, next_batch, close) at full width; prints each step's loss and
+    host ms, the profiled step's busy share and the peak memory. Returns
+    (losses, host copies of the parameters in tree order (``keep``) or
+    None, step ms)."""
+    import torch
+
+    from repro_torch.tree import tree_leaves
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    step, params, state, next_batch, close = make()
+    losses, rows = [], []
+    try:
+        for i in range(steps):
+            batch = next_batch()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if profile and i == PAR_PROFILED:
+                out = []
+                t_prof = time.perf_counter()
+                wall, busy, _ = profiled(lambda: out.append(
+                    step(params, state, batch)), ops=False)
+                t_prof = time.perf_counter() - t_prof
+                params, state, metrics = out[0]
+                loss = float(metrics["loss"])
+            else:
+                params, state, metrics = step(params, state, batch)
+                loss = float(metrics["loss"])   # the step's host read
+            rows.append((time.perf_counter() - t0) * 1e3)
+            losses.append(loss)
+    finally:
+        close()
+    peak = torch.cuda.max_memory_allocated(dev)
+    host = ([p.detach().to("cpu", copy=True) for p in tree_leaves(params)]
+            if keep else None)
+    prof = (f" (step {PAR_PROFILED + 1} under torch.profiler, CUDA "
+            f"activity: busy {busy:.1f} of {wall:.1f} ms, busy share "
+            f"{busy / wall:.3f}; the profiler's processing {t_prof:.1f} s)"
+            if profile else "")
+    print(f"parallel {label}: losses {losses}, step ms (host clock, ending "
+          f"in the loss read) {[round(r, 1) for r in rows]}{prof}, peak "
+          f"{peak / 2**30:.2f} GiB; {card}", flush=True)
+    del params, state, metrics, step
+    return losses, host, rows
+
+
+def par_compare(label, got, want) -> str:
+    """Bit for bit, or else the worst |delta| over a leaf's max (must be
+    within parity.LM_GRAD_ATOL_FRAC)."""
+    import torch
+
+    from repro_torch.testing import parity
+
+    if all(torch.equal(a, b) for a, b in zip(got, want)):
+        return "bit for bit"
+    worst = max(float((a - b).abs().max()) / float(b.abs().max())
+                for a, b in zip(got, want))
+    check(worst <= parity.LM_GRAD_ATOL_FRAC,
+          f"parallel {label}: parameters differ by {worst:.3e} of a leaf's "
+          "max")
+    return f"within {worst:.3e} of a leaf's max"
+
+
+def parallel_full(dev, card, mesh) -> None:
+    """Check (a) and (b) of the parallel phase: gemma2-2b at full width."""
+    import gc
+
+    import torch
+
+    from repro_torch.config import (OptimizerConfig, ParallelConfig, SHAPES,
+                                    ShapeConfig, get_config)
+    from repro_torch.core import prng
+    from repro_torch.data.tokens import DataPipeline
+    from repro_torch.launch.specs import build_train
+    from repro_torch.models.model import Model
+    from repro_torch.optim.adamw import init_opt_state
+    from repro_torch.parallel import fsdp, sharding
+    from repro_torch.train.compressed_dp import (init_compressed_state,
+                                                 make_compressed_train_step)
+    from repro_torch.train.train_step import make_train_step
+
+    cfg = get_config(TRAIN_ARCH)
+    opt = OptimizerConfig(lr=TRAIN_LR, warmup_steps=2,
+                          total_steps=TRAIN_STEPS)
+    par = ParallelConfig(microbatches=TRAIN_MICRO)
+
+    def plain(batch=TRAIN_BATCH, micro=par):
+        def make():
+            shape = ShapeConfig("train_4k cut", "train",
+                                SHAPES["train_4k"].seq_len, batch)
+            model = Model(cfg, dev)
+            params = model.init(prng.key(0), trainable=True)
+            pipe = DataPipeline(cfg, shape, seed=0, device=dev)
+            return (make_train_step(model, opt, micro), params,
+                    init_opt_state(params), lambda: next(pipe), pipe.close)
+        return make
+
+    def sharded(zero1):
+        def make():
+            shape = ShapeConfig("train_4k cut", "train",
+                                SHAPES["train_4k"].seq_len, TRAIN_BATCH)
+            step, _, (psh, osh, _), _ = build_train(cfg, shape, mesh, opt,
+                                                    par, zero1=zero1)
+            full = Model(cfg, dev).init(prng.key(0), trainable=True)
+            params = fsdp.place(full, psh)
+            state = fsdp.place(init_opt_state(params), osh)
+            del full
+            pipe = DataPipeline(cfg, shape, seed=0, device=dev, mesh=mesh)
+            return step, params, state, lambda: next(pipe), pipe.close
+        return make
+
+    def compressed():
+        shape = ShapeConfig("train_4k cut", "train",
+                            SHAPES["train_4k"].seq_len, PAR_DP_BATCH)
+        model = Model(cfg, dev)
+        params = model.init(prng.key(0), trainable=True)
+        state = init_compressed_state(params, init_opt_state(params))
+        pipe = DataPipeline(cfg, shape, seed=0, device=dev)
+        pod = mesh_1d("pod")
+        return (make_compressed_train_step(model, opt, pod), params, state,
+                lambda: next(pipe), pipe.close)
+
+    def settle():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    check(len(TRAIN_REFERENCE.get("losses", ())) == PAR_STEPS,
+          "parallel: the train phase left no plain steps to compare with")
+    base_l, base_p, base_ms = (TRAIN_REFERENCE[k]
+                               for k in ("losses", "params", "ms"))
+    settle()
+    with sharding.use_mesh(mesh, sharding.act_rules_for(cfg, mesh)):
+        for zero1 in (False, True):
+            label = f"build_train (1, 1) zero1={zero1}"
+            with gathers_counted() as calls:
+                losses, params, ms = par_run(label, sharded(zero1), dev,
+                                             card, profile=not zero1)
+            settle()
+            check(losses == base_l, f"parallel {label}: losses {losses} "
+                  f"against the plain step's {base_l}")
+            print(f"parallel {label}: losses equal the train phase's plain "
+                  f"steps bit for bit, parameters after step {PAR_STEPS} "
+                  f"{par_compare(label, params, base_p)}; step 2 "
+                  f"{ms[1]:.1f} ms against the train phase's "
+                  f"{base_ms[1]:.1f} ms ({ms[1] - base_ms[1]:+.1f} ms); "
+                  f"{describe_calls(calls)}; {card}", flush=True)
+            del params
+    TRAIN_REFERENCE.clear()
+    del base_p
+    settle()
+    exact_l, _, _ = par_run(f"plain make_train_step, batch {PAR_DP_BATCH}",
+                            plain(PAR_DP_BATCH, None), dev, card, False,
+                            False)
+    settle()
+    dp_l, _, _ = par_run(f"compressed (int8 EF, pod group of 1), batch "
+                         f"{PAR_DP_BATCH}", compressed, dev, card, False, False)
+    settle()
+    drift = [abs(a - b) for a, b in zip(dp_l, exact_l)]
+    print(f"parallel compressed at full width: loss drift against the exact "
+          f"step {drift} (a reading, no bound); {card}", flush=True)
+
+
+@contextlib.contextmanager
+def gathers_counted():
+    """Count the parallel layer's dispatch calls inside the block
+    (``fsdp.gathered``, wherever the model imports it) and time them on the
+    host; a call made inside another (a tuple's elements) is neither
+    counted nor timed again."""
+    import collections
+
+    from repro_torch.models import encdec, transformer
+    from repro_torch.parallel import fsdp
+
+    calls = collections.Counter()
+    spent = collections.Counter()
+    depth = [0]
+    fn = fsdp.gathered
+
+    def counted(*args, **kwargs):
+        if depth[0]:
+            return fn(*args, **kwargs)
+        depth[0] += 1
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            spent["gathered"] += time.perf_counter() - t0
+            calls["gathered"] += 1
+            depth[0] -= 1
+
+    owners = [m for m in (transformer, encdec, fsdp)
+              if getattr(m, "gathered", None) is fn]
+    for m in owners:
+        m.gathered = counted
+    try:
+        yield calls, spent
+    finally:
+        for m in owners:
+            m.gathered = fn
+
+
+def describe_calls(counted) -> str:
+    calls, spent = counted
+    return ("parallel-layer dispatch over the run's steps: " + ", ".join(
+        f"{n} {calls[n]} calls, {spent[n] * 1e3:.1f} ms on the host"
+        for n in sorted(calls)))
+
+
+def mesh_1d(axis: str):
+    from torch.distributed.device_mesh import DeviceMesh
+    import torch
+
+    return DeviceMesh("cuda", torch.tensor([0]), mesh_dim_names=(axis,))
+
+
+def parallel_smoke(dev, card, mesh, tmp: Path) -> None:
+    """Check (c) of the parallel phase: gemma2-2b's smoke config in float32
+    on the card against the CPU, the compressed step against the exact
+    one, ``quantize_int8``, a one-stage pipeline and an elastic restore."""
+    import dataclasses as dc
+
+    import torch
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.ckpt.checkpoint import CheckpointManager
+    from repro_torch.core.distributed import mesh_device
+    from repro_torch.config import (CheckpointConfig, OptimizerConfig,
+                                    ParallelConfig, ShapeConfig, TrainConfig,
+                                    get_config)
+    from repro_torch.core import prng
+    from repro_torch.data.tokens import make_batch, shard_batch, to_device
+    from repro_torch.launch.specs import build_train
+    from repro_torch.models.model import Model
+    from repro_torch.optim.adamw import init_opt_state
+    from repro_torch.parallel import fsdp, sharding
+    from repro_torch.parallel.collectives import quantize_int8
+    from repro_torch.parallel.pipeline import pipeline_apply
+    from repro_torch.testing import parity
+    from repro_torch.train.compressed_dp import (init_compressed_state,
+                                                 make_compressed_train_step)
+    from repro_torch.train.train_step import make_train_step
+    from repro_torch.train.trainer import Trainer
+    from repro_torch.tree import tree_items, tree_leaves, tree_map
+
+    cfg = dc.replace(get_config(TRAIN_ARCH, smoke=True), dtype="float32")
+    shape = ShapeConfig("smoke", "train", *TRAIN_SMOKE)
+    opt = OptimizerConfig(lr=TRAIN_LR, warmup_steps=2, total_steps=6)
+    drawn = Model(cfg, "cpu").init(prng.key(0))
+
+    def copy_to(device):
+        return tree_map(lambda t: t.detach().to(device, copy=True)
+                        .requires_grad_(True), drawn)
+
+    # the sharded step, card against CPU
+    cpu_mesh = DeviceMesh("cpu", torch.tensor([[0]]),
+                          mesh_dim_names=("data", "model"))
+    runs = []
+    for m in (mesh, cpu_mesh):
+        with sharding.use_mesh(m, sharding.act_rules_for(cfg, m)):
+            step, _, (psh, osh, _), _ = build_train(
+                cfg, shape, m, opt, ParallelConfig(microbatches=2))
+            full = copy_to(mesh_device(m))
+            params = fsdp.place(full, psh)
+            state = fsdp.place(init_opt_state(params), osh)
+            losses = []
+            for i in range(4):
+                params, state, metrics = step(
+                    params, state, shard_batch(make_batch(cfg, shape, 0, i),
+                                               m))
+                losses.append(float(metrics["loss"]))
+            runs.append((losses, [p.detach().cpu()
+                                  for p in tree_leaves(params)]))
+    (card_l, card_p), (cpu_l, cpu_p) = runs
+    rel = max(abs(a - b) / abs(b) for a, b in zip(card_l, cpu_l))
+    worst = max(float((a - b).abs().max()) / float(b.abs().max())
+                for a, b in zip(card_p, cpu_p))
+    check(rel <= parity.LM_GRAD_ATOL_FRAC
+          and worst <= parity.LM_GRAD_ATOL_FRAC,
+          f"parallel sharded step card against CPU: losses {card_l} "
+          f"against {cpu_l}, parameters within {worst:.3e}")
+    print(f"parallel check (c) sharded step (smoke, float32, 4 steps, (1, 1) "
+          f"meshes): card against CPU losses within {rel:.3e} relative, "
+          f"parameters within {worst:.3e} of their leaf's max (rule "
+          f"{parity.LM_GRAD_ATOL_FRAC})", flush=True)
+
+    # the compressed step against the exact one, on the card
+    pod = mesh_1d("pod")
+    out = {}
+    for name in ("exact", "compressed"):
+        model = Model(cfg, dev)
+        params = copy_to(dev)
+        if name == "exact":
+            step = make_train_step(model, opt)
+            state = init_opt_state(params)
+        else:
+            step = make_compressed_train_step(model, opt, pod)
+            state = init_compressed_state(params, init_opt_state(params))
+        losses = []
+        for t in range(PAR_DP_STEPS):
+            params, state, metrics = step(params, state, to_device(
+                make_batch(cfg, shape, 0, t), dev))
+            losses.append(float(metrics["loss"]))
+        out[name] = losses
+    drift = max(abs(a - b) for a, b in zip(out["exact"], out["compressed"]))
+    gap = abs(out["exact"][-1] - out["compressed"][-1])
+    check(out["exact"][-1] < out["exact"][0] and drift < PAR_DP_DRIFT
+          and gap < PAR_DP_GAP,
+          f"parallel compressed (smoke): drift {drift}, final gap {gap}, "
+          f"exact {out['exact']}, compressed {out['compressed']}")
+    g = torch.randn(1 << 20, generator=torch.Generator().manual_seed(5))
+    g[::4099] *= 37.0
+    qc, sc = quantize_int8(g.to(dev))
+    qh, sh = quantize_int8(g)
+    check(torch.equal(qc.cpu(), qh) and torch.equal(sc.cpu(), sh),
+          "parallel quantize_int8: the card differs from the CPU")
+    print(f"parallel check (c) compressed step (smoke, float32, "
+          f"{PAR_DP_STEPS} steps, pod group of 1): drift {drift:.4e} < "
+          f"{PAR_DP_DRIFT}, final gap {gap:.4e} < {PAR_DP_GAP} against the "
+          f"exact step (tests/test_compressed_dp.py's bounds); "
+          f"quantize_int8 of 2**20 values card == CPU bit for bit",
+          flush=True)
+
+    # GPipe on one stage == the sequential loop
+    gen = torch.Generator().manual_seed(0)
+    w = (torch.randn(1, 16, 16, generator=gen) * 0.3).to(dev)
+    b = (torch.randn(1, 16, generator=gen) * 0.1).to(dev)
+    x = torch.randn(8, 2, 16, generator=gen).to(dev)
+    y = pipeline_apply(lambda p, h: torch.tanh(h @ p["w"] + p["b"]),
+                       {"w": w, "b": b}, x, mesh_1d("stage"), "stage")
+    seq = torch.stack([torch.tanh(x[i] @ w[0] + b[0]) for i in range(8)])
+    check(torch.equal(y, seq), "parallel pipeline_apply (one stage) differs "
+          "from the sequential loop")
+
+    # a checkpoint of the unsharded Trainer restored onto the (1, 1) mesh
+    tcfg = TrainConfig(model=get_config(TRAIN_ARCH, smoke=True), shape=shape,
+                       optimizer=opt, log_every=1000,
+                       checkpoint=CheckpointConfig(directory=str(tmp / "ck"),
+                                                   every_steps=2,
+                                                   async_save=False))
+    trainer = Trainer(tcfg, dev)
+    trainer.run(max_steps=2)
+    with sharding.use_mesh(mesh):
+        _, (pshape, oshape, _), (psh, osh, _), _ = build_train(
+            tcfg.model, shape, mesh, opt)
+        restored, _ = CheckpointManager(str(tmp / "ck")).restore(
+            2, {"params": pshape, "opt": oshape},
+            shardings={"params": psh, "opt": osh})
+    whole, _ = CheckpointManager(str(tmp / "ck")).restore(
+        2, tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype),
+                    {"params": pshape, "opt": oshape}))
+    same = all(torch.equal(a.cpu(), b.cpu()) for (_, a), (_, b) in
+               zip(tree_items(restored), tree_items(whole)))
+    same &= all(torch.equal(a.cpu(), b.detach().cpu()) for (_, a), (_, b) in
+                zip(tree_items(restored["params"]),
+                    tree_items(trainer.model.params())))
+    check(same, "parallel restore onto the (1, 1) mesh differs from the "
+          "Trainer's state")
+    print("parallel check (c): pipeline_apply on one stage == the sequential "
+          "loop bit for bit; the unsharded Trainer's checkpoint (step 2) "
+          "restored onto the (1, 1) mesh == its parameters and the whole "
+          "restore, bit for bit", flush=True)
+
+    # launch.train --mesh: one NCCL rank runs; more ranks than cards raise
+    from repro_torch.launch import train as launch_train
+
+    args = ["--arch", TRAIN_ARCH, "--smoke", "--steps", "3", "--batch", "4",
+            "--seq", "64", "--device", "cuda"]
+    one = launch_train.main(args + ["--mesh", "1x1", "--ckpt-dir",
+                                    str(tmp / "mesh")])
+    try:
+        launch_train.main(args + ["--mesh", "2x1", "--ckpt-dir",
+                                  str(tmp / "two")])
+        check(False, "launch.train --mesh 2x1 ran on one card")
+    except RuntimeError as e:
+        print(f"parallel: launch.train --mesh 1x1 ran 3 steps on one NCCL "
+              f"rank (losses {one.losses}); --mesh 2x1 raised: {e}",
+              flush=True)
+
+
+def check_parallel(dev, card: str) -> None:
+    """The "parallel" phase (docstring): one NCCL + gloo group of one rank
+    (a FileStore in a temporary directory, destroyed at the end)."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_par_") as tmp:
+        torch.cuda.set_device(dev)
+        dist.init_process_group("cuda:nccl,cpu:gloo",
+                                init_method=f"file://{tmp}/store",
+                                rank=0, world_size=1)
+        try:
+            mesh = DeviceMesh("cuda", torch.tensor([[0]]),
+                              mesh_dim_names=("data", "model"))
+            parallel_full(dev, card, mesh)
+            t0 = time.perf_counter()
+            parallel_smoke(dev, card, mesh, Path(tmp))
+            print(f"parallel smoke checks: wall "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+        finally:
+            dist.destroy_process_group()
+    print(f"parallel phase: wall {time.perf_counter() - t_phase:.1f} s; "
+          f"{card}", flush=True)
 
 
 def check_oom_classification(dev) -> None:
@@ -4474,6 +4936,9 @@ def main() -> int:
 
     phase("train")
     check_train(dev, card)
+
+    phase("parallel")
+    check_parallel(dev, card)
 
     print(f"chip_smoke wall: {time.perf_counter() - t_all:.1f} s")
     print(card)

@@ -11,6 +11,10 @@
   (``params/embed/table``, ``opt/m/...``) + a ``manifest.json``; a
   directory without a manifest is not a checkpoint
 * stores data-pipeline state + step so restarts are exactly-once
+* elastic: a sharded leaf (``parallel.fsdp``) is gathered to its full
+  logical array at ``save`` on every rank, and only rank 0 writes;
+  ``restore(..., shardings=)`` places each leaf's block for the current
+  mesh, whatever its size
 
 A tree is nested dicts and NamedTuples (``OptState``) of tensors; a None
 leaf is no leaf, as in JAX. numpy has no bfloat16 (the
@@ -28,7 +32,10 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from repro_torch.core.distributed import mesh_device
+from repro_torch.parallel.fsdp import full_value, mark
 from repro_torch.tree import tree_items, tree_unflatten
 
 
@@ -59,8 +66,11 @@ class CheckpointManager:
     # -- save ---------------------------------------------------------------
     def save(self, step: int, tree, extra: Optional[Dict[str, Any]] = None):
         """Snapshot ``tree`` (copied to the host now, written in the
-        background)."""
-        host = [(k, *_to_host(v)) for k, v in tree_items(tree)]
+        background). Sharded leaves are gathered on every rank (under the
+        current mesh); only rank 0 of a process group writes."""
+        host = [(k, *_to_host(full_value(v))) for k, v in tree_items(tree)]
+        if dist.is_initialized() and dist.get_rank() != 0:
+            return
         self.wait()
         if self.async_save:
             self._thread = threading.Thread(
@@ -115,21 +125,33 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: int, target_tree):
+    def restore(self, step: int, target_tree, shardings=None):
         """Restore into the structure of ``target_tree``: each leaf with
-        its target's shape, on its target's device. Returns (tree,
+        its target's shape, on its target's device; where ``shardings``
+        (a tree of ``NamedSharding`` by the same paths, None entries
+        whole) names one, this rank's block of the full array on the
+        sharding's mesh, marked (the elastic re-shard). Returns (tree,
         extra)."""
         d = os.path.join(self.directory, f"step_{step:08d}")
         with open(os.path.join(d, "manifest.json")) as f:
             manifest = json.load(f)
         by_key = {entry["key"]: entry for entry in manifest["leaves"]}
+        placed = dict(tree_items(shardings)) if shardings is not None else {}
         leaves = []
         for key, tgt in tree_items(target_tree):
             entry = by_key[key]
             arr = np.load(os.path.join(d, entry["file"]))
-            if list(arr.shape) != list(tgt.shape):
+            sh = placed.get(key)
+            full = _from_host(arr, entry["dtype"])
+            block = full if sh is None else sh.shard(full)
+            if (list(arr.shape) != list(tgt.shape)
+                    and list(block.shape) != list(tgt.shape)):
                 raise ValueError(f"checkpoint leaf {key}: shape "
-                                 f"{arr.shape} != {tuple(tgt.shape)}")
-            leaves.append(_from_host(arr, entry["dtype"]).to(
-                torch.as_tensor(tgt).device))
+                                 f"{arr.shape} (block {tuple(block.shape)})"
+                                 f" != {tuple(tgt.shape)}")
+            if sh is None:
+                leaves.append(full.to(torch.as_tensor(tgt).device))
+            else:
+                leaves.append(mark(block.to(mesh_device(sh.mesh), copy=True),
+                                   sh.spec))
         return tree_unflatten(target_tree, leaves), manifest["extra"]

@@ -6,8 +6,10 @@ zipf-like unigram statistics plus local structure so losses actually
 decrease. Generation is the reference's numpy code, so the tokens are the
 same bits by construction. A prefetch thread generates ahead; ``__next__``
 moves a batch to the device (pinned and asynchronous on the card, so the
-host does not wait for the copy). The reference's mesh argument (its
-batch sharding) waits for the parallel slice (ROADMAP item 17(d)).
+host does not wait for the copy). With a mesh, ``shard_batch`` gives
+each rank its share of the rows by ``ACT_RULES["batch"]`` (the
+reference's batch sharding), marked with that spec for the sharded train
+step.
 """
 from __future__ import annotations
 
@@ -19,7 +21,10 @@ import numpy as np
 import torch
 
 from repro_torch.config import ModelConfig, ShapeConfig
+from repro_torch.core.distributed import mesh_device
 from repro_torch.device import resolve_device
+from repro_torch.parallel.fsdp import mark
+from repro_torch.parallel.sharding import ACT_RULES, named_sharding
 
 
 def _batch_rng(seed: int, step: int) -> np.random.Generator:
@@ -73,13 +78,38 @@ def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, Any]:
     return out
 
 
+#: the logical dim names of each batch entry
+BATCH_NAMES = {
+    "tokens": ("batch", None),
+    "frontend_embeds": ("batch", None, None),
+    "enc_embeds": ("batch", None, None),
+    "loss_mask": ("batch", None),
+}
+
+
+def shard_batch(batch: Dict[str, np.ndarray], mesh=None, device="cuda"):
+    """The batch on ``device``; with a mesh, this rank's rows of it on the
+    mesh's device, each entry marked with its spec."""
+    if mesh is None:
+        return to_device(batch, device)
+    out = {}
+    for k, v in batch.items():
+        sh = named_sharding(v.shape, BATCH_NAMES[k], ACT_RULES, mesh)
+        rows = sh.shard(torch.from_numpy(np.ascontiguousarray(v))).numpy()
+        out[k] = mark(to_device({k: rows}, mesh_device(mesh))[k], sh.spec)
+    return out
+
+
 class DataPipeline:
-    """Prefetching, seekable pipeline. `state()` -> step for checkpointing."""
+    """Prefetching, seekable pipeline. `state()` -> step for checkpointing.
+    With a mesh each batch comes as this rank's share (``shard_batch``)."""
 
     def __init__(self, cfg: ModelConfig, shape: ShapeConfig, seed: int = 0,
-                 start_step: int = 0, prefetch: int = 2, device="cuda"):
+                 start_step: int = 0, prefetch: int = 2, device="cuda",
+                 mesh=None):
         self.cfg, self.shape, self.seed = cfg, shape, seed
         self.step = start_step
+        self.mesh = mesh
         self.device = resolve_device(device)
         self._q: queue.Queue = queue.Queue(maxsize=prefetch)
         self._stop = threading.Event()
@@ -102,7 +132,7 @@ class DataPipeline:
             if step < self.step:
                 continue  # discard stale prefetches after a seek
             self.step = step + 1
-            return to_device(batch, self.device)
+            return shard_batch(batch, self.mesh, self.device)
 
     def __iter__(self) -> Iterator:
         return self

@@ -16,8 +16,11 @@ forward also keeps the log-sum-exp, and its backward is the reference's
 ``_flash_bwd``, which recomputes each block's scores instead of keeping the
 (Sq x Skv) probabilities autograd would save. Where no input takes a
 gradient, ``apply`` runs the forward alone and records nothing.
-``_maybe_repeat_kv`` and the sharding constraints wait for the parallel
-slice (ROADMAP item 17(d)).
+The reference's sharding constraints are left out, as in ``layers``: every
+activation here is a plain tensor. ``_maybe_repeat_kv`` is its decision to
+repeat the kv heads under a head-sharded mesh; the port's attention does
+not call it, because no layer here computes with its heads split over
+ranks (``parallel.fsdp``), so a repeat would only cost memory and time.
 
 A cache's ``index`` (the tokens written so far) is a Python int, the same
 for every layer of a stacked cache: it picks the slots a step writes, which
@@ -33,6 +36,8 @@ import torch
 from repro_torch.config import MLAConfig, ModelConfig
 from repro_torch.device import scalar
 from repro_torch.models.layers import apply_rope, rmsnorm, rope_table, softcap
+from repro_torch.parallel.sharding import (current_act_rules, current_mesh,
+                                           mesh_shape)
 
 NEG_INF = -2.0e38
 
@@ -270,6 +275,27 @@ def make_gqa(make, path: str, cfg: ModelConfig):
         p["k_norm"] = make(f"{path}.k_norm", (dh,), ("head_dim",),
                            init="zeros")
     return p
+
+
+def _maybe_repeat_kv(k, v, num_heads: int):
+    """The reference's repeat of the kv heads to the full head count: under
+    a mesh whose ``model`` axis takes the heads and does not divide the
+    kv-head count (8 kv heads on a 16-way axis), it repeats them so every
+    tensor stays sharded by ``heads``. The attention's values do not
+    change. Not called by the port's attention (module docstring)."""
+    mesh = current_mesh()
+    sizes = mesh_shape(mesh)
+    if mesh is None or "model" not in sizes:
+        return k, v
+    if current_act_rules().get("heads") != "model":
+        return k, v
+    m = sizes["model"]
+    hkv = k.shape[2]
+    if hkv % m == 0 or num_heads % m != 0 or num_heads == hkv:
+        return k, v
+    rep = num_heads // hkv
+    return (torch.repeat_interleave(k, rep, dim=2),
+            torch.repeat_interleave(v, rep, dim=2))
 
 
 class KVCache(NamedTuple):

@@ -21,6 +21,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.config import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
+from repro_torch.parallel.fsdp import gathered
 from repro_torch.models.transformer import (Stack, build_params, logits_of,
                                             make_block, positions_for,
                                             remat_policy, run_stack,
@@ -50,6 +51,7 @@ def build_encdec_params(make, cfg: ModelConfig):
 
 def apply_block_bidir(p, x, positions, cfg: ModelConfig):
     """Encoder block: non-causal self-attention + MLP."""
+    p = gathered(p)
     h = L.apply_norm(p["ln_mix"], x, cfg.norm_kind)
     out, _ = attn.gqa_attention(p["mix"], h, positions, cfg, causal=False)
     x = x + out
@@ -70,7 +72,8 @@ def encode(params, enc_embeds, cfg: ModelConfig):
                            use_reentrant=False)
         else:
             x = apply_block_bidir(lp, x, positions, cfg)
-    return L.apply_norm(params["enc_final_norm"], x, cfg.norm_kind), positions
+    return (L.apply_norm(gathered(params["enc_final_norm"]), x,
+                         cfg.norm_kind), positions)
 
 
 def encdec_forward(params, tokens, enc_embeds, cfg: ModelConfig, *,
@@ -87,7 +90,7 @@ def encdec_forward(params, tokens, enc_embeds, cfg: ModelConfig, *,
         enc_out = encode(params, enc_embeds, cfg)
     enc_states, enc_positions = enc_out
 
-    x = L.embed(params["embed"], tokens, cfg)
+    x = L.embed(gathered(params["embed"]), tokens, cfg)
     b, s, _ = x.shape
     positions = positions_for(b, s, start_index, x.device)
 
@@ -97,13 +100,14 @@ def encdec_forward(params, tokens, enc_embeds, cfg: ModelConfig, *,
         x, new_c, aux = run_stack(
             params[stack.name], x, positions, cfg, stack, [0] * stack.n,
             caches.get(stack.name) if caches is not None else None,
-            lambda lp: attn.encode_cross_kv(lp["cross"], enc_states, cfg),
+            lambda lp: attn.encode_cross_kv(gathered(lp["cross"]),
+                                            enc_states, cfg),
             enc_positions)
         if new_c is not None:
             new_caches[stack.name] = new_c
         aux_total = aux_total + aux
 
-    x = L.apply_norm(params["final_norm"], x, cfg.norm_kind)
+    x = L.apply_norm(gathered(params["final_norm"]), x, cfg.norm_kind)
     if features_only:
         return x, new_caches, aux_total, enc_out
     return logits_of(params, x, cfg), new_caches, aux_total, enc_out

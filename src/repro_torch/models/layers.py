@@ -3,8 +3,9 @@
 Weights are float32 and are cast to the activations' dtype at each use, as
 the reference's ``params[...].astype(x.dtype)`` does; elementwise math runs
 in the reference's dtypes. The reference's ``logical(...)`` sharding
-constraints are the identity without a mesh and are left out here; the
-parallel slice (ROADMAP item 17(d)) adds them.
+constraints are left out: the port's parallel layer (``parallel.fsdp``)
+gathers each parameter where a layer reads it, so every activation here
+is a plain tensor, on which a constraint would be the identity.
 """
 from __future__ import annotations
 

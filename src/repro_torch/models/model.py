@@ -94,6 +94,11 @@ class Model(torch.nn.Module):
         return P.param_shapes(self._build,
                               dtype=dtype_of(self.cfg.param_dtype))
 
+    def specs(self, mesh, rules=None):
+        """The parameters' specs on ``mesh`` (``PARAM_RULES`` unless
+        ``rules``)."""
+        return P.param_specs(self._build, mesh, rules)
+
     # -- forward -----------------------------------------------------------
     def forward(self, params, batch: Dict[str, Any], features_only=False):
         """Training/scoring forward (no cache). Returns (logits, aux)."""

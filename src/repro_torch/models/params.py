@@ -3,18 +3,20 @@ interpreted twice.
 
 A model is defined by a ``build(make)`` function that calls
 ``make(path, shape, names, ...)`` for every parameter, as the reference's
-is. Two interpreters:
+is. Four interpreters:
 
   init_params   -> tensors (random init, per-path key folding)
   param_shapes  -> tensors on the ``meta`` device (shapes and dtypes only)
+  param_names   -> the logical dim names of every parameter
+  param_specs   -> their specs on a mesh (``parallel.sharding.build_spec``)
 
 The per-path key is the md5 of the path folded into the model's key, and
 the normals are the port's threefry draws, so ``init_params`` gives the
 reference's parameters: zeros, ones and the RG-LRU's ``uniform_angle``
 draws exactly (``prng.uniform`` reproduces ``jax.random.uniform``'s
-bits), normals up to the ULPs of ``erfinv``. The logical dim names are
-ignored until the parallel slice (ROADMAP item 17(d)) maps them to
-shardings.
+bits), normals up to the ULPs of ``erfinv``. ``param_specs`` maps the
+logical dim names to a mesh under ``PARAM_RULES`` (or the rules given), as
+the reference's does.
 """
 from __future__ import annotations
 
@@ -79,6 +81,25 @@ def init_params(build: Callable, key: torch.Tensor, dtype=torch.float32,
 def param_shapes(build: Callable, dtype=torch.float32):
     def make(path, shape, names, scale=1.0, init="normal", dtype_=None):
         return torch.empty(shape, dtype=dtype_ or dtype, device="meta")
+
+    return build(make)
+
+
+def param_names(build: Callable):
+    def make(path, shape, names, scale=1.0, init="normal", dtype_=None):
+        return tuple(names)
+
+    return build(make)
+
+
+def param_specs(build: Callable, mesh, rules=None):
+    """The spec tree of the build's parameters."""
+    from repro_torch.parallel.sharding import PARAM_RULES, build_spec
+
+    rules = rules or PARAM_RULES
+
+    def make(path, shape, names, scale=1.0, init="normal", dtype_=None):
+        return build_spec(shape, names, mesh, rules)
 
     return build(make)
 

@@ -21,6 +21,11 @@ checkpoints each block's mixer and its FFN as two segments, so only the
 tensors between segments are kept (the residual stream, ``mix_out`` and
 ``ffn_out``: the reference's ``SAVE_NAMES``); ``none`` keeps everything.
 The policies differ in memory only, never in a number.
+
+Every read of a parameter goes through ``parallel.fsdp.gathered`` (the
+identity outside a sharded train step): a layer's segments gather their
+own parameters, so a sharded step gathers one layer at a time, and again
+where a remat segment recomputes it.
 """
 from __future__ import annotations
 
@@ -35,6 +40,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
+from repro_torch.parallel.fsdp import gathered, mark_slices
 from repro_torch.tree import tree_leaves
 
 
@@ -143,16 +149,18 @@ def _griffin_group(p, x, positions, cfg: ModelConfig, stack: Stack, cache,
         sub = cache.get(f"g{j}") if cache else None
 
         def mixer(x, j=j, kind=kind, sub=sub):
-            h = L.apply_norm(p[f"g{j}_ln_mix"], x, cfg.norm_kind)
+            ln, mix = gathered((p[f"g{j}_ln_mix"], p[f"g{j}_mix"]))
+            h = L.apply_norm(ln, x, cfg.norm_kind)
             if kind == "recurrent":
-                return rglru_mod.apply_rglru(p[f"g{j}_mix"], h, cfg, sub)
-            return attn.gqa_attention(p[f"g{j}_mix"], h, positions, cfg,
+                return rglru_mod.apply_rglru(mix, h, cfg, sub)
+            return attn.gqa_attention(mix, h, positions, cfg,
                                       causal=True, window=cfg.window_size,
                                       cache=sub)
 
         def ffn(x, j=j):
-            h = L.apply_norm(p[f"g{j}_ln_ffn"], x, cfg.norm_kind)
-            return L.apply_mlp(p[f"g{j}_ffn"], h, cfg.mlp_kind)
+            ln, mlp = gathered((p[f"g{j}_ln_ffn"], p[f"g{j}_ffn"]))
+            h = L.apply_norm(ln, x, cfg.norm_kind)
+            return L.apply_mlp(mlp, h, cfg.mlp_kind)
 
         out, nc = _segment(selective, mixer, x)
         if nc is not None:
@@ -178,24 +186,27 @@ def apply_block(p, x, positions, cfg: ModelConfig, stack: Stack,
     sub = cache.get(key) if cache else None
 
     def mixer(x):
-        h = L.apply_norm(p["ln_mix"], x, cfg.norm_kind)
+        ln, mix = gathered((p["ln_mix"], p["mix"]))
+        h = L.apply_norm(ln, x, cfg.norm_kind)
         if stack.mixer == "gqa":
-            return attn.gqa_attention(p["mix"], h, positions, cfg,
+            return attn.gqa_attention(mix, h, positions, cfg,
                                       causal=True, window=window, cache=sub)
         if stack.mixer == "mla":
-            return attn.mla_attention(p["mix"], h, positions, cfg, cache=sub)
-        return ssm_mod.apply_ssm(p["mix"], h, cfg, cache=sub)
+            return attn.mla_attention(mix, h, positions, cfg, cache=sub)
+        return ssm_mod.apply_ssm(mix, h, cfg, cache=sub)
 
     def cross(x):
-        h = L.apply_norm(p["ln_cross"], x, cfg.norm_kind)
-        return attn.cross_attention(p["cross"], h, cross_kv, positions,
+        ln, cp = gathered((p["ln_cross"], p["cross"]))
+        h = L.apply_norm(ln, x, cfg.norm_kind)
+        return attn.cross_attention(cp, h, cross_kv, positions,
                                     enc_positions, cfg)
 
     def ffn(x):
-        h = L.apply_norm(p["ln_ffn"], x, cfg.norm_kind)
+        ln, fp = gathered((p["ln_ffn"], p["ffn"]))
+        h = L.apply_norm(ln, x, cfg.norm_kind)
         if stack.ffn == "moe":
-            return moe_mod.apply_moe(p["ffn"], h, cfg)
-        return L.apply_mlp(p["ffn"], h, cfg.mlp_kind), None
+            return moe_mod.apply_moe(fp, h, cfg)
+        return L.apply_mlp(fp, h, cfg.mlp_kind), None
 
     # --- mixer ---
     out, nc = _segment(selective, mixer, x)
@@ -300,11 +311,11 @@ def run_stacks(params, x, positions, cfg: ModelConfig, caches=None,
 def unstack(tree, n: int) -> List[Any]:
     """The ``n`` layer slices of a stacked parameter tree, each leaf split
     by one ``unbind`` (views), so its gradient is one stack of the layers'
-    gradients."""
+    gradients. A sharded leaf's slices keep its spec (``mark_slices``)."""
     if isinstance(tree, dict):
         per_key = {k: unstack(v, n) for k, v in tree.items()}
         return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
-    return list(tree.unbind(0))
+    return mark_slices(list(tree.unbind(0)), tree)
 
 
 def remat_policy(cfg: ModelConfig, cache, params) -> str:
@@ -348,7 +359,7 @@ def positions_for(b: int, s: int, start_index, device) -> torch.Tensor:
 def logits_of(params, x, cfg: ModelConfig):
     table = (params["embed"]["table"] if cfg.tie_embeddings
              else params["unembed"]["table"])
-    return L.unembed({"table": table}, x, cfg)
+    return L.unembed({"table": gathered(table)}, x, cfg)
 
 
 def lm_forward(params, tokens, cfg: ModelConfig, *, caches=None,
@@ -362,7 +373,7 @@ def lm_forward(params, tokens, cfg: ModelConfig, *, caches=None,
     hidden states instead of logits.
     Returns (logits_or_features, new_caches, aux).
     """
-    x = L.embed(params["embed"], tokens, cfg)
+    x = L.embed(gathered(params["embed"]), tokens, cfg)
     if frontend_embeds is not None:
         x = torch.cat([frontend_embeds.to(x.dtype), x], dim=1)
     b, s, _ = x.shape
@@ -371,7 +382,7 @@ def lm_forward(params, tokens, cfg: ModelConfig, *, caches=None,
     x, new_caches, aux = run_stacks(params, x, positions, cfg, caches=caches,
                                     cross_kv=cross_kv,
                                     enc_positions=enc_positions)
-    x = L.apply_norm(params["final_norm"], x, cfg.norm_kind)
+    x = L.apply_norm(gathered(params["final_norm"]), x, cfg.norm_kind)
     if features_only:
         return x, new_caches, aux
     return logits_of(params, x, cfg), new_caches, aux

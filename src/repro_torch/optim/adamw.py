@@ -66,19 +66,23 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(torch.sum(torch.stack(leaves)))
 
 
-def clip_by_global_norm(grads, max_norm: float):
-    """(grads scaled to a global norm of at most ``max_norm``, the norm)."""
-    norm = global_norm(grads)
+def clip_by_global_norm(grads, max_norm: float, norm_fn=global_norm):
+    """(grads scaled to a global norm of at most ``max_norm``, the norm);
+    ``norm_fn`` computes the norm (a sharded step's sums over every
+    rank's blocks)."""
+    norm = norm_fn(grads)
     scale = torch.clamp_max(scalar(max_norm, norm)
                             / torch.clamp_min(norm, 1e-12), 1.0)
     return tree_map(lambda g: g * scale.to(g.dtype), grads), norm
 
 
 @torch.no_grad()
-def adamw_update(cfg: OptimizerConfig, params, grads, state: OptState
+def adamw_update(cfg: OptimizerConfig, params, grads, state: OptState,
+                 norm_fn=global_norm
                  ) -> Tuple[Any, OptState, Dict[str, torch.Tensor]]:
     """Returns (params, state, metrics), the parameters and the state
-    updated in place.
+    updated in place. ``norm_fn``: the gradients' global norm (a sharded
+    step passes its own, which reduces over every block).
 
     Mixed precision: when the model params are bfloat16 the update is
     applied to the float32 master copy in ``state.master`` and the
@@ -86,9 +90,9 @@ def adamw_update(cfg: OptimizerConfig, params, grads, state: OptState
     """
     grads = tree_map(lambda g: g.float(), grads)
     if cfg.grad_clip:
-        grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+        grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip, norm_fn)
     else:
-        gnorm = global_norm(grads)
+        gnorm = norm_fn(grads)
     step = state.step + 1
     lr = lr_at(cfg, step)
     b1, b2, eps = cfg.b1, cfg.b2, cfg.eps

@@ -1,0 +1,299 @@
+"""Sharded parameters for the train step: explicit local blocks, gathered
+where the model reads them, gradients reduce-scattered (FSDP).
+
+The reference lets GSPMD partition its step from the parameters'
+``NamedSharding``s. Here a sharded parameter is this rank's block of the
+full tensor (``place``), marked with its spec (``spec_of``); optimizer
+state is placed the same way, so a rank stores only its blocks. The model
+never computes on a block: every place a parameter enters the computation
+(the embedding, each layer's mixer / cross-attention / FFN segment, the
+norms, the loss's table) takes it through ``gathered``, which under a
+``Layout`` all-gathers each marked leaf to its full shape and otherwise
+returns it unchanged. A stacked layer tensor's per-layer slices carry the
+spec without its leading layer entry (``mark_slices``), so a layer is
+gathered when it runs, and again when a remat segment recomputes it.
+
+The gather's backward turns the full gradient of this rank's share of the
+batch into this rank's block summed over the ranks that split the batch
+(``Layout.batch_axes``): a reduce-scatter over each batch axis that splits
+one of the leaf's dims, a slice for every other axis of its spec, and an
+all-reduce of the block over the batch axes that split none of its dims
+(under ZeRO-1 the parameters are whole over ``data``, so their gradients
+take this all-reduce and the step then cuts the optimizer's block). Ranks
+that differ only in an axis that splits no batch (``model`` under
+``ACT_RULES``) compute the same full products: the layer distributes
+parameter and optimizer storage and the batch, not the products of one
+sequence.
+
+Collectives run only over axes of more than one rank, and a leaf is
+gathered only where its spec or the batch has such an axis, so on a mesh
+of size 1 every path here is the identity and the step keeps the plain
+step's bits.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, List, NamedTuple, Optional, Tuple
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.device import scalar
+from repro_torch.parallel import sharding as S
+from repro_torch.tree import tree_leaves, tree_map
+
+#: attribute under which a placed leaf carries its spec
+_SPEC_ATTR = "_repro_shard_spec"
+
+
+def mark(t: torch.Tensor, spec) -> torch.Tensor:
+    setattr(t, _SPEC_ATTR, tuple(spec))
+    return t
+
+
+def spec_of(t) -> Optional[tuple]:
+    return getattr(t, _SPEC_ATTR, None)
+
+
+def mark_slices(slices, stacked: torch.Tensor):
+    """Give each slice of a stacked leaf the leaf's spec without its first
+    (layer) entry."""
+    spec = spec_of(stacked)
+    if spec is not None:
+        for s in slices:
+            mark(s, spec[1:])
+    return slices
+
+
+def mark_tree(tree, shardings):
+    """Mark every leaf of ``tree`` (already blocks) with its sharding's
+    spec."""
+    return tree_map(lambda t, sh: t if sh is None else mark(t, sh.spec),
+                    tree, shardings)
+
+
+def place(tree, shardings):
+    """The ``device_put`` counterpart: each leaf's block under its
+    sharding, marked, with the leaf's ``requires_grad``. A block smaller
+    than its leaf is copied (the full tensor can then be freed); a block
+    that is the whole leaf shares its storage."""
+    def one(t, sh):
+        if sh is None:
+            return t
+        full = t.detach()
+        local = sh.shard(full)
+        if local.numel() != full.numel():
+            local = local.clone()
+        return mark(local.requires_grad_(t.requires_grad), sh.spec)
+
+    return tree_map(one, tree, shardings)
+
+
+def full_value(t, mesh=None) -> torch.Tensor:
+    """The full tensor of a marked leaf (gathered from every rank), or the
+    leaf itself."""
+    spec = spec_of(t)
+    mesh = mesh or S.current_mesh()
+    if spec is None or mesh is None:
+        return t
+    return S.gather_shards(t.detach(), spec, mesh)
+
+
+def extra_spec(param_spec, grad_spec, ndim: int) -> tuple:
+    """The axes ``grad_spec`` adds to ``param_spec`` on each dim: the spec
+    of a grad block within the parameter's block (ZeRO-1: the optimizer's
+    ``embed`` over ``data`` under a parameter block with ``embed``
+    whole)."""
+    ps = tuple(param_spec or ()) + (None,) * ndim
+    gs = tuple(grad_spec or ()) + (None,) * ndim
+    out = []
+    for d in range(ndim):
+        p, g = S.spec_axes(ps[d]), S.spec_axes(gs[d])
+        if g[:len(p)] != p:
+            raise ValueError(f"grad spec {grad_spec} does not refine the "
+                             f"parameter spec {param_spec} on dim {d}")
+        rest = g[len(p):]
+        out.append(None if not rest else rest[0] if len(rest) == 1
+                   else rest)
+    return tuple(out)
+
+
+# ---------------------------------------------------------------------------
+# The layout of a sharded step
+# ---------------------------------------------------------------------------
+
+class Layout(NamedTuple):
+    """The mesh of a sharded step, its axis sizes, the axes (of more than
+    one rank) that split its batch and their product (``make_layout``)."""
+
+    mesh: object
+    sizes: Dict[str, int]
+    batch_axes: Tuple[str, ...]
+    batch_n: int
+    #: ``gathered``'s decision for each spec met so far
+    needs: Dict[tuple, bool]
+
+    def sum_over(self, t: torch.Tensor, axes) -> torch.Tensor:
+        for a in axes:
+            if self.sizes[a] > 1:
+                dist.all_reduce(t, group=self.mesh.get_group(a))
+        return t
+
+    def batch_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed over the ranks that split the batch (in place on a
+        contiguous copy)."""
+        if self.batch_n == 1:
+            return t
+        return self.sum_over(t.contiguous().clone(), self.batch_axes)
+
+    def batch_mean(self, t: torch.Tensor) -> torch.Tensor:
+        n = self.batch_n
+        if n == 1:
+            return t
+        return self.batch_sum(t) / scalar(n, t)
+
+    def global_norm(self, tree, specs: List[tuple]) -> torch.Tensor:
+        """The L2 norm of a tree of blocks under ``specs`` (one a leaf in
+        tree order): each leaf's sum of squares summed over the axes that
+        split it (one collective per distinct axis set), then the leaves
+        summed in order, as ``optim.adamw.global_norm`` sums them."""
+        leaves = tree_leaves(tree)
+        sums = [torch.sum(torch.square(x.float())) for x in leaves]
+        groups = {}
+        for i, spec in enumerate(specs):
+            axes = tuple(a for e in (spec or ()) for a in S.spec_axes(e)
+                         if self.sizes[a] > 1)
+            if axes:
+                groups.setdefault(tuple(sorted(axes)), []).append(i)
+        for axes, idx in groups.items():
+            part = self.sum_over(torch.stack([sums[i] for i in idx]), axes)
+            for j, i in enumerate(idx):
+                sums[i] = part[j]
+        return torch.sqrt(torch.sum(torch.stack(sums)))
+
+
+# The layout is process-wide, not thread-local: on the card autograd runs a
+# backward, and so a remat segment's recomputed forward, on its own device
+# thread, which must gather as the forward did.
+_layout: List[Optional[Layout]] = [None]
+
+
+def current_layout() -> Optional[Layout]:
+    return _layout[0]
+
+
+class use_layout:
+    """Context: ``gathered`` gathers under ``layout`` (None: it does
+    nothing)."""
+
+    def __init__(self, layout: Optional[Layout]):
+        self.layout = layout
+
+    def __enter__(self):
+        self.prev, _layout[0] = _layout[0], self.layout
+        return self.layout
+
+    def __exit__(self, *exc):
+        _layout[0] = self.prev
+
+
+def layout_of(params, batch) -> Optional[Layout]:
+    """The layout of a step on ``params`` and ``batch``: None when no leaf
+    of either is marked (the plain step); else the current mesh (which must
+    be set) and the batch's split axes."""
+    marked = any(spec_of(p) is not None for p in tree_leaves(params))
+    bspec = spec_of(batch["tokens"])
+    if not marked and bspec is None:
+        return None
+    mesh = S.current_mesh()
+    if mesh is None:
+        raise ValueError("sharded parameters or batch need a mesh: run the "
+                         "step under parallel.sharding.use_mesh")
+    return make_layout(mesh, S.spec_axes(bspec[0]) if bspec else ())
+
+
+def make_layout(mesh, batch_axes) -> Layout:
+    sizes = S.mesh_shape(mesh)
+    axes = tuple(a for a in batch_axes if sizes[a] > 1)
+    return Layout(mesh, sizes, axes, math.prod(sizes[a] for a in axes), {})
+
+
+def _reduce_scatter_dim(t: torch.Tensor, dim: int, mesh,
+                       axis: str) -> torch.Tensor:
+    """``t`` summed over the ranks of ``axis``, and this rank's block of
+    the sum along ``dim``."""
+    src = t.movedim(dim, 0).contiguous()
+    n = S.mesh_shape(mesh)[axis]
+    out = src.new_empty((src.shape[0] // n,) + src.shape[1:])
+    dist.reduce_scatter_tensor(out, src, group=mesh.get_group(axis))
+    return out.movedim(0, dim).contiguous() if dim else out
+
+
+def reduce_to_block(grad: torch.Tensor, spec, layout: Layout
+                    ) -> torch.Tensor:
+    """This rank's block under ``spec`` of ``grad`` summed over the ranks
+    that split the batch. Along each dim, the axes of its spec entry in
+    order (most significant first): a reduce-scatter over a batch axis, a
+    slice for any other (whose ranks hold the same sum); then an all-reduce
+    of the block over the batch axes that split none of the dims."""
+    mesh, out, scattered = layout.mesh, grad, set()
+    for dim, entry in enumerate(spec):
+        for a in S.spec_axes(entry):
+            n = layout.sizes[a]
+            if n == 1:
+                continue
+            if a in layout.batch_axes:
+                out = _reduce_scatter_dim(out, dim, mesh, a)
+                scattered.add(a)
+            else:
+                size = out.shape[dim] // n
+                out = out.narrow(dim, mesh.get_local_rank(a) * size, size)
+    rest = [a for a in layout.batch_axes if a not in scattered]
+    if rest:
+        if not scattered:   # still a view of autograd's gradient
+            out = out.clone(memory_format=torch.contiguous_format)
+        out = layout.sum_over(out.contiguous(), rest)
+    return out
+
+
+class _Gather(torch.autograd.Function):
+    """Forward: the full tensor of a block. Backward: this rank's block of
+    the gradient, summed over the batch's ranks (``reduce_to_block``)."""
+
+    @staticmethod
+    def forward(ctx, local, spec, layout):
+        ctx.spec, ctx.layout = spec, layout
+        full = S.gather_shards(local, spec, layout.mesh)
+        return full if full is not local else local.view_as(local)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return reduce_to_block(grad, ctx.spec, ctx.layout), None, None
+
+
+def _needs_gather(spec, layout: Layout) -> bool:
+    hit = layout.needs.get(spec)
+    if hit is None:
+        hit = layout.needs[spec] = layout.batch_n > 1 or any(
+            layout.sizes[a] > 1 for e in spec for a in S.spec_axes(e))
+    return hit
+
+
+def gathered(tree):
+    """``tree`` (a tree, a leaf, or a plain tuple of either) with every
+    marked leaf at its full shape under the current layout (the identity
+    without one, or where no axis of the leaf's spec or the batch has more
+    than one rank)."""
+    layout = current_layout()
+    if layout is None:
+        return tree
+    if type(tree) is tuple:
+        return tuple(gathered(t) for t in tree)
+
+    def one(t):
+        spec = spec_of(t)
+        if spec is None or not _needs_gather(spec, layout):
+            return t
+        return _Gather.apply(t, spec, layout)
+
+    return tree_map(one, tree)

@@ -6,7 +6,8 @@ CPU orders colliding ``index_put_(accumulate=True)`` adds differently
 once it runs several threads, and a spawned child does not inherit the
 parent's setting), joins the group through a ``FileStore`` under
 ``tmpdir`` (no port to clash with another run), builds the
-``("data", "model")`` ``DeviceMesh`` of ``mesh_shape`` (row-major),
+``DeviceMesh`` of ``mesh_shape`` (row-major) with the dim names ``axes``
+(``("data", "model")`` unless given: ``("pod",)``, ``("stage",)``, ...),
 calls ``fn(mesh, *args)`` and writes the dict of numpy arrays it returns
 to a file. The parent returns those dicts, one per rank, in rank order.
 
@@ -58,7 +59,7 @@ def check_world(world: int, backend: str) -> None:
 
 def _rank_main(rank: int, fn: Callable, world: int,
                mesh_shape: Sequence[int], backend: str,
-               run_dir: str, args) -> None:
+               run_dir: str, args, axes: Sequence[str] = AXES) -> None:
     torch.set_num_threads(1)
     device_type = BACKEND_DEVICES[backend]
     if device_type == "cuda":
@@ -69,7 +70,7 @@ def _rank_main(rank: int, fn: Callable, world: int,
     try:
         mesh = DeviceMesh(device_type,
                           torch.arange(world).reshape(tuple(mesh_shape)),
-                          mesh_dim_names=AXES)
+                          mesh_dim_names=tuple(axes))
         result = fn(mesh, *args) or {}
         np.savez(os.path.join(run_dir, f"rank{rank}.npz"), **result)
     finally:
@@ -77,16 +78,21 @@ def _rank_main(rank: int, fn: Callable, world: int,
 
 
 def run_ranks(fn: Callable, world: int, mesh_shape: Sequence[int],
-              backend: str, tmpdir, *args) -> List[Dict[str, np.ndarray]]:
-    """``fn(mesh, *args)`` on ``world`` spawned ranks; returns each rank's
-    dict of numpy arrays, in rank order."""
+              backend: str, tmpdir, *args, axes: Sequence[str] = AXES
+              ) -> List[Dict[str, np.ndarray]]:
+    """``fn(mesh, *args)`` on ``world`` spawned ranks of a mesh with dim
+    names ``axes``; returns each rank's dict of numpy arrays, in rank
+    order."""
     check_world(world, backend)
     if int(np.prod(mesh_shape)) != world:
         raise ValueError(f"mesh {tuple(mesh_shape)} does not hold {world} "
                          "ranks")
+    if len(axes) != len(mesh_shape):
+        raise ValueError(f"mesh {tuple(mesh_shape)} needs {len(mesh_shape)} "
+                         f"dim names, got {tuple(axes)}")
     run_dir = tempfile.mkdtemp(prefix="ranks_", dir=str(tmpdir))
     mp.start_processes(_rank_main, args=(fn, world, mesh_shape, backend,
-                                         run_dir, args),
+                                         run_dir, args, tuple(axes)),
                        nprocs=world, join=True, start_method="spawn")
     out = []
     for rank in range(world):

@@ -6,11 +6,30 @@ parameter leaves, never accumulated into ``.grad`` (torch would sum a
 bfloat16 parameter's there in bfloat16). Microbatch gradients are summed
 into float32 buffers in order and divided by the count, as the reference's
 scan sums them. The metrics stay on the device: the trainer reads the loss
-once a step. The reference's ``grad_shardings`` waits for the parallel
-slice (ROADMAP item 17(d)).
+once a step.
+
+Sharded parameters (``parallel.fsdp.place``, run under
+``parallel.sharding.use_mesh``; ``launch.specs.build_train`` gives their
+placements): the model gathers them layer by layer, and each rank's
+gradients come back as its blocks, summed over the ranks that split the
+batch. Each rank's loss is the mean over its own sequences, so the sums
+are divided by the microbatches times those ranks, the loss and aux are
+averaged over them, and the global norm sums every block once. That
+average is the reference's whole-batch value only where each rank's share
+weighs the same and no statistic couples one rank's tokens with
+another's: so a batch split over more than one rank refuses an MoE FFN
+(its capacity, drops and load-balance aux are taken over the whole batch
+in the reference) and a loss mask (the reference divides by the whole
+batch's mask sum); ``check_split_batch`` says so before a step runs.
+``grad_shardings`` (ZeRO-1): each microbatch's gradients are cut to
+those placements (the optimizer state's, finer than the parameters'), the
+update runs on the matching blocks of the parameters, and the parameters'
+blocks are gathered back. On a mesh of one rank all of this is the
+identity, and the step gives the plain step's bits.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional
 
 import torch
@@ -18,7 +37,10 @@ import torch
 from repro_torch.config import OptimizerConfig, ParallelConfig
 from repro_torch.device import scalar
 from repro_torch.models.model import Model, chunked_lm_loss
-from repro_torch.optim.adamw import OptState, adamw_update
+from repro_torch.models.transformer import stacks_for
+from repro_torch.optim.adamw import OptState, adamw_update, global_norm
+from repro_torch.parallel import fsdp
+from repro_torch.parallel import sharding as S
 from repro_torch.tree import tree_leaves, tree_unflatten
 
 
@@ -33,7 +55,8 @@ def make_loss_fn(model: Model):
         if model.cfg.frontend == "vision":
             # frontend tokens are prepended; slice back to the text region
             feats = feats[:, model.cfg.frontend_tokens:]
-        loss = chunked_lm_loss(feats[:, :-1], model.unembed_table(params),
+        loss = chunked_lm_loss(feats[:, :-1],
+                               fsdp.gathered(model.unembed_table(params)),
                                tokens[:, 1:], model.cfg,
                                batch.get("loss_mask", None))
         return loss + aux, {"loss": loss, "aux": aux}
@@ -62,38 +85,102 @@ def _grads(loss_fn, params, batch):
                      for p, g in zip(leaves, grads)]
 
 
+def check_split_batch(cfg, batch_ranks: int, loss_mask: bool = False
+                      ) -> None:
+    """Raise a ``ValueError`` where a batch split over ``batch_ranks`` ranks
+    would give other values than the reference's whole-batch step: an MoE
+    FFN (expert capacity, drops and the load-balance aux come from each
+    rank's own tokens) or a loss mask (each rank divides by its own mask
+    sum)."""
+    if batch_ranks <= 1:
+        return
+    what = [w for w, on in (
+        ("an MoE FFN", any(s.ffn == "moe" for s in stacks_for(cfg))),
+        ("a loss mask", loss_mask)) if on]
+    if what:
+        raise ValueError(
+            f"{cfg.name}: the batch is split over {batch_ranks} ranks, and "
+            f"{' and '.join(what)} would then be computed from each rank's "
+            "own tokens, not the whole batch as the reference does; use a "
+            "mesh whose batch axes have one rank")
+
+
 def make_train_step(model: Model, opt_cfg: OptimizerConfig,
-                    parallel: Optional[ParallelConfig] = None):
+                    parallel: Optional[ParallelConfig] = None,
+                    grad_shardings=None):
     """Returns ``train_step(params, opt_state, batch) -> (params, state,
     metrics)``; the parameters (leaves that require a gradient) and the
-    state are updated in place."""
+    state are updated in place.
+
+    grad_shardings: optional tree of ``NamedSharding``s (the parameters'
+    structure) to which each microbatch's gradients are cut; with ZeRO-1
+    (parameters whole over ``data``) the optimizer's placements."""
     loss_fn = make_loss_fn(model)
     micro = parallel.microbatches if parallel else 1
+    gsh = None if grad_shardings is None else tree_leaves(grad_shardings)
 
     def train_step(params, opt_state: OptState, batch):
-        if micro > 1:
-            mb = _split_microbatches(batch, micro)
-            gsum = [torch.zeros(p.shape, dtype=torch.float32,
-                                device=p.device)
-                    for p in tree_leaves(params)]
-            device = gsum[0].device
-            msum = {k: torch.zeros((), dtype=torch.float32, device=device)
-                    for k in ("loss", "aux")}
-            for i in range(micro):
-                m, g = _grads(loss_fn, params,
-                              {k: v[i] for k, v in mb.items()})
-                for acc, gi in zip(gsum, g):
-                    acc.add_(gi)
-                del g
-                msum = {k: msum[k] + m[k].detach() for k in msum}
-            n = scalar(micro, gsum[0])
-            grads = [g.div_(n) for g in gsum]
-            metrics = {k: v / n for k, v in msum.items()}
-        else:
-            metrics, grads = _grads(loss_fn, params, batch)
-            metrics = {k: v.detach() for k, v in metrics.items()}
+        leaves = tree_leaves(params)
+        layout = fsdp.layout_of(params, batch)
+        if layout is not None:
+            check_split_batch(model.cfg, layout.batch_n,
+                              "loss_mask" in batch)
+        # the gradient sums' count: microbatches x ranks splitting the batch
+        count = micro * (layout.batch_n if layout is not None else 1)
+        extra = mesh = None
+        if gsh is not None:
+            mesh = gsh[0].mesh
+            extra = [fsdp.extra_spec(fsdp.spec_of(p), sh.spec, p.dim())
+                     for p, sh in zip(leaves, gsh)]
+
+        def cut(g):
+            if extra is None:
+                return g
+            return [S.shard_of(gi, e, mesh) for gi, e in zip(g, extra)]
+
+        with fsdp.use_layout(layout):
+            if count > 1:  # repro-lint: disable=traced-branch — a host int
+                mb = _split_microbatches(batch, micro)
+                gsum = [torch.zeros(p.shape if extra is None else
+                                    S.local_shape(p.shape, extra[i], mesh),
+                                    dtype=torch.float32, device=p.device)
+                        for i, p in enumerate(leaves)]
+                device = gsum[0].device
+                msum = {k: torch.zeros((), dtype=torch.float32,
+                                       device=device)
+                        for k in ("loss", "aux")}
+                for i in range(micro):
+                    m, g = _grads(loss_fn, params,
+                                  {k: v[i] for k, v in mb.items()})
+                    for acc, gi in zip(gsum, cut(g)):
+                        acc.add_(gi)
+                    del g
+                    msum = {k: msum[k] + m[k].detach() for k in msum}
+                n = scalar(count, gsum[0])
+                grads = [g.div_(n) for g in gsum]
+                metrics = {k: v / scalar(micro, v) for k, v in msum.items()}
+            else:
+                metrics, grads = _grads(loss_fn, params, batch)
+                grads = cut(grads)
+                metrics = {k: v.detach() for k, v in metrics.items()}
+        norm_fn, upd = global_norm, params
+        if layout is not None:
+            metrics = {k: layout.batch_mean(v) for k, v in metrics.items()}
+            specs = ([sh.spec for sh in gsh] if gsh is not None
+                     else [fsdp.spec_of(p) for p in leaves])
+            norm_fn = functools.partial(layout.global_norm, specs=specs)
+        if extra is not None:
+            with torch.no_grad():
+                blocks = [S.shard_of(p, e, mesh)
+                          for p, e in zip(leaves, extra)]
+            upd = tree_unflatten(params, blocks)
         _, opt_state, opt_metrics = adamw_update(
-            opt_cfg, params, tree_unflatten(params, grads), opt_state)
+            opt_cfg, upd, tree_unflatten(params, grads), opt_state, norm_fn)
+        if extra is not None:
+            with torch.no_grad():
+                for p, b, e in zip(leaves, blocks, extra):
+                    if b.numel() != p.numel():
+                        p.copy_(S.gather_shards(b, e, mesh))
         return params, opt_state, dict(metrics, **opt_metrics)
 
     return train_step

@@ -275,9 +275,14 @@ def test_launch_train_smoke_on_the_cpu(tmp_path, capsys):
 
 
 def test_launch_train_refuses_a_mesh(tmp_path):
-    with pytest.raises(ValueError, match="17\\(d\\)"):
-        launch_train.main(["--arch", "gemma2-2b", "--smoke", "--mesh", "4x2",
-                           "--ckpt-dir", str(tmp_path), "--device", "cpu"])
+    """``--mesh`` runs ranks (``tests/test_torch_parallel.py``); a mesh the
+    launcher cannot lay out (a third dim, an empty dim) is refused before
+    any rank starts."""
+    for mesh in ("4x2x1", "0x2"):
+        with pytest.raises(ValueError, match="expected D or DxM"):
+            launch_train.main(["--arch", "gemma2-2b", "--smoke", "--mesh",
+                               mesh, "--ckpt-dir", str(tmp_path),
+                               "--device", "cpu"])
 
 
 def test_train_configs_match_reference():
