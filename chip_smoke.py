@@ -294,12 +294,36 @@ Phases (any failure exits non-zero before the result line):
                 one stage == the sequential loop bit for bit, and the
                 unsharded Trainer's checkpoint restored onto the (1, 1)
                 mesh bit for bit. No kernel launches; the phase's wall time
- 17. summary  : one JSON line {"kernels": [...]} (with each kernel's
+ 17. serve mesh : serving under a mesh (ROADMAP item 17(e)) on one NCCL
+                + gloo group of one rank, a (1, 1) mesh. Traffic (C):
+                gemma2-2b at full width (float32 parameters drawn on the
+                card from prng.key(0), bfloat16 activations), 4 slots,
+                each a 4 608-token prompt (numpy seed 0), then 16 greedy
+                tokens, into 32 768-slot caches (decode_32k's length, its
+                batch cut from 128 to 4 to fit the card): first through
+                the plain Model.prefill / decode_step (the prefill's
+                logits kept on the host, its caches freed), then through
+                launch.specs.build_prefill / build_decode with the
+                parameters placed by model.specs and each rank's blocks
+                of the caches (parallel.kvcache.init_blocks). Checks:
+                every step's logits and every token == the plain path's
+                bit for bit; one decode step waits 0 times for the card;
+                each family's smoke config (dense, vlm, moe, MLA, ssm,
+                hybrid, enc-dec) through the two builders in float32 on
+                the card and on the CPU from the same parameters, tokens
+                equal and logits within SERVE_CPU_ATOL. Prints the
+                prefill ms, decode ms a step (median and spread of 15),
+                tokens/s, decode's bytes bound (float32 parameters and the
+                caches at PEAK_BYTES_S), the peak memory above what
+                earlier phases hold and the cache bytes each rank holds,
+                beside the card's name and power limit; the phase's wall
+                time. No kernel launches
+ 18. summary  : one JSON line {"kernels": [...]} (with each kernel's
                 launches over the clean streams, stream_launches, while
                 tuning, tune_launches, over the pool events and stream,
                 pool_launches, and over the distributed recon runs,
                 dist_launches)
- 18. result   : last line {"ok": true, "device": {...}}
+ 19. result   : last line {"ok": true, "device": {...}}
 
 The on-card checks live here rather than in pytest because the machine with
 the card has no JAX, which the repository's test configuration imports.
@@ -4432,6 +4456,296 @@ def check_parallel(dev, card: str) -> None:
           f"{card}", flush=True)
 
 
+#: the "serve mesh" phase's traffic (C): gemma2-2b at full width
+MESH_ARCH = "gemma2-2b"
+MESH_TRAFFIC = dict(slots=4, prompt=4608, new_tokens=16, max_len=32768)
+#: check 3: each family's smoke config on the card and on the CPU
+MESH_FAMILIES = ("gemma2-2b", "internvl2-1b", "deepseek-moe-16b",
+                 "deepseek-v2-236b", "mamba2-780m", "recurrentgemma-2b",
+                 "seamless-m4t-large-v2")
+MESH_SMOKE = dict(slots=2, prompt=16, new_tokens=4, max_len=32)
+
+
+def mesh_prompt(cfg, slots: int, prompt: int, seed: int = 0):
+    """A prompt batch of ``slots`` x ``prompt`` positions from a numpy
+    seed: ``tokens``, and a vlm's ``frontend_embeds`` or an enc-dec
+    model's ``enc_embeds``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    out = {}
+    text = prompt - (cfg.frontend_tokens if cfg.frontend == "vision"
+                     else 0)
+    out["tokens"] = rng.integers(0, cfg.vocab_size, (slots, text),
+                                 dtype=np.int32)
+    if cfg.frontend == "vision" and cfg.frontend_tokens:
+        out["frontend_embeds"] = rng.standard_normal(
+            (slots, cfg.frontend_tokens, cfg.d_model)).astype(np.float32)
+    if cfg.is_encoder_decoder:
+        out["enc_embeds"] = (rng.standard_normal(
+            (slots, prompt, cfg.d_model)) * 0.02).astype(np.float32)
+    return out
+
+
+def mesh_serve(cfg, mesh, params, prompt_np, max_len: int, new: int,
+               timed: bool = False):
+    """``prompt_np`` through build_prefill's step and ``new - 1`` greedy
+    steps of build_decode's on ``mesh`` (this rank's device), the
+    parameters placed by their shardings and the caches allocated as this
+    rank's blocks. Returns (the prefill's logits, each decode step's
+    logits, the tokens (B, new), the caches, the seconds of the prefill
+    and of each decode step (CUDA events where ``timed``))."""
+    import torch
+
+    from repro_torch.config import ShapeConfig
+    from repro_torch.core.distributed import mesh_device
+    from repro_torch.launch.specs import build_decode, build_prefill
+    from repro_torch.models.encdec import encode
+    from repro_torch.parallel import kvcache, sharding
+    from repro_torch.serve.engine import greedy_sample
+
+    dev = mesh_device(mesh)
+    b, prompt = prompt_np["tokens"].shape[0], sum(
+        v.shape[1] for k, v in prompt_np.items() if k != "enc_embeds")
+    with sharding.use_mesh(mesh, sharding.act_rules_for(cfg, mesh)):
+        pre, _, (psh, bsh, _), _ = build_prefill(
+            cfg, ShapeConfig("p", "prefill", prompt, b), mesh)
+        dec, _, dsh, _ = build_decode(
+            cfg, ShapeConfig("d", "decode", max_len, b), mesh)
+    placed = kvcache.place(params, psh)
+    batch = kvcache.place({k: torch.from_numpy(v).to(dev)
+                           for k, v in prompt_np.items()}, bsh)
+    caches = kvcache.init_blocks(cfg, b, max_len, dsh[2], dev)
+    extra = ()
+    if cfg.is_encoder_decoder:
+        with torch.no_grad():
+            extra = (kvcache.place(encode(placed, batch["enc_embeds"], cfg),
+                                   dsh[4]),)
+    marks = []
+
+    def mark():
+        if timed:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append(ev)
+
+    mark()
+    logits, caches = pre(placed, batch, caches)
+    mark()
+    first = logits
+    tok = greedy_sample(logits)[:, None]
+    toks, steps = [tok], []
+    for i in range(new - 1):
+        logits, caches = dec(placed, kvcache.place(tok, dsh[1]), caches,
+                             prompt + i, *extra)
+        mark()
+        steps.append(logits)
+        tok = greedy_sample(logits)[:, None]
+        toks.append(tok)
+    seconds = []
+    if timed:
+        torch.cuda.synchronize(dev)
+        seconds = [a.elapsed_time(b) / 1e3 for a, b in zip(marks, marks[1:])]
+    return first, steps, torch.cat(toks, dim=1), caches, seconds
+
+
+def plain_serve(model, params, prompt_np, max_len: int, new: int, dev):
+    """The same traffic through the plain ``Model.prefill`` /
+    ``decode_step``: (prefill logits, decode logits, tokens, caches,
+    seconds as ``mesh_serve``'s)."""
+    import torch
+
+    from repro_torch.serve.engine import greedy_sample
+
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in prompt_np.items()}
+    prompt = sum(v.shape[1] for k, v in prompt_np.items()
+                 if k != "enc_embeds")
+    b = batch["tokens"].shape[0]
+    marks = [torch.cuda.Event(enable_timing=True)
+             for _ in range(new + 1)]
+    with torch.no_grad():
+        caches = model.init_caches(b, max_len)
+        marks[0].record()
+        first, caches, extras = model.prefill(params, batch, caches)
+        marks[1].record()
+        tok = greedy_sample(first)[:, None]
+        toks, steps = [tok], []
+        for i in range(new - 1):
+            logits, caches = model.decode_step(params, {"tokens": tok},
+                                               caches, prompt + i, extras)
+            marks[i + 2].record()
+            steps.append(logits)
+            tok = greedy_sample(logits)[:, None]
+            toks.append(tok)
+    torch.cuda.synchronize(dev)
+    seconds = [a.elapsed_time(b) / 1e3 for a, b in zip(marks, marks[1:])]
+    return first, steps, torch.cat(toks, dim=1), caches, seconds
+
+
+def serve_mesh_full(dev, card: str, mesh, held: int) -> None:
+    """Traffic (C) through the plain path, then through the builders on
+    ``mesh``; checks 1 and 2 (phase docstring)."""
+    import gc
+
+    import torch
+
+    from repro_torch.config import get_config
+    from repro_torch.parallel import kvcache
+
+    cfg = get_config(MESH_ARCH)
+    t = MESH_TRAFFIC
+    model, init_s, _ = drawn(cfg, dev)
+    params = model.params()
+    param_bytes = tree_bytes(params)
+    prompt = mesh_prompt(cfg, t["slots"], t["prompt"])
+
+    plain_first, plain_steps, plain_toks, caches, plain_s = plain_serve(
+        model, params, prompt, t["max_len"], t["new_tokens"], dev)
+    want_first = plain_first.cpu()
+    del plain_first, caches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    first, steps, toks, caches, mesh_s = mesh_serve(
+        cfg, mesh, params, prompt, t["max_len"], t["new_tokens"],
+        timed=True)
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) - held
+    same_steps = all(torch.equal(a, b) for a, b in zip(steps, plain_steps))
+    same_first = all(torch.equal(first[i].cpu(), want_first[i])
+                     for i in range(first.shape[0]))
+    check(same_first and same_steps and torch.equal(toks, plain_toks),
+          f"serve mesh (C): the (1, 1) mesh's logits or tokens differ from "
+          f"the plain path's (prefill {same_first}, decode {same_steps}, "
+          f"tokens {torch.equal(toks, plain_toks)})")
+    held_bytes = tree_bytes(caches)
+    whole = cache_bytes(cfg, t["slots"], t["max_len"])
+    print(f"serve mesh check 1 ({MESH_ARCH}, traffic C): the prefill's "
+          f"logits {tuple(first.shape)}, {len(steps)} decode steps' logits "
+          f"and the tokens {toks.cpu().tolist()} == the plain path's bit "
+          f"for bit", flush=True)
+
+    # check 2: one more decode step of the mesh path under the wait count
+    from repro_torch.config import ShapeConfig
+    from repro_torch.launch.specs import build_decode
+    from repro_torch.parallel import sharding
+
+    with sharding.use_mesh(mesh, sharding.act_rules_for(cfg, mesh)):
+        dec, _, dsh, _ = build_decode(cfg, ShapeConfig(
+            "d", "decode", t["max_len"], t["slots"]), mesh)
+    placed = kvcache.place(params, dsh[0])
+    tok = kvcache.place(toks[:, -1:].contiguous(), dsh[1])
+    torch.cuda.synchronize(dev)
+    with card_waits() as waits:
+        dec(placed, tok, caches, t["prompt"] + t["new_tokens"] - 1)
+        torch.cuda.synchronize(dev)
+    check(not waits, f"serve mesh: a decode step waits for the card at "
+          f"{dict(waits)}")
+    print("serve mesh check 2: one build_decode step under "
+          "set_sync_debug_mode: 0 waits", flush=True)
+
+    dec_ms = [1e3 * s for s in mesh_s[1:]]
+    plain_ms = [1e3 * s for s in plain_s[1:]]
+    served = t["slots"] * t["new_tokens"]
+    bound = param_bytes + whole
+    print(f"serve mesh (C) {MESH_ARCH}: {t['slots']} slots x prompt "
+          f"{t['prompt']} + {t['new_tokens']} new tokens into "
+          f"{t['max_len']}-slot caches on the (1, 1) mesh: prefill "
+          f"{1e3 * mesh_s[0]:.1f} ms (plain {1e3 * plain_s[0]:.1f}); decode "
+          f"{statistics.median(dec_ms):.3f} ms a step (median of "
+          f"{len(dec_ms)}; min {min(dec_ms):.3f}, max {max(dec_ms):.3f}; "
+          f"plain median {statistics.median(plain_ms):.3f}); "
+          f"{served / sum(mesh_s):.1f} tokens/s ({served} tokens in "
+          f"{sum(mesh_s):.3f} s of the card's time, {wall:.3f} s wall); "
+          f"decode bytes bound {bound / PEAK_BYTES_S * 1e3:.3f} ms "
+          f"({param_bytes} B float32 parameters + {whole} B caches at "
+          f"{PEAK_BYTES_S / 1e12:.2f} TB/s); peak memory "
+          f"{peak / 2**30:.2f} GiB above the {held / 2**30:.2f} GiB earlier "
+          f"phases hold; cache bytes each rank holds {held_bytes} "
+          f"({held_bytes / 1e9:.3f} GB, of {whole}); parameters drawn in "
+          f"{init_s:.2f} s; {card}", flush=True)
+    del model, params, placed, caches, first, steps, want_first
+
+
+def serve_mesh_families(dev, card: str, mesh, cpu_mesh) -> None:
+    """Check 3: each MESH_FAMILIES smoke config in float32 through the
+    builders on the card's mesh and on the CPU's, from the same
+    parameters (drawn on the CPU)."""
+    import dataclasses as dc
+
+    import torch
+
+    from repro_torch.config import get_config
+    from repro_torch.core import prng
+    from repro_torch.models.model import Model
+    from repro_torch.tree import tree_map
+
+    s = MESH_SMOKE
+    for arch in MESH_FAMILIES:
+        cfg = dc.replace(get_config(arch, smoke=True), dtype="float32")
+        params = Model(cfg, "cpu").init(prng.key(0))
+        prompt = mesh_prompt(cfg, s["slots"], s["prompt"])
+        outs = []
+        for m, d in ((mesh, dev), (cpu_mesh, torch.device("cpu"))):
+            first, steps, toks, _, _ = mesh_serve(
+                cfg, m, tree_map(lambda p, d=d: p.to(d), params), prompt,
+                s["max_len"], s["new_tokens"])
+            outs.append((toks.cpu(), torch.stack(
+                [first[:, -1].float().cpu()]
+                + [x[:, -1].float().cpu() for x in steps])))
+        diff = (outs[0][1] - outs[1][1])[..., :cfg.vocab_size].abs().max()
+        same = torch.equal(outs[0][0], outs[1][0])
+        check(same and float(diff) <= SERVE_CPU_ATOL,
+              f"serve mesh {arch} smoke float32, card against CPU: tokens "
+              f"equal {same}, max |delta logit| {float(diff)}")
+        print(f"serve mesh check 3 ({arch} smoke, {cfg.family}, float32): "
+              f"build_prefill / build_decode on the card against the CPU: "
+              f"tokens equal, max |delta logit| {float(diff):.3g} <= "
+              f"{SERVE_CPU_ATOL}", flush=True)
+
+
+def check_serve_mesh(dev, card: str) -> None:
+    """The "serve mesh" phase (docstring): one NCCL + gloo group of one
+    rank (a FileStore in a temporary directory, destroyed at the end)."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated(dev)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_smesh_") as tmp:
+        torch.cuda.set_device(dev)
+        dist.init_process_group("cuda:nccl,cpu:gloo",
+                                init_method=f"file://{tmp}/store",
+                                rank=0, world_size=1)
+        try:
+            mesh = DeviceMesh("cuda", torch.tensor([[0]]),
+                              mesh_dim_names=("data", "model"))
+            cpu_mesh = DeviceMesh("cpu", torch.tensor([[0]]),
+                                  mesh_dim_names=("data", "model"))
+            t0 = time.perf_counter()
+            serve_mesh_full(dev, card, mesh, held)
+            gc.collect()
+            torch.cuda.empty_cache()
+            print(f"serve mesh traffic C: wall {time.perf_counter() - t0:.1f}"
+                  f" s", flush=True)
+            t0 = time.perf_counter()
+            serve_mesh_families(dev, card, mesh, cpu_mesh)
+            print(f"serve mesh families: wall "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+        finally:
+            dist.destroy_process_group()
+    print(f"serve mesh phase: wall {time.perf_counter() - t_phase:.1f} s; "
+          f"{card}", flush=True)
+
+
 def check_oom_classification(dev) -> None:
     """A real allocation failure on the card, and a kernel wrapper's launch
     error for cudaErrorMemoryAllocation, both classify as OOM (the
@@ -4939,6 +5253,9 @@ def main() -> int:
 
     phase("parallel")
     check_parallel(dev, card)
+
+    phase("serve mesh")
+    check_serve_mesh(dev, card)
 
     print(f"chip_smoke wall: {time.perf_counter() - t_all:.1f} s")
     print(card)

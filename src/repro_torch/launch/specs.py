@@ -1,12 +1,16 @@
-"""Input specs and the placements of a sharded train step, as the
-reference's ``src/repro/launch/specs.py`` (``input_specs``,
-``batch_shardings``, ``build_train``).
+"""Input specs and the placements of sharded steps, as the reference's
+``src/repro/launch/specs.py``: the batch (``input_specs``,
+``batch_shardings``), the decode caches (``cache_specs``,
+``cache_shardings`` under ``DECODE_RULES``) and the step builders
+(``build_train``, ``build_decode``, ``build_prefill``).
 
 Everything here allocates nothing: shapes are tensors on the ``meta``
-device (``Model.shapes()``), where the reference uses
-``ShapeDtypeStruct``. The reference's serving steps
-(``build_decode``, ``build_prefill``, the cache specs) are not ported
-(ROADMAP).
+device (``Model.shapes()``, ``cache_specs``), where the reference uses
+``ShapeDtypeStruct``. A builder returns the step, its arguments as meta
+tensors, their shardings and ``{"out_shardings": ...}``; the reference's
+``donate_argnums`` has no counterpart, because the port's steps update
+their parameters, optimizer state and caches in place. The serving steps
+run each rank on its blocks of the caches (``parallel.kvcache``).
 """
 from __future__ import annotations
 
@@ -19,9 +23,11 @@ from repro_torch.config import (ModelConfig, OptimizerConfig, ParallelConfig,
                                 ShapeConfig)
 from repro_torch.models.layers import dtype_of
 from repro_torch.models.model import Model
+from repro_torch.models.transformer import init_caches
 from repro_torch.optim.adamw import OptState
 from repro_torch.core.distributed import mesh_device
 from repro_torch.data.tokens import BATCH_NAMES
+from repro_torch.parallel import kvcache
 from repro_torch.parallel.sharding import (ACT_RULES, PARAM_RULES,
                                            NamedSharding, build_spec,
                                            current_act_rules, mesh_shape,
@@ -65,6 +71,80 @@ def batch_ranks(shape: ShapeConfig, mesh) -> int:
     spec = build_spec((shape.global_batch,), ("batch",), mesh, ACT_RULES)
     sizes = mesh_shape(mesh)
     return math.prod(sizes[a] for a in spec_axes(spec[0]))
+
+
+def _model_device(mesh):
+    """This rank's device on a ``DeviceMesh``; the CPU for a stand-in (the
+    builders then only describe the step)."""
+    return mesh_device(mesh) if hasattr(mesh, "device_type") else "cpu"
+
+
+# ---------------------------------------------------------------------------
+# Cache specs + shardings
+# ---------------------------------------------------------------------------
+
+#: logical names per cache leaf field, keyed by (field, ndim)
+_CACHE_NAMES = {
+    ("k", 5): ("layers", "batch", "kv_seq", "kv_heads", "head_dim"),
+    ("v", 5): ("layers", "batch", "kv_seq", "kv_heads", "head_dim"),
+    ("pos", 2): ("layers", "kv_seq"),
+    ("index", 1): ("layers",),
+    ("c_kv", 4): ("layers", "batch", "kv_seq", None),
+    ("k_rope", 4): ("layers", "batch", "kv_seq", None),
+    ("state", 5): ("layers", "batch", "heads", "head_dim", "state"),
+    ("state", 3): ("layers", "batch", "mlp"),     # rg-lru h
+    ("h", 3): ("layers", "batch", "mlp"),
+    ("conv", 4): ("layers", "batch", None, "mlp"),
+}
+
+#: decode rules: KV-cache sequence dim sharded over `model` (SP decode)
+DECODE_RULES = dict(ACT_RULES)
+DECODE_RULES["kv_seq"] = "model"
+DECODE_RULES["heads"] = "model"
+
+
+def cache_specs(cfg: ModelConfig, batch: int, max_len: int):
+    """The decode caches as meta tensors (``init_caches`` on the ``meta``
+    device: nothing allocated). A cache's ``index`` is the host int 0."""
+    return init_caches(cfg, batch, max_len, dtype_of(cfg.dtype), "meta")
+
+
+def _cache_field(path):
+    """The reference's rule: the innermost NamedTuple field of the path
+    (entries ("attr", field) or ("key", dict key)), or failing one, an
+    innermost dict key ``conv`` or ``h``."""
+    for kind, name in reversed(path):
+        if kind == "attr" or name in ("conv", "h"):
+            return name
+    return None
+
+
+def cache_shardings(cache_tree, mesh, rules=None):
+    """The tree of each cache leaf's ``NamedSharding`` under ``rules``
+    (``DECODE_RULES`` unless given), named by its field (``k``, ``v``,
+    ``pos``, ``c_kv``, ``k_rope``, ``state``, ``conv``, ``h``) and ndim.
+
+    A cache's ``index`` is a host int here (the tokens written so far, the
+    same on every rank), not the reference's (layers,) int32 array, so it
+    takes no sharding (None): the reference's ``("index", 1)`` entry, which
+    leaves that array whole, has nothing to place."""
+    rules = rules or DECODE_RULES
+
+    def build(tree, path):
+        if isinstance(tree, dict):
+            return {k: build(v, path + (("key", str(k)),))
+                    for k, v in tree.items()}
+        if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+            return type(tree)(*(build(v, path + (("attr", n),))
+                                for n, v in zip(tree._fields, tree)))
+        if not isinstance(tree, torch.Tensor):
+            return None
+        names = _CACHE_NAMES.get((_cache_field(path), tree.dim()),
+                                 (None,) * tree.dim())
+        return NamedSharding(mesh, build_spec(tree.shape, names, mesh,
+                                              rules))
+
+    return build(cache_tree, ())
 
 
 def build_train(arch_cfg: ModelConfig, shape: ShapeConfig, mesh,
@@ -117,3 +197,106 @@ def build_train(arch_cfg: ModelConfig, shape: ShapeConfig, mesh,
             (param_sh, opt_sh, batch_sh),
             {"out_shardings": (param_sh, opt_sh, metrics_sh)})
 
+
+def _serve_setup(arch_cfg: ModelConfig, b: int, max_len: int, mesh):
+    """(model, parameter shapes and shardings, cache specs and shardings,
+    the caches' rows: the batch entry of every cache leaf's spec, the rows
+    each rank's caches hold and its steps compute) of a serving step.
+    Raises a ``ValueError`` where those rows are not the whole batch and
+    the config has an MoE FFN (``train_step.check_split_batch``: a
+    prefill's capacity and drops are taken over the whole batch in the
+    reference)."""
+    rows = build_spec((b,), ("batch",), mesh, DECODE_RULES)[0]
+    sizes = mesh_shape(mesh)
+    check_split_batch(arch_cfg, math.prod(sizes[a] for a in spec_axes(rows)))
+    model = Model(arch_cfg, _model_device(mesh))
+    params = model.shapes()
+    param_sh = tree_map(lambda s: NamedSharding(mesh, s), model.specs(mesh))
+    caches = cache_specs(arch_cfg, b, max_len)
+    caches_sh = cache_shardings(caches, mesh)
+    return model, params, param_sh, caches, caches_sh, rows
+
+
+def build_decode(arch_cfg: ModelConfig, shape: ShapeConfig, mesh):
+    """serve_step: one new token against a ``shape.seq_len`` cache.
+
+    Returns (step_fn, (params, tok, caches, index[, enc_out]) as meta
+    tensors, their shardings, {"out_shardings": (logits, caches)}), as the
+    reference's tuple. ``index`` is a host int (the position of the new
+    token), so it takes no sharding (None). The step is ``serve_step(params,
+    tok, caches, index[, enc_out]) -> (logits, caches)``: the parameters,
+    the token, the caches and an enc-dec model's ``enc_out`` (its encoder
+    states and their positions, ``min(seq_len, 4096)`` of them) are each
+    rank's blocks (``parallel.kvcache.place`` / ``init_blocks``); the caches
+    are written in place (the reference donates them); the logits come
+    back as the rows of the token's split, marked with their spec."""
+    b, max_len = shape.global_batch, shape.seq_len
+    tok_spec = build_spec((b, 1), ("batch", None), mesh, ACT_RULES)
+    model, params, param_sh, caches, caches_sh, rows = _serve_setup(
+        arch_cfg, b, max_len, mesh)
+    tok = sds((b, 1), torch.int32)
+    tok_sh = NamedSharding(mesh, tok_spec)
+    logits_sh = NamedSharding(mesh, (tok_spec[0], None, None))
+    args = (params, tok, caches, 0)
+    shardings = (param_sh, tok_sh, caches_sh, None)
+    if arch_cfg.is_encoder_decoder:
+        enc_len = min(max_len, 4096)
+        args += ((sds((b, enc_len, arch_cfg.d_model),
+                      dtype_of(arch_cfg.dtype)),
+                  sds((b, enc_len), torch.int32)),)
+        shardings += ((NamedSharding(mesh, build_spec(
+            (b, enc_len, arch_cfg.d_model), ("batch", None, None), mesh,
+            ACT_RULES)),
+            NamedSharding(mesh, build_spec((b, enc_len), ("batch", None),
+                                           mesh, ACT_RULES))),)
+    rules = current_act_rules()
+
+    def serve_step(params, tok, caches, index, enc_out=None):
+        with kvcache.serving(mesh, rules):
+            extras = None if enc_out is None else {"enc_out": tuple(
+                kvcache.to_rows(t, rows) for t in enc_out)}
+            logits, caches = model.decode_step(
+                params, {"tokens": kvcache.to_rows(tok, rows)}, caches,
+                index, extras)
+            return kvcache.from_rows(logits, rows, tok), caches
+
+    return (serve_step, args, shardings,
+            {"out_shardings": (logits_sh, caches_sh)})
+
+
+def build_prefill(arch_cfg: ModelConfig, shape: ShapeConfig, mesh):
+    """prefill step: the full prompt through the model, filling caches.
+
+    Returns (step_fn, (params, batch, caches) as meta tensors, their
+    shardings, {"out_shardings": (logits, caches)}), as the reference's
+    tuple; the batch is placed by the current activation rules, the caches
+    (``shape.seq_len`` slots) by ``DECODE_RULES``. The step is
+    ``prefill_step(params, batch, caches) -> (logits, caches)``; it also
+    takes caches of more slots than the prompt (``build_decode``'s), which
+    it fills as the engine's prefill does.
+
+    Under ``DP_ACT_RULES`` the batch's entries split the batch over
+    ``model`` too, more finely than the caches' rows: the step gathers each
+    entry's rows over the axes the caches do not split (an all-gather of
+    the prompt's tokens), computes the caches' rows, and hands back the
+    logits as the rows of the tokens' split (a slice), marked with their
+    spec."""
+    b, s = shape.global_batch, shape.seq_len
+    batch = input_specs(arch_cfg, shape)
+    batch_sh = batch_shardings(batch, mesh)
+    tok_rows = batch_sh["tokens"].spec[0]
+    model, params, param_sh, caches, caches_sh, rows = _serve_setup(
+        arch_cfg, b, s, mesh)
+    logits_sh = NamedSharding(mesh, (tok_rows, None, None))
+    rules = current_act_rules()
+
+    def prefill_step(params, batch, caches):
+        with kvcache.serving(mesh, rules):
+            logits, caches, _ = model.prefill(
+                params, {k: kvcache.to_rows(v, rows)
+                         for k, v in batch.items()}, caches)
+            return kvcache.from_rows(logits, rows, batch["tokens"]), caches
+
+    return (prefill_step, (params, batch, caches),
+            (param_sh, batch_sh, caches_sh),
+            {"out_shardings": (logits_sh, caches_sh)})

@@ -36,6 +36,7 @@ import torch
 from repro_torch.config import MLAConfig, ModelConfig
 from repro_torch.device import scalar
 from repro_torch.models.layers import apply_rope, rmsnorm, rope_table, softcap
+from repro_torch.parallel import kvcache
 from repro_torch.parallel.sharding import (current_act_rules, current_mesh,
                                            mesh_shape)
 
@@ -57,12 +58,25 @@ def flash_attention(q, k, v, q_pos, kv_pos, *, causal: bool,
     Returns (B,Sq,H,D).
     """
     window = int(window or 0)
-    if q.shape[1] <= 8:
+    blocked = _blocked(q, k, v, kv_pos, kv_valid, kv_block)
+    if blocked is None:
         return _direct_attention(q, k, v, q_pos, kv_pos, causal=causal,
                                  window=window or None, logit_cap=logit_cap,
                                  kv_valid=kv_valid)
-    b, sq, h, d = q.shape
-    skv = k.shape[1]
+    # the pad's own backward drops the padded rows of dk and dv
+    k, v, kv_pos, kv_valid, kv_block = blocked
+    return _FlashCore.apply(q, k, v, q_pos, kv_pos, kv_valid, window,
+                            causal, logit_cap, kv_block)
+
+
+def _blocked(q, k, v, kv_pos, kv_valid, kv_block):
+    """None where Sq is small enough for the unblocked direct form
+    (decode); else (k, v, kv_pos, kv_valid, kv_block) for the blockwise
+    form: the keys padded (position -1, invalid) to whole blocks of
+    ``min(kv_block, Skv)``."""
+    if q.shape[1] <= 8:
+        return None
+    b, skv = k.shape[0], k.shape[1]
     kv_block = min(kv_block, skv)
     nblk = (skv + kv_block - 1) // kv_block
     pad = nblk * kv_block - skv
@@ -73,9 +87,7 @@ def flash_attention(q, k, v, q_pos, kv_pos, *, causal: bool,
         v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
         kv_pos = torch.nn.functional.pad(kv_pos, (0, pad), value=-1)
         kv_valid = torch.nn.functional.pad(kv_valid, (0, pad), value=False)
-    # the pad's own backward drops the padded rows of dk and dv
-    return _FlashCore.apply(q, k, v, q_pos, kv_pos, kv_valid, window,
-                            causal, logit_cap, kv_block)
+    return k, v, kv_pos, kv_valid, kv_block
 
 
 def _blk_mask(pblk, q_pos, vldblk, causal, window):
@@ -136,11 +148,11 @@ def _to_blocks(k, v, kv_pos, kv_valid, nblk, kv_block):
             validb.movedim(1, 0))
 
 
-def _flash_fwd_impl(q, k, v, q_pos, kv_pos, kv_valid, window, causal,
-                    logit_cap, kv_block):
+def _flash_state(q, k, v, q_pos, kv_pos, kv_valid, window, causal,
+                 logit_cap, kv_block):
     """The online softmax over the KV blocks, one block a step (the
-    reference's ``lax.scan``): (out (B,Sq,H,D), the float32 log-sum-exp
-    (B,Hkv,G,Sq) of each query's scores, the backward's)."""
+    reference's ``lax.scan``): (the float32 output (B,Hkv,G,Sq,D) of each
+    query head, the float32 log-sum-exp (B,Hkv,G,Sq) of its scores)."""
     b, sq, h, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     g = h // hkv
@@ -163,8 +175,22 @@ def _flash_fwd_impl(q, k, v, q_pos, kv_pos, kv_valid, window, causal,
         acc = acc * corr[..., None] + _weighted(p, vblk)
         m = m_new
     lse = m + torch.log(torch.clamp_min(l, 1e-30))
-    out = acc / torch.clamp_min(l[..., None], 1e-30)
-    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d).to(q.dtype), lse
+    return acc / torch.clamp_min(l[..., None], 1e-30), lse
+
+
+def _heads_last(out, q):
+    """(B,Hkv,G,Sq,D) -> (B,Sq,H,D) in ``q``'s dtype."""
+    b, sq, h, _ = q.shape
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, -1).to(q.dtype)
+
+
+def _flash_fwd_impl(q, k, v, q_pos, kv_pos, kv_valid, window, causal,
+                    logit_cap, kv_block):
+    """(out (B,Sq,H,D), the float32 log-sum-exp (B,Hkv,G,Sq) of each
+    query's scores, the backward's) of ``_flash_state``."""
+    out, lse = _flash_state(q, k, v, q_pos, kv_pos, kv_valid, window,
+                            causal, logit_cap, kv_block)
+    return _heads_last(out, q), lse
 
 
 def _flash_bwd_impl(q, k, v, q_pos, kv_pos, kv_valid, window, causal,
@@ -232,9 +258,11 @@ class _FlashCore(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None, None, None, None
 
 
-def _direct_attention(q, k, v, q_pos, kv_pos, *, causal, window, logit_cap,
-                      kv_valid):
-    """Unblocked attention for tiny Sq (decode). q: (B,Sq,H,D)."""
+def _direct_state(q, k, v, q_pos, kv_pos, *, causal, window, logit_cap,
+                  kv_valid):
+    """Unblocked attention for tiny Sq (decode): (the float32 output
+    (B,Hkv,G,Sq,D), the scores' max and the sum of their exponentials
+    (B,Hkv,G,Sq,1))."""
     b, sq, h, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     g = h // hkv
@@ -246,10 +274,49 @@ def _direct_attention(q, k, v, q_pos, kv_pos, *, causal, window, logit_cap,
     s = torch.where(mask, s, torch.full((), NEG_INF, dtype=torch.float32,
                                         device=q.device))
     # jax.nn.softmax: exp(s - max) / sum
-    e = torch.exp(s - torch.amax(s, dim=-1, keepdim=True))
-    p = e / torch.sum(e, dim=-1, keepdim=True)
-    out = _weighted(p, v.permute(0, 2, 1, 3))           # (B,Hkv,G,Sq,D)
-    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d).to(q.dtype)
+    m = torch.amax(s, dim=-1, keepdim=True)
+    e = torch.exp(s - m)
+    l = torch.sum(e, dim=-1, keepdim=True)
+    return _weighted(e / l, v.permute(0, 2, 1, 3)), m, l
+
+
+def _direct_attention(q, k, v, q_pos, kv_pos, *, causal, window, logit_cap,
+                      kv_valid):
+    """Unblocked attention for tiny Sq (decode). q: (B,Sq,H,D)."""
+    out, _, _ = _direct_state(q, k, v, q_pos, kv_pos, causal=causal,
+                              window=window, logit_cap=logit_cap,
+                              kv_valid=kv_valid)
+    return _heads_last(out, q)
+
+
+def attention_state(q, k, v, q_pos, kv_pos, *, causal: bool, window=None,
+                    logit_cap: float = 0.0, kv_block: int = 1024,
+                    kv_valid: Optional[torch.Tensor] = None):
+    """``flash_attention`` over these keys only, stopped before its last
+    step: (the float32 output (B,Hkv,G,Sq,D) normalised over them, the
+    log-sum-exp (B,Hkv,G,Sq) of each query head's scores). Split-KV
+    attention merges one such pair a rank (``parallel.kvcache.combine``);
+    serving only, so no gradient is kept."""
+    window = int(window or 0)
+    blocked = _blocked(q, k, v, kv_pos, kv_valid, kv_block)
+    if blocked is None:
+        out, m, l = _direct_state(q, k, v, q_pos, kv_pos, causal=causal,
+                                  window=window or None, logit_cap=logit_cap,
+                                  kv_valid=kv_valid)
+        return out, (m + torch.log(l))[..., 0]
+    k, v, kv_pos, kv_valid, kv_block = blocked
+    return _flash_state(q, k, v, q_pos, kv_pos, kv_valid, window, causal,
+                        logit_cap, kv_block)
+
+
+def cache_attention(q, k, v, q_pos, kv_pos, axes, **kw):
+    """Attention of ``q`` over a cache's keys: ``flash_attention`` where
+    the cache's slots are whole on this rank (``axes`` empty); else
+    split-KV over the slots of ``axes`` (``parallel.kvcache``)."""
+    if not axes:
+        return flash_attention(q, k, v, q_pos, kv_pos, **kw)
+    out, lse = attention_state(q, k, v, q_pos, kv_pos, **kw)
+    return _heads_last(kvcache.combine(out, lse, axes), q)
 
 
 # ---------------------------------------------------------------------------
@@ -353,32 +420,41 @@ def gqa_attention(params, x, positions, cfg: ModelConfig, *,
         out = flash_attention(q, k, v, positions, positions, causal=causal,
                               window=window, logit_cap=cfg.attn_logit_softcap)
         new_cache = None
-    elif sq >= cache.k.shape[1]:
-        # bulk prefill: attend over the fresh k/v (identical to the cache
-        # contents); keep the last S_max tokens in the cache
-        smax = cache.k.shape[1]
-        out = flash_attention(q, k, v, positions, positions, causal=causal,
-                              window=window, logit_cap=cfg.attn_logit_softcap)
-        cache.k.copy_(k[:, sq - smax:])
-        cache.v.copy_(v[:, sq - smax:])
-        cache.pos.copy_(positions[0, sq - smax:])
-        new_cache = cache._replace(index=index + sq)
     else:
-        # decode/append: write k,v at slot index % S_max (ring buffer for
-        # windowed caches; plain append while index < S_max). The
-        # reference's dynamic_update_slice clamps the start so that the
-        # update fits: a write past the end lands at S_max - sq
-        smax = cache.k.shape[1]
-        write = min(index % smax, smax - sq)
-        cache.k[:, write:write + sq] = k.to(cache.k.dtype)
-        cache.v[:, write:write + sq] = v.to(cache.v.dtype)
-        cache.pos[write:write + sq] = index + torch.arange(
-            sq, dtype=torch.int32, device=cache.pos.device)
-        kv_pos = cache.pos[None].expand(b, smax)
-        out = flash_attention(q, cache.k.to(q.dtype), cache.v.to(q.dtype),
-                              positions, kv_pos, causal=causal, window=window,
-                              logit_cap=cfg.attn_logit_softcap,
-                              kv_valid=kv_pos >= 0)
+        # under a mesh the cache is this rank's block (parallel.kvcache):
+        # writes address global slots and keep the block's part of them;
+        # slots are S_max of the whole cache
+        slots = kvcache.split(cache.k, 1)
+        smax = slots.full
+        if sq >= smax:
+            # bulk prefill: attend over the fresh k/v (identical to the
+            # cache contents); keep the last S_max tokens in the cache
+            out = flash_attention(q, k, v, positions, positions,
+                                  causal=causal, window=window,
+                                  logit_cap=cfg.attn_logit_softcap)
+            kvcache.write_slots(cache.k, k[:, sq - smax:], 0, 1)
+            kvcache.write_slots(cache.v, v[:, sq - smax:], 0, 1)
+            kvcache.write_slots(cache.pos, positions[0, sq - smax:], 0, 0,
+                                rows=False)
+        else:
+            # decode/append: write k,v at slot index % S_max (ring buffer
+            # for windowed caches; plain append while index < S_max). The
+            # reference's dynamic_update_slice clamps the start so that the
+            # update fits: a write past the end lands at S_max - sq
+            write = min(index % smax, smax - sq)
+            kvcache.write_slots(cache.k, k.to(cache.k.dtype), write, 1)
+            kvcache.write_slots(cache.v, v.to(cache.v.dtype), write, 1)
+            kvcache.write_slots(cache.pos, index + torch.arange(
+                sq, dtype=torch.int32, device=cache.pos.device), write, 0,
+                rows=False)
+            kc = kvcache.read(cache.k, (0, 1))
+            vc = kvcache.read(cache.v, (0, 1))
+            kv_pos = cache.pos[None].expand(b, kc.shape[1])
+            out = cache_attention(q, kc.to(q.dtype), vc.to(q.dtype),
+                                  positions, kv_pos, slots.axes,
+                                  causal=causal, window=window,
+                                  logit_cap=cfg.attn_logit_softcap,
+                                  kv_valid=kv_pos >= 0)
         new_cache = cache._replace(index=index + sq)
 
     wo = params["wo"]
@@ -530,22 +606,24 @@ def mla_attention(params, x, positions, cfg: ModelConfig, *,
     if cache is None:
         out, new_cache = _mla_expanded(params, x, qn, qr, kr, c_kv,
                                        positions, cfg), None
-    elif sq >= cache.c_kv.shape[1]:
+    elif sq >= (slots := kvcache.split(cache.c_kv, 1)).full:
         # bulk prefill: expanded attention + one-shot compressed cache write
-        smax = cache.c_kv.shape[1]
+        # (under a mesh, this rank's block of the slots: parallel.kvcache)
+        smax = slots.full
         out = _mla_expanded(params, x, qn, qr, kr, c_kv, positions, cfg)
-        cache.c_kv.copy_(c_kv[:, sq - smax:])
-        cache.k_rope.copy_(kr[:, sq - smax:])
+        kvcache.write_slots(cache.c_kv, c_kv[:, sq - smax:], 0, 1)
+        kvcache.write_slots(cache.k_rope, kr[:, sq - smax:], 0, 1)
         new_cache = cache._replace(index=cache.index + sq)
     else:
-        # absorbed form: score via latent space, cache stays compressed
-        smax = cache.c_kv.shape[1]
-        write = min(cache.index, smax - sq)
-        cache.c_kv[:, write:write + sq] = c_kv.to(cache.c_kv.dtype)
-        cache.k_rope[:, write:write + sq] = kr.to(cache.k_rope.dtype)
+        # absorbed form: score via latent space, cache stays compressed;
+        # a slot is a position, numbered over the whole cache
+        write = min(cache.index, slots.full - sq)
+        kvcache.write_slots(cache.c_kv, c_kv.to(cache.c_kv.dtype), write, 1)
+        kvcache.write_slots(cache.k_rope, kr.to(cache.k_rope.dtype), write, 1)
         new_index = cache.index + sq
-        kv_pos = torch.arange(smax, dtype=torch.int32,
-                              device=x.device)[None].expand(b, smax)
+        n = cache.c_kv.shape[1]
+        kv_pos = torch.arange(slots.lo, slots.lo + n, dtype=torch.int32,
+                              device=x.device)[None].expand(b, n)
         # absorb W_uk into q: q_lat (B,S,H,dc)
         q_lat = _heads_in(qn, params["w_uk"])
         q_cat = torch.cat([q_lat, qr], dim=-1)              # (B,S,H,dc+dr)
@@ -560,8 +638,8 @@ def mla_attention(params, x, positions, cfg: ModelConfig, *,
         # 0-d tensor of that dtype does the same
         rescale = torch.full((), ((dc + dr) ** 0.5) * ((dn + dr) ** -0.5),
                              dtype=q_cat.dtype, device=x.device)
-        out_lat = flash_attention(q_cat * rescale, k_cat, v_lat, positions,
-                                  kv_pos, causal=True,
+        out_lat = cache_attention(q_cat * rescale, k_cat, v_lat, positions,
+                                  kv_pos, slots.axes, causal=True,
                                   kv_valid=kv_pos < new_index)[..., :dc]
         out = _heads_out(out_lat, params["w_uv"])
         new_cache = cache._replace(index=new_index)

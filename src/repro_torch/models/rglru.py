@@ -31,6 +31,7 @@ from repro_torch.config import ModelConfig, RGLRUConfig
 from repro_torch.core.fluctuate import _FusedMulAdd
 from repro_torch.models.layers import causal_conv1d
 from repro_torch.models.ssm import softplus
+from repro_torch.parallel import kvcache
 
 _C = 8.0
 
@@ -125,8 +126,11 @@ def apply_rglru(params, x, cfg: ModelConfig,
     y_gate = F.gelu(torch.matmul(x, params["w_y"].to(x.dtype)),
                     approximate="tanh")
     xi = torch.matmul(x, params["w_x"].to(x.dtype))
+    # under a mesh a cache leaf is this rank's block: its split states are
+    # gathered here and each rank writes back its block (parallel.kvcache)
     xi, new_conv = causal_conv1d(xi, params["conv_w"],
-                                 cache.conv if cache is not None else None)
+                                 kvcache.read(cache.conv)
+                                 if cache is not None else None)
 
     xf = xi.float()
     r = torch.sigmoid(torch.matmul(xf, params["w_a"].float()))
@@ -139,13 +143,13 @@ def apply_rglru(params, x, cfg: ModelConfig,
         h = _lru_scan(a, gated)
         new_cache = None
     else:
-        h0 = cache.h
+        h0 = kvcache.read(cache.h)
         if s == 1:
             h = _FusedMulAdd.apply(a[:, 0], h0, gated[:, 0])[:, None]
         else:
             h = _lru_scan(a, gated, h0)
-        cache.h.copy_(h[:, -1])
-        cache.conv.copy_(new_conv)
+        kvcache.write_block(cache.h, h[:, -1])
+        kvcache.write_block(cache.conv, new_conv)
         new_cache = cache
 
     out = h.to(x.dtype) * y_gate

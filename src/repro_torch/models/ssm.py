@@ -21,6 +21,7 @@ import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig, SSMConfig
 from repro_torch.models.layers import causal_conv1d, rmsnorm
+from repro_torch.parallel import kvcache
 
 
 def softplus(x):
@@ -186,8 +187,11 @@ def apply_ssm(params, x, cfg: ModelConfig,
         zxbcdt, [d_in, d_in, 2 * g * n, h], dim=-1)
     # conv over [x, B, C] jointly (mamba2 convention)
     conv_in = torch.cat([xb, bc], dim=-1)           # (B,S,d_in+2gn)
+    # under a mesh a cache leaf is this rank's block: its split states are
+    # gathered here and each rank writes back its block (parallel.kvcache)
     conv_out, new_conv = causal_conv1d(
-        conv_in, params["conv_w"], cache.conv if cache is not None else None)
+        conv_in, params["conv_w"],
+        kvcache.read(cache.conv) if cache is not None else None)
     conv_out = F.silu(conv_out)
     xc = conv_out[..., :d_in]
     b_mat = conv_out[..., d_in:d_in + g * n].reshape(bsz, s, g, n).float()
@@ -201,16 +205,17 @@ def apply_ssm(params, x, cfg: ModelConfig,
         y, _ = ssd_chunked(xh.float(), dt, a, b_mat, c_mat, min(c.chunk, s))
         new_cache = None
     else:
+        state = kvcache.read(cache.state)
         if s > 1:
             # prefill-into-cache: chunked SSD carrying the recurrent state
             y, new_state = ssd_chunked(xh.float(), dt, a, b_mat, c_mat,
                                        min(c.chunk, s),
-                                       initial_state=cache.state)
+                                       initial_state=state)
         else:
             y, new_state = ssd_decode_step(xh.float(), dt, a, b_mat, c_mat,
-                                           cache.state)
-        cache.state.copy_(new_state)
-        cache.conv.copy_(new_conv)
+                                           state)
+        kvcache.write_block(cache.state, new_state)
+        kvcache.write_block(cache.conv, new_conv)
         new_cache = cache
 
     y = y + params["d_skip"].float()[None, None, :, None] * xh.float()

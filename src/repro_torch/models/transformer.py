@@ -269,14 +269,16 @@ def build_params(make, cfg: ModelConfig, cross_attn: bool = False,
 
 
 def layer_slice(tree, i: int):
-    """Layer ``i``'s slice of a stacked parameter or cache tree (views; a
-    cache's host ``index`` is shared by every layer)."""
+    """Layer ``i``'s slice of a stacked cache tree (views; a cache's host
+    ``index`` is shared by every layer). A placed leaf's slice carries its
+    spec without the layer entry (``parallel.kvcache``)."""
     if isinstance(tree, dict):
         return {k: layer_slice(v, i) for k, v in tree.items()}
     if isinstance(tree, tuple):
-        return type(tree)(*(t[i] if isinstance(t, torch.Tensor) else t
+        return type(tree)(*(mark_slices([t[i]], t)[0]
+                            if isinstance(t, torch.Tensor) else t
                             for t in tree))
-    return tree[i]
+    return mark_slices([tree[i]], tree)[0]
 
 
 def _restack(stacked, last):

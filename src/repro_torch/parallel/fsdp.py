@@ -76,9 +76,10 @@ def place(tree, shardings):
     """The ``device_put`` counterpart: each leaf's block under its
     sharding, marked, with the leaf's ``requires_grad``. A block smaller
     than its leaf is copied (the full tensor can then be freed); a block
-    that is the whole leaf shares its storage."""
+    that is the whole leaf shares its storage. Leaves without a sharding
+    and host values (a cache's ``index``) stay as they are."""
     def one(t, sh):
-        if sh is None:
+        if sh is None or not isinstance(t, torch.Tensor):
             return t
         full = t.detach()
         local = sh.shard(full)

@@ -204,15 +204,22 @@ def _gather_dim(t: torch.Tensor, dim: int, mesh, axis: str) -> torch.Tensor:
     return torch.cat(parts, dim=dim)
 
 
+def block_index(entry: AxisName, mesh, sizes: Dict[str, int]
+                ) -> Tuple[int, int]:
+    """(the blocks a dim splits into under the spec entry ``entry``, this
+    rank's block among them); ``sizes`` is ``mesh_shape(mesh)``."""
+    n, idx = 1, 0
+    for a in spec_axes(entry):
+        n, idx = n * sizes[a], idx * sizes[a] + mesh.get_local_rank(a)
+    return n, idx
+
+
 def shard_of(t: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
     """This rank's block of ``t`` under ``spec`` (a view; ``t`` itself when
     every axis of the spec has size 1)."""
     sizes = mesh_shape(mesh)
     for dim, entry in enumerate(spec):
-        axes = spec_axes(entry)
-        n, idx = 1, 0
-        for a in axes:
-            n, idx = n * sizes[a], idx * sizes[a] + mesh.get_local_rank(a)
+        n, idx = block_index(entry, mesh, sizes)
         if n > 1:
             size = t.shape[dim] // n
             t = t.narrow(dim, idx * size, size)

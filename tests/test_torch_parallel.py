@@ -4,9 +4,11 @@
   ``zero1=True``, each with one microbatch and remat ``none`` and with two
   microbatches and remat ``selective``) on 8 ranks, mesh (4, 2), at the
   reference's sharded-step config (``tests/test_distributed.py``), against
-  the reference's jitted single-device step with the same microbatches:
-  the reference's own sharded step raises ``DuplicateSpecError`` (ROADMAP
-  queue 3). Each rank's block of every parameter and moment holds its full
+  the reference's jitted single-device step with the same microbatches
+  (the reference's own sharded step raises ``DuplicateSpecError`` on
+  ``jax.make_mesh``'s Explicit axes and runs on Auto axes, where
+  ``tests/test_torch_serve_mesh.py`` holds the plain (4, 2) step against
+  it; ROADMAP queue 3). Each rank's block of every parameter and moment holds its full
   size over its spec's axes, a batch split over ranks refuses a loss mask
   and an MoE config, and a whole-array checkpoint restores onto the mesh
   bit for bit.

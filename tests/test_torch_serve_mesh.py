@@ -1,0 +1,352 @@
+"""The port's serving steps under a mesh on gloo ranks against the
+reference's sharded serving steps.
+
+The reference runs in one subprocess with 8 forced host devices: its own
+``build_prefill`` / ``build_decode`` jitted with their ``in_shardings`` on
+an Auto-axes mesh (``jax.make_mesh``'s default Explicit axes refuse the
+steps' sharding constraints), then ``DECODE_STEPS`` greedy decode steps,
+every sharded output taken through ``np.asarray``. The port runs the same
+cases on one spawn of 8 gloo ranks (``testing.ranks.run_ranks``; the
+(2, 4) and (1, 8) meshes are built inside it), each rank holding only its
+blocks of the caches (``parallel.kvcache``). Both take the parameters the
+port draws from ``prng.key(0)`` and the same numpy prompts
+(``torch_serve_mesh_ranks.CASES``: every family at smoke size in
+float32, the enc-dec decode through ``build_decode``'s ``enc_out``
+branch on the reference's encoder states). Held to: logits within
+``parity.LM_ATOL_FRAC`` of max|logit|, greedy tokens equal, the caches
+gathered from the ranks within the same rule (``pos`` and ``index``
+exactly), and each rank's leaves exactly their spec's local shape.
+
+The same subprocess runs the reference's sharded ``build_train`` step on
+the Auto-axes (4, 2) mesh, which the port's plain sharded step on (4, 2)
+is held against within ``parity.LM_GRAD_ATOL_FRAC``.
+"""
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import config as tconfig
+from repro_torch.core import prng
+from repro_torch.launch.specs import build_decode, build_prefill
+from repro_torch.models.encdec import encode
+from repro_torch.models.model import Model as TModel
+from repro_torch.testing import parity
+from repro_torch.testing.ranks import run_ranks
+from repro_torch.tree import tree_items
+
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+import torch_parallel_ranks as PR  # noqa: E402
+import torch_serve_mesh_ranks as R  # noqa: E402
+
+pytestmark = pytest.mark.subprocess
+
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parent.parent
+NAMES = list(R.CASES)
+
+REF_SCRIPT = r"""
+import os, sys
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+import dataclasses, json
+import jax, jax.numpy as jnp, numpy as np
+from jax.sharding import AxisType
+from repro import config as C
+from repro.data.tokens import make_batch
+from repro.launch.specs import build_decode, build_prefill, build_train
+from repro.models.model import Model
+from repro.optim.adamw import init_opt_state
+from repro.parallel import sharding as S
+
+out_dir, cases, step_cfg, steps = sys.argv[1], json.loads(sys.argv[2]), \
+    json.loads(sys.argv[3]), int(sys.argv[4])
+with np.load(out_dir + "/inputs.npz") as f:
+    inputs = {k: f[k] for k in f.files}
+
+
+def tree_of(prefix):
+    out = {}
+    for key, v in inputs.items():
+        if key.startswith(prefix):
+            node = out
+            *path, last = key[len(prefix):].split(".")
+            for p in path:
+                node = node.setdefault(p, {})
+            node[last] = jnp.asarray(v)
+    return out
+
+
+def flat(tree, prefix):
+    res = {}
+    for path, v in jax.tree_util.tree_flatten_with_path(tree)[0]:
+        key = "/".join(str(getattr(p, "name", getattr(p, "key", p)))
+                       for p in path)
+        res[prefix + key] = np.asarray(v)
+    return res
+
+
+def auto_mesh(dims):
+    return jax.make_mesh(tuple(dims), ("data", "model"),
+                         axis_types=(AxisType.Auto,) * 2)
+
+
+def single_device(name, c, cfg):
+    # the case through Model.prefill / decode_step on one device
+    model = Model(cfg)
+    params = tree_of(name + "/param/")
+    batch = {k[len(name + "/batch/"):]: jnp.asarray(v)
+             for k, v in inputs.items() if k.startswith(name + "/batch/")}
+    caches = model.init_caches(c["batch"], c["max_len"])
+    logits, caches, extras = jax.jit(model.prefill)(params, batch, caches)
+    res[name + ".single.prefill_logits"] = np.asarray(logits)
+    tok = jnp.argmax(logits[:, -1], axis=-1).astype(jnp.int32)[:, None]
+    toks, outs = [np.asarray(tok)], []
+    dec = jax.jit(model.decode_step)
+    for i in range(steps):
+        logits, caches = dec(params, {"tokens": tok}, caches,
+                             jnp.int32(c["prompt"] + i), extras)
+        outs.append(np.asarray(logits))
+        tok = jnp.argmax(logits[:, -1], axis=-1).astype(jnp.int32)[:, None]
+        toks.append(np.asarray(tok))
+    res[name + ".single.decode_logits"] = np.stack(outs)
+    res[name + ".single.tokens"] = np.concatenate(toks, axis=1)
+    res.update(flat(caches, name + ".single.cache/"))
+
+
+res = {}
+for name, c in cases.items():
+    cfg = dataclasses.replace(C.get_config(c["arch"], smoke=True),
+                              dtype="float32")
+    if c["single"]:
+        single_device(name, c, cfg)
+    mesh = auto_mesh(c["mesh"])
+    rules = S.DP_ACT_RULES if c["dp"] else S.act_rules_for(cfg, mesh)
+    b = c["batch"]
+    with S.use_mesh(mesh, rules):
+        pre, _, psh, pkw = build_prefill(
+            cfg, C.ShapeConfig("p", "prefill", c["prompt"], b), mesh)
+        dec, _, dsh, dkw = build_decode(
+            cfg, C.ShapeConfig("d", "decode", c["max_len"], b), mesh)
+        params = jax.device_put(tree_of(name + "/param/"), psh[0])
+        batch = jax.device_put({k: jnp.asarray(inputs[name + "/batch/" + k])
+                                for k in psh[1]}, psh[1])
+        caches = jax.device_put(Model(cfg).init_caches(b, c["max_len"]),
+                                dsh[2])
+        pstep = jax.jit(pre, in_shardings=(psh[0], psh[1], dsh[2]),
+                        out_shardings=(None, dsh[2]))
+        logits, caches = pstep(params, batch, caches)
+        res[name + ".prefill_logits"] = np.asarray(logits)
+        tok = jnp.argmax(logits[:, -1], axis=-1).astype(jnp.int32)[:, None]
+        toks, outs = [np.asarray(tok)], []
+        extra = ()
+        if cfg.is_encoder_decoder:
+            extra = (jax.device_put(
+                (jnp.asarray(inputs[name + "/enc_states"]),
+                 jnp.asarray(inputs[name + "/enc_positions"])), dsh[4]),)
+        dstep = jax.jit(dec, in_shardings=dsh,
+                        out_shardings=dkw["out_shardings"])
+        for i in range(steps):
+            logits, caches = dstep(params, jax.device_put(tok, dsh[1]),
+                                   caches, jnp.int32(c["prompt"] + i),
+                                   *extra)
+            outs.append(np.asarray(logits))
+            tok = jnp.argmax(logits[:, -1], axis=-1).astype(
+                jnp.int32)[:, None]
+            toks.append(np.asarray(tok))
+        res[name + ".decode_logits"] = np.stack(outs)
+        res[name + ".tokens"] = np.concatenate(toks, axis=1)
+        res.update(flat(caches, name + ".cache/"))
+
+# the sharded train step on the Auto-axes (4, 2) mesh
+cfg = C.ModelConfig(**step_cfg["cfg"])
+shape = C.ShapeConfig("t", "train", *step_cfg["shape"])
+mesh = auto_mesh((4, 2))
+with S.use_mesh(mesh, S.act_rules_for(cfg, mesh)):
+    fn, _, shs, kw = build_train(cfg, shape, mesh)
+    step = jax.jit(fn, in_shardings=shs, out_shardings=kw["out_shardings"],
+                   donate_argnums=kw["donate_argnums"])
+    p = jax.device_put(tree_of("train/param/"), shs[0])
+    s = jax.device_put(init_opt_state(p), shs[1])
+    losses = []
+    for i in range(step_cfg["steps"]):
+        batch = jax.device_put({k: jnp.asarray(v) for k, v in
+                                make_batch(cfg, shape, 0, i).items()}, shs[2])
+        p, s, m = step(p, s, batch)
+        losses.append(float(m["loss"]))
+    res["train.losses"] = np.asarray(losses)
+    res["train.grad_norm"] = np.asarray(float(m["grad_norm"]))
+    res.update({k.replace("/", "."): v
+                for k, v in flat(p, "train.param/").items()})
+np.savez(out_dir + "/ref.npz", **res)
+"""
+
+
+def _inputs():
+    """Every case's parameters (the port's draw from ``prng.key(0)``),
+    prompt and, for the enc-dec case, the encoder's states over its
+    ``enc_embeds``; and ``PR.STEP_CFG``'s parameters for the train
+    step."""
+    out = {}
+    for name, case in R.CASES.items():
+        cfg = case.cfg()
+        model = TModel(cfg, "cpu")
+        params = model.init(prng.key(0))
+        for key, leaf in tree_items(params):
+            out[f"{name}/param/{key.replace('/', '.')}"] = leaf.numpy()
+        for key, value in R.case_inputs(name, case).items():
+            out[f"{name}/batch/{key}"] = value
+        if cfg.is_encoder_decoder:
+            with torch.no_grad():
+                states, positions = encode(params, torch.from_numpy(
+                    out[f"{name}/batch/enc_embeds"]), cfg)
+            out[f"{name}/enc_states"] = states.numpy()
+            out[f"{name}/enc_positions"] = positions.contiguous().numpy()
+    train = TModel(PR.STEP_CFG, "cpu").init(prng.key(0))
+    for key, leaf in tree_items(train):
+        out[f"train/param/{key.replace('/', '.')}"] = leaf.numpy()
+    return out
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """(the reference's outputs, the ranks' outputs): the reference's
+    subprocess runs while the port's ranks do."""
+    tmp = tmp_path_factory.mktemp("serve_mesh")
+    np.savez(tmp / "inputs.npz", **_inputs())
+    cases = {name: {"arch": c.arch, "mesh": list(c.mesh), "batch": c.batch,
+                    "prompt": c.prompt, "max_len": c.max_len,
+                    "dp": c.dp_rules, "single": c.single}
+             for name, c in R.CASES.items()}
+    step_cfg = {"cfg": {f.name: getattr(PR.STEP_CFG, f.name)
+                        for f in dataclasses.fields(PR.STEP_CFG)
+                        if f.name in ("num_layers", "d_model", "num_heads",
+                                      "num_kv_heads", "d_ff", "vocab_size",
+                                      "remat", "dtype")},
+                "shape": [PR.STEP_SHAPE.seq_len, PR.STEP_SHAPE.global_batch],
+                "steps": PR.STEP_STEPS}
+    env = dict(os.environ, PYTHONPATH="src", JAX_PLATFORMS="cpu")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", REF_SCRIPT, str(tmp), json.dumps(cases),
+         json.dumps(step_cfg), str(R.DECODE_STEPS)], env=env, cwd=str(ROOT),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        ranks = run_ranks(R.serve_all, 8, (4, 2), "gloo", tmp,
+                          str(tmp / "inputs.npz"), NAMES)
+        _, err = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    assert proc.returncode == 0, err[-3000:]
+    with np.load(tmp / "ref.npz") as f:
+        ref = {k: f[k] for k in f.files}
+    return ref, ranks
+
+
+def _ref_of(ref, name):
+    """The reference's outputs the case is held to: its sharded steps', or
+    for a ``single`` case its single-device steps'."""
+    tag = f"{name}.single." if R.CASES[name].single else f"{name}."
+    return {k[len(tag):]: v for k, v in ref.items() if k.startswith(tag)}
+
+
+def _close(got, want, what):
+    err = parity.assert_close(got, want, rtol=0.0,
+                              atol_frac=parity.LM_ATOL_FRAC, what=what)
+    return err / max(float(np.max(np.abs(want))), 1e-30)
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_logits_and_tokens_match_reference(runs, name):
+    """The prefill's and every decode step's logits within
+    ``parity.LM_ATOL_FRAC`` of max|logit| (the vocabulary's, not the
+    padding's), and the greedy tokens equal."""
+    refs, ranks = runs
+    ref, got = _ref_of(refs, name), ranks[0]
+    vocab = R.CASES[name].cfg().vocab_size   # the padded entries are -1e9
+    worst = max(_close(got[f"{name}.{k}"][..., :vocab], ref[k][..., :vocab],
+                       f"{name} {k}")
+                for k in ("prefill_logits", "decode_logits"))
+    print(f"{name}: logits within {worst:.3e} of max|logit|")
+    if R.CASES[name].single:
+        sharded = refs[f"{name}.decode_logits"][..., :vocab]
+        gap = float(np.max(np.abs(sharded - ref["decode_logits"][
+            ..., :vocab]))) / float(np.max(np.abs(sharded)))
+        print(f"{name}: the reference's sharded decode departs from its "
+              f"single-device decode by {gap:.3e} of max|logit|")
+    np.testing.assert_array_equal(got[f"{name}.tokens"], ref["tokens"])
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_gathered_caches_match_reference(runs, name):
+    """The caches gathered from the ranks after the last step equal the
+    reference's: floats within the logits' rule, ``pos`` and ``index``
+    exactly."""
+    refs, ranks = runs
+    ref, got = _ref_of(refs, name), ranks[0]
+    keys = sorted(k for k in ref if k.startswith("cache/"))
+    assert keys and keys == sorted(k[len(name) + 1:] for k in got
+                                   if k.startswith(f"{name}.cache/"))
+    for key in keys:
+        if key.endswith(("/pos", "/index")):
+            np.testing.assert_array_equal(got[f"{name}.{key}"], ref[key],
+                                          err_msg=key)
+        else:
+            _close(got[f"{name}.{key}"], ref[key], key)
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_each_rank_holds_only_its_blocks(runs, name):
+    """Every rank's parameter and cache leaves are exactly their spec's
+    local shape, the prefill's logits carry the tokens' spec, and the
+    caches of a rank hold their share of the whole caches' bytes."""
+    ref, ranks = runs
+    assert all(bool(r[f"{name}.shapes_ok"]) for r in ranks)
+    whole = sum(v.nbytes for k, v in ref.items()
+                if k.startswith(f"{name}.cache/")
+                and not k.endswith("/index"))
+    held = [int(r[f"{name}.cache_bytes"]) for r in ranks]
+    print(f"{name}: each rank holds {held[0]} of {whole} cache bytes")
+    assert all(h == held[0] for h in held) and held[0] < whole
+
+
+def test_sharded_train_step_matches_reference_sharded_step(runs):
+    """``PR.STEP_CFG``'s plain sharded step on (4, 2) against the
+    reference's sharded ``build_train`` step on the Auto-axes (4, 2) mesh,
+    from the same parameters and batches."""
+    ref, ranks = runs
+    got = ranks[0]
+    np.testing.assert_allclose(got["train.losses"], ref["train.losses"],
+                               rtol=parity.LM_GRAD_ATOL_FRAC, atol=0)
+    np.testing.assert_allclose(got["train.grad_norm"], ref["train.grad_norm"],
+                               rtol=parity.LM_GRAD_ATOL_FRAC, atol=0)
+    keys = sorted(k for k in ref if k.startswith("train.param."))
+    assert keys == sorted(k for k in got if k.startswith("train.param."))
+    for key in keys:
+        parity.assert_close(got[key], ref[key], rtol=0.0,
+                            atol_frac=parity.LM_GRAD_ATOL_FRAC, what=key)
+
+
+class _StandIn:
+    def __init__(self, data: int, model: int):
+        self.shape = {"data": data, "model": model}
+
+
+@pytest.mark.parametrize("build", [build_prefill, build_decode])
+def test_moe_on_a_split_batch_raises(build):
+    """An MoE FFN on a mesh whose caches split the batch: each rank would
+    take capacity and drops over its own rows, the reference over the
+    whole batch. Both builders raise; a mesh that splits no batch does
+    not."""
+    cfg = tconfig.get_config("deepseek-moe-16b", smoke=True)
+    shape = tconfig.ShapeConfig("s", "decode", 16, 4)
+    with pytest.raises(ValueError, match="MoE FFN"):
+        build(cfg, shape, _StandIn(4, 2))
+    build(cfg, shape, _StandIn(1, 8))
