@@ -318,12 +318,29 @@ Phases (any failure exits non-zero before the result line):
                 earlier phases hold and the cache bytes each rank holds,
                 beside the card's name and power limit; the phase's wall
                 time. No kernel launches
- 18. summary  : one JSON line {"kernels": [...]} (with each kernel's
+ 18. dry run : the dry run (launch.dryrun, launch.op_cost; ROADMAP item
+                17(f)) on one NCCL + gloo group of one rank, a (1, 1)
+                mesh. For two steps, the train phase's gemma2-2b step
+                (batch TRAIN_BATCH of train_4k's 4 096 positions in
+                TRAIN_MICRO microbatches, AdamW) and traffic (C)'s decode
+                step (4 slots of 32 768-slot caches, at position 4 608):
+                op_cost predicts the step on meta tensors, then the step
+                runs on the card from prng.key(0) with only its arguments
+                resident. Checks: FlopCounterMode's count on the card ==
+                the prediction exactly; the predicted argument + temp bytes
+                within DRY_PEAK_RTOL of max_memory_allocated (after
+                reset_peak_memory_stats, above what was held before the
+                arguments), both printed with their ratio. Then
+                DRY_CELLS, two production cells on a fake world of 256 and
+                512 ranks, in a subprocess that sees no card
+                (CUDA_VISIBLE_DEVICES empty): each ok, its per-rank
+                numbers printed. No kernel launches; the phase's wall time
+ 19. summary  : one JSON line {"kernels": [...]} (with each kernel's
                 launches over the clean streams, stream_launches, while
                 tuning, tune_launches, over the pool events and stream,
                 pool_launches, and over the distributed recon runs,
                 dist_launches)
- 19. result   : last line {"ok": true, "device": {...}}
+ 20. result   : last line {"ok": true, "device": {...}}
 
 The on-card checks live here rather than in pytest because the machine with
 the card has no JAX, which the repository's test configuration imports.
@@ -4746,6 +4763,207 @@ def check_serve_mesh(dev, card: str) -> None:
           f"{card}", flush=True)
 
 
+#: two production cells the dry-run phase runs on a fake world
+DRY_CELLS = (("gemma2-2b", "train_4k", False), ("gemma2-2b", "decode_32k",
+                                                True))
+#: the predicted argument + temp bytes against the card's peak
+DRY_PEAK_RTOL = 0.10
+#: the position of the dry-run phase's decode step (traffic C's prompt)
+DRY_INDEX = MESH_TRAFFIC["prompt"]
+
+
+def dry_step(label, build, meta_args, real_args, dev, card):
+    """One step ``build`` returns, predicted by op_cost on ``meta_args``
+    (a function of the builder's arguments and shardings), then run on the
+    card on ``real_args`` (likewise; called with nothing else resident)
+    under FlopCounterMode. Checks the FLOPs equal and the peak within
+    DRY_PEAK_RTOL."""
+    import gc
+
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.launch import op_cost
+
+    fn, meta, shs = build()
+    t0 = time.perf_counter()
+    _, pred = op_cost.analyze(fn, meta_args(meta, shs))
+    predict_s = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize(dev)
+    held = torch.cuda.memory_allocated(dev)
+    args = real_args(meta, shs)
+    torch.cuda.synchronize(dev)
+    resident = torch.cuda.memory_allocated(dev) - held
+    torch.cuda.reset_peak_memory_stats(dev)
+    flops = FlopCounterMode(display=False)
+    t0 = time.perf_counter()
+    with flops:
+        out = fn(*args)
+    torch.cuda.synchronize(dev)
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) - held
+    del out, args
+    mem = pred["memory"]
+    want = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+    got_flops = int(flops.get_total_flops())
+    print(f"dry run {label}: FLOPs predicted {pred['flops']} (meta tensors, "
+          f"{predict_s:.1f} s), on the card {got_flops} (FlopCounterMode, "
+          f"{run_s:.1f} s); bytes predicted: arguments "
+          f"{mem['argument_size_in_bytes']} ({resident} resident on the "
+          f"card), temp {mem['temp_size_in_bytes']}, output "
+          f"{mem['output_size_in_bytes']}, arguments + temp {want} "
+          f"({want / 2**30:.3f} GiB); max_memory_allocated above the "
+          f"{held} B held before {peak} ({peak / 2**30:.3f} GiB); "
+          f"predicted / measured {want / peak:.4f}; bytes accessed "
+          f"{pred['bytes_accessed']}; {card}", flush=True)
+    check(got_flops == pred["flops"],
+          f"dry run {label}: the card's FLOPs {got_flops} != the "
+          f"prediction {pred['flops']}")
+    check(abs(want / peak - 1) <= DRY_PEAK_RTOL,
+          f"dry run {label}: predicted arguments + temp {want} B against "
+          f"the card's peak {peak} B: ratio {want / peak:.4f}, beyond "
+          f"{DRY_PEAK_RTOL}")
+
+
+def dry_cells() -> None:
+    """DRY_CELLS through launch.dryrun.run_cell in one subprocess that sees
+    no card; each must be ok."""
+    code = ("import json, sys\n"
+            "from repro_torch.launch import dryrun\n"
+            "out = sys.argv[1]\n"
+            "for arch, shape, pod2 in json.loads(sys.argv[2]):\n"
+            "    r = dryrun.run_cell(arch, shape, pod2, force=True, "
+            "out_dir=out)\n"
+            "    print(dryrun.summary(r), flush=True)\n"
+            "    r.pop('traceback', None)\n"
+            "    print('CELL ' + json.dumps(r), flush=True)\n")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=str(ROOT / "src"))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dry_") as tmp:
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-c", code, tmp,
+                              json.dumps(DRY_CELLS)], env=env, cwd=ROOT,
+                             capture_output=True, text=True, timeout=600)
+    cells = [json.loads(line[5:]) for line in res.stdout.splitlines()
+             if line.startswith("CELL ")]
+    check(res.returncode == 0 and len(cells) == len(DRY_CELLS),
+          f"dry run cells: the subprocess failed ({res.returncode}): "
+          f"{res.stdout[-2000:]} {res.stderr[-2000:]}")
+    for r in cells:
+        check(r["status"] == "ok", f"dry run {r['cell']}: {r['status']} "
+              f"{r.get('error', r.get('reason'))}")
+        m, c = r["memory"], r["collectives"]
+        print(f"dry run cell {r['cell']} on a fake world of "
+              f"{r['n_devices']} ranks (no card): per rank {r['flops']} "
+              f"FLOPs, {r['bytes_accessed']} B accessed, arguments "
+              f"{m['argument_size_in_bytes']} B, temp "
+              f"{m['temp_size_in_bytes']} B, output "
+              f"{m['output_size_in_bytes']} B, collectives "
+              f"{c['total_bytes']} B {c['bytes_by_kind']} in "
+              f"{c['counts']}; replicated compute x"
+              f"{r['replicated_compute']}; traced in {r['trace_s']} s",
+              flush=True)
+    print(f"dry run cells: subprocess wall {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+
+def check_dryrun(dev, card: str) -> None:
+    """The "dry run" phase (docstring): one NCCL + gloo group of one rank
+    (a FileStore in a temporary directory, destroyed at the end)."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.config import (OptimizerConfig, ParallelConfig, SHAPES,
+                                    ShapeConfig, get_config)
+    from repro_torch.core import prng
+    from repro_torch.data.tokens import make_batch, shard_batch
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.specs import build_decode, build_train
+    from repro_torch.models.model import Model
+    from repro_torch.optim.adamw import init_opt_state
+    from repro_torch.parallel import fsdp, kvcache
+    from repro_torch.parallel import sharding
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(TRAIN_ARCH)
+    train_shape = ShapeConfig("train_4k cut to a batch of 8", "train",
+                              SHAPES["train_4k"].seq_len, TRAIN_BATCH)
+    dec_shape = ShapeConfig("decode_32k cut to 4 slots", "decode",
+                            MESH_TRAFFIC["max_len"], MESH_TRAFFIC["slots"])
+    opt = OptimizerConfig(lr=TRAIN_LR, warmup_steps=2,
+                          total_steps=TRAIN_STEPS)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dry_") as tmp:
+        torch.cuda.set_device(dev)
+        dist.init_process_group("cuda:nccl,cpu:gloo",
+                                init_method=f"file://{tmp}/store",
+                                rank=0, world_size=1)
+        try:
+            mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+            rules = sharding.act_rules_for(cfg, mesh)
+
+            def train_build():
+                fn, meta, shs, _ = build_train(
+                    cfg, train_shape, mesh, opt,
+                    ParallelConfig(microbatches=TRAIN_MICRO))
+                return fn, meta, shs
+
+            def train_real(meta, shs):
+                full = Model(cfg, dev).init(prng.key(0), trainable=True)
+                return (fsdp.place(full, shs[0]),
+                        fsdp.place(init_opt_state(full), shs[1]),
+                        shard_batch(make_batch(cfg, train_shape, 0, 0),
+                                    mesh))
+
+            def dec_build():
+                fn, meta, shs, _ = build_decode(cfg, dec_shape, mesh)
+                return fn, meta, shs
+
+            def dec_meta(meta, shs):
+                args = dryrun.step_args("decode", meta, shs)
+                return args[:3] + (DRY_INDEX,)
+
+            def dec_real(meta, shs):
+                b = dec_shape.global_batch
+                return (kvcache.place(Model(cfg, dev).init(prng.key(0)),
+                                      shs[0]),
+                        kvcache.place(torch.zeros((b, 1), dtype=torch.int32,
+                                                  device=dev), shs[1]),
+                        kvcache.init_blocks(cfg, b, dec_shape.seq_len,
+                                            shs[2], dev),
+                        DRY_INDEX)
+
+            with sharding.use_mesh(mesh, rules):
+                t0 = time.perf_counter()
+                dry_step(f"{cfg.name} train step ({train_shape.name}, "
+                         f"{TRAIN_MICRO} microbatches)", train_build,
+                         lambda m, s: dryrun.step_args("train", m, s),
+                         train_real, dev, card)
+                gc.collect()
+                torch.cuda.empty_cache()
+                print(f"dry run train step: wall "
+                      f"{time.perf_counter() - t0:.1f} s", flush=True)
+                t0 = time.perf_counter()
+                dry_step(f"{cfg.name} decode step (traffic C, "
+                         f"{dec_shape.name}, position {DRY_INDEX})",
+                         dec_build, dec_meta, dec_real, dev, card)
+                gc.collect()
+                torch.cuda.empty_cache()
+                print(f"dry run decode step: wall "
+                      f"{time.perf_counter() - t0:.1f} s", flush=True)
+        finally:
+            dist.destroy_process_group()
+    dry_cells()
+    print(f"dry run phase: wall {time.perf_counter() - t_phase:.1f} s; "
+          f"{card}", flush=True)
+
+
 def check_oom_classification(dev) -> None:
     """A real allocation failure on the card, and a kernel wrapper's launch
     error for cudaErrorMemoryAllocation, both classify as OOM (the
@@ -5256,6 +5474,9 @@ def main() -> int:
 
     phase("serve mesh")
     check_serve_mesh(dev, card)
+
+    phase("dry run")
+    check_dryrun(dev, card)
 
     print(f"chip_smoke wall: {time.perf_counter() - t_all:.1f} s")
     print(card)

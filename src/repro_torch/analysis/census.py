@@ -17,6 +17,7 @@ divisor of ``t / 2.5``) over the calls inside it, and records:
                     host-to-card copy, of the copy's destination): ``cuda``
                     reads wait for the card, ``cpu`` ones do not on the card
   collectives     : c10d ops per kind, in the reference's vocabulary
+  collective_bytes: their operand bytes per kind (``operand_bytes``)
   kernels         : launches of the eight kernel wrappers (PERF §6 rows
                     1-8): on the card the wrappers' ``LAUNCHES`` deltas, on
                     the CPU the plain-version runs that stand for them
@@ -105,17 +106,33 @@ _DIVISIONS = ("div", "div_", "__truediv__", "__itruediv__", "true_divide",
               "true_divide_")
 
 
-def site() -> str:
+def site(skip: tuple = ()) -> str:
     """``path:function:line`` of the innermost frame under the package
-    outside ``analysis/``, or ``<outside>``."""
+    outside ``analysis/`` and the files ``skip``, or ``<outside>``."""
     frame = sys._getframe(1)
     while frame is not None:
         path = Path(frame.f_code.co_filename)
-        if path.is_relative_to(PKG) and not path.is_relative_to(_ANALYSIS):
+        if path.is_relative_to(PKG) and not path.is_relative_to(_ANALYSIS) \
+                and path not in skip:
             rel = path.relative_to(PKG).as_posix()
             return f"{rel}:{frame.f_code.co_name}:{frame.f_lineno}"
         frame = frame.f_back
     return OUTSIDE
+
+
+#: c10d ops whose first argument is the operand (written in place); every
+#: other op's operand is its second argument (the first is the output)
+_OPERAND_FIRST = ("allreduce_", "allreduce_coalesced_", "send", "recv_",
+                  "broadcast_")
+
+
+def operand_bytes(name: str, args) -> int:
+    """The bytes of a c10d op's operand tensors (the input of an
+    all-gather, the full input of a reduce-scatter, the tensor of an
+    all-reduce or a send), as the reference counts a collective."""
+    operand = args[0 if name in _OPERAND_FIRST else 1]
+    return sum(t.numel() * t.element_size() for t in tree_leaves(operand)
+               if isinstance(t, torch.Tensor))
 
 
 def inexact_divisor(value) -> bool:
@@ -202,6 +219,7 @@ class Census:
         self.host_syncs: Dict[str, collections.Counter] = \
             collections.defaultdict(collections.Counter)
         self.collectives: collections.Counter = collections.Counter()
+        self.collective_bytes: collections.Counter = collections.Counter()
         self.float_divisions: collections.Counter = collections.Counter()
         self.f64_bytes: collections.Counter = collections.Counter()
         self.kernels: collections.Counter = collections.Counter()
@@ -222,6 +240,7 @@ class Census:
             kind = C10D_KINDS.get(name, f"c10d.{name}")
             if kind is not None:
                 self.collectives[kind] += 1
+                self.collective_bytes[kind] += operand_bytes(name, args)
             return
         for leaf in tree_leaves(out):
             if isinstance(leaf, torch.Tensor):

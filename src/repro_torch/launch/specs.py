@@ -64,11 +64,12 @@ def batch_shardings(batch_specs, mesh):
             for k, v in batch_specs.items()}
 
 
-def batch_ranks(shape: ShapeConfig, mesh) -> int:
+def batch_ranks(shape: ShapeConfig, mesh, rules=None) -> int:
     """The ranks that split a step's batch on ``mesh`` (a ``DeviceMesh`` or
     a stand-in) as ``data.tokens.shard_batch`` places it
-    (``ACT_RULES["batch"]``)."""
-    spec = build_spec((shape.global_batch,), ("batch",), mesh, ACT_RULES)
+    (``ACT_RULES["batch"]``, or ``rules``' batch entry)."""
+    spec = build_spec((shape.global_batch,), ("batch",), mesh,
+                      rules or ACT_RULES)
     sizes = mesh_shape(mesh)
     return math.prod(sizes[a] for a in spec_axes(spec[0]))
 
@@ -162,12 +163,14 @@ def build_train(arch_cfg: ModelConfig, shape: ShapeConfig, mesh,
     sums the gradients over the batch's ranks, updates its blocks and
     all-gathers the parameters' blocks back.
 
-    Raises a ``ValueError`` where the batch's split would change the
-    step's values (``train_step.check_split_batch``).
+    Raises a ``SplitBatchError`` where the split of the batch (by the
+    current activation rules, as ``batch_shardings`` places it) would
+    change the step's values (``train_step.check_split_batch``).
     """
     batch = input_specs(arch_cfg, shape)
     batch_sh = batch_shardings(batch, mesh)
-    check_split_batch(arch_cfg, batch_ranks(shape, mesh))
+    check_split_batch(arch_cfg, batch_ranks(shape, mesh,
+                                            current_act_rules()))
     model = Model(arch_cfg, mesh_device(mesh))
     opt_cfg = opt_cfg or OptimizerConfig()
 

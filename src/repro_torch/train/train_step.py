@@ -85,10 +85,15 @@ def _grads(loss_fn, params, batch):
                      for p, g in zip(leaves, grads)]
 
 
+class SplitBatchError(ValueError):
+    """A batch split over ranks would change a step's values
+    (``check_split_batch``)."""
+
+
 def check_split_batch(cfg, batch_ranks: int, loss_mask: bool = False
                       ) -> None:
-    """Raise a ``ValueError`` where a batch split over ``batch_ranks`` ranks
-    would give other values than the reference's whole-batch step: an MoE
+    """Raise a ``SplitBatchError`` (a ``ValueError``) where a batch split
+    over ``batch_ranks`` ranks would give other values than the reference's whole-batch step: an MoE
     FFN (expert capacity, drops and the load-balance aux come from each
     rank's own tokens) or a loss mask (each rank divides by its own mask
     sum)."""
@@ -98,7 +103,7 @@ def check_split_batch(cfg, batch_ranks: int, loss_mask: bool = False
         ("an MoE FFN", any(s.ffn == "moe" for s in stacks_for(cfg))),
         ("a loss mask", loss_mask)) if on]
     if what:
-        raise ValueError(
+        raise SplitBatchError(
             f"{cfg.name}: the batch is split over {batch_ranks} ranks, and "
             f"{' and '.join(what)} would then be computed from each rank's "
             "own tokens, not the whole batch as the reference does; use a "

@@ -1,0 +1,341 @@
+"""The port's dry run (``launch.mesh``, ``launch.op_cost``,
+``launch.dryrun``) against the reference's compiled steps, against real
+gloo ranks and against its own reckoning.
+
+The reference runs in two subprocesses, started together when the module
+starts: one compiles every family's sharded smoke steps (``build_train``,
+``build_prefill``, ``build_decode``) on 8 forced host devices with an
+Auto-axes mesh and reads ``memory_analysis().argument_size_in_bytes``; the
+other compiles the same steps on one device and reads ``hlo_cost.analyze``'s
+FLOPs. Both jit with ``keep_unused=True``: jit otherwise drops arguments a
+step never reads (a prefill's old k, v and pos), which the port's steps
+still hold.
+
+  (a) argument bytes: the port's rank 0 (a fake world of 8) == the
+      reference's, but for the caches' ``index`` leaves and a decode step's
+      ``index`` argument, host ints in the port: the difference is their
+      bytes, exactly.
+  (b) FLOPs at one device (GSPMD splits over ``model`` what the port
+      replicates, so per-rank FLOPs agree only there): within
+      ``parity.DRYRUN_FLOPS_RTOL``, but for the gaps ``FLOPS_GAPS`` records,
+      each held to its exact count.
+  (c) collectives: the plain sharded train step and a decode step issue,
+      on a fake world of 8, the same collectives kind by kind and byte for
+      byte as on 8 gloo ranks (counted there by ``analysis.census``).
+  (d) gemma2-2b ``decode_32k`` at full width on 256 ranks: the parameter
+      and cache bytes a rank holds == the reckoning from ``model.specs``,
+      ``cache_specs`` and ``local_shape``.
+  (e) statuses: the MoE cells of the production meshes are ``refused``
+      with ``check_split_batch``'s text; ``long_500k`` is ``skipped``
+      outside ``LONG_OK`` and runs inside it.
+"""
+import json
+import math
+import os
+import subprocess
+import sys
+import types
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch.config import SHAPES, ShapeConfig, get_config
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import (fake_world, make_mesh,
+                                     make_production_mesh)
+from repro_torch.launch.specs import (batch_ranks, cache_shardings,
+                                      cache_specs)
+from repro_torch.models.model import Model
+from repro_torch.parallel import sharding as S
+from repro_torch.testing import parity
+from repro_torch.testing.ranks import run_ranks
+from repro_torch.train.train_step import SplitBatchError, check_split_batch
+from repro_torch.tree import tree_map
+
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+import torch_dryrun_ranks as R  # noqa: E402
+
+pytestmark = pytest.mark.subprocess
+
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parent.parent
+
+#: family -> (arch, mesh of the 8 ranks); the MoE step runs under
+#: ``ACT_RULES`` in both packages: ``act_rules_for`` would split its batch
+#: over ``model`` (4 heads on 8), which the port refuses for MoE
+CASES = {"dense": ("gemma2-2b", (4, 2)), "vlm": ("internvl2-1b", (4, 2)),
+         "ssm": ("mamba2-780m", (4, 2)),
+         "hybrid": ("recurrentgemma-2b", (4, 2)),
+         "moe": ("deepseek-moe-16b", (1, 8)),
+         "encdec": ("seamless-m4t-large-v2", (4, 2))}
+KINDS = {"train": ShapeConfig("t", "train", 16, 8),
+         "prefill": ShapeConfig("p", "prefill", 16, 8),
+         "decode": ShapeConfig("d", "decode", 32, 8)}
+KEYS = [f"{f}.{k}" for f in CASES for k in KINDS]
+
+#: the gaps beyond ``parity.DRYRUN_FLOPS_RTOL``, port minus reference,
+#: found and recorded in ROADMAP queue 3. ssm: the port forms C.B once per
+#: group, the reference once per head (4 heads a group here: 3 x 131072 a
+#: pass; forward, remat and two backward products in train), and in train
+#: the reference's multi-operand einsums contract the decay weights with
+#: three small dots (3 x 32768) the port multiplies elementwise. encdec:
+#: the reference's decoder saves every product under remat
+#: (``dots_saveable``), the port's recomputes its layer segments as the
+#: decoder-only stacks do
+FLOPS_GAPS = {"ssm.train": -(4 * 3 * 131072 + 3 * 32768),
+              "ssm.prefill": -3 * 131072,
+              "encdec.train": 15204352}
+
+REF_SCRIPT = r"""
+import os, sys
+# LLVM's cheaper passes: the HLO, and so its FLOPs and argument sizes, are
+# the same, and the compiles take a fifth less time
+os.environ["XLA_FLAGS"] = ("--xla_force_host_platform_device_count=8 "
+                           "--xla_backend_optimization_level=0 "
+                           "--xla_llvm_disable_expensive_passes=true")
+import json
+import jax
+import numpy as np
+from jax.sharding import AxisType
+from repro import config as C
+from repro.launch.hlo_cost import analyze
+from repro.launch.specs import build_decode, build_prefill, build_train
+from repro.parallel import sharding as S
+
+part, out, cases, kinds = sys.argv[1], sys.argv[2], json.loads(sys.argv[3]), \
+    json.loads(sys.argv[4])
+builders = {"train": build_train, "prefill": build_prefill,
+            "decode": build_decode}
+
+
+def nbytes(tree, leaf_name=None):
+    total = 0
+    for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]:
+        if leaf_name is None or getattr(path[-1], "name", None) == leaf_name:
+            total += int(np.prod(leaf.shape)) * np.dtype(leaf.dtype).itemsize
+    return total
+
+
+res = {}
+for name, (arch, dims) in cases.items():
+    cfg = C.get_config(arch, smoke=True)
+    dims = tuple(dims) if part == "mesh" else (1, 1)
+    mesh = jax.make_mesh(dims, ("data", "model"),
+                         axis_types=(AxisType.Auto,) * 2,
+                         devices=jax.devices()[:dims[0] * dims[1]])
+    rules = S.ACT_RULES if name == "moe" else S.act_rules_for(cfg, mesh)
+    for kind, (sname, skind, seq, batch) in kinds.items():
+        with S.use_mesh(mesh, rules):
+            fn, args, shs, kw = builders[skind](
+                cfg, C.ShapeConfig(sname, skind, seq, batch), mesh)
+            compiled = jax.jit(
+                fn, in_shardings=shs, out_shardings=kw["out_shardings"],
+                donate_argnums=kw["donate_argnums"],
+                keep_unused=True).lower(*args).compile()
+        key = name + "." + kind
+        if part == "mesh":
+            host = 0 if skind == "train" else nbytes(args[2], "index")
+            if skind == "decode":
+                host += nbytes(args[3])
+            res[key] = {"args": int(
+                compiled.memory_analysis().argument_size_in_bytes),
+                "host_ints": host}
+        else:
+            res[key] = {"flops": float(analyze(compiled.as_text())["flops"])}
+with open(out, "w") as f:
+    json.dump(res, f)
+"""
+
+
+@pytest.fixture(scope="module", autouse=True)
+def reference(tmp_path_factory):
+    """Both reference subprocesses, started before the module's first test;
+    ``reference(part)`` waits for one and returns its results."""
+    tmp = tmp_path_factory.mktemp("dryrun_ref")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               JAX_PLATFORMS="cpu")
+    kinds = {k: [s.name, s.kind, s.seq_len, s.global_batch]
+             for k, s in KINDS.items()}
+    procs = {part: subprocess.Popen(
+        [sys.executable, "-c", REF_SCRIPT, part, str(tmp / f"{part}.json"),
+         json.dumps(CASES), json.dumps(kinds)],
+        env=env, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for part in ("mesh", "single")}
+    done = {}
+
+    def wait(part):
+        if part not in done:
+            log, _ = procs[part].communicate(timeout=600)
+            assert procs[part].returncode == 0, log[-4000:]
+            done[part] = json.loads((tmp / f"{part}.json").read_text())
+        return done[part]
+
+    try:
+        yield wait
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+
+
+def _port(world, dims_of):
+    """{key: measure()} of every case and kind on a fake world of
+    ``world``, each case on the mesh ``dims_of(case dims)``."""
+    out = {}
+    with fake_world(world):
+        for name, (arch, dims) in CASES.items():
+            cfg = get_config(arch, smoke=True)
+            mesh = make_mesh(dims_of(dims), ("data", "model"))
+            rules = S.ACT_RULES if name == "moe" else None
+            for kind, shape in KINDS.items():
+                out[f"{name}.{kind}"] = dryrun.measure(cfg, shape, mesh,
+                                                       rules)
+    return out
+
+
+@pytest.fixture(scope="module")
+def port_mesh():
+    return _port(8, lambda dims: dims)
+
+
+@pytest.fixture(scope="module")
+def port_single():
+    return _port(1, lambda dims: (1, 1))
+
+
+# ---------------------------------------------------------------------------
+# (c) collectives: fake world against gloo ranks
+# ---------------------------------------------------------------------------
+
+def test_fake_world_collectives_equal_gloo_ranks(tmp_path):
+    ranks = run_ranks(R.collectives, 8, R.MESH, "gloo", str(tmp_path))
+    gloo = ranks[0]
+    fake = {}
+    with fake_world(8):
+        mesh = make_mesh(R.MESH, ("data", "model"))
+        for kind, shape in R.SHAPES.items():
+            coll = dryrun.measure(R.cfg(), shape, mesh)["collectives"]
+            for k, n in coll["counts"].items():
+                if n:
+                    fake[f"{kind}.{k}.count"] = n
+                    fake[f"{kind}.{k}.bytes"] = coll["bytes_by_kind"][k]
+    got = {k: int(v) for k, v in gloo.items()}
+    assert got == fake
+    # both steps communicate: the train step gathers and reduce-scatters,
+    # the decode step gathers parameters and combines split-KV partials
+    assert {"train.all-gather.count", "train.reduce-scatter.count",
+            "decode.all-gather.count",
+            "decode.all-reduce.count"} <= set(fake)
+    # every rank issues the same collectives
+    assert all(r == gloo for r in ranks[1:])
+
+
+# ---------------------------------------------------------------------------
+# (d) a full-width cell against its reckoning
+# ---------------------------------------------------------------------------
+
+def _held(tree, shardings, mesh) -> int:
+    """The bytes of ``tree``'s blocks under ``shardings`` on ``mesh``."""
+    sizes = []
+
+    def one(t, sh):
+        if isinstance(t, torch.Tensor):
+            spec = () if sh is None else getattr(sh, "spec", sh)
+            sizes.append(math.prod(S.local_shape(t.shape, spec, mesh))
+                         * t.element_size())
+
+    tree_map(one, tree, shardings)
+    return sum(sizes)
+
+
+def test_gemma2_decode_32k_at_256_ranks_matches_its_reckoning():
+    cfg, shape = get_config("gemma2-2b"), SHAPES["decode_32k"]
+    with fake_world(256):
+        mesh = make_production_mesh()
+        got = dryrun.measure(cfg, shape, mesh)
+        with S.use_mesh(mesh, S.act_rules_for(cfg, mesh)):
+            model = Model(cfg, "cpu")
+            params = _held(model.shapes(), model.specs(mesh), mesh)
+            caches = cache_specs(cfg, shape.global_batch, shape.seq_len)
+            cache = _held(caches, cache_shardings(caches, mesh), mesh)
+        rows = batch_ranks(shape, mesh)
+    tok = shape.global_batch // rows * 4            # (rows, 1) int32
+    assert (params, cache) == (118_511_424, 1_745_043_456)
+    assert got["memory"]["argument_size_in_bytes"] == params + cache + tok
+    assert got["n_devices"] == 256 and got["replicated_compute"] == 16
+    assert got["flops"] > 0 and got["collectives"]["total_bytes"] > 0
+
+
+# ---------------------------------------------------------------------------
+# (e) statuses
+# ---------------------------------------------------------------------------
+
+def _split_text(arch, shape_name, multi_pod) -> str:
+    dims, axes = (((2, 16, 16), ("pod", "data", "model")) if multi_pod
+                  else ((16, 16), ("data", "model")))
+    stand_in = types.SimpleNamespace(shape=dict(zip(axes, dims)))
+    with pytest.raises(SplitBatchError) as e:
+        check_split_batch(get_config(arch),
+                          batch_ranks(SHAPES[shape_name], stand_in))
+    return str(e.value)
+
+
+@pytest.mark.parametrize("arch, shape_name, multi_pod, status", [
+    ("deepseek-moe-16b", "train_4k", False, "refused"),
+    ("deepseek-v2-236b", "decode_32k", True, "refused"),
+    ("deepseek-moe-16b", "prefill_32k", True, "refused"),
+    ("gemma2-2b", "long_500k", False, "skipped"),
+    ("qwen3-32b", "long_500k", True, "skipped"),
+    ("mamba2-780m", "long_500k", False, "ok"),
+])
+def test_cell_status(tmp_path, arch, shape_name, multi_pod, status):
+    r = dryrun.run_cell(arch, shape_name, multi_pod, out_dir=tmp_path)
+    assert r["status"] == status, r.get("error", r.get("reason"))
+    if status == "refused":
+        assert r["reason"] == _split_text(arch, shape_name, multi_pod)
+    if status == "skipped":
+        assert arch not in dryrun.LONG_OK
+    if status == "ok":
+        assert r["n_devices"] == (512 if multi_pod else 256)
+    # the cell's JSON is written and read back as it was returned
+    again = dryrun.run_cell(arch, shape_name, multi_pod, out_dir=tmp_path)
+    assert again == json.loads(json.dumps(r))
+
+
+def test_production_mesh_needs_its_world():
+    with fake_world(8):
+        with pytest.raises(ValueError, match="256 ranks"):
+            make_production_mesh()
+    with fake_world(512):
+        mesh = make_production_mesh(multi_pod=True)
+        assert S.mesh_shape(mesh) == {"pod": 2, "data": 16, "model": 16}
+    with pytest.raises(RuntimeError, match="no"):
+        make_production_mesh()
+
+
+# ---------------------------------------------------------------------------
+# (a), (b) against the reference's compiled steps
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("key", KEYS)
+def test_argument_bytes_equal_memory_analysis(reference, port_mesh, key):
+    ref = reference("mesh")[key]
+    got = port_mesh[key]["memory"]["argument_size_in_bytes"]
+    assert ref["args"] - got == ref["host_ints"]
+    if key.endswith(".train"):
+        assert ref["host_ints"] == 0
+
+
+@pytest.mark.parametrize("key", KEYS)
+def test_flops_at_one_device_match_hlo_cost(reference, port_single, key):
+    ref = reference("single")[key]["flops"]
+    got = port_single[key]["flops"]
+    if key in FLOPS_GAPS:
+        assert got - ref == FLOPS_GAPS[key], (got, ref, got / ref)
+        assert abs(got / ref - 1) > parity.DRYRUN_FLOPS_RTOL
+    else:
+        assert abs(got / ref - 1) <= parity.DRYRUN_FLOPS_RTOL, (
+            got, ref, got / ref)

@@ -78,7 +78,8 @@ def test_import_leaves_jax_out_of_sys_modules():
             "repro_torch.optim.adamw, repro_torch.train.train_step, "
             "repro_torch.train.trainer, repro_torch.data.tokens, "
             "repro_torch.ckpt.checkpoint, repro_torch.launch.train, "
-            "repro_torch.tree; "
+            "repro_torch.launch.mesh, repro_torch.launch.op_cost, "
+            "repro_torch.launch.dryrun, repro_torch.tree; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); sys.exit(bool(bad))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
