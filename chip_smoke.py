@@ -294,7 +294,24 @@ Phases (any failure exits non-zero before the result line):
                 one stage == the sequential loop bit for bit, and the
                 unsharded Trainer's checkpoint restored onto the (1, 1)
                 mesh bit for bit. No kernel launches; the phase's wall time
- 17. serve mesh : serving under a mesh (ROADMAP item 17(e)) on one NCCL
+ 17. moe train : whole-batch MoE routing and a loss mask under the
+                sharded step (ROADMAP item 21) on one NCCL + gloo group of
+                one rank. deepseek-moe-16b at full width cut in depth to
+                MOE_TRAIN_LAYERS layers (the dense layer 0 and two MoE
+                layers), capacity factor 1.25, train_4k's 4 096 positions
+                at batch MOE_TRAIN_BATCH in MOE_TRAIN_MICRO microbatches,
+                each batch with a loss mask whose rows keep between a
+                fifth and all of their tokens: MOE_TRAIN_STEPS steps of
+                the plain make_train_step, then of build_train's step on
+                a (1, 1) mesh (its batches placed by shard_batch for its
+                microbatches), each from prng.key(0). Checks: every loss
+                finite; the sharded step's losses, dropped pairs and every
+                parameter == the plain step's bit for bit. Prints each
+                run's losses, step ms (host clock), the pairs dropped in
+                each microbatch and the peak memory, beside the card's
+                name and power limit; the phase's wall time. No kernel
+                launches
+ 18. serve mesh : serving under a mesh (ROADMAP item 17(e)) on one NCCL
                 + gloo group of one rank, a (1, 1) mesh. Traffic (C):
                 gemma2-2b at full width (float32 parameters drawn on the
                 card from prng.key(0), bfloat16 activations), 4 slots,
@@ -318,12 +335,13 @@ Phases (any failure exits non-zero before the result line):
                 earlier phases hold and the cache bytes each rank holds,
                 beside the card's name and power limit; the phase's wall
                 time. No kernel launches
- 18. dry run : the dry run (launch.dryrun, launch.op_cost; ROADMAP item
+ 19. dry run : the dry run (launch.dryrun, launch.op_cost; ROADMAP item
                 17(f)) on one NCCL + gloo group of one rank, a (1, 1)
                 mesh. For two steps, the train phase's gemma2-2b step
                 (batch TRAIN_BATCH of train_4k's 4 096 positions in
                 TRAIN_MICRO microbatches, AdamW) and traffic (C)'s decode
-                step (4 slots of 32 768-slot caches, at position 4 608):
+                step (4 slots of 32 768-slot caches, at position 4 608),
+                then the moe train phase's step on its first batch:
                 op_cost predicts the step on meta tensors, then the step
                 runs on the card from prng.key(0) with only its arguments
                 resident. Checks: FlopCounterMode's count on the card ==
@@ -335,12 +353,12 @@ Phases (any failure exits non-zero before the result line):
                 512 ranks, in a subprocess that sees no card
                 (CUDA_VISIBLE_DEVICES empty): each ok, its per-rank
                 numbers printed. No kernel launches; the phase's wall time
- 19. summary  : one JSON line {"kernels": [...]} (with each kernel's
+ 20. summary  : one JSON line {"kernels": [...]} (with each kernel's
                 launches over the clean streams, stream_launches, while
                 tuning, tune_launches, over the pool events and stream,
                 pool_launches, and over the distributed recon runs,
                 dist_launches)
- 20. result   : last line {"ok": true, "device": {...}}
+ 21. result   : last line {"ok": true, "device": {...}}
 
 The on-card checks live here rather than in pytest because the machine with
 the card has no JAX, which the repository's test configuration imports.
@@ -350,7 +368,9 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import gc
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -525,11 +545,16 @@ def cuda_time(fn, iters: int, warmup: int = 1) -> float:
 SPIN_CYCLES_PER_MS = 2_000_000
 
 
-def primed_time(fn, iters: int = 20):
+def primed_time(fn, iters: int = 20, attempts: int = 3):
     """(ms per call on the card, ms per call on the host): ``iters`` calls
     enqueued while the card still spins on a kernel that outlasts their
     enqueueing, so CUDA events around them read the card's time alone, not
-    the host's pace. Raises if the host took longer than the spin."""
+    the host's pace. The host's pace varies on a shared machine (a pause of
+    a few ms between two calls is common), so the garbage collector is off
+    while the calls are enqueued, and an attempt whose enqueueing outlasted
+    its spin is discarded and made again with a spin three times the
+    longest enqueueing seen. Raises if every attempt's host took longer than
+    its spin."""
     import torch
 
     torch.cuda.synchronize()
@@ -538,21 +563,36 @@ def primed_time(fn, iters: int = 20):
         fn()
     host_ms = (time.perf_counter() - t0) * 1e3
     torch.cuda.synchronize()
-    spun, start, end = (torch.cuda.Event(enable_timing=True)
-                        for _ in range(3))
-    spun.record()
-    torch.cuda._sleep(int((3.0 * host_ms + 2.0) * SPIN_CYCLES_PER_MS))
-    start.record()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        fn()
-    enqueue_ms = (time.perf_counter() - t0) * 1e3
-    end.record()
-    end.synchronize()
-    spin_ms = spun.elapsed_time(start)
-    check(enqueue_ms < spin_ms, f"primed timing: the host took {enqueue_ms:.3f}"
-          f" ms to enqueue, longer than the {spin_ms:.3f} ms spin")
-    return start.elapsed_time(end) / iters, enqueue_ms / iters
+    gc_was_on = gc.isenabled()
+    try:
+        for _ in range(attempts):
+            spun, start, end = (torch.cuda.Event(enable_timing=True)
+                                for _ in range(3))
+            spun.record()
+            torch.cuda._sleep(int((3.0 * host_ms + 2.0) * SPIN_CYCLES_PER_MS))
+            start.record()
+            gc.disable()
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                fn()
+            enqueue_ms = (time.perf_counter() - t0) * 1e3
+            if gc_was_on:
+                gc.enable()
+            end.record()
+            end.synchronize()
+            spin_ms = spun.elapsed_time(start)
+            if enqueue_ms < spin_ms:
+                return start.elapsed_time(end) / iters, enqueue_ms / iters
+            print(f"primed timing: the host took {enqueue_ms:.3f} ms to "
+                  f"enqueue, longer than the {spin_ms:.3f} ms spin; "
+                  f"measuring again with a longer spin", flush=True)
+            host_ms = max(host_ms, enqueue_ms)
+    finally:
+        if gc_was_on:
+            gc.enable()
+    check(False, f"primed timing: in each of {attempts} attempts the host "
+          f"took longer to enqueue than the spin (last {enqueue_ms:.3f} ms "
+          f"against {spin_ms:.3f} ms)")
 
 
 def wrapper_ms(fn):
@@ -4473,6 +4513,184 @@ def check_parallel(dev, card: str) -> None:
           f"{card}", flush=True)
 
 
+#: the "moe train" phase: deepseek-moe-16b at full width, cut in depth to
+#: its dense layer 0 and two MoE layers (3 of 28), train_4k's sequence
+MOE_TRAIN_ARCH = "deepseek-moe-16b"
+MOE_TRAIN_LAYERS = 3
+MOE_TRAIN_BATCH = 4
+MOE_TRAIN_MICRO = 2
+MOE_TRAIN_STEPS = 3
+
+
+def moe_train_cfg():
+    """The phase's config: ``MOE_TRAIN_ARCH`` at ``MOE_TRAIN_LAYERS``
+    layers, capacity factor 1.25 (the config's)."""
+    from repro_torch.config import get_config
+
+    return dataclasses.replace(get_config(MOE_TRAIN_ARCH),
+                               num_layers=MOE_TRAIN_LAYERS)
+
+
+def moe_train_shape():
+    from repro_torch.config import SHAPES, ShapeConfig
+
+    return ShapeConfig("train_4k cut to a batch of 4", "train",
+                       SHAPES["train_4k"].seq_len, MOE_TRAIN_BATCH)
+
+
+def masked_batches(cfg, shape, steps: int):
+    """``steps`` numpy batches (``data.tokens.make_batch``, seed 0), each
+    with a loss mask whose rows keep between a fifth and all of their
+    tokens (numpy seed 0), so the microbatches' mask sums differ."""
+    import numpy as np
+
+    from repro_torch.data.tokens import make_batch
+
+    rng = np.random.default_rng(0)
+    b, s = shape.global_batch, shape.seq_len - 1
+    out = []
+    for i in range(steps):
+        batch = make_batch(cfg, shape, 0, i)
+        keep = rng.permutation(np.linspace(0.2, 1.0, b))
+        batch["loss_mask"] = (rng.random((b, s)) < keep[:, None]).astype(
+            np.float32)
+        out.append(batch)
+    return out
+
+
+def moe_train_run(label, make, dev, card):
+    """``MOE_TRAIN_STEPS`` steps of the step ``make()`` builds -> (step,
+    params, state, place): losses, host copies of the parameters after
+    them, step ms (host clock, ending in the loss read), the (token,
+    expert) pairs dropped in each microbatch and the peak memory."""
+    import torch
+
+    from repro_torch.models import moe
+    from repro_torch.tree import tree_leaves
+
+    cfg, shape = moe_train_cfg(), moe_train_shape()
+    batches = masked_batches(cfg, shape, MOE_TRAIN_STEPS)
+    torch.cuda.reset_peak_memory_stats(dev)
+    step, params, state, place = make()
+    losses, rows = [], []
+    with moe.routing_log() as log:
+        for batch in batches:
+            batch = place(batch)
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            params, state, metrics = step(params, state, batch)
+            losses.append(float(metrics["loss"]))   # the step's host read
+            rows.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated(dev)
+    # remat "selective" checkpoints the FFN segment: a microbatch records
+    # its MoE layers' forward calls, then their recomputations in reverse
+    drops = [int(moe.dropped_pairs(e)) for e in log]
+    layers = MOE_TRAIN_LAYERS - cfg.moe.first_moe_layer
+    groups = [drops[i:i + 2 * layers] for i in range(0, len(drops),
+                                                       2 * layers)]
+    check(len(groups) == MOE_TRAIN_STEPS * MOE_TRAIN_MICRO
+          and all(g[:layers] == g[layers:][::-1] for g in groups),
+          f"moe train {label}: routing log {drops} is not each "
+          "microbatch's forward calls and their recomputations")
+    per_micro = [sum(g[:layers]) for g in groups]
+    pairs = (shape.global_batch // MOE_TRAIN_MICRO * shape.seq_len
+             * cfg.moe.top_k * layers)
+    host = [p.detach().to("cpu", copy=True) for p in tree_leaves(params)]
+    print(f"moe train {label}: losses {losses}, step ms (host clock, ending "
+          f"in the loss read) {[round(r, 1) for r in rows]}, dropped pairs "
+          f"a microbatch (of {pairs} in its {layers} MoE layers) "
+          f"{per_micro}, peak {peak / 2**30:.2f} GiB; {card}", flush=True)
+    del params, state, metrics, step
+    return losses, host, rows, per_micro
+
+
+def check_moe_train(dev, card: str) -> None:
+    """The "moe train" phase (docstring): one NCCL + gloo group of one
+    rank (a FileStore in a temporary directory, destroyed at the end)."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.config import OptimizerConfig, ParallelConfig
+    from repro_torch.core import prng
+    from repro_torch.data.tokens import shard_batch, to_device
+    from repro_torch.launch.specs import build_train
+    from repro_torch.models.model import Model
+    from repro_torch.optim.adamw import init_opt_state
+    from repro_torch.parallel import fsdp, sharding
+    from repro_torch.train.train_step import make_train_step
+    from repro_torch.tree import tree_leaves
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg, shape = moe_train_cfg(), moe_train_shape()
+    opt = OptimizerConfig(lr=TRAIN_LR, warmup_steps=2,
+                          total_steps=MOE_TRAIN_STEPS)
+    par = ParallelConfig(microbatches=MOE_TRAIN_MICRO)
+    n_params = sum(p.numel() for p in
+                   tree_leaves(Model(cfg, "cpu").shapes()))
+    print(f"moe train: {cfg.name} at full width, {MOE_TRAIN_LAYERS} of 28 "
+          f"layers, {n_params} parameters ({20 * n_params / 1e9:.1f} GB at "
+          f"20 B a parameter: float32 parameters, gradient sums, both AdamW "
+          f"moments and a step's gradients), {shape.name} in "
+          f"{MOE_TRAIN_MICRO} microbatches, capacity factor "
+          f"{cfg.moe.capacity_factor}, a loss mask", flush=True)
+
+    def plain():
+        model = Model(cfg, dev)
+        params = model.init(prng.key(0), trainable=True)
+        return (make_train_step(model, opt, par), params,
+                init_opt_state(params), lambda b: to_device(b, dev))
+
+    def settle():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_moe_") as tmp:
+        torch.cuda.set_device(dev)
+        dist.init_process_group("cuda:nccl,cpu:gloo",
+                                init_method=f"file://{tmp}/store",
+                                rank=0, world_size=1)
+        try:
+            mesh = DeviceMesh("cuda", torch.tensor([[0]]),
+                              mesh_dim_names=("data", "model"))
+
+            def sharded():
+                step, _, (psh, osh, _), _ = build_train(cfg, shape, mesh,
+                                                        opt, par)
+                full = Model(cfg, dev).init(prng.key(0), trainable=True)
+                params = fsdp.place(full, psh)
+                state = fsdp.place(init_opt_state(full), osh)
+                del full
+                return step, params, state, lambda b: shard_batch(
+                    b, mesh, dev, MOE_TRAIN_MICRO)
+
+            base_l, base_p, base_ms, base_d = moe_train_run(
+                "plain make_train_step", plain, dev, card)
+            settle()
+            check(all(math.isfinite(x) for x in base_l),
+                  f"moe train: plain losses {base_l}")
+            with sharding.use_mesh(mesh, sharding.act_rules_for(cfg, mesh)):
+                losses, params, ms, drops = moe_train_run(
+                    "build_train (1, 1)", sharded, dev, card)
+            settle()
+        finally:
+            dist.destroy_process_group()
+    same = all(torch.equal(a, b) for a, b in zip(params, base_p))
+    check(losses == base_l and drops == base_d and same,
+          f"moe train: the (1, 1) step's losses {losses} and drops {drops} "
+          f"against the plain step's {base_l} and {base_d}; parameters "
+          f"equal: {same}")
+    print(f"moe train: build_train on (1, 1) == the plain step bit for bit "
+          f"over {MOE_TRAIN_STEPS} steps (losses, drops, every parameter); "
+          f"step 3 {ms[-1]:.1f} ms against the plain step's "
+          f"{base_ms[-1]:.1f} ms; phase wall "
+          f"{time.perf_counter() - t_phase:.1f} s; {card}", flush=True)
+
+
 #: the "serve mesh" phase's traffic (C): gemma2-2b at full width
 MESH_ARCH = "gemma2-2b"
 MESH_TRAFFIC = dict(slots=4, prompt=4608, new_tokens=16, max_len=32768)
@@ -4869,6 +5087,50 @@ def dry_cells() -> None:
           flush=True)
 
 
+def dry_moe_step(mesh, dev, card) -> None:
+    """The "moe train" phase's step (its first batch, with its loss mask)
+    through ``dry_step`` on ``mesh``."""
+    import torch
+
+    from repro_torch.config import OptimizerConfig, ParallelConfig
+    from repro_torch.core import prng
+    from repro_torch.data.tokens import shard_batch
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.specs import build_train
+    from repro_torch.models.model import Model
+    from repro_torch.optim.adamw import init_opt_state
+    from repro_torch.parallel import fsdp, sharding
+
+    cfg, shape = moe_train_cfg(), moe_train_shape()
+    opt = OptimizerConfig(lr=TRAIN_LR, warmup_steps=2,
+                          total_steps=MOE_TRAIN_STEPS)
+    batch = masked_batches(cfg, shape, 1)[0]
+
+    def build():
+        fn, meta, shs, _ = build_train(
+            cfg, shape, mesh, opt,
+            ParallelConfig(microbatches=MOE_TRAIN_MICRO))
+        return fn, meta, shs
+
+    def meta_args(meta, shs):
+        params, state, tokens = dryrun.step_args("train", meta, shs)
+        mask = torch.empty(batch["loss_mask"].shape, dtype=torch.float32,
+                           device="meta")
+        tokens["loss_mask"] = fsdp.mark(mask, fsdp.spec_of(tokens["tokens"]))
+        return params, state, tokens
+
+    def real_args(meta, shs):
+        full = Model(cfg, dev).init(prng.key(0), trainable=True)
+        return (fsdp.place(full, shs[0]),
+                fsdp.place(init_opt_state(full), shs[1]),
+                shard_batch(batch, mesh, dev, MOE_TRAIN_MICRO))
+
+    with sharding.use_mesh(mesh, sharding.act_rules_for(cfg, mesh)):
+        dry_step(f"{cfg.name} {MOE_TRAIN_LAYERS}-layer train step "
+                 f"({shape.name}, {MOE_TRAIN_MICRO} microbatches, a loss "
+                 f"mask)", build, meta_args, real_args, dev, card)
+
+
 def check_dryrun(dev, card: str) -> None:
     """The "dry run" phase (docstring): one NCCL + gloo group of one rank
     (a FileStore in a temporary directory, destroyed at the end)."""
@@ -4957,6 +5219,12 @@ def check_dryrun(dev, card: str) -> None:
                 torch.cuda.empty_cache()
                 print(f"dry run decode step: wall "
                       f"{time.perf_counter() - t0:.1f} s", flush=True)
+            t0 = time.perf_counter()
+            dry_moe_step(mesh, dev, card)
+            gc.collect()
+            torch.cuda.empty_cache()
+            print(f"dry run moe train step: wall "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
         finally:
             dist.destroy_process_group()
     dry_cells()
@@ -5471,6 +5739,9 @@ def main() -> int:
 
     phase("parallel")
     check_parallel(dev, card)
+
+    phase("moe train")
+    check_moe_train(dev, card)
 
     phase("serve mesh")
     check_serve_mesh(dev, card)

@@ -9,7 +9,8 @@ moves a batch to the device (pinned and asynchronous on the card, so the
 host does not wait for the copy). With a mesh, ``shard_batch`` gives
 each rank its share of the rows by ``ACT_RULES["batch"]`` (the
 reference's batch sharding), marked with that spec for the sharded train
-step.
+step, and placed so that each of the step's microbatches on a rank is its
+share of the reference's microbatch.
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ import torch
 from repro_torch.config import ModelConfig, ShapeConfig
 from repro_torch.core.distributed import mesh_device
 from repro_torch.device import resolve_device
+from repro_torch.parallel import sharding as S
 from repro_torch.parallel.fsdp import mark
 from repro_torch.parallel.sharding import ACT_RULES, named_sharding
 
@@ -87,29 +89,70 @@ BATCH_NAMES = {
 }
 
 
-def shard_batch(batch: Dict[str, np.ndarray], mesh=None, device="cuda"):
+#: attribute under which a placed batch entry carries the microbatch count
+#: its rows are placed for
+_MICRO_ATTR = "_repro_microbatches"
+
+
+def placed_microbatches(t) -> int:
+    """The microbatch count ``shard_batch`` placed ``t``'s rows for (1
+    where it was not placed)."""
+    return getattr(t, _MICRO_ATTR, 1)
+
+
+def _microbatch_order(v: np.ndarray, microbatches: int, blocks: int):
+    """The rows of ``v`` (B, ...) reordered so that block r of ``blocks``
+    holds, microbatch after microbatch, its block of each microbatch's
+    rows: the global rows (n, R, B / (n R)) as (R, n, B / (n R))."""
+    if microbatches == 1 or blocks == 1:
+        return v
+    b = v.shape[0]
+    if b % (microbatches * blocks):
+        raise ValueError(f"batch {b} not divisible by {microbatches} "
+                         f"microbatches of {blocks} row blocks")
+    return v.reshape(microbatches, blocks, b // (microbatches * blocks),
+                     *v.shape[1:]).swapaxes(0, 1).reshape(v.shape)
+
+
+def shard_batch(batch: Dict[str, np.ndarray], mesh=None, device="cuda",
+                microbatches: int = 1):
     """The batch on ``device``; with a mesh, this rank's rows of it on the
-    mesh's device, each entry marked with its spec."""
+    mesh's device, each entry marked with its spec.
+
+    The reference's microbatch i is the global rows [i B / n, (i + 1) B /
+    n) of its ``n`` microbatches. With ``microbatches`` n, the rank whose
+    rows are block r of R holds, for each i in order, block r of
+    microbatch i's rows, so that the step's microbatch i on that rank is
+    its share of the reference's (its rows are then not block r of the
+    batch, whatever the spec says; a train step reads them only by its
+    microbatches, and ``train_step`` checks the count they were placed
+    for). With one microbatch, or one block, the rows are the spec's
+    block."""
     if mesh is None:
         return to_device(batch, device)
     out = {}
     for k, v in batch.items():
         sh = named_sharding(v.shape, BATCH_NAMES[k], ACT_RULES, mesh)
+        blocks = S.block_index(sh.spec[0], mesh, S.mesh_shape(mesh))[0]
+        v = _microbatch_order(np.ascontiguousarray(v), microbatches, blocks)
         rows = sh.shard(torch.from_numpy(np.ascontiguousarray(v))).numpy()
-        out[k] = mark(to_device({k: rows}, mesh_device(mesh))[k], sh.spec)
+        t = mark(to_device({k: rows}, mesh_device(mesh))[k], sh.spec)
+        setattr(t, _MICRO_ATTR, microbatches)
+        out[k] = t
     return out
 
 
 class DataPipeline:
     """Prefetching, seekable pipeline. `state()` -> step for checkpointing.
-    With a mesh each batch comes as this rank's share (``shard_batch``)."""
+    With a mesh each batch comes as this rank's share, placed for the
+    step's ``microbatches`` (``shard_batch``)."""
 
     def __init__(self, cfg: ModelConfig, shape: ShapeConfig, seed: int = 0,
                  start_step: int = 0, prefetch: int = 2, device="cuda",
-                 mesh=None):
+                 mesh=None, microbatches: int = 1):
         self.cfg, self.shape, self.seed = cfg, shape, seed
         self.step = start_step
-        self.mesh = mesh
+        self.mesh, self.microbatches = mesh, microbatches
         self.device = resolve_device(device)
         self._q: queue.Queue = queue.Queue(maxsize=prefetch)
         self._stop = threading.Event()
@@ -132,7 +175,8 @@ class DataPipeline:
             if step < self.step:
                 continue  # discard stale prefetches after a seek
             self.step = step + 1
-            return shard_batch(batch, self.mesh, self.device)
+            return shard_batch(batch, self.mesh, self.device,
+                               self.microbatches)
 
     def __iter__(self) -> Iterator:
         return self

@@ -20,7 +20,9 @@ shape, a cell:
     ``trace_s`` (the step's wall time here) in place of ``lower_s`` /
     ``compile_s``, and ``replicated_compute``: the ranks over the distinct
     blocks of the batch the step computes (``launch.specs.batch_ranks``),
-    so the ranks that compute the same products.
+    so the ranks that compute the same products; an MoE arch's cell adds
+    ``expert_slots``, a rank's expert-FFN slots a layer against the
+    reference's share of them (``expert_slots``).
 
 The dry run allocates nothing on any device: every tensor is ``meta``, so
 it runs the same on a laptop and on the card's machine, as the reference's
@@ -28,9 +30,11 @@ compiles need no TPU. It is the one entry point of the port that touches no
 device, by design.
 
 A cell ends ``ok``; ``skipped`` (``long_500k`` for an arch outside
-``LONG_OK``, as in the reference); ``refused`` (a builder's
-``SplitBatchError``: MoE or a loss mask on a split batch, with its text);
-or ``error`` (any other exception, with its traceback). ``main`` exits 1 on
+``LONG_OK``, as in the reference); or ``error`` (an exception, with its
+traceback). Every arch builds on every mesh: an MoE FFN on a split batch
+routes over the whole batch (``models.moe``), so its cells count the
+all-gather of the experts' counts and each rank's expert FFN on its own
+rows. ``main`` exits 1 on
 any ``error``. Results are cached in ``--out`` (``dryrun_torch_out/`` at the
 repository root unless given) and reused unless ``--force``.
 
@@ -58,10 +62,11 @@ from repro_torch.launch.mesh import (MULTI_POD, SINGLE_POD, fake_world,
                                      make_production_mesh)
 from repro_torch.launch.specs import (batch_ranks, build_decode,
                                       build_prefill, build_train)
+from repro_torch.models.moe import _capacity
 from repro_torch.parallel import fsdp
-from repro_torch.parallel.sharding import (act_rules_for, local_shape,
-                                           mesh_shape, use_mesh)
-from repro_torch.train.train_step import SplitBatchError
+from repro_torch.parallel.sharding import (ACT_RULES, act_rules_for,
+                                           build_spec, local_shape,
+                                           mesh_shape, spec_axes, use_mesh)
 from repro_torch.tree import tree_map
 
 RESULTS_DIR = Path(__file__).resolve().parents[3] / "dryrun_torch_out"
@@ -109,7 +114,8 @@ def measure(cfg, shape, mesh, rules=None) -> Dict[str, Any]:
     """The cost of rank 0's step of ``cfg`` at ``shape`` on ``mesh`` (built
     and run under ``use_mesh`` with ``rules``, the arch's own unless
     given): ``op_cost.analyze``'s fields, ``n_devices``,
-    ``replicated_compute`` and ``trace_s``."""
+    ``replicated_compute``, ``trace_s`` and, for an MoE arch,
+    ``expert_slots``."""
     rules = rules or act_rules_for(cfg, mesh)
     t0 = time.perf_counter()
     with use_mesh(mesh, rules):
@@ -119,8 +125,32 @@ def measure(cfg, shape, mesh, rules=None) -> Dict[str, Any]:
     n = math.prod(mesh_shape(mesh).values())
     computed = batch_ranks(shape, mesh, rules if shape.kind == "train"
                            else None)
-    return dict(cost, n_devices=n, replicated_compute=n // computed,
-                trace_s=round(time.perf_counter() - t0, 3))
+    out = dict(cost, n_devices=n, replicated_compute=n // computed,
+               trace_s=round(time.perf_counter() - t0, 3))
+    if cfg.moe is not None:
+        out["expert_slots"] = expert_slots(cfg, shape, mesh, computed)
+    return out
+
+
+def expert_slots(cfg, shape, mesh, split: int) -> Dict[str, Any]:
+    """The expert-FFN slots (one token through one expert's three
+    products) a rank computes in one MoE layer of ``cfg``'s step at
+    ``shape``, its batch split over ``split`` ranks: the port's, every
+    expert at min(capacity, the rank's tokens) on a split batch
+    (``models.moe``) and at the capacity on a whole one; the reference's
+    share, E x capacity over the ranks that split its experts
+    (``ACT_RULES["experts"]``); and the port's over the reference's."""
+    m = cfg.moe
+    e = m.num_experts
+    tokens = shape.global_batch * (1 if shape.kind == "decode"
+                                   else shape.seq_len)
+    cap = _capacity(tokens, e, m.top_k, m.capacity_factor)
+    port = e * (min(cap, tokens // split) if split > 1 else cap)
+    sizes = mesh_shape(mesh)
+    entry = build_spec((e,), ("experts",), mesh, ACT_RULES)[0]
+    reference = e * cap / math.prod(sizes[a] for a in spec_axes(entry))
+    return {"capacity": cap, "port": port, "reference": reference,
+            "ratio": round(port / reference, 4)}
 
 
 def run_cell(arch_id: str, shape_name: str, multi_pod: bool,
@@ -151,9 +181,6 @@ def run_cell(arch_id: str, shape_name: str, multi_pod: bool,
             mesh = make_production_mesh(multi_pod=multi_pod)
             result.update(measure(cfg, shape, mesh))
         result["status"] = "ok"
-    except SplitBatchError as e:
-        result["status"] = "refused"
-        result["reason"] = str(e)
     except Exception as e:  # noqa: BLE001 — a failed cell is a bug report
         result["status"] = "error"
         result["error"] = f"{type(e).__name__}: {e}"
@@ -179,10 +206,10 @@ def summary(r: Dict[str, Any]) -> str:
                  f"temp={m['temp_size_in_bytes'] / 2**30:.2f}GiB "
                  f"peak={held / 2**30:.2f}GiB "
                  f"x{r['replicated_compute']} [{r['trace_s']:.1f}s]")
+        if "expert_slots" in r:
+            extra += f" experts x{r['expert_slots']['ratio']:g}"
     elif status == "error":
         extra = r["error"][:120]
-    elif status == "refused":
-        extra = r["reason"][:120]
     return f"{r['cell']:<55} {status:<8} {extra}"
 
 

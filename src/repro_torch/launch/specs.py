@@ -32,7 +32,7 @@ from repro_torch.parallel.sharding import (ACT_RULES, PARAM_RULES,
                                            NamedSharding, build_spec,
                                            current_act_rules, mesh_shape,
                                            rules_without_fsdp, spec_axes)
-from repro_torch.train.train_step import check_split_batch, make_train_step
+from repro_torch.train.train_step import make_train_step
 from repro_torch.tree import tree_map
 
 
@@ -163,14 +163,12 @@ def build_train(arch_cfg: ModelConfig, shape: ShapeConfig, mesh,
     sums the gradients over the batch's ranks, updates its blocks and
     all-gathers the parameters' blocks back.
 
-    Raises a ``SplitBatchError`` where the split of the batch (by the
-    current activation rules, as ``batch_shardings`` places it) would
-    change the step's values (``train_step.check_split_batch``).
+    An MoE FFN and a loss mask keep the reference's whole-batch values
+    however the batch splits (``train_step``); the step's batch is placed
+    by ``data.tokens.shard_batch`` with its microbatches.
     """
     batch = input_specs(arch_cfg, shape)
     batch_sh = batch_shardings(batch, mesh)
-    check_split_batch(arch_cfg, batch_ranks(shape, mesh,
-                                            current_act_rules()))
     model = Model(arch_cfg, mesh_device(mesh))
     opt_cfg = opt_cfg or OptimizerConfig()
 
@@ -205,13 +203,9 @@ def _serve_setup(arch_cfg: ModelConfig, b: int, max_len: int, mesh):
     """(model, parameter shapes and shardings, cache specs and shardings,
     the caches' rows: the batch entry of every cache leaf's spec, the rows
     each rank's caches hold and its steps compute) of a serving step.
-    Raises a ``ValueError`` where those rows are not the whole batch and
-    the config has an MoE FFN (``train_step.check_split_batch``: a
-    prefill's capacity and drops are taken over the whole batch in the
-    reference)."""
+    Where those rows split the batch, an MoE FFN routes over every rank's
+    rows, as the reference routes the whole batch (``kvcache.serving``)."""
     rows = build_spec((b,), ("batch",), mesh, DECODE_RULES)[0]
-    sizes = mesh_shape(mesh)
-    check_split_batch(arch_cfg, math.prod(sizes[a] for a in spec_axes(rows)))
     model = Model(arch_cfg, _model_device(mesh))
     params = model.shapes()
     param_sh = tree_map(lambda s: NamedSharding(mesh, s), model.specs(mesh))
@@ -255,7 +249,7 @@ def build_decode(arch_cfg: ModelConfig, shape: ShapeConfig, mesh):
     rules = current_act_rules()
 
     def serve_step(params, tok, caches, index, enc_out=None):
-        with kvcache.serving(mesh, rules):
+        with kvcache.serving(mesh, rules, rows):
             extras = None if enc_out is None else {"enc_out": tuple(
                 kvcache.to_rows(t, rows) for t in enc_out)}
             logits, caches = model.decode_step(
@@ -294,7 +288,7 @@ def build_prefill(arch_cfg: ModelConfig, shape: ShapeConfig, mesh):
     rules = current_act_rules()
 
     def prefill_step(params, batch, caches):
-        with kvcache.serving(mesh, rules):
+        with kvcache.serving(mesh, rules, rows):
             logits, caches, _ = model.prefill(
                 params, {k: kvcache.to_rows(v, rows)
                          for k, v in batch.items()}, caches)

@@ -16,16 +16,18 @@ resumes from the latest checkpoint there.
 that the launcher starts itself (``testing.ranks.run_ranks``): NCCL with
 one card a rank on ``--device cuda`` (more ranks than cards raise; there
 is no fallback to gloo), gloo ranks on ``--device cpu``. Every rank runs
-the ``Trainer`` on the mesh; rank 0 prints. A mesh that splits the batch
-over more than one rank refuses an MoE config before any rank starts
-(``train_step.check_split_batch``).
+the ``Trainer`` on the mesh; rank 0 prints. Any config trains on any
+mesh: an MoE FFN routes over the whole batch however the mesh splits it,
+as the reference's step does (``train.train_step``):
+
+    python -m repro_torch.launch.train --arch deepseek-moe-16b --smoke \
+        --mesh 4x2 --device cpu                     # 8 gloo ranks
 """
 from __future__ import annotations
 
 import argparse
 import math
 import tempfile
-from types import SimpleNamespace
 
 import numpy as np
 
@@ -34,9 +36,7 @@ from repro_torch.config import (CheckpointConfig, OptimizerConfig, SHAPES,
                                 default_ckpt_dir, get_config, list_archs)
 from repro_torch.core.distributed import backend_for
 from repro_torch.device import resolve_device
-from repro_torch.launch.specs import batch_ranks
 from repro_torch.testing.ranks import check_world, run_ranks
-from repro_torch.train.train_step import check_split_batch
 from repro_torch.train.trainer import Trainer, TrainResult
 
 #: the mesh's dim names, in the reference launcher's order
@@ -115,10 +115,8 @@ def main(argv=None) -> TrainResult:
             max_steps=args.steps)
         _done(result)
         return result
-    cfg = build_config(args)    # refuse a bad config before any rank starts
+    build_config(args)    # refuse a bad config before any rank starts
     dims = mesh_dims(args.mesh)
-    check_split_batch(cfg.model, batch_ranks(
-        cfg.shape, SimpleNamespace(shape=dict(zip(MESH_AXES, dims)))))
     world, backend = math.prod(dims), backend_for(device)
     check_world(world, backend)
     with tempfile.TemporaryDirectory(prefix="train_ranks_") as tmp:

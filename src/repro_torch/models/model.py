@@ -36,6 +36,7 @@ from repro_torch.models.encdec import build_encdec_params, encdec_forward
 from repro_torch.models.layers import dtype_of, softcap
 from repro_torch.models.transformer import (build_params, init_caches,
                                             lm_forward)
+from repro_torch.parallel import fsdp
 
 
 def _register(module: torch.nn.Module, tree: Dict[str, Any],
@@ -180,11 +181,14 @@ def chunked_lm_loss(features, table, labels, cfg: ModelConfig,
     scan): ``n_chunks`` lowered until it divides S (S - 1 = 4 095 gives 7
     chunks of 585), the chunks' sums added in order, and each chunk under
     ``torch.utils.checkpoint``, so no (B, S, V) logits are kept for the
-    backward (the reference's ``nothing_saveable``)."""
+    backward (the reference's ``nothing_saveable``). A masked loss on a
+    batch split over ranks divides by the whole batch's mask sum
+    (``_whole_batch_sums``)."""
     b, s, _ = features.shape
     while s % n_chunks:
         n_chunks -= 1
     cs = s // n_chunks
+    masked = loss_mask is not None
     if loss_mask is None:
         loss_mask = torch.ones((b, s), dtype=torch.float32,
                                device=features.device)
@@ -196,7 +200,21 @@ def chunked_lm_loss(features, table, labels, cfg: ModelConfig,
                             labels[:, sl], loss_mask[:, sl], cfg,
                             use_reentrant=False)
         tot, cnt = tot + nll, cnt + m
+    if masked:
+        tot, cnt = _whole_batch_sums(tot, cnt)
     return tot / torch.clamp_min(cnt, 1.0)
+
+
+def _whole_batch_sums(tot, cnt):
+    """A masked loss's (NLL sum, mask sum) over every rank that splits the
+    batch (``fsdp.Layout.whole_batch``), so each rank divides by the whole
+    batch's mask sum, as the reference does; the sums themselves without
+    a split batch. Unmasked, every rank's rows count alike and the step's
+    mean over the ranks is the whole batch's."""
+    layout = fsdp.current_layout()
+    if layout is None or layout.batch_n == 1:
+        return tot, cnt
+    return layout.whole_batch(tot), layout.batch_sum(cnt.detach())
 
 
 def lm_loss(logits, labels, loss_mask=None):
@@ -207,8 +225,9 @@ def lm_loss(logits, labels, loss_mask=None):
     ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
     nll = logz - ll
     if loss_mask is not None:
-        nll = nll * loss_mask
-        return torch.sum(nll) / torch.clamp_min(torch.sum(loss_mask), 1.0)
+        tot, cnt = _whole_batch_sums(torch.sum(nll * loss_mask),
+                                     torch.sum(loss_mask))
+        return tot / torch.clamp_min(cnt, 1.0)
     return torch.sum(nll) / scalar(nll.numel(), nll)
 
 

@@ -25,6 +25,18 @@ Where torch's defaults differ from the reference's ops:
   whose adds are ordered (``index_add_`` adds with atomics on the card and
   varies from run to run).
 
+A batch split over ranks (the rows of a sharded train step, or of a
+serving step on split caches: ``parallel.fsdp.Layout.batch_axes``) is
+routed as the reference's single-device call routes the whole batch,
+which is what GSPMD preserves under any mesh: the capacity of every
+token of the call, each expert's run in the batch's token order, and the
+aux loss over every token (``_split_routing``: one all-gather of the
+ranks' (E,) counts, one all-reduce of their probability sums). Each rank
+then runs the expert FFN on its own kept pairs, in a buffer of
+``min(capacity, local tokens)`` slots an expert (no pair of its rows can
+need more). Without a layout, or on one batch rank, nothing of this
+runs.
+
 ``routing_log()`` records each call's routing for tests and for the
 dropped-pair counts ``chip_smoke.py`` prints; it costs nothing when off.
 """
@@ -39,6 +51,7 @@ import torch.nn.functional as F
 from repro_torch.config import ModelConfig, MoEConfig
 from repro_torch.device import scalar
 from repro_torch.models.layers import apply_mlp, make_mlp
+from repro_torch.parallel import fsdp
 
 #: the open routing log (``routing_log``), or None
 _LOG: Optional[List[dict]] = None
@@ -72,11 +85,14 @@ def _capacity(tokens: int, num_experts: int, top_k: int,
 
 @contextlib.contextmanager
 def routing_log():
-    """Record every ``apply_moe`` call inside the block: yields a list that
-    gets one dict a call, ``{"probs": (T, E) router probabilities, "ids":
-    (T, k) expert ids, "counts": (E,) pairs an expert, "cap": capacity}``,
-    tensors left where they were computed
-    (no host read). ``dropped_pairs`` reads the drops of an entry."""
+    """Record every ``apply_moe`` call inside the block (a remat segment's
+    recomputation records again): yields a list that gets one dict a call,
+    ``{"probs": (T, E) router probabilities, "ids": (T, k) expert ids,
+    "counts": (E,) pairs an expert, "cap": capacity}``, tensors left where
+    they were computed (no host read). On a split batch the entry is this
+    rank's: its tokens, its local runs, and as ``cap`` the (E,) pairs of
+    each local run that the whole batch's capacity leaves to it.
+    ``dropped_pairs`` reads the drops of an entry."""
     global _LOG
     saved, _LOG = _LOG, []
     try:
@@ -106,9 +122,20 @@ def route(router, xf, top_k: int):
     return probs, weights, ids
 
 
+def _first_choices(ids, e: int, t: int, dtype) -> torch.Tensor:
+    """(E,) the count of each expert as a first choice: an exact sum of
+    ones (``F.one_hot`` reads the ids' range to the host on the CPU)."""
+    return torch.zeros(e, dtype=dtype, device=ids.device).scatter_add_(
+        0, ids[:, 0], torch.ones((t,), dtype=dtype, device=ids.device))
+
+
 def apply_moe(params, x, cfg: ModelConfig) -> Tuple[torch.Tensor,
                                                     torch.Tensor]:
-    """x: (B,S,D) -> (out (B,S,D), aux_loss float32 scalar)."""
+    """x: (B,S,D) -> (out (B,S,D), aux_loss float32 scalar). Under a layout
+    whose batch is split over ranks (``parallel.fsdp``: a sharded train
+    step, or a serving step on the caches' rows), ``x`` is this rank's rows
+    and the routing is the whole batch's (``_split_routing``); the expert
+    FFN runs on this rank's kept pairs."""
     m: MoEConfig = cfg.moe
     b, s, d = x.shape
     t = b * s
@@ -118,35 +145,60 @@ def apply_moe(params, x, cfg: ModelConfig) -> Tuple[torch.Tensor,
     # --- route ---
     probs, weights, ids = route(params["router"], xf, k)
 
-    # --- aux load-balance loss (switch-style) ---
-    # mean(one_hot(ids[:, 0])): the count of each first choice over T, an
-    # exact sum divided as the reference divides (F.one_hot reads the ids'
-    # range to the host on the CPU)
-    first = torch.zeros(e, dtype=torch.float32, device=x.device).scatter_add_(
-        0, ids[:, 0], torch.ones((t,), dtype=torch.float32, device=x.device))
-    density = first / scalar(t, first)
-    density_prob = torch.mean(probs, dim=0)
-    aux = torch.sum(density * density_prob) * e * m.router_aux_weight
-
-    # --- sort (token, expert) pairs by expert ---
-    flat_e = ids.reshape(-1)                                     # (T*k,)
-    flat_t = torch.arange(t, dtype=torch.int64,
-                          device=x.device)[:, None].expand(t, k).reshape(-1)
-    flat_w = weights.reshape(-1)
-    order = torch.argsort(flat_e, stable=True)
-    se, st, sw = flat_e[order], flat_t[order], flat_w[order]
-
-    # --- per-expert capacity gather indices ---
-    cap = _capacity(t, e, k, m.capacity_factor)
-    counts = torch.zeros(e, dtype=torch.int64, device=x.device).scatter_add_(
-        0, se, torch.ones_like(se))                              # (E,)
+    layout = fsdp.current_layout()
+    if layout is not None and layout.batch_n > 1:
+        order, counts = _sort_pairs(ids, e)
+        kept, cap, aux = _split_routing(layout, probs, ids, counts, t, m)
+        limit, slots = torch.minimum(counts, kept), min(cap, t)
+    else:
+        # --- aux load-balance loss (switch-style) ---
+        # mean(one_hot(ids[:, 0])): the count of each first choice over
+        # T, divided as the reference divides
+        first = _first_choices(ids, e, t, torch.float32)
+        density = first / scalar(t, first)
+        density_prob = torch.mean(probs, dim=0)
+        aux = torch.sum(density * density_prob) * e * m.router_aux_weight
+        order, counts = _sort_pairs(ids, e)
+        kept = cap = _capacity(t, e, k, m.capacity_factor)
+        limit, slots = counts, cap
     if _LOG is not None:
         _LOG.append({"probs": probs, "ids": ids, "counts": counts,
-                     "cap": cap})
+                     "cap": kept})
+    out = _dispatch(params, xf, weights, ids, order, counts, limit, slots)
+    out = out.reshape(b, s, d)
+    if m.num_shared:
+        out = out + apply_mlp(params["shared"], x, cfg.mlp_kind)
+    return out, aux
+
+
+def _sort_pairs(ids, e: int):
+    """(the stable order of the (token, expert) pairs by expert, the (E,)
+    pairs of each expert)."""
+    flat_e = ids.reshape(-1)                                     # (T*k,)
+    order = torch.argsort(flat_e, stable=True)
+    se = flat_e[order]
+    counts = torch.zeros(e, dtype=torch.int64, device=ids.device
+                         ).scatter_add_(0, se, torch.ones_like(se))
+    return order, counts
+
+
+def _dispatch(params, xf, weights, ids, order, counts, kept, slots: int):
+    """The routed experts' output (T, D) of tokens ``xf``: each expert
+    gathers the first ``kept`` (E,) pairs of its run into a buffer of
+    ``slots``, runs its FFN on them, and the weighted outputs are scattered
+    back to their tokens."""
+    t, d = xf.shape
+    k = ids.shape[1]
+    e = counts.shape[0]
+    flat_t = torch.arange(t, dtype=torch.int64,
+                          device=xf.device)[:, None].expand(t, k).reshape(-1)
+    st, sw = flat_t[order], weights.reshape(-1)[order]
+
+    # --- per-expert capacity gather indices ---
     starts = torch.cumsum(counts, dim=0) - counts
-    slots = torch.arange(cap, dtype=torch.int64, device=x.device)
-    pos = starts[:, None] + slots[None, :]                       # (E,C)
-    in_run = slots[None, :] < counts[:, None]
+    iota = torch.arange(slots, dtype=torch.int64, device=xf.device)
+    pos = starts[:, None] + iota[None, :]                        # (E,C)
+    in_run = iota[None, :] < kept[:, None]
     pos_c = torch.clamp_max(pos, t * k - 1)
     tok_idx = torch.where(in_run, st[pos_c], 0)                  # (E,C)
     tok_w = torch.where(in_run, sw[pos_c], 0.0)
@@ -164,13 +216,39 @@ def apply_moe(params, x, cfg: ModelConfig) -> Tuple[torch.Tensor,
     # Adding a zero changes no sum, and on the card the accumulate
     # serialises equal indices, so each empty slot lands in a spare row of
     # its own (T + its slot number), dropped after
-    spare = t + torch.arange(e * cap, device=x.device).reshape(e, cap)
-    out = torch.zeros((t + e * cap, d), dtype=ye.dtype, device=x.device)
+    spare = t + torch.arange(e * slots, device=xf.device).reshape(e, slots)
+    out = torch.zeros((t + e * slots, d), dtype=ye.dtype, device=xf.device)
     out.index_put_((torch.where(in_run, tok_idx, spare).reshape(-1),),
                    ye.reshape(-1, d) * in_run.reshape(-1, 1).to(ye.dtype),
                    accumulate=True)
-    out = out[:t].reshape(b, s, d)
+    return out[:t]
 
-    if m.num_shared:
-        out = out + apply_mlp(params["shared"], x, cfg.mlp_kind)
-    return out, aux
+
+def _split_routing(layout, probs, ids, counts, t: int, m: MoEConfig):
+    """The whole batch's routing seen from one rank that holds ``t`` of its
+    tokens: (the (E,) pairs of each expert's local run its share of the
+    capacity keeps, the capacity, the aux loss).
+
+    The batch's tokens are the ranks' rows in order (``layout.batch_rank``),
+    so each expert's global run, sorted stably as the reference sorts it,
+    is the ranks' local runs one after another. One all-gather of every
+    rank's (E,) pair counts and first-choice counts gives this rank's
+    offset into each run (the pairs of the ranks before it); the capacity
+    of all ``t * batch_n`` tokens keeps a local pair where its offset plus
+    its place in the local run is below it. The aux loss takes the first
+    choices and the router's probabilities summed over the batch's ranks
+    and divided by its tokens, the probabilities through
+    ``layout.whole_batch`` (the step's gradient of the whole batch's
+    term)."""
+    e, k = m.num_experts, m.top_k
+    total = t * layout.batch_n
+    cap = _capacity(total, e, k, m.capacity_factor)
+    first = _first_choices(ids, e, t, torch.int64)
+    every = layout.batch_gather(torch.stack([counts, first]))    # (R,2,E)
+    offset = torch.sum(every[:layout.batch_rank(), 0], dim=0)
+    kept = torch.clamp_min(cap - offset, 0)
+    n = scalar(total, probs)
+    density = torch.sum(every[:, 1], dim=0).float() / n
+    density_prob = layout.whole_batch(torch.sum(probs, dim=0)) / n
+    aux = torch.sum(density * density_prob) * e * m.router_aux_weight
+    return kept, cap, aux

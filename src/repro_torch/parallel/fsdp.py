@@ -25,6 +25,15 @@ that differ only in an axis that splits no batch (``model`` under
 parameter and optimizer storage and the batch, not the products of one
 sequence.
 
+A statistic of the whole batch (an MoE FFN's expert counts and aux, a
+masked loss's mask sum) is read through the layout as well:
+``Layout.batch_gather`` stacks every batch rank's value in the rows'
+order, and ``Layout.whole_batch`` sums a rank's share over the batch
+ranks with ``batch_n`` times the share's gradient, which the step's mean
+over those ranks turns into the whole batch's gradient. The serving
+steps' layout takes the caches' rows as its batch axes
+(``parallel.kvcache.serving``), so both paths use these two.
+
 Collectives run only over axes of more than one rank, and a leaf is
 gathered only where its spec or the batch has such an axis, so on a mesh
 of size 1 every path here is the identity and the step keeps the plain
@@ -152,6 +161,35 @@ class Layout(NamedTuple):
         if n == 1:
             return t
         return self.batch_sum(t) / scalar(n, t)
+
+    def batch_rank(self) -> int:
+        """This rank's block of the batch's rows: its index along the batch
+        axes, most significant first (pod-major), so the rows' order."""
+        return S.block_index(self.batch_axes, self.mesh, self.sizes)[1]
+
+    def batch_gather(self, t: torch.Tensor) -> torch.Tensor:
+        """(batch_n, *t.shape): ``t`` of every rank that splits the batch,
+        stacked in the order of their rows (one all-gather a batch axis;
+        no gradient)."""
+        if self.batch_n == 1:
+            return t[None]
+        return S.gather_shards(t.detach()[None], (self.batch_axes,),
+                               self.mesh)
+
+    def whole_batch(self, t: torch.Tensor) -> torch.Tensor:
+        """A whole-batch statistic from this rank's share ``t`` of it: the
+        value is ``t`` summed over the ranks that split the batch, and the
+        gradient with respect to this rank's ``t`` is ``batch_n``. The step
+        sums each rank's gradients and divides them by ``batch_n`` (each
+        rank's loss is the mean over its own rows), so a term a rank
+        reads through ``whole_batch`` reaches the update with the whole
+        batch's gradient, as the reference's single-device step takes
+        it."""
+        if self.batch_n == 1:
+            return t
+        share = t - t.detach()          # 0, carrying t's gradient
+        return self.batch_sum(t.detach()) + share * scalar(self.batch_n,
+                                                           share)
 
     def global_norm(self, tree, specs: List[tuple]) -> torch.Tensor:
         """The L2 norm of a tree of blocks under ``specs`` (one a leaf in

@@ -15,7 +15,9 @@ Rows. A rank's caches hold the rows of the batch that their specs' batch
 entry gives (``("pod", "data")``), and the serving steps compute those
 rows: ``to_rows`` gathers an input's rows over the axes the caches do not
 split (``DP_ACT_RULES`` split a prompt's batch over ``model`` too), and
-``from_rows`` hands an output back as the rows of its input's split.
+``from_rows`` hands an output back as the rows of its input's split. The
+rows' axes are the step's batch axes (``serving``), so an MoE FFN routes
+over every rank's rows, the whole batch, as the reference does.
 
 Slots. A KV cache's ``kv_seq`` dim (GQA's k, v and pos; MLA's c_kv and
 k_rope) splits over ``model``: the rank at index r along it holds slots
@@ -196,12 +198,14 @@ def from_rows(t: torch.Tensor, rows, like: torch.Tensor) -> torch.Tensor:
 
 
 @contextlib.contextmanager
-def serving(mesh, act_rules):
-    """Context of a serving step on ``mesh``: no gradient, the mesh and
-    its activation rules current, and the parameters gathered where the
-    model reads them (``fsdp.gathered``)."""
+def serving(mesh, act_rules, rows=None):
+    """Context of a serving step on ``mesh`` that computes the caches'
+    ``rows`` (a spec entry): no gradient, the mesh and its activation rules
+    current, the parameters gathered where the model reads them
+    (``fsdp.gathered``), and the rows' axes as the layout's batch axes, so
+    that an MoE FFN routes over the whole batch (``models.moe``)."""
     with torch.no_grad(), S.use_mesh(mesh, act_rules), \
-            fsdp.use_layout(fsdp.make_layout(mesh, ())):
+            fsdp.use_layout(fsdp.make_layout(mesh, S.spec_axes(rows))):
         yield
 
 

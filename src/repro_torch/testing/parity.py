@@ -191,6 +191,25 @@ def moe_flips(port_ids, ref_ids, port_probs, ref_probs) -> np.ndarray:
     return flipped
 
 
+def moe_kept_pairs(ids, limit, num_experts: int, first_token: int = 0):
+    """The (token, expert) pairs an MoE call keeps: each expert's first
+    ``limit`` pairs (an int, or (E,) a limit an expert) in the stable order
+    by expert, token-major, as the reference's sort-based dispatch keeps
+    them; tokens numbered from ``first_token``. A set, for comparing the
+    pairs of a whole batch with those of its row blocks."""
+    ids = np.asarray(ids)
+    limit = np.broadcast_to(np.asarray(limit), (num_experts,))
+    flat = ids.reshape(-1)
+    seen = np.zeros(num_experts, np.int64)
+    out = set()
+    for p in np.argsort(flat, kind="stable"):
+        e = int(flat[p])
+        if seen[e] < limit[e]:
+            out.add((first_token + int(p) // ids.shape[1], e))
+        seen[e] += 1
+    return out
+
+
 #: LM gradients in float32 (the loss's gradient with respect to every
 #: parameter leaf, and the flash backward's dq, dk, dv), as a fraction of
 #: the leaf's max|reference gradient|: the forward's float error

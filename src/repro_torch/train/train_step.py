@@ -14,13 +14,23 @@ placements): the model gathers them layer by layer, and each rank's
 gradients come back as its blocks, summed over the ranks that split the
 batch. Each rank's loss is the mean over its own sequences, so the sums
 are divided by the microbatches times those ranks, the loss and aux are
-averaged over them, and the global norm sums every block once. That
-average is the reference's whole-batch value only where each rank's share
-weighs the same and no statistic couples one rank's tokens with
-another's: so a batch split over more than one rank refuses an MoE FFN
-(its capacity, drops and load-balance aux are taken over the whole batch
-in the reference) and a loss mask (the reference divides by the whole
-batch's mask sum); ``check_split_batch`` says so before a step runs.
+averaged over them, and the global norm sums every block once.
+
+A statistic of the whole batch is the reference's on a split batch too:
+an MoE FFN routes over every rank's tokens (``models.moe``: the capacity,
+the drops and the aux of the whole batch) and a loss mask divides by the
+whole batch's mask sum (``models.model.chunked_lm_loss``). Each rank
+reads such a term through ``fsdp.Layout.whole_batch``: its value is the
+whole batch's, and its gradient with respect to the rank's own share is
+``batch_n`` times that share's, so the sum over ranks divided by
+``batch_n`` is the whole batch's gradient; a rank's aux, and its masked
+loss, hold the whole batch's value, and so does their mean over the
+ranks.
+The reference's microbatch i is the global rows [i B / n, (i + 1) B /
+n); a split batch must come placed so that each rank's microbatch i is
+its block of those rows (``data.tokens.shard_batch(..., microbatches=n)``),
+which the step checks.
+
 ``grad_shardings`` (ZeRO-1): each microbatch's gradients are cut to
 those placements (the optimizer state's, finer than the parameters'), the
 update runs on the matching blocks of the parameters, and the parameters'
@@ -35,9 +45,9 @@ from typing import Any, Dict, Optional
 import torch
 
 from repro_torch.config import OptimizerConfig, ParallelConfig
+from repro_torch.data.tokens import placed_microbatches
 from repro_torch.device import scalar
 from repro_torch.models.model import Model, chunked_lm_loss
-from repro_torch.models.transformer import stacks_for
 from repro_torch.optim.adamw import OptState, adamw_update, global_norm
 from repro_torch.parallel import fsdp
 from repro_torch.parallel import sharding as S
@@ -85,29 +95,18 @@ def _grads(loss_fn, params, batch):
                      for p, g in zip(leaves, grads)]
 
 
-class SplitBatchError(ValueError):
-    """A batch split over ranks would change a step's values
-    (``check_split_batch``)."""
-
-
-def check_split_batch(cfg, batch_ranks: int, loss_mask: bool = False
-                      ) -> None:
-    """Raise a ``SplitBatchError`` (a ``ValueError``) where a batch split
-    over ``batch_ranks`` ranks would give other values than the reference's whole-batch step: an MoE
-    FFN (expert capacity, drops and the load-balance aux come from each
-    rank's own tokens) or a loss mask (each rank divides by its own mask
-    sum)."""
-    if batch_ranks <= 1:
+def check_placement(batch, micro: int, layout) -> None:
+    """Raise a ``ValueError`` where a batch split over ranks is not placed
+    for ``micro`` microbatches (``data.tokens.shard_batch``): a rank's
+    microbatch would then not be its block of the reference's."""
+    if layout is None or layout.batch_n == 1 or micro == 1:
         return
-    what = [w for w, on in (
-        ("an MoE FFN", any(s.ffn == "moe" for s in stacks_for(cfg))),
-        ("a loss mask", loss_mask)) if on]
-    if what:
-        raise SplitBatchError(
-            f"{cfg.name}: the batch is split over {batch_ranks} ranks, and "
-            f"{' and '.join(what)} would then be computed from each rank's "
-            "own tokens, not the whole batch as the reference does; use a "
-            "mesh whose batch axes have one rank")
+    placed = placed_microbatches(batch["tokens"])
+    if placed != micro:
+        raise ValueError(
+            f"the batch's rows are placed for {placed} microbatches and the "
+            f"step takes {micro}: place it with shard_batch(..., "
+            f"microbatches={micro})")
 
 
 def make_train_step(model: Model, opt_cfg: OptimizerConfig,
@@ -127,9 +126,7 @@ def make_train_step(model: Model, opt_cfg: OptimizerConfig,
     def train_step(params, opt_state: OptState, batch):
         leaves = tree_leaves(params)
         layout = fsdp.layout_of(params, batch)
-        if layout is not None:
-            check_split_batch(model.cfg, layout.batch_n,
-                              "loss_mask" in batch)
+        check_placement(batch, micro, layout)
         # the gradient sums' count: microbatches x ranks splitting the batch
         count = micro * (layout.batch_n if layout is not None else 1)
         extra = mesh = None

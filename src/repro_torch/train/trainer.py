@@ -9,7 +9,8 @@
 * one host read a step: the loss
 * elastic: with a mesh, the step is ``launch.specs.build_train``'s, the
   parameters and optimizer state are placed by its shardings (each rank
-  holds its blocks), batches come as each rank's share, checkpoints hold
+  holds its blocks), batches come as each rank's share (placed for the
+  step's microbatches), checkpoints hold
   full arrays and a restore re-shards onto the current mesh, whatever its
   size; only rank 0 prints and writes
 
@@ -120,7 +121,8 @@ class Trainer:
 
         pipeline = DataPipeline(cfg.model, cfg.shape, seed=cfg.seed,
                                 start_step=start_step,
-                                device=self.model.device, mesh=mesh)
+                                device=self.model.device, mesh=mesh,
+                                microbatches=cfg.parallel.microbatches)
         rank0 = not dist.is_initialized() or dist.get_rank() == 0
 
         total = max_steps if max_steps is not None else cfg.optimizer.total_steps

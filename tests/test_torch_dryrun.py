@@ -25,16 +25,16 @@ still hold.
   (d) gemma2-2b ``decode_32k`` at full width on 256 ranks: the parameter
       and cache bytes a rank holds == the reckoning from ``model.specs``,
       ``cache_specs`` and ``local_shape``.
-  (e) statuses: the MoE cells of the production meshes are ``refused``
-      with ``check_split_batch``'s text; ``long_500k`` is ``skipped``
-      outside ``LONG_OK`` and runs inside it.
+  (e) statuses: the MoE cells of the production meshes are ``ok`` (their
+      batch split over 16 or 32 ranks, the routing the whole batch's), each
+      with its expert-FFN slots a rank against the reference's share;
+      ``long_500k`` is ``skipped`` outside ``LONG_OK`` and runs inside it.
 """
 import json
 import math
 import os
 import subprocess
 import sys
-import types
 from pathlib import Path
 
 import pytest
@@ -50,7 +50,6 @@ from repro_torch.models.model import Model
 from repro_torch.parallel import sharding as S
 from repro_torch.testing import parity
 from repro_torch.testing.ranks import run_ranks
-from repro_torch.train.train_step import SplitBatchError, check_split_batch
 from repro_torch.tree import tree_map
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
@@ -63,8 +62,9 @@ torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parent.parent
 
 #: family -> (arch, mesh of the 8 ranks); the MoE step runs under
-#: ``ACT_RULES`` in both packages: ``act_rules_for`` would split its batch
-#: over ``model`` (4 heads on 8), which the port refuses for MoE
+#: ``ACT_RULES`` in both packages, so that its batch stays whole on (1, 8)
+#: (``act_rules_for`` would split it over ``model``: 4 heads on 8) and its
+#: one-device FLOPs in (b) count the same expert buffers
 CASES = {"dense": ("gemma2-2b", (4, 2)), "vlm": ("internvl2-1b", (4, 2)),
          "ssm": ("mamba2-780m", (4, 2)),
          "hybrid": ("recurrentgemma-2b", (4, 2)),
@@ -273,20 +273,22 @@ def test_gemma2_decode_32k_at_256_ranks_matches_its_reckoning():
 # (e) statuses
 # ---------------------------------------------------------------------------
 
-def _split_text(arch, shape_name, multi_pod) -> str:
-    dims, axes = (((2, 16, 16), ("pod", "data", "model")) if multi_pod
-                  else ((16, 16), ("data", "model")))
-    stand_in = types.SimpleNamespace(shape=dict(zip(axes, dims)))
-    with pytest.raises(SplitBatchError) as e:
-        check_split_batch(get_config(arch),
-                          batch_ranks(SHAPES[shape_name], stand_in))
-    return str(e.value)
+def _split_slots(arch, shape_name, multi_pod):
+    """(the rank's tokens of a MoE layer, the reference's capacity, its
+    expert ranks) of a cell, reckoned from the config and the mesh."""
+    cfg, shape = get_config(arch), SHAPES[shape_name]
+    ranks = 32 if multi_pod else 16      # ("pod", "data"), and `model`
+    tokens = shape.global_batch * (1 if shape.kind == "decode"
+                                   else shape.seq_len)
+    m = cfg.moe
+    cap = int(tokens * m.top_k / m.num_experts * m.capacity_factor) + 1
+    return tokens // ranks, max(8, (cap + 7) // 8 * 8), 16
 
 
 @pytest.mark.parametrize("arch, shape_name, multi_pod, status", [
-    ("deepseek-moe-16b", "train_4k", False, "refused"),
-    ("deepseek-v2-236b", "decode_32k", True, "refused"),
-    ("deepseek-moe-16b", "prefill_32k", True, "refused"),
+    ("deepseek-moe-16b", "train_4k", False, "ok"),
+    ("deepseek-v2-236b", "decode_32k", True, "ok"),
+    ("deepseek-moe-16b", "prefill_32k", True, "ok"),
     ("gemma2-2b", "long_500k", False, "skipped"),
     ("qwen3-32b", "long_500k", True, "skipped"),
     ("mamba2-780m", "long_500k", False, "ok"),
@@ -294,8 +296,16 @@ def _split_text(arch, shape_name, multi_pod) -> str:
 def test_cell_status(tmp_path, arch, shape_name, multi_pod, status):
     r = dryrun.run_cell(arch, shape_name, multi_pod, out_dir=tmp_path)
     assert r["status"] == status, r.get("error", r.get("reason"))
-    if status == "refused":
-        assert r["reason"] == _split_text(arch, shape_name, multi_pod)
+    if arch.startswith("deepseek"):
+        # every expert at min(capacity, the rank's tokens), against the
+        # reference's E x capacity over the 16 ranks of `model`
+        local, cap, experts = _split_slots(arch, shape_name, multi_pod)
+        e = get_config(arch).moe.num_experts
+        slots = r["expert_slots"]
+        assert slots["capacity"] == cap
+        assert slots["port"] == e * min(cap, local)
+        assert slots["reference"] == e * cap / experts
+        assert r["replicated_compute"] == 16
     if status == "skipped":
         assert arch not in dryrun.LONG_OK
     if status == "ok":

@@ -8,15 +8,16 @@
   (the reference's own sharded step raises ``DuplicateSpecError`` on
   ``jax.make_mesh``'s Explicit axes and runs on Auto axes, where
   ``tests/test_torch_serve_mesh.py`` holds the plain (4, 2) step against
-  it; ROADMAP queue 3). Each rank's block of every parameter and moment holds its full
-  size over its spec's axes, a batch split over ranks refuses a loss mask
-  and an MoE config, and a whole-array checkpoint restores onto the mesh
-  bit for bit.
+  it; ROADMAP queue 3). Each rank's block of every parameter and moment
+  holds its full size over its spec's axes, a step on a batch with a loss
+  mask divides by the whole batch's mask sum as the reference's does, and
+  a whole-array checkpoint restores onto the mesh bit for bit.
 * Compressed DP on 2 ranks against the reference's run on 2 forced host
   devices, and its own drift against the exact step (the reference
   test's bounds); ``pipeline_apply`` on 4 ranks against the reference's
   on 4 forced devices and against the sequential loop.
-* ``_maybe_repeat_kv`` and ``launch.train --mesh``.
+* ``_maybe_repeat_kv`` and ``launch.train --mesh`` (an MoE config too,
+  on a mesh that splits the batch and on one that does not).
 
 One spawn per mesh shape (module-scoped fixtures); the reference runs
 its multi-device parts in one subprocess.
@@ -47,14 +48,14 @@ from repro_torch.core import prng
 from repro_torch.data.tokens import make_batch, to_device
 from repro_torch.interop import model_params_from_numpy
 from repro_torch.launch import train as launch_train
-from repro_torch.launch.specs import batch_ranks, build_train
+from repro_torch.launch.specs import batch_ranks
 from repro_torch.models import attention as tattention
 from repro_torch.models.model import Model as TModel
 from repro_torch.optim.adamw import init_opt_state
 from repro_torch.parallel import sharding as tsharding
 from repro_torch.testing import parity
 from repro_torch.testing.ranks import run_ranks
-from repro_torch.train.train_step import check_split_batch, make_train_step
+from repro_torch.train.train_step import make_train_step
 from repro_torch.tree import tree_items
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
@@ -108,6 +109,14 @@ def sharded(tmp_path_factory):
             losses.append(float(m["loss"]))
         ref[micro] = {"losses": losses, "grad_norm": float(m["grad_norm"]),
                       "params": flatten(jax.tree.map(np.asarray, p))}
+        masked = {k: jnp.asarray(v) for k, v in
+                  R.masked_batch(R.STEP_SHAPE).items()}
+        ref[micro]["per_rank_loss"] = _per_rank_masked_loss(
+            jm, p, masked, micro, 4)
+        p, s, m = step(p, s, masked)
+        ref[micro]["masked"] = {
+            "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+            "params": flatten(jax.tree.map(np.asarray, p))}
 
     # a whole-array checkpoint of the port's plain step, to restore
     tmp = tmp_path_factory.mktemp("parallel")
@@ -126,6 +135,27 @@ def sharded(tmp_path_factory):
     ranks = run_ranks(R.sharded_steps, 8, (4, 2), "gloo", tmp, params_np,
                       str(ckpt), 1)
     return ref, ranks
+
+
+def _per_rank_masked_loss(jm, params, batch, micro: int, ranks: int):
+    """The masked loss of ``batch`` as ``ranks`` ranks would take it if each
+    divided by its own mask sum: per microbatch the mean over the ranks'
+    row blocks of each block's masked mean NLL (the reference's logits),
+    averaged over the microbatches."""
+    logits, _ = jm.forward(params, batch)
+    logits = np.asarray(logits[:, :-1], np.float64)
+    labels = np.asarray(batch["tokens"][:, 1:])
+    logz = np.log(np.sum(np.exp(logits - logits.max(-1, keepdims=True)),
+                         -1)) + logits.max(-1)
+    nll = logz - np.take_along_axis(logits, labels[..., None], -1)[..., 0]
+    mask = np.asarray(batch["loss_mask"], np.float64)
+    b = nll.shape[0]
+    means = [[np.sum((nll * mask)[rows]) / np.sum(mask[rows])
+              for rows in np.array_split(np.arange(i * b // micro,
+                                                   (i + 1) * b // micro),
+                                         ranks)]
+             for i in range(micro)]
+    return float(np.mean(means))
 
 
 TAGS = list(R.STEP_VARIANTS)
@@ -175,29 +205,62 @@ def test_sharded_blocks_hold_their_share(sharded, tag):
 
 @pytest.mark.parametrize("tag", TAGS)
 def test_split_batch_refuses_a_loss_mask(sharded, tag):
-    """Each rank would divide by its own mask sum, the reference by the
-    whole batch's: the sharded step raises before it computes."""
-    _, ranks = sharded
-    assert all(bool(r[f"{tag}.mask_refused"]) for r in ranks)
+    """A loss mask on the batch split over the 4 ranks of ``data``: one
+    step on ``R.masked_batch`` after the ``R.STEP_STEPS`` steps. The
+    reference divides by the whole microbatch's mask sum, so each rank
+    does too: the loss, the grad norm and every parameter within
+    ``parity.LM_GRAD_ATOL_FRAC`` of the reference's. The mask sums differ
+    between the ranks, and dividing by each rank's own would give another
+    loss."""
+    refs, ranks = sharded
+    ref = _ref(refs, tag)
+    micro = R.STEP_VARIANTS[tag][1]
+    mask = R.loss_mask(R.STEP_SHAPE)
+    sums = [float(blk.sum()) for mb in np.split(mask, micro)
+            for blk in np.split(mb, 4)]
+    assert len(set(sums)) > 1, sums
+    want = ref["masked"]
+    gap = abs(ref["per_rank_loss"] - want["loss"]) / want["loss"]
+    assert gap > 10 * parity.LM_GRAD_ATOL_FRAC, gap
+    worst = (0.0, "")
+    for r in ranks:
+        np.testing.assert_allclose(r[f"{tag}.masked.loss"], want["loss"],
+                                   rtol=parity.LM_GRAD_ATOL_FRAC, atol=0)
+        np.testing.assert_allclose(r[f"{tag}.masked.grad_norm"],
+                                   want["grad_norm"],
+                                   rtol=parity.LM_GRAD_ATOL_FRAC, atol=0)
+        for name, value in want["params"].items():
+            err = parity.assert_close(r[f"{tag}.masked.param.{name}"], value,
+                                      rtol=0.0,
+                                      atol_frac=parity.LM_GRAD_ATOL_FRAC,
+                                      what=f"{tag} masked {name}")
+            worst = max(worst, (err / max(float(np.max(np.abs(value))),
+                                          1e-30), name))
+    print(f"sharded {tag}: masked loss {want['loss']:.6f}; each rank's own "
+          f"denominator would give {ref['per_rank_loss']:.6f} ({gap:.2e} "
+          f"relative); parameters within {worst[0]:.3e} of a leaf's max "
+          f"({worst[1]})")
 
 
-@pytest.mark.parametrize("dims, refused", [((4, 2), True), ((1, 2), False)])
-def test_split_batch_refuses_moe(dims, refused):
-    """An MoE config's capacity, drops and aux come from the whole batch in
-    the reference: ``build_train`` and ``launch.train --mesh`` refuse a
-    mesh that splits the batch, and accept one that does not."""
-    cfg = tconfig.get_config("deepseek-moe-16b", smoke=True)
+@pytest.mark.parametrize("dims, split", [((4, 2), True), ((1, 2), False)])
+def test_split_batch_refuses_moe(tmp_path, dims, split):
+    """``launch.train --mesh`` trains deepseek-moe's smoke config (float32)
+    on a mesh that splits the batch over 4 ranks and on one that splits
+    none: the MoE FFN routes over the whole batch either way, and both
+    runs' losses match the one-rank run's within
+    ``parity.LM_GRAD_ATOL_FRAC``."""
     mesh = _StandIn(**dict(zip(("data", "model"), dims)))
-    if refused:
-        with pytest.raises(ValueError, match="MoE FFN"):
-            build_train(cfg, R.STEP_SHAPE, mesh)
-        with pytest.raises(ValueError, match="MoE FFN"):
-            launch_train.main(["--arch", "deepseek-moe-16b", "--smoke",
-                               "--device", "cpu", "--mesh",
-                               "x".join(map(str, dims))])
-    else:
-        assert batch_ranks(R.STEP_SHAPE, mesh) == 1
-        check_split_batch(cfg, batch_ranks(R.STEP_SHAPE, mesh))
+    shape = tconfig.ShapeConfig("cli", "train", 32, 8)
+    assert (batch_ranks(shape, mesh) > 1) == split
+    common = ["--arch", "deepseek-moe-16b", "--smoke", "--device", "cpu",
+              "--steps", "2", "--batch", "8", "--seq", "32", "--set",
+              "dtype=float32"]
+    one = launch_train.main(common + ["--ckpt-dir", str(tmp_path / "one")])
+    ranks = launch_train.main(common + ["--mesh", "x".join(map(str, dims)),
+                                        "--ckpt-dir", str(tmp_path / "mesh")])
+    assert ranks.steps_run == one.steps_run == 2
+    np.testing.assert_allclose(ranks.losses, one.losses,
+                               rtol=parity.LM_GRAD_ATOL_FRAC, atol=0)
 
 
 def test_logical_redistributes_a_dtensor(sharded):
@@ -218,7 +281,7 @@ def test_moe_on_an_unsplit_batch_matches_one_device(tmp_path):
     """deepseek-moe's smoke config on a (1, 2) mesh (the batch whole on
     every rank, parameters split over ``model``), two microbatches:
     every rank's losses and parameters against the port's single-device
-    step from the same parameters (``check_split_batch`` lets it run)."""
+    step from the same parameters."""
     cfg = R.MOE_CFG
     tm = TModel(cfg, "cpu")
     drawn = tm.init(prng.key(0))

@@ -15,7 +15,11 @@ float32, the enc-dec decode through ``build_decode``'s ``enc_out``
 branch on the reference's encoder states). Held to: logits within
 ``parity.LM_ATOL_FRAC`` of max|logit|, greedy tokens equal, the caches
 gathered from the ranks within the same rule (``pos`` and ``index``
-exactly), and each rank's leaves exactly their spec's local shape.
+exactly), and each rank's leaves exactly their spec's local shape. Two
+MoE cases split their rows over ranks at a capacity factor at which the
+whole batch drops pairs that each rank's own capacity would keep; they are
+held against the reference's single-device steps, whose expert choices
+the subprocess records.
 
 The same subprocess runs the reference's sharded ``build_train`` step on
 the Auto-axes (4, 2) mesh, which the port's plain sharded step on (4, 2)
@@ -37,6 +41,7 @@ from repro_torch.core import prng
 from repro_torch.launch.specs import build_decode, build_prefill
 from repro_torch.models.encdec import encode
 from repro_torch.models.model import Model as TModel
+from repro_torch.models.moe import _capacity
 from repro_torch.testing import parity
 from repro_torch.testing.ranks import run_ranks
 from repro_torch.tree import tree_items
@@ -97,8 +102,28 @@ def auto_mesh(dims):
                          axis_types=(AxisType.Auto,) * 2)
 
 
+def recorded_ids(log):
+    # repro.models.moe.apply_moe recording each call's top-k expert ids
+    from repro.models import moe as M
+    apply_moe = M.apply_moe
+
+    def recorded(params, x, cfg):
+        probs = jax.nn.softmax(jnp.einsum(
+            "td,de->te", x.reshape(-1, x.shape[-1]).astype(jnp.float32),
+            params["router"]), axis=-1)
+        _, ids = jax.lax.top_k(probs, cfg.moe.top_k)
+        jax.debug.callback(lambda i: log.append(np.asarray(i)), ids)
+        return apply_moe(params, x, cfg)
+
+    return M, apply_moe, recorded
+
+
 def single_device(name, c, cfg):
-    # the case through Model.prefill / decode_step on one device
+    # the case through Model.prefill / decode_step on one device, an MoE
+    # config's expert ids recorded call by call
+    ids = []
+    if cfg.moe is not None:
+        M, apply_moe, M.apply_moe = recorded_ids(ids)
     model = Model(cfg)
     params = tree_of(name + "/param/")
     batch = {k[len(name + "/batch/"):]: jnp.asarray(v)
@@ -118,12 +143,19 @@ def single_device(name, c, cfg):
     res[name + ".single.decode_logits"] = np.stack(outs)
     res[name + ".single.tokens"] = np.concatenate(toks, axis=1)
     res.update(flat(caches, name + ".single.cache/"))
+    for i, a in enumerate(ids):
+        res[f"{name}.single.ids/{i:03d}"] = a
+    if cfg.moe is not None:
+        M.apply_moe = apply_moe
 
 
 res = {}
 for name, c in cases.items():
     cfg = dataclasses.replace(C.get_config(c["arch"], smoke=True),
                               dtype="float32")
+    if c["capacity"] is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=c["capacity"]))
     if c["single"]:
         single_device(name, c, cfg)
     mesh = auto_mesh(c["mesh"])
@@ -222,7 +254,8 @@ def runs(tmp_path_factory):
     np.savez(tmp / "inputs.npz", **_inputs())
     cases = {name: {"arch": c.arch, "mesh": list(c.mesh), "batch": c.batch,
                     "prompt": c.prompt, "max_len": c.max_len,
-                    "dp": c.dp_rules, "single": c.single}
+                    "dp": c.dp_rules, "single": c.single,
+                    "capacity": c.capacity}
              for name, c in R.CASES.items()}
     step_cfg = {"cfg": {f.name: getattr(PR.STEP_CFG, f.name)
                         for f in dataclasses.fields(PR.STEP_CFG)
@@ -339,14 +372,46 @@ class _StandIn:
         self.shape = {"data": data, "model": model}
 
 
+ROWS = ("moe.rows", "mla.rows")
+
+
 @pytest.mark.parametrize("build", [build_prefill, build_decode])
-def test_moe_on_a_split_batch_raises(build):
-    """An MoE FFN on a mesh whose caches split the batch: each rank would
-    take capacity and drops over its own rows, the reference over the
-    whole batch. Both builders raise; a mesh that splits no batch does
-    not."""
-    cfg = tconfig.get_config("deepseek-moe-16b", smoke=True)
-    shape = tconfig.ShapeConfig("s", "decode", 16, 4)
-    with pytest.raises(ValueError, match="MoE FFN"):
-        build(cfg, shape, _StandIn(4, 2))
-    build(cfg, shape, _StandIn(1, 8))
+def test_moe_on_a_split_batch_raises(runs, build):
+    """An MoE FFN on caches whose rows split the batch ("moe.rows" and
+    "mla.rows": 32 rows over the 4 ranks of ``data``): ``build`` takes a
+    mesh that splits the batch as well as one that does not, and in the
+    reference's single-device steps of its kind (the prefill, or the
+    decode steps) the whole batch's capacity keeps other pairs than each
+    rank's own capacity would: it drops pairs in every prefill call and
+    in some decode step. The ranks' logits and caches match those steps
+    (``test_logits_and_tokens_match_reference``), so they routed over the
+    whole batch."""
+    refs, _ = runs
+    prefill = build is build_prefill
+    for name in ROWS:
+        case = R.CASES[name]
+        cfg, m = case.cfg(), case.cfg().moe
+        shape = tconfig.ShapeConfig("s", "prefill" if prefill else "decode",
+                                    case.prompt if prefill else case.max_len,
+                                    case.batch)
+        build(cfg, shape, _StandIn(*case.mesh))
+        build(cfg, shape, _StandIn(1, 8))
+        tag = f"{name}.single.ids/"
+        ids = [refs[k] for k in sorted(k for k in refs if k.startswith(tag))]
+        layers = cfg.num_layers - m.first_moe_layer
+        assert len(ids) == layers * (1 + R.DECODE_STEPS)
+        n = case.mesh[0]
+        differ = []
+        for a in (ids[:layers] if prefill else ids[layers:]):
+            t = a.shape[0]
+            whole = parity.moe_kept_pairs(a, _capacity(
+                t, m.num_experts, m.top_k, m.capacity_factor),
+                m.num_experts)
+            own = set().union(*(parity.moe_kept_pairs(
+                a[r * t // n:(r + 1) * t // n], _capacity(
+                    t // n, m.num_experts, m.top_k, m.capacity_factor),
+                m.num_experts, r * t // n) for r in range(n)))
+            differ.append(own != whole)
+        print(f"{name} {shape.kind}: per-rank capacity differs in "
+              f"{sum(differ)} of {len(differ)} calls")
+        assert all(differ) if prefill else any(differ), differ

@@ -94,12 +94,6 @@ def test_builder_specs_equal_reference(arch, mesh, monkeypatch):
     tcfg, jcfg = tconfig.get_config(arch), jconfig.get_config(arch)
     shape_t = tconfig.ShapeConfig("decode_32k", "decode", MAX_LEN, BATCH)
     shape_j = jconfig.ShapeConfig("decode_32k", "decode", MAX_LEN, BATCH)
-    if tcfg.moe is not None and mesh[0] > 1:
-        # an MoE FFN refuses a split batch (test_torch_serve_mesh.py)
-        for build in (tspecs.build_decode, tspecs.build_prefill):
-            with pytest.raises(ValueError, match="MoE FFN"):
-                build(tcfg, shape_t, stand_in)
-        return
     # the reference's use_mesh enters its mesh, which an AbstractMesh
     # refuses: set the rules its batch_shardings reads directly
     monkeypatch.setattr(jsharding._state, "act_rules",

@@ -31,6 +31,22 @@ STEP_CFG = ModelConfig(num_layers=2, d_model=32, num_heads=4, num_kv_heads=2,
                        dtype="float32")
 STEP_SHAPE = ShapeConfig("t", "train", seq_len=32, global_batch=8)
 STEP_STEPS = 2
+
+
+def loss_mask(shape: ShapeConfig) -> np.ndarray:
+    """A (B, S - 1) loss mask from a numpy seed whose rows keep between a
+    fifth and all of their tokens, so the ranks' mask sums differ."""
+    rng = np.random.default_rng(11)
+    b, s = shape.global_batch, shape.seq_len - 1
+    keep = rng.permutation(np.linspace(0.2, 1.0, b))
+    return (rng.random((b, s)) < keep[:, None]).astype(np.float32)
+
+
+def masked_batch(shape: ShapeConfig) -> dict:
+    """The batch of step ``STEP_STEPS`` with ``loss_mask``."""
+    batch = make_batch(STEP_CFG, shape, 0, STEP_STEPS)
+    batch["loss_mask"] = loss_mask(shape)
+    return batch
 #: the sharded step's variants: tag -> (zero1, microbatches, remat); the
 #: ``micro2`` ones are the configuration the card runs (microbatches and
 #: remat ``selective``), at the test's size
@@ -78,10 +94,12 @@ def _axes_product(spec, mesh) -> int:
 
 def sharded_steps(mesh, params_np, ckpt_dir, ckpt_step):
     """The sharded step of ``build_train`` in each of ``STEP_VARIANTS``
-    for ``STEP_STEPS`` steps from ``params_np``; every leaf's block size
-    against its full size over its spec's axes; a batch with a loss mask
-    refused; the checkpoint at ``ckpt_dir`` restored onto this mesh, every
-    block against the same block cut from the saved arrays."""
+    for ``STEP_STEPS`` steps from ``params_np``, then one step on
+    ``masked_batch`` (its loss, aux and parameters under ``<tag>.masked``);
+    every leaf's block size against its full size over its spec's axes;
+    the checkpoint at ``ckpt_dir`` restored onto this mesh, every block
+    against the same block cut from the saved arrays. Each batch is placed
+    for the step's microbatches."""
     out = {}
     with S.use_mesh(mesh, S.act_rules_for(STEP_CFG, mesh)):
         for tag, (zero1, micro, _) in STEP_VARIANTS.items():
@@ -102,21 +120,23 @@ def sharded_steps(mesh, params_np, ckpt_dir, ckpt_step):
             losses = []
             for i in range(STEP_STEPS):
                 batch = shard_batch(make_batch(STEP_CFG, STEP_SHAPE, 0, i),
-                                    mesh)
+                                    mesh, microbatches=micro)
                 params, opt, m = fn(params, opt, batch)
                 losses.append(float(m["loss"]))
             out[f"{tag}.losses"] = np.asarray(losses)
-            masked = make_batch(STEP_CFG, STEP_SHAPE, 0, 0)
-            masked["loss_mask"] = np.ones(masked["tokens"].shape, np.float32)
-            try:
-                fn(params, opt, shard_batch(masked, mesh))
-                out[f"{tag}.mask_refused"] = np.bool_(False)
-            except ValueError:
-                out[f"{tag}.mask_refused"] = np.bool_(True)
             out[f"{tag}.grad_norm"] = np.asarray(float(m["grad_norm"]))
             for key, leaf in tree_items(params):
                 name = key.replace("/", ".")
                 out[f"{tag}.param.{name}"] = fsdp.full_value(
+                    leaf).detach().numpy().copy()  # the step updates leaves
+            params, opt, m = fn(params, opt, shard_batch(
+                masked_batch(STEP_SHAPE), mesh, microbatches=micro))
+            out[f"{tag}.masked.loss"] = np.asarray(float(m["loss"]))
+            out[f"{tag}.masked.grad_norm"] = np.asarray(
+                float(m["grad_norm"]))
+            for key, leaf in tree_items(params):
+                name = key.replace("/", ".")
+                out[f"{tag}.masked.param.{name}"] = fsdp.full_value(
                     leaf).detach().numpy()
         # elastic restore of a whole-array checkpoint onto this mesh
         _, (pshape, oshape, _), (psh, osh, _), _ = build_train(

@@ -12,7 +12,7 @@ sized by the decode shape's ``seq_len``, ``max_len``), then
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -41,10 +41,16 @@ class Case(NamedTuple):
     #: held against the reference's single-device steps (its sharded
     #: decode past an MLA cache's end departs from them)
     single: bool = False
+    #: an MoE config's capacity factor, where not the config's
+    capacity: Optional[float] = None
 
     def cfg(self):
-        return dataclasses.replace(get_config(self.arch, smoke=True),
-                                   dtype="float32")
+        cfg = dataclasses.replace(get_config(self.arch, smoke=True),
+                                  dtype="float32")
+        if self.capacity is not None:
+            cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, capacity_factor=self.capacity))
+        return cfg
 
     def rules(self, mesh):
         return S.DP_ACT_RULES if self.dp_rules else S.act_rules_for(
@@ -63,7 +69,11 @@ class Case(NamedTuple):
 #: start is clamped to the last slot (``dynamic_update_slice``); the
 #: reference's partitioned write drops it instead, so that case is held
 #: against the reference's single-device steps, and "mla.append" (a
-#: 12-token prompt into 32 slots) against its sharded ones
+#: 12-token prompt into 32 slots) against its sharded ones. "moe.rows" and
+#: "mla.rows" split their 32 rows over the 4 ranks of ``data`` at capacity
+#: factor 0.5, so the prefill and the decode steps drop pairs of the whole
+#: batch that each rank's own capacity would keep: held against the
+#: reference's single-device steps, which route the whole batch
 CASES: Dict[str, Case] = {
     "dense": Case("gemma2-2b", (4, 2), 4, 16, 16, False),
     "dense.append": Case("gemma2-2b", (2, 4), 4, 12, 32, False),
@@ -77,6 +87,10 @@ CASES: Dict[str, Case] = {
     "moe": Case("deepseek-moe-16b", (1, 8), 2, 16, 16, False),
     "mla": Case("deepseek-v2-236b", (1, 8), 2, 16, 16, False, True),
     "mla.append": Case("deepseek-v2-236b", (1, 8), 2, 12, 32, False),
+    "moe.rows": Case("deepseek-moe-16b", (4, 2), 32, 16, 24, False, True,
+                     0.5),
+    "mla.rows": Case("deepseek-v2-236b", (4, 2), 32, 12, 24, False, True,
+                     0.5),
     "encdec": Case("seamless-m4t-large-v2", (4, 2), 4, 16, 16, False),
 }
 
