@@ -349,16 +349,38 @@ Phases (any failure exits non-zero before the result line):
                 within DRY_PEAK_RTOL of max_memory_allocated (after
                 reset_peak_memory_stats, above what was held before the
                 arguments), both printed with their ratio. Then
-                DRY_CELLS, two production cells on a fake world of 256 and
-                512 ranks, in a subprocess that sees no card
+                DRY_CELLS, three production cells on a fake world of 256
+                and 512 ranks, in a subprocess that sees no card
                 (CUDA_VISIBLE_DEVICES empty): each ok, its per-rank
-                numbers printed. No kernel launches; the phase's wall time
- 20. summary  : one JSON line {"kernels": [...]} (with each kernel's
+                numbers printed, and qwen3-32b's train_4k cell, whose
+                products split over ``model``, at replicated compute 1.
+                No kernel launches; the phase's wall time
+ 20. model split : the train step's products split over ``model``
+                (ROADMAP item 22(a)), in a subprocess that sees the card.
+                SPLIT_ARCH (qwen3-32b) at full width cut to SPLIT_LAYERS
+                layers, train_4k's 4 096 positions at batch SPLIT_BATCH:
+                build_train's step as rank 0 of a SPLIT_MESH (1, 16) mesh
+                on a fake world of 16 ranks (launch.mesh.fake_world: the
+                collectives move nothing, so the values are not checked
+                here; the CPU tests check them on gloo ranks), only rank
+                0's blocks resident, then the plain one-rank step of the
+                same cut (reckoned at SPLIT_BYTES_A_PARAM bytes a
+                parameter plus its activations), each predicted by
+                op_cost on meta tensors and run on the card under
+                FlopCounterMode, then once more timed (host clock, after
+                that warm-up step). Checks: each step's FLOPs == the
+                prediction exactly, each peak within DRY_PEAK_RTOL of the
+                predicted argument + temp bytes, and the rank's FLOPs
+                between 1 / 16 and SPLIT_FLOPS_MAX / 16 of the plain
+                step's. Prints both steps' ms, FLOPs, peaks and their
+                ratios beside the card's name and power limit. No kernel
+                launches; the phase's wall time
+ 21. summary  : one JSON line {"kernels": [...]} (with each kernel's
                 launches over the clean streams, stream_launches, while
                 tuning, tune_launches, over the pool events and stream,
                 pool_launches, and over the distributed recon runs,
                 dist_launches)
- 21. result   : last line {"ok": true, "device": {...}}
+ 22. result   : last line {"ok": true, "device": {...}}
 
 The on-card checks live here rather than in pytest because the machine with
 the card has no JAX, which the repository's test configuration imports.
@@ -4981,21 +5003,28 @@ def check_serve_mesh(dev, card: str) -> None:
           f"{card}", flush=True)
 
 
-#: two production cells the dry-run phase runs on a fake world
+#: production cells the dry-run phase runs on a fake world; the last, a
+#: train step whose products split over ``model``, reads replicated
+#: compute 1
 DRY_CELLS = (("gemma2-2b", "train_4k", False), ("gemma2-2b", "decode_32k",
-                                                True))
+                                                True),
+             ("qwen3-32b", "train_4k", False))
 #: the predicted argument + temp bytes against the card's peak
 DRY_PEAK_RTOL = 0.10
 #: the position of the dry-run phase's decode step (traffic C's prompt)
 DRY_INDEX = MESH_TRAFFIC["prompt"]
 
 
-def dry_step(label, build, meta_args, real_args, dev, card):
+def dry_step(label, build, meta_args, real_args, dev, card,
+             timed: int = 0):
     """One step ``build`` returns, predicted by op_cost on ``meta_args``
     (a function of the builder's arguments and shardings), then run on the
     card on ``real_args`` (likewise; called with nothing else resident)
     under FlopCounterMode. Checks the FLOPs equal and the peak within
-    DRY_PEAK_RTOL."""
+    DRY_PEAK_RTOL. ``timed``: so many more steps after the counted one
+    (its warm-up), each timed on the host clock to a synchronize. Returns
+    {"flops", "peak" (bytes above what was held), "predicted" (argument +
+    temp bytes), "ms" (the timed steps')}."""
     import gc
 
     import torch
@@ -5022,7 +5051,15 @@ def dry_step(label, build, meta_args, real_args, dev, card):
     torch.cuda.synchronize(dev)
     run_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated(dev) - held
-    del out, args
+    del out
+    ms = []
+    for _ in range(timed):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize(dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        del out
+    del args
     mem = pred["memory"]
     want = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
     got_flops = int(flops.get_total_flops())
@@ -5043,6 +5080,7 @@ def dry_step(label, build, meta_args, real_args, dev, card):
           f"dry run {label}: predicted arguments + temp {want} B against "
           f"the card's peak {peak} B: ratio {want / peak:.4f}, beyond "
           f"{DRY_PEAK_RTOL}")
+    return {"flops": got_flops, "peak": peak, "predicted": want, "ms": ms}
 
 
 def dry_cells() -> None:
@@ -5072,6 +5110,11 @@ def dry_cells() -> None:
     for r in cells:
         check(r["status"] == "ok", f"dry run {r['cell']}: {r['status']} "
               f"{r.get('error', r.get('reason'))}")
+        if r["arch"] == "qwen3-32b":
+            check(r["replicated_compute"] == 1,
+                  f"dry run {r['cell']}: replicated compute x"
+                  f"{r['replicated_compute']}, not 1: its products do "
+                  "not split over model")
         m, c = r["memory"], r["collectives"]
         print(f"dry run cell {r['cell']} on a fake world of "
               f"{r['n_devices']} ranks (no card): per rank {r['flops']} "
@@ -5081,7 +5124,8 @@ def dry_cells() -> None:
               f"{m['output_size_in_bytes']} B, collectives "
               f"{c['total_bytes']} B {c['bytes_by_kind']} in "
               f"{c['counts']}; replicated compute x"
-              f"{r['replicated_compute']}; traced in {r['trace_s']} s",
+              f"{r['replicated_compute']} (one rank's step "
+              f"{r['flops_one_rank']} FLOPs); traced in {r['trace_s']} s",
               flush=True)
     print(f"dry run cells: subprocess wall {time.perf_counter() - t0:.1f} s",
           flush=True)
@@ -5229,6 +5273,148 @@ def check_dryrun(dev, card: str) -> None:
             dist.destroy_process_group()
     dry_cells()
     print(f"dry run phase: wall {time.perf_counter() - t_phase:.1f} s; "
+          f"{card}", flush=True)
+
+
+#: the "model split" phase: qwen3-32b at full width cut in depth, rank 0
+#: of a (1, 16) mesh on a fake world, beside the plain step of the same cut
+SPLIT_ARCH = "qwen3-32b"
+SPLIT_LAYERS = 2
+SPLIT_BATCH = 2
+SPLIT_MESH = (1, 16)
+#: a rank's FLOPs over the plain step's: at least 1 / 16, at most this / 16
+SPLIT_FLOPS_MAX = 1.25
+#: bytes a parameter of the plain step: float32 parameter, its gradient,
+#: both AdamW moments and a gradient sum
+SPLIT_BYTES_A_PARAM = 20
+
+
+def split_cfg():
+    from repro_torch.config import get_config
+
+    return dataclasses.replace(get_config(SPLIT_ARCH),
+                               num_layers=SPLIT_LAYERS)
+
+
+def split_shape():
+    from repro_torch.config import SHAPES, ShapeConfig
+
+    return ShapeConfig(f"train_4k cut to a batch of {SPLIT_BATCH}", "train",
+                       SHAPES["train_4k"].seq_len, SPLIT_BATCH)
+
+
+def model_split_child() -> None:
+    """The "model split" phase's subprocess (docstring): one card, and no
+    process group running, so that it can start the fake world."""
+    import torch
+
+    from repro_torch.config import OptimizerConfig
+    from repro_torch.core import prng
+    from repro_torch.data.tokens import make_batch, shard_batch, to_device
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import fake_world, make_mesh
+    from repro_torch.launch.specs import build_train, input_specs
+    from repro_torch.models.model import Model
+    from repro_torch.optim.adamw import init_opt_state
+    from repro_torch.parallel import fsdp, sharding
+    from repro_torch.train.train_step import make_train_step
+    from repro_torch.tree import tree_leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    cfg, shape = split_cfg(), split_shape()
+    opt = OptimizerConfig(lr=TRAIN_LR, warmup_steps=2, total_steps=3)
+    batch = make_batch(cfg, shape, 0, 0)
+    n = math.prod(SPLIT_MESH)
+    model = Model(cfg, dev)
+    params = sum(t.numel() for t in tree_leaves(model.shapes()))
+    print(f"model split: {cfg.name} at full width (d_model {cfg.d_model}, "
+          f"{cfg.num_heads} heads, {cfg.num_kv_heads} kv heads, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab_size}) cut to {cfg.num_layers} "
+          f"layers, {params} parameters; {shape.name} ({shape.seq_len} "
+          f"positions); the plain step reckoned at {SPLIT_BYTES_A_PARAM} B "
+          f"a parameter, {params * SPLIT_BYTES_A_PARAM / 2**30:.2f} GiB, "
+          "plus its activations (op_cost's temp below)", flush=True)
+
+    with fake_world(n):
+        mesh = make_mesh(SPLIT_MESH, ("data", "model"), "cuda")
+        with sharding.use_mesh(mesh, sharding.act_rules_for(cfg, mesh)):
+            def build():
+                fn, meta, shs, _ = build_train(cfg, shape, mesh, opt)
+                return fn, meta, shs
+
+            def real(meta, shs):
+                full = Model(cfg, dev).init(prng.key(0), trainable=True)
+                return (fsdp.place(full, shs[0]),
+                        fsdp.place(init_opt_state(full), shs[1]),
+                        shard_batch(batch, mesh, dev))
+
+            split = dry_step(f"{cfg.name} {cfg.num_layers}-layer train step, "
+                             f"rank 0 of {SPLIT_MESH} on a fake world of "
+                             f"{n}", build,
+                             lambda m, s: dryrun.step_args("train", m, s),
+                             real, dev, card, timed=1)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def build_plain():
+        return (make_train_step(model, opt),
+                (model.shapes(), None, input_specs(cfg, shape)), None)
+
+    def plain_meta(meta, shs):
+        params = dryrun.meta_blocks(meta[0], None, grad=True)
+        return params, init_opt_state(params), dryrun.meta_blocks(meta[2],
+                                                                  None)
+
+    def plain_real(meta, shs):
+        full = Model(cfg, dev).init(prng.key(0), trainable=True)
+        return full, init_opt_state(full), to_device(batch, dev)
+
+    plain = dry_step(f"{cfg.name} {cfg.num_layers}-layer plain train step "
+                     "(one rank)", build_plain, plain_meta, plain_real, dev,
+                     card, timed=1)
+    ratio = split["flops"] / plain["flops"]
+    print(f"model split: rank 0 of {SPLIT_MESH}: {split['flops']} FLOPs, "
+          f"step {split['ms'][0]:.1f} ms (host clock, after a warm-up step), "
+          f"peak {split['peak'] / 2**30:.3f} GiB; the plain step: "
+          f"{plain['flops']} FLOPs, step {plain['ms'][0]:.1f} ms, peak "
+          f"{plain['peak'] / 2**30:.3f} GiB; the rank's FLOPs x {n} over the "
+          f"plain step's {ratio * n:.4f}, step ms ratio "
+          f"{split['ms'][0] / plain['ms'][0]:.4f}, peak ratio "
+          f"{split['peak'] / plain['peak']:.4f}; {card}", flush=True)
+    check(1 / n <= ratio <= SPLIT_FLOPS_MAX / n,
+          f"model split: the rank computes {ratio:.5f} of the plain step's "
+          f"FLOPs, outside [1/{n}, {SPLIT_FLOPS_MAX}/{n}]")
+
+
+def check_model_split(dev, card: str) -> None:
+    """The "model split" phase (docstring), in a subprocess that sees the
+    card (``model_split_child``)."""
+    import torch
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"model split: this process holds "
+          f"{torch.cuda.memory_allocated(dev)} B allocated, "
+          f"{torch.cuda.memory_reserved(dev)} B reserved", flush=True)
+    code = ("import sys\n"
+            "import chip_smoke\n"
+            "try:\n"
+            "    chip_smoke.model_split_child()\n"
+            "except chip_smoke.PhaseError as e:\n"
+            "    print(f'model split: FAILED: {e}', flush=True)\n"
+            "    sys.exit(1)\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+                         capture_output=True, text=True, timeout=900)
+    print(res.stdout, end="", flush=True)
+    check(res.returncode == 0,
+          f"model split: the subprocess failed ({res.returncode}): "
+          f"{res.stdout[-1500:]} {res.stderr[-3000:]}")
+    print(f"model split phase: wall {time.perf_counter() - t0:.1f} s; "
           f"{card}", flush=True)
 
 
@@ -5748,6 +5934,9 @@ def main() -> int:
 
     phase("dry run")
     check_dryrun(dev, card)
+
+    phase("model split")
+    check_model_split(dev, card)
 
     print(f"chip_smoke wall: {time.perf_counter() - t_all:.1f} s")
     print(card)

@@ -18,11 +18,16 @@ shape, a cell:
     rank 0, as the reference's keys name them (``status``, ``flops``,
     ``bytes_accessed``, ``memory``, ``collectives``, ``n_devices``), with
     ``trace_s`` (the step's wall time here) in place of ``lower_s`` /
-    ``compile_s``, and ``replicated_compute``: the ranks over the distinct
-    blocks of the batch the step computes (``launch.specs.batch_ranks``),
-    so the ranks that compute the same products; an MoE arch's cell adds
-    ``expert_slots``, a rank's expert-FFN slots a layer against the
-    reference's share of them (``expert_slots``).
+    ``compile_s``, and ``replicated_compute``: n times rank 0's FLOPs over
+    the FLOPs of the same step on one rank (``flops_one_rank``: the
+    builder's step on a one-rank mesh, traced once for an arch and shape),
+    to one decimal, so the factor by which the ranks repeat each other's
+    products: 1 where every product splits (a train step's heads, MLP
+    columns and vocab over ``model``, its batch over the batch axes), 16
+    where the 16 ranks of ``model`` compute the same products, and between
+    where only some split; an MoE arch's cell adds ``expert_slots``, a
+    rank's expert-FFN slots a layer against the reference's share of them
+    (``expert_slots``).
 
 The dry run allocates nothing on any device: every tensor is ``meta``, so
 it runs the same on a laptop and on the card's machine, as the reference's
@@ -45,6 +50,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import math
 import sys
@@ -54,6 +60,7 @@ from pathlib import Path
 from typing import Any, Dict
 
 import torch
+from torch.distributed.device_mesh import DeviceMesh
 
 from repro_torch.config import SHAPES, get_config
 from repro_torch.configs import ARCH_IDS
@@ -118,18 +125,47 @@ def measure(cfg, shape, mesh, rules=None) -> Dict[str, Any]:
     ``expert_slots``."""
     rules = rules or act_rules_for(cfg, mesh)
     t0 = time.perf_counter()
-    with use_mesh(mesh, rules):
-        fn, args, shardings, _ = BUILDERS[shape.kind](cfg, shape, mesh)
-        _, cost = op_cost.analyze(fn, step_args(shape.kind, args,
-                                                shardings))
+    cost = _cost(cfg, shape, mesh, rules)
     n = math.prod(mesh_shape(mesh).values())
-    computed = batch_ranks(shape, mesh, rules if shape.kind == "train"
-                           else None)
-    out = dict(cost, n_devices=n, replicated_compute=n // computed,
+    one = (cost["flops"] if n == 1 else
+           flops_one_rank(cfg, shape, mesh.device_type,
+                          tuple(mesh.mesh_dim_names)))
+    out = dict(cost, n_devices=n, flops_one_rank=one,
+               replicated_compute=round(n * cost["flops"] / one, 1),
                trace_s=round(time.perf_counter() - t0, 3))
     if cfg.moe is not None:
+        computed = batch_ranks(shape, mesh, rules if shape.kind == "train"
+                               else None)
         out["expert_slots"] = expert_slots(cfg, shape, mesh, computed)
     return out
+
+
+def _cost(cfg, shape, mesh, rules) -> Dict[str, Any]:
+    """``op_cost.analyze`` of rank 0's step of ``cfg`` at ``shape`` on
+    ``mesh`` under ``rules``."""
+    with use_mesh(mesh, rules):
+        fn, args, shardings, _ = BUILDERS[shape.kind](cfg, shape, mesh)
+        return op_cost.analyze(fn, step_args(shape.kind, args,
+                                             shardings))[1]
+
+
+@functools.lru_cache(maxsize=None)
+def flops_one_rank(cfg, shape, device_type: str, names) -> int:
+    """The FLOPs of the step of ``cfg`` at ``shape`` on a one-rank mesh of
+    dim ``names`` (``one_rank``) under the arch's act rules. On one rank
+    every spec is whole and no rule splits anything, so the count depends
+    on the arch and the shape alone: a sweep traces it once for both
+    production meshes."""
+    mesh = one_rank(device_type, names)
+    return _cost(cfg, shape, mesh, act_rules_for(cfg, mesh))["flops"]
+
+
+def one_rank(device_type: str, names) -> DeviceMesh:
+    """A mesh of dim ``names``, each of one rank (this one), in the current
+    process group."""
+    return DeviceMesh(device_type,
+                      torch.zeros((1,) * len(names), dtype=torch.int64),
+                      mesh_dim_names=names)
 
 
 def expert_slots(cfg, shape, mesh, split: int) -> Dict[str, Any]:

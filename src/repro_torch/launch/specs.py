@@ -166,6 +166,13 @@ def build_train(arch_cfg: ModelConfig, shape: ShapeConfig, mesh,
     An MoE FFN and a loss mask keep the reference's whole-batch values
     however the batch splits (``train_step``); the step's batch is placed
     by ``data.tokens.shard_batch`` with its microbatches.
+
+    Where ``model`` splits no batch, the step splits its products over it
+    as the reference's GSPMD step does (``parallel.fsdp``): GQA heads, MLP
+    columns and the vocab, and the residual's sequence; MLA, MoE, SSD and
+    RG-LRU segments compute in full on their sequence blocks. The audio
+    enc-dec keeps whole products (its encoder and cross-attention are not
+    split yet).
     """
     batch = input_specs(arch_cfg, shape)
     batch_sh = batch_shardings(batch, mesh)

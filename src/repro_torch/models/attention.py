@@ -16,11 +16,16 @@ forward also keeps the log-sum-exp, and its backward is the reference's
 ``_flash_bwd``, which recomputes each block's scores instead of keeping the
 (Sq x Skv) probabilities autograd would save. Where no input takes a
 gradient, ``apply`` runs the forward alone and records nothing.
-The reference's sharding constraints are left out, as in ``layers``: every
-activation here is a plain tensor. ``_maybe_repeat_kv`` is its decision to
-repeat the kv heads under a head-sharded mesh; the port's attention does
-not call it, because no layer here computes with its heads split over
-ranks (``parallel.fsdp``), so a repeat would only cost memory and time.
+Under a train step that splits its products over ``model``
+(``parallel.fsdp``), ``gqa_attention`` computes this rank's heads only:
+wq and wo arrive as their ``model`` blocks, and wk and wv too where
+``model`` divides the kv heads. Where it does not (8 kv heads on 16
+ranks), the reference repeats the kv heads to the full head count
+(``_maybe_repeat_kv``, called where the reference calls it) and shards the
+repeat by heads; the port projects only the kv heads this rank's q heads
+read, repeats them, and takes its own heads of the repeat: the same
+values. ``wo``'s product is then this rank's partial sum, which the
+segment reduce-scatters (``models.transformer``).
 
 A cache's ``index`` (the tokens written so far) is a Python int, the same
 for every layer of a stacked cache: it picks the slots a step writes, which
@@ -36,7 +41,7 @@ import torch
 from repro_torch.config import MLAConfig, ModelConfig
 from repro_torch.device import scalar
 from repro_torch.models.layers import apply_rope, rmsnorm, rope_table, softcap
-from repro_torch.parallel import kvcache
+from repro_torch.parallel import fsdp, kvcache
 from repro_torch.parallel.sharding import (current_act_rules, current_mesh,
                                            mesh_shape)
 
@@ -344,12 +349,18 @@ def make_gqa(make, path: str, cfg: ModelConfig):
     return p
 
 
-def _maybe_repeat_kv(k, v, num_heads: int):
+def _maybe_repeat_kv(k, v, num_heads: int, heads=None,
+                     num_kv_heads: Optional[int] = None):
     """The reference's repeat of the kv heads to the full head count: under
     a mesh whose ``model`` axis takes the heads and does not divide the
     kv-head count (8 kv heads on a 16-way axis), it repeats them so every
     tensor stays sharded by ``heads``. The attention's values do not
-    change. Not called by the port's attention (module docstring)."""
+    change.
+
+    ``heads`` = (first, n): this rank's q heads under a step that splits
+    them (``gqa_attention``); ``k`` and ``v`` then hold only the kv heads
+    those read, from kv head ``first // g`` on, of ``num_kv_heads``, and
+    the result is the repeat's heads ``first`` to ``first + n``."""
     mesh = current_mesh()
     sizes = mesh_shape(mesh)
     if mesh is None or "model" not in sizes:
@@ -357,12 +368,34 @@ def _maybe_repeat_kv(k, v, num_heads: int):
     if current_act_rules().get("heads") != "model":
         return k, v
     m = sizes["model"]
-    hkv = k.shape[2]
+    hkv = num_kv_heads or k.shape[2]
     if hkv % m == 0 or num_heads % m != 0 or num_heads == hkv:
         return k, v
     rep = num_heads // hkv
-    return (torch.repeat_interleave(k, rep, dim=2),
-            torch.repeat_interleave(v, rep, dim=2))
+    k = torch.repeat_interleave(k, rep, dim=2)
+    v = torch.repeat_interleave(v, rep, dim=2)
+    if heads is not None:
+        first, n = heads
+        off = first - first // rep * rep
+        k, v = k[:, :, off:off + n], v[:, :, off:off + n]
+    return k, v
+
+
+def _split_kv(params, cfg: ModelConfig):
+    """(wk, wv, heads) of this rank under a step that splits the heads:
+    where wk and wv arrive whole (``model`` does not divide the kv heads),
+    their columns of the kv heads this rank's q heads read, and ``heads``
+    = (the first of those q heads, their count) for ``_maybe_repeat_kv``;
+    else the blocks as they are and None."""
+    wk, wv = params["wk"], params["wv"]
+    if (wk.shape[1] != cfg.num_kv_heads
+            or not fsdp.splits("heads", cfg.num_heads)):
+        return wk, wv, None
+    n, idx = fsdp.split_rank()
+    hl = cfg.num_heads // n
+    first, g = idx * hl, cfg.num_heads // cfg.num_kv_heads
+    kv0, kv1 = first // g, (first + hl - 1) // g + 1
+    return wk[:, kv0:kv1], wv[:, kv0:kv1], (first, hl)
 
 
 class KVCache(NamedTuple):
@@ -405,9 +438,10 @@ def gqa_attention(params, x, positions, cfg: ModelConfig, *,
     """
     b, sq, d = x.shape
     dh = cfg.resolved_head_dim
+    wk, wv, heads = _split_kv(params, cfg)
     q = _project(x, params["wq"])
-    k = _project(x, params["wk"])
-    v = _project(x, params["wv"])
+    k = _project(x, wk)
+    v = _project(x, wv)
     if cfg.qk_norm:
         q = rmsnorm(q, params["q_norm"])
         k = rmsnorm(k, params["k_norm"])
@@ -417,6 +451,9 @@ def gqa_attention(params, x, positions, cfg: ModelConfig, *,
 
     index = 0 if cache is None else cache.index
     if cache is None:
+        if heads is not None:
+            k, v = _maybe_repeat_kv(k, v, cfg.num_heads, heads,
+                                    cfg.num_kv_heads)
         out = flash_attention(q, k, v, positions, positions, causal=causal,
                               window=window, logit_cap=cfg.attn_logit_softcap)
         new_cache = None

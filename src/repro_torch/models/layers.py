@@ -2,10 +2,13 @@
 
 Weights are float32 and are cast to the activations' dtype at each use, as
 the reference's ``params[...].astype(x.dtype)`` does; elementwise math runs
-in the reference's dtypes. The reference's ``logical(...)`` sharding
-constraints are left out: the port's parallel layer (``parallel.fsdp``)
-gathers each parameter where a layer reads it, so every activation here
-is a plain tensor, on which a constraint would be the identity.
+in the reference's dtypes. Where the reference places a ``logical(...)``
+sharding constraint, a train step that splits its products over ``model``
+(``parallel.fsdp``) hands these functions blocks: ``apply_mlp`` gets the
+column blocks of ``w_up`` / ``w_gate`` and the row block of ``w_down``,
+so its output is this rank's partial sum, and ``embed`` gets the table's
+vocab block, so a token outside it reads zeros and the sum over the ranks
+has one nonzero term.
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
 from repro_torch.device import scalar
+from repro_torch.parallel import fsdp
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -137,8 +141,21 @@ def make_embedding(make, path: str, vocab: int, d_model: int):
 def embed(params, tokens, cfg: ModelConfig):
     """The reference casts the whole table before it gathers rows; the cast
     is elementwise, so gathering first gives the same bits without casting
-    every row on every call."""
-    x = params["table"][tokens].to(dtype_of(cfg.dtype))
+    every row on every call. A table of fewer rows than the padded vocab is
+    this rank's vocab block (module docstring): a token outside it reads
+    zeros."""
+    table = params["table"]
+    rows = table.shape[0]
+    if rows == cfg.padded_vocab:
+        x = table[tokens]
+    else:
+        first = fsdp.split_rank()[1] * rows
+        local = tokens - first
+        inside = (local >= 0) & (local < rows)
+        x = torch.where(inside[..., None], table[local.clamp(0, rows - 1)],
+                        torch.zeros((), dtype=table.dtype,
+                                    device=table.device))
+    x = x.to(dtype_of(cfg.dtype))
     if cfg.embedding_scale:
         x = x * torch.full((), cfg.d_model ** 0.5, dtype=x.dtype,
                            device=x.device)

@@ -161,17 +161,36 @@ def _chunk_nll(xb, table, lb, mb, cfg: ModelConfig):
     in the features' dtype (the table cast inside the chunk, so each
     chunk's table gradient widens to float32 before the chunks add, as the
     reference's scan adds them), the softcap, the padded-vocab mask, then
-    float32 log-sum-exp against the label's logit."""
+    float32 log-sum-exp against the label's logit.
+
+    A table of fewer rows than the padded vocab is this rank's vocab block
+    under a step that splits over ``model`` (``parallel.fsdp``): the
+    logits are the block's columns, the mask takes their global indices,
+    and the max, the sum of exponentials and the label's logit (from the
+    rank that holds it) are taken over the split axis."""
+    rows = table.shape[0]
+    first = 0 if rows == cfg.padded_vocab else fsdp.split_rank()[1] * rows
     logits = torch.matmul(xb, table.to(xb.dtype).t())
     logits = softcap(logits, cfg.final_logit_softcap).float()
     if cfg.padded_vocab != cfg.vocab_size:
-        viota = torch.arange(logits.shape[-1], device=logits.device)
+        viota = torch.arange(first, first + rows, device=logits.device)
         logits = torch.where(viota < cfg.vocab_size, logits,
                              torch.full((), -1e9, dtype=torch.float32,
                                         device=logits.device))
-    logz = torch.logsumexp(logits, dim=-1)
-    # the reference's iota-compare sum has one nonzero term: the gather
-    ll = torch.gather(logits, -1, lb[..., None].long())[..., 0]
+    local = (lb.long() - first)[..., None]
+    if rows == cfg.padded_vocab:
+        logz = torch.logsumexp(logits, dim=-1)
+        # the reference's iota-compare sum has one nonzero term: the gather
+        ll = torch.gather(logits, -1, local)[..., 0]
+    else:
+        mx = fsdp.model_max(torch.amax(logits, dim=-1))
+        logz = torch.log(fsdp.model_sum(torch.sum(
+            torch.exp(logits - mx[..., None]), dim=-1))) + mx
+        inside = (local >= 0) & (local < rows)
+        ll = fsdp.model_sum(torch.where(
+            inside, torch.gather(logits, -1, local.clamp(0, rows - 1)),
+            torch.zeros((), dtype=torch.float32, device=logits.device)
+        )[..., 0])
     return torch.sum((logz - ll) * mb), torch.sum(mb)
 
 
@@ -183,7 +202,11 @@ def chunked_lm_loss(features, table, labels, cfg: ModelConfig,
     ``torch.utils.checkpoint``, so no (B, S, V) logits are kept for the
     backward (the reference's ``nothing_saveable``). A masked loss on a
     batch split over ranks divides by the whole batch's mask sum
-    (``_whole_batch_sums``)."""
+    (``_whole_batch_sums``). Under a step that splits over ``model`` the
+    features are the whole sequence on every rank of the split and
+    ``table`` is this rank's vocab block (``_chunk_nll``), or the whole
+    table, in which case every rank computes the whole loss and takes a
+    share of its gradient (``fsdp.model_share``)."""
     b, s, _ = features.shape
     while s % n_chunks:
         n_chunks -= 1
@@ -200,6 +223,8 @@ def chunked_lm_loss(features, table, labels, cfg: ModelConfig,
                             labels[:, sl], loss_mask[:, sl], cfg,
                             use_reentrant=False)
         tot, cnt = tot + nll, cnt + m
+    if table.shape[0] == cfg.padded_vocab:
+        tot = fsdp.model_share(tot)
     if masked:
         tot, cnt = _whole_batch_sums(tot, cnt)
     return tot / torch.clamp_min(cnt, 1.0)

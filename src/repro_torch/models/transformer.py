@@ -26,6 +26,14 @@ Every read of a parameter goes through ``parallel.fsdp.gathered`` (the
 identity outside a sharded train step): a layer's segments gather their
 own parameters, so a sharded step gathers one layer at a time, and again
 where a remat segment recomputes it.
+
+A train step that splits its products over ``model`` (``fsdp.Layout
+.split``) carries the residual stream as this rank's block of the
+sequence (``_on_block``): each segment normalises its block, gathers the
+sequence, and either reduce-scatters its partial sums (GQA and MLP
+segments whose heads or columns split) or keeps its own block of a whole
+result (MLA, MoE, SSD, RG-LRU, cross-attention). The embedding ends in the
+same reduce-scatter, and the final norm runs on the block.
 """
 from __future__ import annotations
 
@@ -40,6 +48,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
+from repro_torch.parallel import fsdp
 from repro_torch.parallel.fsdp import gathered, mark_slices
 from repro_torch.tree import tree_leaves
 
@@ -142,6 +151,26 @@ def _segment(remat: bool, fn, *args):
     return fn(*args)
 
 
+def _on_block(x, ln, cfg: ModelConfig, fn, split: bool):
+    """A segment on the residual ``x``: ``fn`` (returning (out, extra)) of
+    the normalised ``x``. Under a split step ``x`` is this rank's sequence
+    block: it is normalised, the sequence gathered, and ``fn``'s ``out``
+    either reduce-scattered (``split``: it is this rank's partial sum) or
+    cut to this rank's block (``fn`` computed the whole of it)."""
+    h = fsdp.seq_gather(L.apply_norm(ln, x, cfg.norm_kind))
+    out, extra = fn(h)
+    return (fsdp.seq_scatter(out) if split else fsdp.seq_block(out)), extra
+
+
+def _mlp_segment(ln, mlp, x, cfg: ModelConfig, d_ff: int):
+    """An MLP segment, its columns split where the step splits ``mlp``."""
+    split = fsdp.splits("mlp", d_ff)
+    ln, mlp = gathered(ln), gathered(mlp, keep=split)
+    return _on_block(x, ln, cfg,
+                     lambda h: (L.apply_mlp(mlp, h, cfg.mlp_kind), None),
+                     split)[0]
+
+
 def _griffin_group(p, x, positions, cfg: ModelConfig, stack: Stack, cache,
                    selective: bool):
     new_cache: Dict[str, Any] = {}
@@ -149,18 +178,23 @@ def _griffin_group(p, x, positions, cfg: ModelConfig, stack: Stack, cache,
         sub = cache.get(f"g{j}") if cache else None
 
         def mixer(x, j=j, kind=kind, sub=sub):
-            ln, mix = gathered((p[f"g{j}_ln_mix"], p[f"g{j}_mix"]))
-            h = L.apply_norm(ln, x, cfg.norm_kind)
-            if kind == "recurrent":
-                return rglru_mod.apply_rglru(mix, h, cfg, sub)
-            return attn.gqa_attention(mix, h, positions, cfg,
-                                      causal=True, window=cfg.window_size,
-                                      cache=sub)
+            split = (kind != "recurrent"
+                     and fsdp.splits("heads", cfg.num_heads))
+            ln = gathered(p[f"g{j}_ln_mix"])
+            mix = gathered(p[f"g{j}_mix"], keep=split)
+
+            def fn(h):
+                if kind == "recurrent":
+                    return rglru_mod.apply_rglru(mix, h, cfg, sub)
+                return attn.gqa_attention(mix, h, positions, cfg,
+                                          causal=True, window=cfg.window_size,
+                                          cache=sub)
+
+            return _on_block(x, ln, cfg, fn, split)
 
         def ffn(x, j=j):
-            ln, mlp = gathered((p[f"g{j}_ln_ffn"], p[f"g{j}_ffn"]))
-            h = L.apply_norm(ln, x, cfg.norm_kind)
-            return L.apply_mlp(mlp, h, cfg.mlp_kind)
+            return _mlp_segment(p[f"g{j}_ln_ffn"], p[f"g{j}_ffn"], x, cfg,
+                                stack.d_ff)
 
         out, nc = _segment(selective, mixer, x)
         if nc is not None:
@@ -186,27 +220,36 @@ def apply_block(p, x, positions, cfg: ModelConfig, stack: Stack,
     sub = cache.get(key) if cache else None
 
     def mixer(x):
-        ln, mix = gathered((p["ln_mix"], p["mix"]))
-        h = L.apply_norm(ln, x, cfg.norm_kind)
-        if stack.mixer == "gqa":
-            return attn.gqa_attention(mix, h, positions, cfg,
-                                      causal=True, window=window, cache=sub)
-        if stack.mixer == "mla":
-            return attn.mla_attention(mix, h, positions, cfg, cache=sub)
-        return ssm_mod.apply_ssm(mix, h, cfg, cache=sub)
+        split = stack.mixer == "gqa" and fsdp.splits("heads",
+                                                      cfg.num_heads)
+        ln, mix = gathered(p["ln_mix"]), gathered(p["mix"], keep=split)
+
+        def fn(h):
+            if stack.mixer == "gqa":
+                return attn.gqa_attention(mix, h, positions, cfg,
+                                          causal=True, window=window,
+                                          cache=sub)
+            if stack.mixer == "mla":
+                return attn.mla_attention(mix, h, positions, cfg, cache=sub)
+            return ssm_mod.apply_ssm(mix, h, cfg, cache=sub)
+
+        return _on_block(x, ln, cfg, fn, split)
 
     def cross(x):
         ln, cp = gathered((p["ln_cross"], p["cross"]))
-        h = L.apply_norm(ln, x, cfg.norm_kind)
-        return attn.cross_attention(cp, h, cross_kv, positions,
-                                    enc_positions, cfg)
+        return _on_block(x, ln, cfg, lambda h: (attn.cross_attention(
+            cp, h, cross_kv, positions, enc_positions, cfg), None),
+            False)[0]
 
     def ffn(x):
+        if stack.ffn == "mlp":
+            return _mlp_segment(p["ln_ffn"], p["ffn"], x, cfg,
+                                stack.d_ff), None
         ln, fp = gathered((p["ln_ffn"], p["ffn"]))
-        h = L.apply_norm(ln, x, cfg.norm_kind)
-        if stack.ffn == "moe":
-            return moe_mod.apply_moe(fp, h, cfg)
-        return L.apply_mlp(fp, h, cfg.mlp_kind), None
+        out, aux_l = _on_block(x, ln, cfg,
+                               lambda h: moe_mod.apply_moe(fp, h, cfg), False)
+        # every rank of the split computed the whole sequence's aux
+        return out, fsdp.model_share(aux_l)
 
     # --- mixer ---
     out, nc = _segment(selective, mixer, x)
@@ -359,6 +402,10 @@ def positions_for(b: int, s: int, start_index, device) -> torch.Tensor:
 
 
 def logits_of(params, x, cfg: ModelConfig):
+    if fsdp.split_axis() is not None:
+        raise ValueError("a step that splits its products over model "
+                         "returns features (features_only=True); its loss "
+                         "is vocab-parallel (models.model.chunked_lm_loss)")
     table = (params["embed"]["table"] if cfg.tie_embeddings
              else params["unembed"]["table"])
     return L.unembed({"table": gathered(table)}, x, cfg)
@@ -373,14 +420,23 @@ def lm_forward(params, tokens, cfg: ModelConfig, *, caches=None,
     caches: per-stack stacked caches (decode), written in place.
     start_index: the cache fill (a host int). features_only: return final
     hidden states instead of logits.
-    Returns (logits_or_features, new_caches, aux).
+    Returns (logits_or_features, new_caches, aux). Under a step that
+    splits its products over ``model`` the features are this rank's block
+    of the sequence (module docstring).
     """
-    x = L.embed(gathered(params["embed"]), tokens, cfg)
+    split = fsdp.splits("vocab", cfg.padded_vocab)
+    x = L.embed(gathered(params["embed"], keep=split), tokens, cfg)
     if frontend_embeds is not None:
-        x = torch.cat([frontend_embeds.to(x.dtype), x], dim=1)
+        front = frontend_embeds.to(x.dtype)
+        if split and fsdp.split_rank()[1]:
+            # x is a partial sum over the vocab blocks: one rank adds them
+            front = torch.zeros_like(front)
+        x = torch.cat([front, x], dim=1)
     b, s, _ = x.shape
     if positions is None:
         positions = positions_for(b, s, start_index, x.device)
+    if fsdp.residual_split(s):
+        x = fsdp.seq_scatter(x) if split else fsdp.seq_block(x)
     x, new_caches, aux = run_stacks(params, x, positions, cfg, caches=caches,
                                     cross_kv=cross_kv,
                                     enc_positions=enc_positions)

@@ -1,29 +1,46 @@
 """Sharded parameters for the train step: explicit local blocks, gathered
-where the model reads them, gradients reduce-scattered (FSDP).
+where the model reads them, gradients reduce-scattered (FSDP); and the
+products split over ``model`` (tensor and sequence parallelism).
 
 The reference lets GSPMD partition its step from the parameters'
 ``NamedSharding``s. Here a sharded parameter is this rank's block of the
 full tensor (``place``), marked with its spec (``spec_of``); optimizer
-state is placed the same way, so a rank stores only its blocks. The model
-never computes on a block: every place a parameter enters the computation
-(the embedding, each layer's mixer / cross-attention / FFN segment, the
-norms, the loss's table) takes it through ``gathered``, which under a
-``Layout`` all-gathers each marked leaf to its full shape and otherwise
-returns it unchanged. A stacked layer tensor's per-layer slices carry the
-spec without its leading layer entry (``mark_slices``), so a layer is
-gathered when it runs, and again when a remat segment recomputes it.
+state is placed the same way, so a rank stores only its blocks. Every
+place a parameter enters the computation (the embedding, each layer's
+mixer / cross-attention / FFN segment, the norms, the loss's table) takes
+it through ``gathered``, which under a ``Layout`` all-gathers each marked
+leaf to its full shape and otherwise returns it unchanged. A stacked layer
+tensor's per-layer slices carry the spec without its leading layer entry
+(``mark_slices``), so a layer is gathered when it runs, and again when a
+remat segment recomputes it.
 
-The gather's backward turns the full gradient of this rank's share of the
+The gather's backward turns the gradient of this rank's share of the
 batch into this rank's block summed over the ranks that split the batch
 (``Layout.batch_axes``): a reduce-scatter over each batch axis that splits
 one of the leaf's dims, a slice for every other axis of its spec, and an
 all-reduce of the block over the batch axes that split none of its dims
 (under ZeRO-1 the parameters are whole over ``data``, so their gradients
-take this all-reduce and the step then cuts the optimizer's block). Ranks
-that differ only in an axis that splits no batch (``model`` under
-``ACT_RULES``) compute the same full products: the layer distributes
-parameter and optimizer storage and the batch, not the products of one
-sequence.
+take this all-reduce and the step then cuts the optimizer's block).
+
+The split over ``model`` (``Layout.split``: a train step's layout, where
+``model`` splits no batch; ``train.train_step``). The residual stream
+between segments, and so what remat keeps of it, is this rank's block of
+the sequence (the reference's ``seq`` over ``model``). A segment
+normalises its block, gathers the sequence (``seq_gather``) and ends in
+one of two ways. A split segment (GQA heads, MLP columns, where
+``splits`` says the step's act rules give the dim ``model``) reads its
+parameters' ``model`` blocks (``gathered(..., keep=True)``), computes
+its heads or columns only, and reduce-scatters its partial sums over the
+sequence (``seq_scatter``). Any other segment
+computes in full, as the unsplit step does, and keeps its own block of the
+result (``seq_block``). The embedding is vocab-parallel (a rank's vocab
+block, a reduce-scatter of one nonzero term a token) and so is the loss
+(``model_sum``, ``model_max``). A kept block's gradient is exactly the
+block's, so it is summed over the batch axes only; every other leaf's
+gradient on a rank is the part that rank's sequence block, heads or
+columns produced, so ``model`` joins the axes it is summed over. A scalar
+that every ``model`` rank computes whole (an MoE aux) passes through
+``model_share``, so that sum counts it once.
 
 A statistic of the whole batch (an MoE FFN's expert counts and aux, a
 masked loss's mask sum) is read through the layout as well:
@@ -32,12 +49,13 @@ order, and ``Layout.whole_batch`` sums a rank's share over the batch
 ranks with ``batch_n`` times the share's gradient, which the step's mean
 over those ranks turns into the whole batch's gradient. The serving
 steps' layout takes the caches' rows as its batch axes
-(``parallel.kvcache.serving``), so both paths use these two.
+(``parallel.kvcache.serving``), so both paths use these two; it never
+splits over ``model``.
 
 Collectives run only over axes of more than one rank, and a leaf is
-gathered only where its spec or the batch has such an axis, so on a mesh
-of size 1 every path here is the identity and the step keeps the plain
-step's bits.
+gathered only where its spec, the batch or the split has such an axis, so
+on a mesh of size 1 every path here is the identity and the step keeps the
+plain step's bits.
 """
 from __future__ import annotations
 
@@ -134,7 +152,8 @@ def extra_spec(param_spec, grad_spec, ndim: int) -> tuple:
 
 class Layout(NamedTuple):
     """The mesh of a sharded step, its axis sizes, the axes (of more than
-    one rank) that split its batch and their product (``make_layout``)."""
+    one rank) that split its batch and their product, and the axis that
+    splits its products, if any (``make_layout``)."""
 
     mesh: object
     sizes: Dict[str, int]
@@ -142,6 +161,8 @@ class Layout(NamedTuple):
     batch_n: int
     #: ``gathered``'s decision for each spec met so far
     needs: Dict[tuple, bool]
+    #: ``model`` where the step splits its products over it, else None
+    split: Optional[str] = None
 
     def sum_over(self, t: torch.Tensor, axes) -> torch.Tensor:
         for a in axes:
@@ -236,10 +257,11 @@ class use_layout:
         _layout[0] = self.prev
 
 
-def layout_of(params, batch) -> Optional[Layout]:
+def layout_of(params, batch, split: bool = False) -> Optional[Layout]:
     """The layout of a step on ``params`` and ``batch``: None when no leaf
     of either is marked (the plain step); else the current mesh (which must
-    be set) and the batch's split axes."""
+    be set), the batch's split axes and, with ``split``, the split of the
+    products over ``model`` (``make_layout``)."""
     marked = any(spec_of(p) is not None for p in tree_leaves(params))
     bspec = spec_of(batch["tokens"])
     if not marked and bspec is None:
@@ -248,13 +270,18 @@ def layout_of(params, batch) -> Optional[Layout]:
     if mesh is None:
         raise ValueError("sharded parameters or batch need a mesh: run the "
                          "step under parallel.sharding.use_mesh")
-    return make_layout(mesh, S.spec_axes(bspec[0]) if bspec else ())
+    return make_layout(mesh, S.spec_axes(bspec[0]) if bspec else (), split)
 
 
-def make_layout(mesh, batch_axes) -> Layout:
+def make_layout(mesh, batch_axes, split: bool = False) -> Layout:
+    """``split``: the products split over ``model`` wherever it has more
+    than one rank and splits no batch (else the layout splits nothing)."""
     sizes = S.mesh_shape(mesh)
     axes = tuple(a for a in batch_axes if sizes[a] > 1)
-    return Layout(mesh, sizes, axes, math.prod(sizes[a] for a in axes), {})
+    tp = ("model" if split and sizes.get("model", 1) > 1
+          and "model" not in axes else None)
+    return Layout(mesh, sizes, axes, math.prod(sizes[a] for a in axes), {},
+                  tp)
 
 
 def _reduce_scatter_dim(t: torch.Tensor, dim: int, mesh,
@@ -268,26 +295,32 @@ def _reduce_scatter_dim(t: torch.Tensor, dim: int, mesh,
     return out.movedim(0, dim).contiguous() if dim else out
 
 
-def reduce_to_block(grad: torch.Tensor, spec, layout: Layout
-                    ) -> torch.Tensor:
+def reduce_to_block(grad: torch.Tensor, spec, layout: Layout,
+                    keep: bool = False) -> torch.Tensor:
     """This rank's block under ``spec`` of ``grad`` summed over the ranks
-    that split the batch. Along each dim, the axes of its spec entry in
-    order (most significant first): a reduce-scatter over a batch axis, a
-    slice for any other (whose ranks hold the same sum); then an all-reduce
-    of the block over the batch axes that split none of the dims."""
+    that split the batch and, where the layout splits the products and the
+    leaf's ``model`` block was not kept, over ``model`` too. Along each
+    dim, the axes of its spec entry in order (most significant first): a
+    reduce-scatter over a summed axis, a slice for any other (whose ranks
+    hold the same sum), nothing for the kept ``model`` (``grad`` is
+    already its block); then an all-reduce of the block over the summed
+    axes that split none of the dims."""
     mesh, out, scattered = layout.mesh, grad, set()
+    summed = layout.batch_axes
+    if layout.split is not None and not keep:
+        summed = summed + (layout.split,)
     for dim, entry in enumerate(spec):
         for a in S.spec_axes(entry):
             n = layout.sizes[a]
-            if n == 1:
+            if n == 1 or (keep and a == layout.split):
                 continue
-            if a in layout.batch_axes:
+            if a in summed:
                 out = _reduce_scatter_dim(out, dim, mesh, a)
                 scattered.add(a)
             else:
                 size = out.shape[dim] // n
                 out = out.narrow(dim, mesh.get_local_rank(a) * size, size)
-    rest = [a for a in layout.batch_axes if a not in scattered]
+    rest = [a for a in summed if a not in scattered]
     if rest:
         if not scattered:   # still a view of autograd's gradient
             out = out.clone(memory_format=torch.contiguous_format)
@@ -295,44 +328,231 @@ def reduce_to_block(grad: torch.Tensor, spec, layout: Layout
     return out
 
 
+def _without(spec, axis) -> tuple:
+    """``spec`` with ``axis`` taken out of every entry."""
+    out = []
+    for entry in spec:
+        rest = tuple(a for a in S.spec_axes(entry) if a != axis)
+        out.append(None if not rest else rest[0] if len(rest) == 1
+                   else rest)
+    return tuple(out)
+
+
 class _Gather(torch.autograd.Function):
-    """Forward: the full tensor of a block. Backward: this rank's block of
-    the gradient, summed over the batch's ranks (``reduce_to_block``)."""
+    """Forward: the full tensor of a block (with ``keep``, the ``model``
+    block: every other axis gathered). Backward: this rank's block of the
+    gradient, summed (``reduce_to_block``)."""
 
     @staticmethod
-    def forward(ctx, local, spec, layout):
-        ctx.spec, ctx.layout = spec, layout
-        full = S.gather_shards(local, spec, layout.mesh)
+    def forward(ctx, local, spec, layout, keep):
+        ctx.spec, ctx.layout, ctx.keep = spec, layout, keep
+        full = S.gather_shards(local, _without(spec, layout.split) if keep
+                               else spec, layout.mesh)
         return full if full is not local else local.view_as(local)
 
     @staticmethod
     def backward(ctx, grad):
-        return reduce_to_block(grad, ctx.spec, ctx.layout), None, None
+        return (reduce_to_block(grad, ctx.spec, ctx.layout, ctx.keep), None,
+                None, None)
 
 
 def _needs_gather(spec, layout: Layout) -> bool:
     hit = layout.needs.get(spec)
     if hit is None:
-        hit = layout.needs[spec] = layout.batch_n > 1 or any(
-            layout.sizes[a] > 1 for e in spec for a in S.spec_axes(e))
+        hit = layout.needs[spec] = (
+            layout.batch_n > 1 or layout.split is not None or any(
+                layout.sizes[a] > 1 for e in spec for a in S.spec_axes(e)))
     return hit
 
 
-def gathered(tree):
+def gathered(tree, keep: bool = False):
     """``tree`` (a tree, a leaf, or a plain tuple of either) with every
     marked leaf at its full shape under the current layout (the identity
-    without one, or where no axis of the leaf's spec or the batch has more
-    than one rank)."""
+    without one, or where no axis of the leaf's spec, the batch or the
+    split has more than one rank). ``keep``: a leaf whose spec splits a dim
+    over the layout's split axis keeps its ``model`` block of that dim (a
+    split segment's heads, columns or vocab rows). The caller passes
+    ``keep`` where the act rules split the segment (``splits``), so its
+    output is this rank's partial sum; a tree of which no leaf then keeps
+    a block would give every rank the whole product, which the split would
+    sum n times over: that raises."""
     layout = current_layout()
     if layout is None:
         return tree
     if type(tree) is tuple:
-        return tuple(gathered(t) for t in tree)
+        return tuple(gathered(t, keep) for t in tree)
+    keep = keep and layout.split is not None
+
+    def kept(spec) -> bool:
+        return keep and spec is not None and any(
+            layout.split in S.spec_axes(e) for e in spec)
+
+    if keep and not any(kept(spec_of(t)) for t in tree_leaves(tree)):
+        raise ValueError(
+            f"the act rules split this segment over {layout.split!r}, but "
+            f"none of its parameters' specs holds a {layout.split!r} block "
+            "(the parameter rules and the act rules disagree)")
 
     def one(t):
         spec = spec_of(t)
         if spec is None or not _needs_gather(spec, layout):
             return t
-        return _Gather.apply(t, spec, layout)
+        return _Gather.apply(t, spec, layout, kept(spec))
 
     return tree_map(one, tree)
+
+
+# ---------------------------------------------------------------------------
+# The products split over ``model``: the residual's sequence blocks and the
+# vocab-parallel sums
+# ---------------------------------------------------------------------------
+
+def split_axis() -> Optional[str]:
+    """The axis the current step splits its products over, or None."""
+    layout = current_layout()
+    return None if layout is None else layout.split
+
+
+def splits(name: str, dim: int) -> bool:
+    """Whether the current step splits the activation dim ``name`` of size
+    ``dim`` over its split axis: ``build_spec`` under the step's act rules
+    gives it that axis (the divisibility fallback decides, as the
+    reference's does)."""
+    layout = current_layout()
+    if layout is None or layout.split is None:
+        return False
+    spec = S.build_spec((dim,), (name,), layout.mesh,
+                        S.current_act_rules())
+    return layout.split in S.spec_axes(spec[0])
+
+
+def split_rank() -> Tuple[int, int]:
+    """(the ranks of the split axis, this rank's index on it); (1, 0)
+    without a split."""
+    layout = current_layout()
+    if layout is None or layout.split is None:
+        return 1, 0
+    return (layout.sizes[layout.split],
+            layout.mesh.get_local_rank(layout.split))
+
+
+def residual_split(seq: int) -> bool:
+    """Whether the residual stream of a ``seq``-position step is split over
+    the sequence: wherever the step splits its products. Raises where the
+    act rules do not split ``seq`` there: the step never falls back to
+    whole products."""
+    if split_axis() is None:
+        return False
+    if not splits("seq", seq):
+        n, _ = split_rank()
+        raise ValueError(
+            f"the step splits its products over {n} ranks of "
+            f"{split_axis()!r}, but its residual's {seq} positions do not "
+            "split over them")
+    return True
+
+
+class _SeqGather(torch.autograd.Function):
+    """(B, S / n, ...) blocks -> (B, S, ...): forward all-gathers the
+    sequence over the split axis, backward reduce-scatters the gradient
+    (each rank's part of it) back to the blocks."""
+
+    @staticmethod
+    def forward(ctx, x, layout):
+        ctx.layout = layout
+        return S._gather_dim(x, 1, layout.mesh, layout.split)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (_reduce_scatter_dim(grad, 1, ctx.layout.mesh,
+                                    ctx.layout.split), None)
+
+
+class _SeqScatter(torch.autograd.Function):
+    """(B, S, ...) partial sums -> this rank's (B, S / n, ...) block of
+    their sum over the split axis; backward all-gathers the blocks'
+    gradients (each rank's partial sum takes the whole gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, layout):
+        ctx.layout = layout
+        return _reduce_scatter_dim(x, 1, layout.mesh, layout.split)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (S._gather_dim(grad.contiguous(), 1, ctx.layout.mesh,
+                              ctx.layout.split), None)
+
+
+class _ModelSum(torch.autograd.Function):
+    """Forward: ``t`` summed over the split axis; backward: the gradient as
+    it is (every rank holds the whole sum's gradient, which is each
+    term's)."""
+
+    @staticmethod
+    def forward(ctx, t, layout):
+        return layout.sum_over(t.contiguous().clone(), (layout.split,))
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def seq_gather(x: torch.Tensor) -> torch.Tensor:
+    """The whole sequence of a residual block (the identity without a
+    split)."""
+    layout = current_layout()
+    if layout is None or layout.split is None:
+        return x
+    return _SeqGather.apply(x, layout)
+
+
+def seq_scatter(x: torch.Tensor) -> torch.Tensor:
+    """This rank's sequence block of the sum over the split axis of every
+    rank's partial ``x`` (the identity without a split)."""
+    layout = current_layout()
+    if layout is None or layout.split is None:
+        return x
+    return _SeqScatter.apply(x, layout)
+
+
+def seq_block(x: torch.Tensor) -> torch.Tensor:
+    """This rank's sequence block of a whole-sequence ``x`` that every rank
+    of the split axis computed alike (the identity without a split)."""
+    n, idx = split_rank()
+    if n == 1:
+        return x
+    size = x.shape[1] // n
+    return x.narrow(1, idx * size, size)
+
+
+def model_sum(t: torch.Tensor) -> torch.Tensor:
+    """``t`` summed over the split axis, each rank's gradient the sum's
+    (the vocab-parallel loss's sums)."""
+    layout = current_layout()
+    if layout is None or layout.split is None:
+        return t
+    return _ModelSum.apply(t, layout)
+
+
+def model_max(t: torch.Tensor) -> torch.Tensor:
+    """The elementwise max of ``t`` over the split axis, no gradient."""
+    layout = current_layout()
+    t = t.detach()
+    if layout is None or layout.split is None:
+        return t
+    out = t.contiguous().clone()
+    dist.all_reduce(out, op=dist.ReduceOp.MAX,
+                    group=layout.mesh.get_group(layout.split))
+    return out
+
+
+def model_share(t: torch.Tensor) -> torch.Tensor:
+    """A term every rank of the split axis computes whole (an MoE layer's
+    aux on the whole sequence): its value, with 1 / n of its gradient, so
+    the gradients' sum over the axis counts it once."""
+    n, _ = split_rank()
+    if n == 1:
+        return t
+    share = t - t.detach()
+    return t.detach() + share / scalar(n, share)

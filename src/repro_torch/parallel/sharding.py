@@ -14,15 +14,14 @@ named dims, or anything with a ``.shape`` dict of axis sizes (the spec
 tables need no devices): ``mesh_shape`` reads either.
 
 ``NamedSharding(mesh, spec)`` places a tensor: ``shard`` takes this rank's
-block of a full tensor, ``gather`` assembles the full tensor from every
-rank's block, and ``placements`` gives the spec as DTensor placements
-(``Shard(dim)`` on each mesh dim that splits ``dim``, else
-``Replicate()``). ``logical`` is the counterpart of
-``with_sharding_constraint``: a DTensor under a mesh is redistributed to
-its spec's placements; a plain tensor, or any tensor without a mesh, is
-returned as it is. The port's model computes on plain tensors only (its
-parameters are gathered by ``parallel.fsdp``), so it calls no
-``logical``: that serves a caller that holds DTensors.
+block of a full tensor and ``gather`` assembles the full tensor from every
+rank's block.
+
+The reference's ``logical(x, names)`` (``with_sharding_constraint``) has
+no counterpart here: the port's model computes on plain tensors, and a
+train step decides each split where the reference places a constraint,
+from ``build_spec`` under the step's act rules (``parallel.fsdp.splits``),
+then moves the blocks itself (``fsdp.seq_gather`` / ``seq_scatter``).
 """
 from __future__ import annotations
 
@@ -252,23 +251,6 @@ class NamedSharding:
     mesh: object
     spec: Spec
 
-    def placements(self):
-        """The spec as DTensor placements, one per mesh dim."""
-        from torch.distributed.tensor import Replicate, Shard
-
-        names = list(self.mesh.mesh_dim_names)
-        out = [Replicate() for _ in names]
-        for dim, entry in enumerate(self.spec):
-            axes = spec_axes(entry)
-            order = [names.index(a) for a in axes]
-            if order != sorted(order):
-                raise ValueError(f"spec {self.spec}: axes {axes} of dim "
-                                 f"{dim} are not in the mesh's order "
-                                 f"{tuple(names)}")
-            for i in order:
-                out[i] = Shard(dim)
-        return out
-
     def shard(self, t: torch.Tensor) -> torch.Tensor:
         return shard_of(t, self.spec, self.mesh)
 
@@ -283,24 +265,6 @@ def named_sharding(shape, names, rules=None, mesh=None
         return None
     spec = build_spec(shape, names, mesh, rules or ACT_RULES)
     return NamedSharding(mesh, spec)
-
-
-def logical(x: torch.Tensor, names: Sequence[Optional[str]],
-            rules: Optional[Dict[str, AxisName]] = None) -> torch.Tensor:
-    """``with_sharding_constraint`` by logical names: a DTensor is
-    redistributed to the spec's placements; a plain tensor, or any tensor
-    without a mesh, is returned as it is."""
-    mesh = current_mesh()
-    if mesh is None or not _is_dtensor(x):
-        return x
-    spec = build_spec(x.shape, names, mesh, rules or current_act_rules())
-    return x.redistribute(mesh, NamedSharding(mesh, spec).placements())
-
-
-def _is_dtensor(x) -> bool:
-    from torch.distributed.tensor import DTensor
-
-    return isinstance(x, DTensor)
 
 
 def spec_tree(shapes, names_tree, rules=None, mesh=None):

@@ -240,6 +240,19 @@ def lm_bf16_grad_atol_frac(num_layers: int) -> float:
     return LM_BF16_GRAD_ATOL_FRAC * math.sqrt(max(num_layers, 2) / 2)
 
 
+#: a sharded train step in bfloat16 whose products split over ``model``
+#: against the reference's sharded bfloat16 step (2 steps, AdamW eps 1):
+#: the losses and grad norm as a relative tolerance, each parameter as a
+#: fraction of its leaf's max. Each is the port's one-device bfloat16 gap
+#: to the reference's single-device step plus the reference's own gap
+#: between its sharded and single-device steps, measured worst over
+#: ``tests/test_torch_serve_mesh.py``'s bfloat16 runs (the sharded-step
+#: config and gemma2-2b smoke on (4, 2) and (2, 4)), rounded up to a power
+#: of two: losses 5.81e-4 + 1.81e-4, parameters 6.16e-3 + 9.36e-3
+LM_BF16_SPLIT_RTOL = 2.0 ** -10
+LM_BF16_SPLIT_ATOL_FRAC = 2.0 ** -6
+
+
 #: the dry run's FLOPs at one device (``launch.op_cost``, FlopCounterMode's
 #: count of the eager step) against the reference's trip-count-aware count
 #: of its compiled step (``hlo_cost.analyze``), as a fraction of the

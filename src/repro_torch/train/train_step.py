@@ -31,6 +31,14 @@ n); a split batch must come placed so that each rank's microbatch i is
 its block of those rows (``data.tokens.shard_batch(..., microbatches=n)``),
 which the step checks.
 
+Where ``model`` splits no batch, the products are split over it as
+well (``parallel.fsdp``): heads, MLP columns and the vocab, the
+residual's sequence (not for an encoder-decoder model, whose encoder and
+cross-attention take no split yet). Each rank's loss is still its rows'
+whole loss, and its gradients come back as its blocks, summed over the
+batch ranks and, for a leaf that every rank of ``model`` reads whole,
+over ``model``.
+
 ``grad_shardings`` (ZeRO-1): each microbatch's gradients are cut to
 those placements (the optimizer state's, finer than the parameters'), the
 update runs on the matching blocks of the parameters, and the parameters'
@@ -60,15 +68,19 @@ def make_loss_fn(model: Model):
 
     def loss_fn(params, batch):
         feats, aux = model.forward(params, batch, features_only=True)
+        # a step split over `model` holds a block of the sequence: the loss
+        # reads it whole, against this rank's vocab block
+        feats = fsdp.seq_gather(feats)
         # next-token prediction: position t predicts token t+1
         tokens = batch["tokens"]
         if model.cfg.frontend == "vision":
             # frontend tokens are prepended; slice back to the text region
             feats = feats[:, model.cfg.frontend_tokens:]
-        loss = chunked_lm_loss(feats[:, :-1],
-                               fsdp.gathered(model.unembed_table(params)),
-                               tokens[:, 1:], model.cfg,
-                               batch.get("loss_mask", None))
+        table = fsdp.gathered(
+            model.unembed_table(params),
+            keep=fsdp.splits("vocab", model.cfg.padded_vocab))
+        loss = chunked_lm_loss(feats[:, :-1], table, tokens[:, 1:],
+                               model.cfg, batch.get("loss_mask", None))
         return loss + aux, {"loss": loss, "aux": aux}
 
     return loss_fn
@@ -118,14 +130,17 @@ def make_train_step(model: Model, opt_cfg: OptimizerConfig,
 
     grad_shardings: optional tree of ``NamedSharding``s (the parameters'
     structure) to which each microbatch's gradients are cut; with ZeRO-1
-    (parameters whole over ``data``) the optimizer's placements."""
+    (parameters whole over ``data``) the optimizer's placements.
+    On sharded parameters the step splits its products over ``model``
+    (``parallel.fsdp``), but for an encoder-decoder model."""
     loss_fn = make_loss_fn(model)
     micro = parallel.microbatches if parallel else 1
+    split = not model.cfg.is_encoder_decoder
     gsh = None if grad_shardings is None else tree_leaves(grad_shardings)
 
     def train_step(params, opt_state: OptState, batch):
         leaves = tree_leaves(params)
-        layout = fsdp.layout_of(params, batch)
+        layout = fsdp.layout_of(params, batch, split)
         check_placement(batch, micro, layout)
         # the gradient sums' count: microbatches x ranks splitting the batch
         count = micro * (layout.batch_n if layout is not None else 1)

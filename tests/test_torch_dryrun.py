@@ -15,8 +15,10 @@ still hold.
       reference's, but for the caches' ``index`` leaves and a decode step's
       ``index`` argument, host ints in the port: the difference is their
       bytes, exactly.
-  (b) FLOPs at one device (GSPMD splits over ``model`` what the port
-      replicates, so per-rank FLOPs agree only there): within
+  (b) FLOPs at one device (GSPMD splits over ``model`` more than the
+      port does: its serving steps, and the MLA, MoE, SSD and RG-LRU
+      segments of its train steps, so per-rank FLOPs agree only there):
+      within
       ``parity.DRYRUN_FLOPS_RTOL``, but for the gaps ``FLOPS_GAPS`` records,
       each held to its exact count.
   (c) collectives: the plain sharded train step and a decode step issue,
@@ -28,7 +30,10 @@ still hold.
   (e) statuses: the MoE cells of the production meshes are ``ok`` (their
       batch split over 16 or 32 ranks, the routing the whole batch's), each
       with its expert-FFN slots a rank against the reference's share;
-      ``long_500k`` is ``skipped`` outside ``LONG_OK`` and runs inside it.
+      ``long_500k`` is ``skipped`` outside ``LONG_OK`` and runs inside it;
+      nemotron-4-15b's ``train_4k`` at 256 ranks splits every product
+      (replicated compute 1), and the MoE cells' replicated compute is
+      pinned (``REPLICATED``).
 """
 import json
 import math
@@ -265,7 +270,10 @@ def test_gemma2_decode_32k_at_256_ranks_matches_its_reckoning():
     tok = shape.global_batch // rows * 4            # (rows, 1) int32
     assert (params, cache) == (118_511_424, 1_745_043_456)
     assert got["memory"]["argument_size_in_bytes"] == params + cache + tok
-    assert got["n_devices"] == 256 and got["replicated_compute"] == 16
+    # the serving builders keep whole products over `model`, but for the
+    # split-KV attention over the cache slots: 256 x rank 0's FLOPs over
+    # the one-rank step's
+    assert got["n_devices"] == 256 and got["replicated_compute"] == 6.6
     assert got["flops"] > 0 and got["collectives"]["total_bytes"] > 0
 
 
@@ -285,6 +293,17 @@ def _split_slots(arch, shape_name, multi_pod):
     return tokens // ranks, max(8, (cap + 7) // 8 * 8), 16
 
 
+#: replicated compute (n x rank 0's FLOPs over the one-rank step's) of
+#: cells of ``test_cell_status``: an MoE cell's MoE layers compute whole
+#: on every rank of ``model``, each expert at min(capacity, the rank's
+#: tokens) (ROADMAP items 22(c) and 23); a dense train step's products all
+#: split (ROADMAP item 22(a))
+REPLICATED = {("deepseek-moe-16b", "train_4k", False): 72.4,
+              ("deepseek-v2-236b", "decode_32k", True): 12.9,
+              ("deepseek-moe-16b", "prefill_32k", True): 47.4,
+              ("nemotron-4-15b", "train_4k", False): 1.0}
+
+
 @pytest.mark.parametrize("arch, shape_name, multi_pod, status", [
     ("deepseek-moe-16b", "train_4k", False, "ok"),
     ("deepseek-v2-236b", "decode_32k", True, "ok"),
@@ -292,10 +311,14 @@ def _split_slots(arch, shape_name, multi_pod):
     ("gemma2-2b", "long_500k", False, "skipped"),
     ("qwen3-32b", "long_500k", True, "skipped"),
     ("mamba2-780m", "long_500k", False, "ok"),
+    ("nemotron-4-15b", "train_4k", False, "ok"),
 ])
 def test_cell_status(tmp_path, arch, shape_name, multi_pod, status):
     r = dryrun.run_cell(arch, shape_name, multi_pod, out_dir=tmp_path)
     assert r["status"] == status, r.get("error", r.get("reason"))
+    if (arch, shape_name, multi_pod) in REPLICATED:
+        assert r["replicated_compute"] == REPLICATED[arch, shape_name,
+                                                     multi_pod]
     if arch.startswith("deepseek"):
         # every expert at min(capacity, the rank's tokens), against the
         # reference's E x capacity over the 16 ranks of `model`
@@ -305,7 +328,6 @@ def test_cell_status(tmp_path, arch, shape_name, multi_pod, status):
         assert slots["capacity"] == cap
         assert slots["port"] == e * min(cap, local)
         assert slots["reference"] == e * cap / experts
-        assert r["replicated_compute"] == 16
     if status == "skipped":
         assert arch not in dryrun.LONG_OK
     if status == "ok":

@@ -47,11 +47,14 @@ from repro_torch.ckpt.checkpoint import CheckpointManager
 from repro_torch.core import prng
 from repro_torch.data.tokens import make_batch, to_device
 from repro_torch.interop import model_params_from_numpy
+from repro_torch.launch import dryrun
 from repro_torch.launch import train as launch_train
+from repro_torch.launch.mesh import fake_world, make_mesh
 from repro_torch.launch.specs import batch_ranks
 from repro_torch.models import attention as tattention
 from repro_torch.models.model import Model as TModel
 from repro_torch.optim.adamw import init_opt_state
+from repro_torch.parallel import fsdp
 from repro_torch.parallel import sharding as tsharding
 from repro_torch.testing import parity
 from repro_torch.testing.ranks import run_ranks
@@ -89,40 +92,44 @@ def jax_cfg(cfg):
 
 @pytest.fixture(scope="module")
 def sharded(tmp_path_factory):
-    """({microbatches: the reference's losses, grad norm and parameters of
-    its jitted single-device steps}, the ranks' results)."""
-    jp = JModel(jax_cfg(R.STEP_CFG)).init(jax.random.key(0))
-    params_np = flatten(jax.tree.map(np.asarray, jp))
-    ref = {}
-    for tag in ("plain", "plain.micro2"):
-        _, micro, _ = R.STEP_VARIANTS[tag]
-        jm = JModel(jax_cfg(R.step_cfg(tag)))
-        step = jax.jit(jmake_train_step(
-            jm, jconfig.OptimizerConfig(),
-            jconfig.ParallelConfig(microbatches=micro)))
-        p, s = jp, jinit_opt_state(jp)
-        losses = []
-        for i in range(R.STEP_STEPS):
-            batch = jmake_batch(jm.cfg, R.STEP_SHAPE, 0, i)
-            p, s, m = step(p, s, {k: jnp.asarray(v)
-                                  for k, v in batch.items()})
-            losses.append(float(m["loss"]))
-        ref[micro] = {"losses": losses, "grad_norm": float(m["grad_norm"]),
-                      "params": flatten(jax.tree.map(np.asarray, p))}
-        masked = {k: jnp.asarray(v) for k, v in
-                  R.masked_batch(R.STEP_SHAPE).items()}
-        ref[micro]["per_rank_loss"] = _per_rank_masked_loss(
-            jm, p, masked, micro, 4)
-        p, s, m = step(p, s, masked)
-        ref[micro]["masked"] = {
-            "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
-            "params": flatten(jax.tree.map(np.asarray, p))}
+    """({(config, microbatches): the reference's losses, grad norm and
+    parameters of its jitted single-device steps}, {mesh: the ranks'
+    results}): one spawn of 8 ranks per mesh of ``R.STEP_MESHES``."""
+    ref, params_by_cfg = {}, {}
+    for name, cfg in R.STEP_CFGS.items():
+        jp = JModel(jax_cfg(cfg)).init(jax.random.key(0))
+        params_by_cfg[name] = flatten(jax.tree.map(np.asarray, jp))
+        for tag in ("plain", "plain.micro2"):
+            _, micro, _ = R.STEP_VARIANTS[tag]
+            jm = JModel(jax_cfg(R.step_cfg(tag, name)))
+            step = jax.jit(jmake_train_step(
+                jm, jconfig.OptimizerConfig(),
+                jconfig.ParallelConfig(microbatches=micro)))
+            p, s = jp, jinit_opt_state(jp)
+            losses = []
+            for i in range(R.STEP_STEPS):
+                batch = jmake_batch(jm.cfg, R.STEP_SHAPE, 0, i)
+                p, s, m = step(p, s, {k: jnp.asarray(v)
+                                      for k, v in batch.items()})
+                losses.append(float(m["loss"]))
+            one = {"losses": losses, "grad_norm": float(m["grad_norm"]),
+                   "params": flatten(jax.tree.map(np.asarray, p))}
+            masked = {k: jnp.asarray(v) for k, v in
+                      R.masked_batch(R.STEP_SHAPE, cfg).items()}
+            one["per_rank_loss"] = {
+                dims[0]: _per_rank_masked_loss(jm, p, masked, micro, dims[0])
+                for dims in R.STEP_MESHES}
+            p, s, m = step(p, s, masked)
+            one["masked"] = {
+                "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                "params": flatten(jax.tree.map(np.asarray, p))}
+            ref[name, micro] = one
 
     # a whole-array checkpoint of the port's plain step, to restore
     tmp = tmp_path_factory.mktemp("parallel")
     tm = TModel(R.STEP_CFG, "cpu")
     tp = tm.load_params(model_params_from_numpy(
-        R.unflatten(params_np), "cpu"), trainable=True)
+        R.unflatten(params_by_cfg["step"]), "cpu"), trainable=True)
     ts = init_opt_state(tp)
     tp, ts, _ = make_train_step(tm, tconfig.OptimizerConfig())(
         tp, ts, to_device(make_batch(R.STEP_CFG, R.STEP_SHAPE, 0, 0), "cpu"))
@@ -132,8 +139,9 @@ def sharded(tmp_path_factory):
     np.savez(ckpt / "blocks.npz", **{
         k: v.detach().numpy() for k, v in tree_items({"params": tp,
                                                       "opt": ts})})
-    ranks = run_ranks(R.sharded_steps, 8, (4, 2), "gloo", tmp, params_np,
-                      str(ckpt), 1)
+    ranks = {dims: run_ranks(R.sharded_steps, 8, dims, "gloo", tmp,
+                             params_by_cfg, str(ckpt), 1)
+             for dims in R.STEP_MESHES}
     return ref, ranks
 
 
@@ -160,33 +168,45 @@ def _per_rank_masked_loss(jm, params, batch, micro: int, ranks: int):
 
 TAGS = list(R.STEP_VARIANTS)
 
+#: (mesh, config, variant) of the sharded-step tests: the variants of the
+#: reference's sharded-step config on (4, 2) keep their tags as ids; the
+#: others read "<mesh>-<config>-<tag>"
+CASES = {tag: ((4, 2), "step", tag) for tag in TAGS}
+CASES.update({f"{d[0]}x{d[1]}-{name}-{tag}": (d, name, tag)
+              for d in R.STEP_MESHES for name in R.STEP_CFGS for tag in TAGS
+              if (d, name) != ((4, 2), "step")})
 
-def _ref(refs, tag):
-    return refs[R.STEP_VARIANTS[tag][1]]
+
+def _case(refs, ranks, case):
+    """(the reference's run, the mesh's ranks, the results' key prefix, the
+    mesh) of a case."""
+    dims, name, tag = CASES[case]
+    return (refs[name, R.STEP_VARIANTS[tag][1]], ranks[dims],
+            f"{name}.{tag}", dims)
 
 
-@pytest.mark.parametrize("tag", TAGS)
+@pytest.mark.parametrize("tag", list(CASES))
 def test_sharded_step_loss_matches_reference(sharded, tag):
     refs, ranks = sharded
-    ref = _ref(refs, tag)
+    ref, ranks, key, _ = _case(refs, ranks, tag)
     rel = max(abs(a - b) / abs(b) for r in ranks
-              for a, b in zip(r[f"{tag}.losses"], ref["losses"]))
+              for a, b in zip(r[f"{key}.losses"], ref["losses"]))
     print(f"sharded {tag}: losses within {rel:.3e} relative")
     for r in ranks:
-        np.testing.assert_allclose(r[f"{tag}.losses"], ref["losses"],
+        np.testing.assert_allclose(r[f"{key}.losses"], ref["losses"],
                                    rtol=parity.LM_GRAD_ATOL_FRAC, atol=0)
-        np.testing.assert_allclose(r[f"{tag}.grad_norm"], ref["grad_norm"],
+        np.testing.assert_allclose(r[f"{key}.grad_norm"], ref["grad_norm"],
                                    rtol=parity.LM_GRAD_ATOL_FRAC, atol=0)
 
 
-@pytest.mark.parametrize("tag", TAGS)
+@pytest.mark.parametrize("tag", list(CASES))
 def test_sharded_step_params_match_reference(sharded, tag):
     refs, ranks = sharded
-    ref = _ref(refs, tag)
+    ref, ranks, key, _ = _case(refs, ranks, tag)
     worst = 0.0
     for name, want in ref["params"].items():
         for r in ranks:
-            err = parity.assert_close(r[f"{tag}.param.{name}"], want,
+            err = parity.assert_close(r[f"{key}.param.{name}"], want,
                                       rtol=0.0,
                                       atol_frac=parity.LM_GRAD_ATOL_FRAC,
                                       what=f"{tag} {name}")
@@ -195,17 +215,18 @@ def test_sharded_step_params_match_reference(sharded, tag):
     print(f"sharded {tag}: parameters within {worst:.3e} of a leaf's max")
 
 
-@pytest.mark.parametrize("tag", TAGS)
+@pytest.mark.parametrize("tag", list(CASES))
 def test_sharded_blocks_hold_their_share(sharded, tag):
     """Each rank's block of every parameter, m and v == full size / the
     product of the mesh axes in its spec."""
-    _, ranks = sharded
-    assert all(bool(r[f"{tag}.sizes_ok"]) for r in ranks)
+    refs, ranks = sharded
+    _, ranks, key, _ = _case(refs, ranks, tag)
+    assert all(bool(r[f"{key}.sizes_ok"]) for r in ranks)
 
 
-@pytest.mark.parametrize("tag", TAGS)
+@pytest.mark.parametrize("tag", list(CASES))
 def test_split_batch_refuses_a_loss_mask(sharded, tag):
-    """A loss mask on the batch split over the 4 ranks of ``data``: one
+    """A loss mask on the batch split over the ranks of ``data``: one
     step on ``R.masked_batch`` after the ``R.STEP_STEPS`` steps. The
     reference divides by the whole microbatch's mask sum, so each rank
     does too: the loss, the grad norm and every parameter within
@@ -213,33 +234,54 @@ def test_split_batch_refuses_a_loss_mask(sharded, tag):
     between the ranks, and dividing by each rank's own would give another
     loss."""
     refs, ranks = sharded
-    ref = _ref(refs, tag)
-    micro = R.STEP_VARIANTS[tag][1]
+    ref, ranks, key, dims = _case(refs, ranks, tag)
+    micro = R.STEP_VARIANTS[CASES[tag][2]][1]
     mask = R.loss_mask(R.STEP_SHAPE)
     sums = [float(blk.sum()) for mb in np.split(mask, micro)
-            for blk in np.split(mb, 4)]
+            for blk in np.split(mb, dims[0])]
     assert len(set(sums)) > 1, sums
     want = ref["masked"]
-    gap = abs(ref["per_rank_loss"] - want["loss"]) / want["loss"]
+    own = ref["per_rank_loss"][dims[0]]
+    gap = abs(own - want["loss"]) / want["loss"]
     assert gap > 10 * parity.LM_GRAD_ATOL_FRAC, gap
     worst = (0.0, "")
     for r in ranks:
-        np.testing.assert_allclose(r[f"{tag}.masked.loss"], want["loss"],
+        np.testing.assert_allclose(r[f"{key}.masked.loss"], want["loss"],
                                    rtol=parity.LM_GRAD_ATOL_FRAC, atol=0)
-        np.testing.assert_allclose(r[f"{tag}.masked.grad_norm"],
+        np.testing.assert_allclose(r[f"{key}.masked.grad_norm"],
                                    want["grad_norm"],
                                    rtol=parity.LM_GRAD_ATOL_FRAC, atol=0)
         for name, value in want["params"].items():
-            err = parity.assert_close(r[f"{tag}.masked.param.{name}"], value,
+            err = parity.assert_close(r[f"{key}.masked.param.{name}"], value,
                                       rtol=0.0,
                                       atol_frac=parity.LM_GRAD_ATOL_FRAC,
                                       what=f"{tag} masked {name}")
             worst = max(worst, (err / max(float(np.max(np.abs(value))),
                                           1e-30), name))
     print(f"sharded {tag}: masked loss {want['loss']:.6f}; each rank's own "
-          f"denominator would give {ref['per_rank_loss']:.6f} ({gap:.2e} "
+          f"denominator would give {own:.6f} ({gap:.2e} "
           f"relative); parameters within {worst[0]:.3e} of a leaf's max "
           f"({worst[1]})")
+
+
+@pytest.mark.parametrize("dims", R.STEP_MESHES)
+def test_kv_heads_repeat_where_model_does_not_divide_them(sharded, dims):
+    """On (2, 4) the 4 ranks of ``model`` split the 4 heads, not the 2 kv
+    heads: every attention call of every variant goes through
+    ``_maybe_repeat_kv``, which repeats this rank's kv heads, as the
+    reference's GSPMD step does; on (4, 2) the kv heads split and nothing
+    repeats."""
+    _, ranks = sharded
+    for r in ranks[dims]:
+        for name, cfg in R.STEP_CFGS.items():
+            for tag in TAGS:
+                n = int(r[f"{name}.{tag}.repeats"])
+                if dims == (2, 4):
+                    # a call a layer a microbatch a step, and one more a
+                    # layer for each segment remat recomputes
+                    assert n >= cfg.num_layers * R.STEP_STEPS, (name, tag)
+                else:
+                    assert n == 0, (name, tag)
 
 
 @pytest.mark.parametrize("dims, split", [((4, 2), True), ((1, 2), False)])
@@ -263,18 +305,134 @@ def test_split_batch_refuses_moe(tmp_path, dims, split):
                                rtol=parity.LM_GRAD_ATOL_FRAC, atol=0)
 
 
-def test_logical_redistributes_a_dtensor(sharded):
-    """``logical`` on a DTensor under the (4, 2) mesh: the spec's
-    placements, whose local blocks are ``NamedSharding``'s (one dim over
-    ``("data", "model")`` under ``DP_ACT_RULES``)."""
-    _, ranks = sharded
-    assert all(bool(r["dtensor.logical"]) for r in ranks)
+@pytest.mark.parametrize("arch, dims, split", [
+    ("qwen3-32b", (16, 16), {"heads": True, "kv_heads": False, "mlp": True,
+                             "vocab": True, "seq": True}),
+    ("nemotron-4-15b", (2, 16, 16), {"heads": True, "kv_heads": False,
+                                     "mlp": True, "vocab": True,
+                                     "seq": True}),
+    ("gemma2-2b", (16, 16), {"heads": False, "kv_heads": False,
+                             "mlp": False, "vocab": False, "seq": False}),
+    ("gemma2-2b", (2, 16, 16), {"heads": False, "kv_heads": False,
+                                "mlp": True, "vocab": True, "seq": True}),
+])
+def test_split_decisions_follow_build_spec(arch, dims, split):
+    """The split over ``model`` of each activation dim of a ``train_4k``
+    step on a production mesh (``fsdp.splits``, under ``act_rules_for``)
+    == the reference's ``build_spec`` giving that dim ``model`` under the
+    same rules, after the batch took its axes: 8 kv heads on 16 ranks do
+    not split (they are repeated); gemma2-2b's 8 heads on 16 take
+    ``DP_ACT_RULES``, whose batch takes ``model`` at 256 ranks (nothing
+    splits) but not at 512, where its MLP columns, vocab and sequence split
+    and its heads do not."""
+    cfg = tconfig.get_config(arch)
+    shape = tconfig.SHAPES["train_4k"]
+    axes = ("pod", "data", "model")[-len(dims):]
+    mesh = _StandIn(**dict(zip(axes, dims)))
+    rules = tsharding.act_rules_for(cfg, mesh)
+    jmesh = _StandIn(**dict(zip(axes, dims)))
+    jrules = jsharding.act_rules_for(jax_cfg(cfg), jmesh)
+    sizes = {"heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads,
+             "mlp": cfg.d_ff, "vocab": cfg.padded_vocab,
+             "seq": shape.seq_len}
+    bspec = jsharding.build_spec((shape.global_batch,), ("batch",), jmesh,
+                                 jrules)
+    layout = fsdp.make_layout(mesh, tsharding.spec_axes(bspec[0]),
+                              split=True)
+    with tsharding.use_mesh(mesh, rules), fsdp.use_layout(layout):
+        for name, dim in sizes.items():
+            spec = jsharding.build_spec((shape.global_batch, dim),
+                                        ("batch", name), jmesh, jrules)
+            want = "model" in tsharding.spec_axes(spec[1])
+            assert fsdp.splits(name, dim) == want == split[name], name
+
+
+@pytest.mark.parametrize("m", [2, 4])
+@pytest.mark.parametrize("arch", ["qwen3-32b", "nemotron-4-15b",
+                                  "stablelm-12b", "gemma2-2b"])
+def test_rank_computes_its_share(arch, m):
+    """Rank 0 of a (1, m) mesh on a fake world: ``build_train``'s step on
+    a dense smoke config computes its share of the one-rank step's FLOPs
+    (``launch.dryrun.measure``, op_cost on meta tensors): at least 1 / m
+    of them and at most 1.25 / m. On 4 ranks the 2 kv heads are repeated,
+    so a rank projects a whole kv head for its one q head."""
+    cfg = tconfig.get_config(arch, smoke=True)
+    shape = tconfig.ShapeConfig("t", "train", 32, 2)
+    with fake_world(m):
+        got = dryrun.measure(cfg, shape, make_mesh((1, m),
+                                                   ("data", "model")))
+    share = got["flops"] / got["flops_one_rank"]
+    print(f"{arch} smoke on (1, {m}): rank 0 computes {share:.4f} of the "
+          f"one-rank step's {got['flops_one_rank']} FLOPs (x{m}: "
+          f"{share * m:.4f})")
+    assert 1 / m <= share <= 1.25 / m
+    assert got["replicated_compute"] <= 1.25
+
+
+@pytest.mark.parametrize("specs, raises", [
+    # the parameter rules left ``model`` off the MLP's columns
+    ({"w_up": (None, None), "w_down": (None, None)}, True),
+    ({"w_up": (None, "model"), "w_down": ("model", None)}, False),
+])
+def test_split_segment_needs_a_model_block(specs, raises):
+    """Under a layout that splits over ``model`` (rank 0 of (1, 2) on a
+    fake world), ``gathered(..., keep=True)`` of a segment the act rules
+    split raises where none of its leaves' specs holds a ``model`` block:
+    every rank would compute the whole product and the reduce-scatter
+    would sum it twice. Where the blocks are there it keeps them."""
+    with fake_world(2):
+        mesh = make_mesh((1, 2), ("data", "model"))
+        tree = {k: fsdp.mark(torch.zeros(4 if spec[0] is None else 2,
+                                         4 if spec[1] is None else 2), spec)
+                for k, spec in specs.items()}
+        with fsdp.use_layout(fsdp.make_layout(mesh, (), split=True)):
+            if raises:
+                with pytest.raises(ValueError, match="disagree"):
+                    fsdp.gathered(tree, keep=True)
+            else:
+                out = fsdp.gathered(tree, keep=True)
+                assert {k: tuple(v.shape) for k, v in out.items()} == {
+                    "w_up": (4, 2), "w_down": (2, 4)}
+
+
+@pytest.mark.parametrize("tag", list(R.ONE_RANK))
+def test_one_rank_mesh_gives_the_plain_bits(tmp_path, tag):
+    """On a (1, 1) mesh every collective and slice of the sharded step is
+    skipped, the split over ``model`` included: ``build_train``'s step
+    (plain or ZeRO-1) gives the plain ``make_train_step``'s losses, grad
+    norms and parameters bit for bit, in float32 and in bfloat16 with two
+    microbatches and remat ``selective``."""
+    cfg, _, micro = R.ONE_RANK[tag]
+    tm = TModel(cfg, "cpu")
+    drawn = tm.init(prng.key(0))
+    params_np = {k.replace("/", "."): v.numpy()
+                 for k, v in tree_items(drawn)}
+    tp = tm.load_params(model_params_from_numpy(R.unflatten(params_np),
+                                                "cpu"), trainable=True)
+    ts = init_opt_state(tp)
+    step = make_train_step(tm, tconfig.OptimizerConfig(),
+                           tconfig.ParallelConfig(microbatches=micro))
+    metrics = []
+    for i in range(R.STEP_STEPS):
+        tp, ts, m = step(tp, ts, to_device(
+            make_batch(cfg, R.STEP_SHAPE, 0, i), "cpu"))
+        metrics.append([float(m["loss"]), float(m["grad_norm"])])
+    (got,) = run_ranks(R.one_rank_steps, 1, (1, 1), "gloo", tmp_path, tag,
+                       params_np)
+    np.testing.assert_array_equal(got["metrics"], np.asarray(metrics))
+    for key, want in tree_items(tp):
+        np.testing.assert_array_equal(
+            got["param." + key.replace("/", ".")], want.detach().numpy(),
+            err_msg=key)
 
 
 def test_elastic_restore_onto_mesh_is_bitwise(sharded):
-    _, ranks = sharded
-    assert all(bool(r["restore.bitwise"]) for r in ranks)
-    assert all(int(r["restore.step"]) == 1 for r in ranks)
+    """A whole-array checkpoint restores onto (4, 2) and (2, 4), every
+    block the saved array's block under its spec, bit for bit."""
+    _, meshes = sharded
+    for ranks in meshes.values():
+        assert all(bool(r["restore.bitwise"]) for r in ranks)
+        assert all(int(r["restore.step"]) == 1 for r in ranks)
 
 
 def test_moe_on_an_unsplit_batch_matches_one_device(tmp_path):
@@ -479,8 +637,14 @@ def test_repeat_kv_decision_and_values(monkeypatch):
 
 
 def test_launch_train_mesh_matches_one_rank(tmp_path):
+    """``launch.train --mesh 2x2`` on gemma2-2b's smoke config in float32
+    against the one-rank run, held to ``parity.LM_GRAD_ATOL_FRAC``. The
+    mesh splits the products over the 2 ranks of ``model``; in bfloat16
+    its partial sums round apart from the one rank's whole products
+    (``test_launch_train_mesh_bf16_matches_one_rank``)."""
     common = ["--arch", "gemma2-2b", "--smoke", "--device", "cpu",
-              "--steps", "3", "--batch", "4", "--seq", "32"]
+              "--steps", "3", "--batch", "4", "--seq", "32", "--set",
+              "dtype=float32"]
     one = launch_train.main(common + ["--ckpt-dir", str(tmp_path / "one")])
     four = launch_train.main(common + ["--mesh", "2x2", "--ckpt-dir",
                                        str(tmp_path / "four")])
@@ -488,6 +652,28 @@ def test_launch_train_mesh_matches_one_rank(tmp_path):
     np.testing.assert_allclose(four.losses, one.losses,
                                rtol=parity.LM_GRAD_ATOL_FRAC, atol=0)
     assert os.path.isdir(tmp_path / "four")
+
+
+def test_launch_train_mesh_bf16_matches_one_rank(tmp_path):
+    """The same runs in gemma2-2b's own bfloat16: the mesh's bfloat16
+    partial sums over ``model`` round apart from the one rank's whole
+    products, as the reference's sharded bfloat16 step rounds apart from
+    its single-device step; the losses are held to
+    ``parity.LM_BF16_SPLIT_RTOL``, the rule the reference's sharded step
+    meets (``test_torch_serve_mesh.py``,
+    ``test_bf16_sharded_train_step_matches_reference_sharded_step``)."""
+    common = ["--arch", "gemma2-2b", "--smoke", "--device", "cpu",
+              "--steps", "3", "--batch", "4", "--seq", "32"]
+    one = launch_train.main(common + ["--ckpt-dir", str(tmp_path / "one")])
+    four = launch_train.main(common + ["--mesh", "2x2", "--ckpt-dir",
+                                       str(tmp_path / "four")])
+    assert four.steps_run == one.steps_run == 3
+    rel = np.max(np.abs(np.asarray(four.losses) - np.asarray(one.losses))
+                 / np.abs(np.asarray(one.losses)))
+    print(f"launch.train --mesh 2x2 bfloat16: losses within {rel:.3e} "
+          f"relative of one rank's")
+    np.testing.assert_allclose(four.losses, one.losses,
+                               rtol=parity.LM_BF16_SPLIT_RTOL, atol=0)
 
 
 def test_launch_train_mesh_needs_a_card_a_rank(monkeypatch):

@@ -22,10 +22,14 @@ held against the reference's single-device steps, whose expert choices
 the subprocess records.
 
 The same subprocess runs the reference's sharded ``build_train`` step on
-the Auto-axes (4, 2) mesh, which the port's plain sharded step on (4, 2)
-is held against within ``parity.LM_GRAD_ATOL_FRAC``.
+the Auto-axes (4, 2) and (2, 4) meshes (``R.TRAIN_RUNS``), which the
+port's plain sharded step on the same mesh is held against: in float32
+within ``parity.LM_GRAD_ATOL_FRAC``, in bfloat16 within
+``parity.LM_BF16_SPLIT_RTOL`` / ``LM_BF16_SPLIT_ATOL_FRAC``, beside the
+reference's jitted single-device bfloat16 step.
 """
 import dataclasses
+import functools
 import json
 import os
 import subprocess
@@ -38,13 +42,16 @@ import torch
 
 from repro_torch import config as tconfig
 from repro_torch.core import prng
+from repro_torch.data.tokens import make_batch, to_device
 from repro_torch.launch.specs import build_decode, build_prefill
 from repro_torch.models.encdec import encode
 from repro_torch.models.model import Model as TModel
 from repro_torch.models.moe import _capacity
+from repro_torch.optim.adamw import init_opt_state
 from repro_torch.testing import parity
 from repro_torch.testing.ranks import run_ranks
-from repro_torch.tree import tree_items
+from repro_torch.train.train_step import make_train_step
+from repro_torch.tree import tree_items, tree_map
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 import torch_parallel_ranks as PR  # noqa: E402
@@ -196,26 +203,42 @@ for name, c in cases.items():
         res[name + ".tokens"] = np.concatenate(toks, axis=1)
         res.update(flat(caches, name + ".cache/"))
 
-# the sharded train step on the Auto-axes (4, 2) mesh
-cfg = C.ModelConfig(**step_cfg["cfg"])
+# the sharded train step on the Auto-axes mesh of each run of
+# step_cfg["runs"], in its dtype; a run without a mesh is the jitted
+# single-device step
+from repro.train.train_step import make_train_step
 shape = C.ShapeConfig("t", "train", *step_cfg["shape"])
-mesh = auto_mesh((4, 2))
-with S.use_mesh(mesh, S.act_rules_for(cfg, mesh)):
-    fn, _, shs, kw = build_train(cfg, shape, mesh)
-    step = jax.jit(fn, in_shardings=shs, out_shardings=kw["out_shardings"],
-                   donate_argnums=kw["donate_argnums"])
-    p = jax.device_put(tree_of("train/param/"), shs[0])
-    s = jax.device_put(init_opt_state(p), shs[1])
+
+
+def train(tag, name, step, shs):
+    put = (lambda t, sh: t) if shs is None else jax.device_put
+    p = put(tree_of(f"train/{name}/param/"), shs and shs[0])
+    s = put(init_opt_state(p), shs and shs[1])
     losses = []
     for i in range(step_cfg["steps"]):
-        batch = jax.device_put({k: jnp.asarray(v) for k, v in
-                                make_batch(cfg, shape, 0, i).items()}, shs[2])
+        batch = put({k: jnp.asarray(v) for k, v in
+                     make_batch(cfg, shape, 0, i).items()}, shs and shs[2])
         p, s, m = step(p, s, batch)
         losses.append(float(m["loss"]))
-    res["train.losses"] = np.asarray(losses)
-    res["train.grad_norm"] = np.asarray(float(m["grad_norm"]))
+    res[tag + ".losses"] = np.asarray(losses)
+    res[tag + ".grad_norm"] = np.asarray(float(m["grad_norm"]))
     res.update({k.replace("/", "."): v
-                for k, v in flat(p, "train.param/").items()})
+                for k, v in flat(p, tag + ".param/").items()})
+
+
+for tag, name, dims, dtype, eps in step_cfg["runs"]:
+    cfg = dataclasses.replace(C.ModelConfig(**step_cfg["cfgs"][name]),
+                              dtype=dtype)
+    opt = C.OptimizerConfig() if eps is None else C.OptimizerConfig(eps=eps)
+    if dims is None:
+        train(tag, name, jax.jit(make_train_step(Model(cfg), opt)), None)
+        continue
+    mesh = auto_mesh(dims)
+    with S.use_mesh(mesh, S.act_rules_for(cfg, mesh)):
+        fn, _, shs, kw = build_train(cfg, shape, mesh, opt)
+        train(tag, name, jax.jit(fn, in_shardings=shs,
+                           out_shardings=kw["out_shardings"],
+                           donate_argnums=kw["donate_argnums"]), shs)
 np.savez(out_dir + "/ref.npz", **res)
 """
 
@@ -240,9 +263,10 @@ def _inputs():
                     out[f"{name}/batch/enc_embeds"]), cfg)
             out[f"{name}/enc_states"] = states.numpy()
             out[f"{name}/enc_positions"] = positions.contiguous().numpy()
-    train = TModel(PR.STEP_CFG, "cpu").init(prng.key(0))
-    for key, leaf in tree_items(train):
-        out[f"train/param/{key.replace('/', '.')}"] = leaf.numpy()
+    for name, cfg in PR.STEP_CFGS.items():
+        train = TModel(cfg, "cpu").init(prng.key(0))
+        for key, leaf in tree_items(train):
+            out[f"train/{name}/param/{key.replace('/', '.')}"] = leaf.numpy()
     return out
 
 
@@ -257,13 +281,12 @@ def runs(tmp_path_factory):
                     "dp": c.dp_rules, "single": c.single,
                     "capacity": c.capacity}
              for name, c in R.CASES.items()}
-    step_cfg = {"cfg": {f.name: getattr(PR.STEP_CFG, f.name)
-                        for f in dataclasses.fields(PR.STEP_CFG)
-                        if f.name in ("num_layers", "d_model", "num_heads",
-                                      "num_kv_heads", "d_ff", "vocab_size",
-                                      "remat", "dtype")},
+    step_cfg = {"cfgs": {name: {f.name: getattr(cfg, f.name)
+                                for f in dataclasses.fields(cfg)}
+                         for name, cfg in PR.STEP_CFGS.items()},
                 "shape": [PR.STEP_SHAPE.seq_len, PR.STEP_SHAPE.global_batch],
-                "steps": PR.STEP_STEPS}
+                "steps": PR.STEP_STEPS,
+                "runs": list(R.TRAIN_RUNS) + list(R.BF16_SINGLE.values())}
     env = dict(os.environ, PYTHONPATH="src", JAX_PLATFORMS="cpu")
     proc = subprocess.Popen(
         [sys.executable, "-c", REF_SCRIPT, str(tmp), json.dumps(cases),
@@ -351,20 +374,96 @@ def test_each_rank_holds_only_its_blocks(runs, name):
 
 
 def test_sharded_train_step_matches_reference_sharded_step(runs):
-    """``PR.STEP_CFG``'s plain sharded step on (4, 2) against the
-    reference's sharded ``build_train`` step on the Auto-axes (4, 2) mesh,
-    from the same parameters and batches."""
+    """``PR.STEP_CFG``'s plain sharded step on (4, 2) and on (2, 4) (its
+    products split over ``model``; on (2, 4) the 2 kv heads repeated for
+    the 4 ranks of ``model``) against the reference's sharded
+    ``build_train`` step on the Auto-axes mesh of the same shape, from the
+    same parameters and batches."""
     ref, ranks = runs
     got = ranks[0]
-    np.testing.assert_allclose(got["train.losses"], ref["train.losses"],
-                               rtol=parity.LM_GRAD_ATOL_FRAC, atol=0)
-    np.testing.assert_allclose(got["train.grad_norm"], ref["train.grad_norm"],
-                               rtol=parity.LM_GRAD_ATOL_FRAC, atol=0)
-    keys = sorted(k for k in ref if k.startswith("train.param."))
-    assert keys == sorted(k for k in got if k.startswith("train.param."))
-    for key in keys:
-        parity.assert_close(got[key], ref[key], rtol=0.0,
-                            atol_frac=parity.LM_GRAD_ATOL_FRAC, what=key)
+    for tag in ("train", "train.2x4"):
+        np.testing.assert_allclose(got[f"{tag}.losses"], ref[f"{tag}.losses"],
+                                   rtol=parity.LM_GRAD_ATOL_FRAC, atol=0)
+        np.testing.assert_allclose(got[f"{tag}.grad_norm"],
+                                   ref[f"{tag}.grad_norm"],
+                                   rtol=parity.LM_GRAD_ATOL_FRAC, atol=0)
+        keys = sorted(k for k in ref if k.startswith(f"{tag}.param."))
+        assert keys and keys == sorted(k for k in got
+                                       if k.startswith(f"{tag}.param."))
+        for key in keys:
+            parity.assert_close(got[key], ref[key], rtol=0.0,
+                                atol_frac=parity.LM_GRAD_ATOL_FRAC, what=key)
+
+
+def _gap(a, b):
+    """(the worst relative gap of the losses and the grad norm, the worst
+    gap of a parameter as a fraction of its leaf's max|b|) between the
+    train runs ``a`` and ``b`` (two dicts of results by key suffix)."""
+    scal = max(float(np.max(np.abs(a[k] - b[k]) / np.abs(b[k])))
+               for k in ("losses", "grad_norm"))
+    keys = sorted(k for k in b if k.startswith("param."))
+    assert keys and keys == sorted(k for k in a if k.startswith("param."))
+    par = max(float(np.max(np.abs(a[k] - b[k]))) /
+              max(float(np.max(np.abs(b[k]))), 1e-30) for k in keys)
+    return scal, par
+
+
+def _train_run(results, tag):
+    return {k[len(tag) + 1:]: v for k, v in results.items()
+            if k.startswith(tag + ".")}
+
+
+@functools.lru_cache(maxsize=None)
+def _one_rank_bf16(name):
+    """The port's plain ``make_train_step`` in bfloat16 on one device from
+    the parameters the train runs of ``name`` start from: results by key
+    suffix, as ``_train_run`` gives them."""
+    cfg = dataclasses.replace(PR.STEP_CFGS[name], dtype="bfloat16")
+    model = TModel(cfg, "cpu")
+    params = tree_map(lambda t: t.requires_grad_(True),
+                      model.init(prng.key(0)))
+    opt = init_opt_state(params)
+    step = make_train_step(model, R.opt_config(R.BF16_EPS))
+    losses = []
+    for i in range(PR.STEP_STEPS):
+        params, opt, m = step(params, opt, to_device(
+            make_batch(cfg, PR.STEP_SHAPE, 0, i), "cpu"))
+        losses.append(float(m["loss"]))
+    out = {"losses": np.asarray(losses),
+           "grad_norm": np.asarray(float(m["grad_norm"]))}
+    out.update({"param." + k.replace("/", "."): v.detach().numpy()
+                for k, v in tree_items(params)})
+    return out
+
+
+@pytest.mark.parametrize("tag, name", [(t, n) for t, n, _, d, _ in
+                                       R.TRAIN_RUNS if d == "bfloat16"])
+def test_bf16_sharded_train_step_matches_reference_sharded_step(runs, tag,
+                                                                name):
+    """``PR.STEP_CFGS[name]``'s sharded step in bfloat16 on (4, 2) and
+    (2, 4) (bfloat16 partial sums reduce-scattered over ``model``) against
+    the reference's sharded bfloat16 step on the Auto-axes mesh of the
+    same shape, both at AdamW eps ``R.BF16_EPS``: losses and grad norm
+    within ``parity.LM_BF16_SPLIT_RTOL``, every parameter within
+    ``parity.LM_BF16_SPLIT_ATOL_FRAC`` of its leaf's max. The reference's
+    own sharded step meets the same rule against its single-device step,
+    and the port's one-device step against that step (the readings the
+    rule was set from)."""
+    ref, ranks = runs
+    want, got = _train_run(ref, tag), _train_run(ranks[0], tag)
+    single, one = _train_run(ref, R.BF16_SINGLE[name][0]), _one_rank_bf16(name)
+    gaps = {"port split - ref sharded": _gap(got, want),
+            "ref sharded - ref single": _gap(want, single),
+            "port split - port one rank": _gap(got, one),
+            "port one rank - ref single": _gap(one, single)}
+    for what, (scal, par) in gaps.items():
+        print(f"{tag}: {what}: {scal:.3e} (losses, grad norm, relative), "
+              f"{par:.3e} (parameters, of a leaf's max)")
+    for what in ("port split - ref sharded", "ref sharded - ref single",
+                 "port one rank - ref single"):
+        scal, par = gaps[what]
+        assert scal <= parity.LM_BF16_SPLIT_RTOL, (what, scal)
+        assert par <= parity.LM_BF16_SPLIT_ATOL_FRAC, (what, par)
 
 
 class _StandIn:

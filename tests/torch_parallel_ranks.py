@@ -18,6 +18,7 @@ from repro_torch.interop import model_params_from_numpy
 from repro_torch.launch.specs import build_train
 from repro_torch.models.model import Model
 from repro_torch.optim.adamw import init_opt_state
+from repro_torch.models import attention
 from repro_torch.parallel import fsdp
 from repro_torch.parallel import sharding as S
 from repro_torch.parallel.pipeline import pipeline_apply
@@ -42,11 +43,28 @@ def loss_mask(shape: ShapeConfig) -> np.ndarray:
     return (rng.random((b, s)) < keep[:, None]).astype(np.float32)
 
 
-def masked_batch(shape: ShapeConfig) -> dict:
+#: the configs of the sharded step: the reference's sharded-step config,
+#: and gemma2-2b's smoke config in float32 (softcaps, a local window,
+#: gelu, the tied table, the embedding scale)
+STEP_CFGS = {
+    "step": STEP_CFG,
+    "gemma2": dataclasses.replace(get_config("gemma2-2b", smoke=True),
+                                  dtype="float32", remat="none"),
+}
+
+#: the meshes of the sharded step's spawns: (4, 2) splits the 4 heads and
+#: 2 kv heads over 2 ranks of ``model``; on (2, 4) ``model`` does not
+#: divide the kv heads, so they are repeated (``_maybe_repeat_kv``)
+STEP_MESHES = ((4, 2), (2, 4))
+
+
+def masked_batch(shape: ShapeConfig, cfg: ModelConfig = STEP_CFG) -> dict:
     """The batch of step ``STEP_STEPS`` with ``loss_mask``."""
-    batch = make_batch(STEP_CFG, shape, 0, STEP_STEPS)
+    batch = make_batch(cfg, shape, 0, STEP_STEPS)
     batch["loss_mask"] = loss_mask(shape)
     return batch
+
+
 #: the sharded step's variants: tag -> (zero1, microbatches, remat); the
 #: ``micro2`` ones are the configuration the card runs (microbatches and
 #: remat ``selective``), at the test's size
@@ -58,8 +76,8 @@ STEP_VARIANTS = {
 }
 
 
-def step_cfg(tag: str) -> ModelConfig:
-    return dataclasses.replace(STEP_CFG, remat=STEP_VARIANTS[tag][2])
+def step_cfg(tag: str, name: str = "step") -> ModelConfig:
+    return dataclasses.replace(STEP_CFGS[name], remat=STEP_VARIANTS[tag][2])
 
 #: the reference's compressed-DP test config (tests/test_compressed_dp.py)
 DP_CFG = ModelConfig(num_layers=2, d_model=32, num_heads=2, num_kv_heads=2,
@@ -92,52 +110,33 @@ def _axes_product(spec, mesh) -> int:
     return math.prod(sizes[a] for e in spec for a in S.spec_axes(e))
 
 
-def sharded_steps(mesh, params_np, ckpt_dir, ckpt_step):
-    """The sharded step of ``build_train`` in each of ``STEP_VARIANTS``
-    for ``STEP_STEPS`` steps from ``params_np``, then one step on
-    ``masked_batch`` (its loss, aux and parameters under ``<tag>.masked``);
-    every leaf's block size against its full size over its spec's axes;
-    the checkpoint at ``ckpt_dir`` restored onto this mesh, every block
-    against the same block cut from the saved arrays. Each batch is placed
-    for the step's microbatches."""
+def sharded_steps(mesh, params_by_cfg, ckpt_dir, ckpt_step):
+    """For each config of ``STEP_CFGS`` (its parameters in
+    ``params_by_cfg``), the sharded step of ``build_train`` in each of
+    ``STEP_VARIANTS`` for ``STEP_STEPS`` steps, then one step on
+    ``masked_batch`` (its loss, aux and parameters under
+    ``<cfg>.<tag>.masked``), and how often the attention repeated its kv
+    heads (``_maybe_repeat_kv`` returning new tensors); every leaf's block
+    size against its full size over its spec's axes; the checkpoint at
+    ``ckpt_dir`` restored onto this mesh, every block against the same
+    block cut from the saved arrays. Each batch is placed for the step's
+    microbatches."""
     out = {}
+    repeats = []
+    plain_repeat = attention._maybe_repeat_kv
+
+    def counted(k, v, *a, **kw):
+        got = plain_repeat(k, v, *a, **kw)
+        repeats.append(got[0] is not k)
+        return got
+
+    attention._maybe_repeat_kv = counted
+    try:
+        for name, params_np in params_by_cfg.items():
+            out.update(_cfg_steps(mesh, name, params_np, repeats))
+    finally:
+        attention._maybe_repeat_kv = plain_repeat
     with S.use_mesh(mesh, S.act_rules_for(STEP_CFG, mesh)):
-        for tag, (zero1, micro, _) in STEP_VARIANTS.items():
-            fn, _, (psh, osh, _), _ = build_train(
-                step_cfg(tag), STEP_SHAPE, mesh, OptimizerConfig(),
-                ParallelConfig(microbatches=micro), zero1=zero1)
-            full = _trainable(params_np)
-            params = fsdp.place(full, psh)
-            opt = fsdp.place(init_opt_state(full), osh)
-            sizes_ok = True
-            for tree in (params, opt.m, opt.v):
-                for (_, blk), (_, f) in zip(tree_items(tree),
-                                            tree_items(full)):
-                    want = f.numel() // _axes_product(fsdp.spec_of(blk),
-                                                      mesh)
-                    sizes_ok &= blk.numel() == want
-            out[f"{tag}.sizes_ok"] = np.bool_(sizes_ok)
-            losses = []
-            for i in range(STEP_STEPS):
-                batch = shard_batch(make_batch(STEP_CFG, STEP_SHAPE, 0, i),
-                                    mesh, microbatches=micro)
-                params, opt, m = fn(params, opt, batch)
-                losses.append(float(m["loss"]))
-            out[f"{tag}.losses"] = np.asarray(losses)
-            out[f"{tag}.grad_norm"] = np.asarray(float(m["grad_norm"]))
-            for key, leaf in tree_items(params):
-                name = key.replace("/", ".")
-                out[f"{tag}.param.{name}"] = fsdp.full_value(
-                    leaf).detach().numpy().copy()  # the step updates leaves
-            params, opt, m = fn(params, opt, shard_batch(
-                masked_batch(STEP_SHAPE), mesh, microbatches=micro))
-            out[f"{tag}.masked.loss"] = np.asarray(float(m["loss"]))
-            out[f"{tag}.masked.grad_norm"] = np.asarray(
-                float(m["grad_norm"]))
-            for key, leaf in tree_items(params):
-                name = key.replace("/", ".")
-                out[f"{tag}.masked.param.{name}"] = fsdp.full_value(
-                    leaf).detach().numpy()
         # elastic restore of a whole-array checkpoint onto this mesh
         _, (pshape, oshape, _), (psh, osh, _), _ = build_train(
             STEP_CFG, STEP_SHAPE, mesh)
@@ -154,7 +153,86 @@ def sharded_steps(mesh, params_np, ckpt_dir, ckpt_step):
                      and torch.equal(blk, want))
         out["restore.bitwise"] = np.bool_(same)
         out["restore.step"] = np.int64(extra["step"])
-        out["dtensor.logical"] = np.bool_(_dtensor_logical(mesh))
+    return out
+
+
+def _cfg_steps(mesh, name, params_np, repeats):
+    cfg = STEP_CFGS[name]
+    out = {}
+    with S.use_mesh(mesh, S.act_rules_for(cfg, mesh)):
+        for tag, (zero1, micro, _) in STEP_VARIANTS.items():
+            key = f"{name}.{tag}"
+            fn, _, (psh, osh, _), _ = build_train(
+                step_cfg(tag, name), STEP_SHAPE, mesh, OptimizerConfig(),
+                ParallelConfig(microbatches=micro), zero1=zero1)
+            full = _trainable(params_np)
+            params = fsdp.place(full, psh)
+            opt = fsdp.place(init_opt_state(full), osh)
+            sizes_ok = True
+            for tree in (params, opt.m, opt.v):
+                for (_, blk), (_, f) in zip(tree_items(tree),
+                                            tree_items(full)):
+                    want = f.numel() // _axes_product(fsdp.spec_of(blk),
+                                                      mesh)
+                    sizes_ok &= blk.numel() == want
+            out[f"{key}.sizes_ok"] = np.bool_(sizes_ok)
+            losses = []
+            del repeats[:]
+            for i in range(STEP_STEPS):
+                batch = shard_batch(make_batch(cfg, STEP_SHAPE, 0, i),
+                                    mesh, microbatches=micro)
+                params, opt, m = fn(params, opt, batch)
+                losses.append(float(m["loss"]))
+            out[f"{key}.repeats"] = np.int64(sum(repeats))
+            out[f"{key}.losses"] = np.asarray(losses)
+            out[f"{key}.grad_norm"] = np.asarray(float(m["grad_norm"]))
+            for k, leaf in tree_items(params):
+                out[f"{key}.param.{k.replace('/', '.')}"] = fsdp.full_value(
+                    leaf).detach().numpy().copy()  # the step updates leaves
+            params, opt, m = fn(params, opt, shard_batch(
+                masked_batch(STEP_SHAPE, cfg), mesh, microbatches=micro))
+            out[f"{key}.masked.loss"] = np.asarray(float(m["loss"]))
+            out[f"{key}.masked.grad_norm"] = np.asarray(
+                float(m["grad_norm"]))
+            for k, leaf in tree_items(params):
+                out[f"{key}.masked.param.{k.replace('/', '.')}"] = (
+                    fsdp.full_value(leaf).detach().numpy())
+    return out
+
+
+#: the one-rank cases: tag -> (config, zero1, microbatches); gemma2-2b's
+#: smoke config as it ships (bfloat16, remat ``selective``)
+ONE_RANK = {
+    "step.plain": (STEP_CFG, False, 1),
+    "step.zero1": (STEP_CFG, True, 1),
+    "gemma2.bf16.micro2": (get_config("gemma2-2b", smoke=True), False, 2),
+    "gemma2.bf16.zero1.micro2": (get_config("gemma2-2b", smoke=True), True,
+                                 2),
+}
+
+
+def one_rank_steps(mesh, tag, params_np):
+    """``STEP_STEPS`` steps of ``build_train``'s step on the one-rank
+    ``mesh`` in case ``tag`` of ``ONE_RANK``: the losses, grad norms and
+    every parameter after them."""
+    cfg, zero1, micro = ONE_RANK[tag]
+    out = {}
+    with S.use_mesh(mesh, S.act_rules_for(cfg, mesh)):
+        fn, _, (psh, osh, _), _ = build_train(
+            cfg, STEP_SHAPE, mesh, OptimizerConfig(),
+            ParallelConfig(microbatches=micro), zero1=zero1)
+        full = _trainable(params_np)
+        params = fsdp.place(full, psh)
+        opt = fsdp.place(init_opt_state(full), osh)
+        metrics = []
+        for i in range(STEP_STEPS):
+            batch = shard_batch(make_batch(cfg, STEP_SHAPE, 0, i), mesh,
+                                microbatches=micro)
+            params, opt, m = fn(params, opt, batch)
+            metrics.append([float(m["loss"]), float(m["grad_norm"])])
+        out["metrics"] = np.asarray(metrics)
+        for k, leaf in tree_items(params):
+            out["param." + k.replace("/", ".")] = leaf.detach().numpy()
     return out
 
 
@@ -189,27 +267,6 @@ def moe_steps(mesh, params_np):
             out["param." + key.replace("/", ".")] = fsdp.full_value(
                 leaf).detach().numpy()
     return out
-
-
-def _dtensor_logical(mesh) -> bool:
-    """``logical`` on a replicated DTensor gives the spec's placements,
-    and its local block is ``NamedSharding.shard``'s; a plain tensor
-    passes unchanged."""
-    from torch.distributed.tensor import Replicate, distribute_tensor
-
-    full = torch.arange(8 * 6 * 4, dtype=torch.float32).reshape(8, 6, 4)
-    ok = S.logical(full, ("batch", "seq", "embed")) is full
-    x = distribute_tensor(full, mesh, [Replicate(), Replicate()])
-    for names, rules in ((("batch", "seq", "embed"), S.ACT_RULES),
-                         (("batch", "seq", "embed"), S.DP_ACT_RULES),
-                         (("vocab", "embed", None), S.PARAM_RULES)):
-        spec = S.build_spec(full.shape, names, mesh, rules)
-        sh = S.NamedSharding(mesh, spec)
-        y = S.logical(x, names, rules)
-        ok &= tuple(y.placements) == tuple(sh.placements())
-        ok &= torch.equal(y.to_local(), sh.shard(full))
-        ok &= torch.equal(sh.gather(sh.shard(full)), full)
-    return ok
 
 
 def compressed_steps(mesh, params_np):

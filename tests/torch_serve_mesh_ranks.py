@@ -30,6 +30,30 @@ import torch_parallel_ranks as PR
 
 DECODE_STEPS = 4
 
+#: AdamW's eps in the bfloat16 runs: 1, so that an update is linear in its
+#: gradient and a parameter's gap reads its gradient's (at the default an
+#: element of a zero-init norm scale whose gradient nearly cancels moves
+#: by lr times a sign that rounding picks: ROADMAP queue 3, gap 12;
+#: ``torch_split_batch_ranks.OPT_EPS``)
+BF16_EPS = 1.0
+#: the sharded train step's runs: (the results' tag, config of
+#: ``PR.STEP_CFGS``, mesh, dtype, AdamW's eps or None for the default).
+#: (2, 4) repeats the 2 kv heads for its 4 ranks of ``model``; the bfloat16
+#: runs reduce-scatter bfloat16 partial sums, and gemma2-2b's add the
+#: softcaps, the window and the tied table
+TRAIN_RUNS = (("train", "step", (4, 2), "float32", None),
+              ("train.2x4", "step", (2, 4), "float32", None),
+              ("train.bf16", "step", (4, 2), "bfloat16", BF16_EPS),
+              ("train.bf16.2x4", "step", (2, 4), "bfloat16", BF16_EPS),
+              ("train.gemma2.bf16", "gemma2", (4, 2), "bfloat16", BF16_EPS),
+              ("train.gemma2.bf16.2x4", "gemma2", (2, 4), "bfloat16",
+               BF16_EPS))
+#: the reference's jitted single-device steps in bfloat16, by config: how
+#: far its own sharded bfloat16 steps round apart from one device
+BF16_SINGLE = {name: (f"train{'' if name == 'step' else '.' + name}"
+                      ".bf16.single", name, None, "bfloat16", BF16_EPS)
+               for name in ("step", "gemma2")}
+
 
 class Case(NamedTuple):
     arch: str
@@ -123,6 +147,10 @@ def unflatten(flat, prefix: str):
                          if k.startswith(prefix)})
 
 
+def opt_config(eps: Optional[float]) -> OptimizerConfig:
+    return OptimizerConfig() if eps is None else OptimizerConfig(eps=eps)
+
+
 def _mesh(dims) -> DeviceMesh:
     return DeviceMesh("cpu", torch.arange(8).reshape(dims),
                       mesh_dim_names=("data", "model"))
@@ -197,31 +225,34 @@ def serve_case(name: str, case: Case, mesh, inputs) -> Dict[str, np.ndarray]:
     return {f"{name}.{k}": v for k, v in out.items()}
 
 
-def sharded_train(mesh, inputs) -> Dict[str, np.ndarray]:
+def sharded_train(mesh, inputs, tag: str, name: str, dtype: str,
+                  eps: Optional[float]) -> Dict[str, np.ndarray]:
     """``PR.STEP_STEPS`` steps of ``build_train``'s plain sharded step on
-    ``PR.STEP_CFG`` from the parameters under ``train/param/``: the losses,
-    the last grad norm and every parameter's full value."""
+    ``PR.STEP_CFGS[name]`` in ``dtype``, AdamW's eps ``eps`` (None: the
+    default), from the parameters under
+    ``train/<name>/param/``: the losses, the last grad norm and every
+    parameter's full value, under ``tag``."""
     from repro_torch.data.tokens import make_batch, shard_batch
 
     out = {}
-    with S.use_mesh(mesh, S.act_rules_for(PR.STEP_CFG, mesh)):
-        fn, _, (psh, osh, _), _ = build_train(PR.STEP_CFG, PR.STEP_SHAPE,
-                                              mesh, OptimizerConfig())
+    cfg = dataclasses.replace(PR.STEP_CFGS[name], dtype=dtype)
+    with S.use_mesh(mesh, S.act_rules_for(cfg, mesh)):
+        fn, _, (psh, osh, _), _ = build_train(cfg, PR.STEP_SHAPE, mesh,
+                                              opt_config(eps))
         full = tree_map(lambda t: t.requires_grad_(True),
                         model_params_from_numpy(
-                            unflatten(inputs, "train/param/"), "cpu"))
+                            unflatten(inputs, f"train/{name}/param/"), "cpu"))
         params = fsdp.place(full, psh)
         opt = fsdp.place(init_opt_state(full), osh)
         losses = []
         for i in range(PR.STEP_STEPS):
-            batch = shard_batch(make_batch(PR.STEP_CFG, PR.STEP_SHAPE, 0, i),
-                                mesh)
+            batch = shard_batch(make_batch(cfg, PR.STEP_SHAPE, 0, i), mesh)
             params, opt, m = fn(params, opt, batch)
             losses.append(float(m["loss"]))
-        out["train.losses"] = np.asarray(losses)
-        out["train.grad_norm"] = np.asarray(float(m["grad_norm"]))
+        out[f"{tag}.losses"] = np.asarray(losses)
+        out[f"{tag}.grad_norm"] = np.asarray(float(m["grad_norm"]))
         for key, leaf in tree_items(params):
-            out["train.param." + key.replace("/", ".")] = fsdp.full_value(
+            out[f"{tag}.param." + key.replace("/", ".")] = fsdp.full_value(
                 leaf).detach().numpy()
     return out
 
@@ -229,8 +260,9 @@ def sharded_train(mesh, inputs) -> Dict[str, np.ndarray]:
 def serve_all(mesh, inputs_path: str, names) -> Dict[str, np.ndarray]:
     """Every case of ``names`` on its mesh (built from the 8 ranks; the
     spawn's own (4, 2) mesh serves its cases), then the sharded train step
-    on (4, 2). Rank 0 returns the values; every rank returns whether its
-    blocks held their local shapes."""
+    of each run of ``TRAIN_RUNS``.
+    Rank 0 returns the values; every rank returns whether its blocks held
+    their local shapes."""
     with np.load(inputs_path) as f:
         inputs = {k: f[k] for k in f.files}
     meshes = {(4, 2): mesh}
@@ -240,8 +272,12 @@ def serve_all(mesh, inputs_path: str, names) -> Dict[str, np.ndarray]:
         if case.mesh not in meshes:
             meshes[case.mesh] = _mesh(case.mesh)
         out.update(serve_case(name, case, meshes[case.mesh], inputs))
-    if "train/param/embed.table" in inputs:
-        out.update(sharded_train(mesh, inputs))
+    if any(k.startswith("train/") for k in inputs):
+        for tag, name, dims, dtype, eps in TRAIN_RUNS:
+            if dims not in meshes:
+                meshes[dims] = _mesh(dims)
+            out.update(sharded_train(meshes[dims], inputs, tag, name, dtype,
+                                     eps))
     if torch.distributed.get_rank() != 0:
         out = {k: v for k, v in out.items()
                if k.endswith((".shapes_ok", ".cache_bytes"))}
