@@ -349,11 +349,12 @@ Phases (any failure exits non-zero before the result line):
                 within DRY_PEAK_RTOL of max_memory_allocated (after
                 reset_peak_memory_stats, above what was held before the
                 arguments), both printed with their ratio. Then
-                DRY_CELLS, three production cells on a fake world of 256
+                DRY_CELLS, four production cells on a fake world of 256
                 and 512 ranks, in a subprocess that sees no card
                 (CUDA_VISIBLE_DEVICES empty): each ok, its per-rank
-                numbers printed, and qwen3-32b's train_4k cell, whose
-                products split over ``model``, at replicated compute 1.
+                numbers printed, qwen3-32b's train_4k cell, whose
+                products split over ``model``, at replicated compute 1,
+                and its prefill_32k cell at most SPLIT_FLOPS_MAX.
                 No kernel launches; the phase's wall time
  20. model split : the train step's products split over ``model``
                 (ROADMAP item 22(a)), in a subprocess that sees the card.
@@ -375,12 +376,38 @@ Phases (any failure exits non-zero before the result line):
                 step's. Prints both steps' ms, FLOPs, peaks and their
                 ratios beside the card's name and power limit. No kernel
                 launches; the phase's wall time
- 21. summary  : one JSON line {"kernels": [...]} (with each kernel's
+ 21. serve split : the serving builders' products split over ``model``
+                (ROADMAP item 22(b)), in a subprocess that sees the card,
+                built as the model split phase is. SPLIT_ARCH at full
+                width cut to SPLIT_LAYERS layers: build_prefill on
+                prefill_32k's 32 768 positions at batch
+                SERVE_SPLIT_PREFILL_BATCH, and build_decode's step on
+                decode_32k's 32 768-slot caches at batch
+                SERVE_SPLIT_DECODE_BATCH at position SERVE_SPLIT_INDEX,
+                each as rank 0 of the SPLIT_MESH (1, 16) mesh on a fake
+                world of 16 ranks (the collectives move nothing: values
+                are checked on gloo ranks by the CPU tests), only rank
+                0's blocks resident; beside each the plain one-rank
+                serving step of the same cut (Model.prefill /
+                decode_step), the plain prefill's bytes reckoned first
+                (float32 parameters, bfloat16 casts, the blockwise
+                attention's scores, the logits). Each step is predicted
+                by op_cost on meta tensors, run on the card under
+                FlopCounterMode, then once more timed (host clock, after
+                that warm-up step). Checks, for each of the two steps:
+                the FLOPs == the prediction exactly, the peak within
+                DRY_PEAK_RTOL of the predicted argument + temp bytes, the
+                rank's FLOPs between 1 / 16 and SPLIT_FLOPS_MAX / 16 of
+                the plain step's. Prints each step's ms, FLOPs and peak,
+                their ratios and the rank's logits' shape (a sequence
+                block in the prefill) beside the card's name and power
+                limit. No kernel launches; the phase's wall time
+ 22. summary  : one JSON line {"kernels": [...]} (with each kernel's
                 launches over the clean streams, stream_launches, while
                 tuning, tune_launches, over the pool events and stream,
                 pool_launches, and over the distributed recon runs,
                 dist_launches)
- 22. result   : last line {"ok": true, "device": {...}}
+ 23. result   : last line {"ok": true, "device": {...}}
 
 The on-card checks live here rather than in pytest because the machine with
 the card has no JAX, which the repository's test configuration imports.
@@ -5003,12 +5030,13 @@ def check_serve_mesh(dev, card: str) -> None:
           f"{card}", flush=True)
 
 
-#: production cells the dry-run phase runs on a fake world; the last, a
-#: train step whose products split over ``model``, reads replicated
-#: compute 1
+#: production cells the dry-run phase runs on a fake world; the last two
+#: split their products over ``model``: the train step reads replicated
+#: compute 1, the prefill at most SPLIT_FLOPS_MAX
 DRY_CELLS = (("gemma2-2b", "train_4k", False), ("gemma2-2b", "decode_32k",
                                                 True),
-             ("qwen3-32b", "train_4k", False))
+             ("qwen3-32b", "train_4k", False),
+             ("qwen3-32b", "prefill_32k", False))
 #: the predicted argument + temp bytes against the card's peak
 DRY_PEAK_RTOL = 0.10
 #: the position of the dry-run phase's decode step (traffic C's prompt)
@@ -5024,7 +5052,8 @@ def dry_step(label, build, meta_args, real_args, dev, card,
     DRY_PEAK_RTOL. ``timed``: so many more steps after the counted one
     (its warm-up), each timed on the host clock to a synchronize. Returns
     {"flops", "peak" (bytes above what was held), "predicted" (argument +
-    temp bytes), "ms" (the timed steps')}."""
+    temp bytes), "ms" (the timed steps'), "first_shape" (the shape of the
+    step's first output where that is a tensor, else None)}."""
     import gc
 
     import torch
@@ -5051,15 +5080,16 @@ def dry_step(label, build, meta_args, real_args, dev, card,
     torch.cuda.synchronize(dev)
     run_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated(dev) - held
-    del out
     ms = []
     for _ in range(timed):
+        del out
         t0 = time.perf_counter()
         out = fn(*args)
         torch.cuda.synchronize(dev)
         ms.append((time.perf_counter() - t0) * 1e3)
-        del out
-    del args
+    first = (tuple(out[0].shape) if isinstance(out, tuple)
+             and isinstance(out[0], torch.Tensor) else None)
+    del out, args
     mem = pred["memory"]
     want = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
     got_flops = int(flops.get_total_flops())
@@ -5080,7 +5110,8 @@ def dry_step(label, build, meta_args, real_args, dev, card,
           f"dry run {label}: predicted arguments + temp {want} B against "
           f"the card's peak {peak} B: ratio {want / peak:.4f}, beyond "
           f"{DRY_PEAK_RTOL}")
-    return {"flops": got_flops, "peak": peak, "predicted": want, "ms": ms}
+    return {"flops": got_flops, "peak": peak, "predicted": want, "ms": ms,
+            "first_shape": first}
 
 
 def dry_cells() -> None:
@@ -5111,10 +5142,11 @@ def dry_cells() -> None:
         check(r["status"] == "ok", f"dry run {r['cell']}: {r['status']} "
               f"{r.get('error', r.get('reason'))}")
         if r["arch"] == "qwen3-32b":
-            check(r["replicated_compute"] == 1,
+            most = 1 if r["shape"] == "train_4k" else SPLIT_FLOPS_MAX
+            check(r["replicated_compute"] <= most,
                   f"dry run {r['cell']}: replicated compute x"
-                  f"{r['replicated_compute']}, not 1: its products do "
-                  "not split over model")
+                  f"{r['replicated_compute']}, above {most}: its products "
+                  "do not split over model")
         m, c = r["memory"], r["collectives"]
         print(f"dry run cell {r['cell']} on a fake world of "
               f"{r['n_devices']} ranks (no card): per rank {r['flops']} "
@@ -5392,30 +5424,231 @@ def model_split_child() -> None:
 def check_model_split(dev, card: str) -> None:
     """The "model split" phase (docstring), in a subprocess that sees the
     card (``model_split_child``)."""
+    run_child_phase("model split", "model_split_child", dev, card)
+
+
+#: the "serve split" phase (docstring): the batches of its prefill and of
+#: its decode step, and the decode step's position. One prompt: the plain
+#: prefill's float32 scores of a kv block (8.6 GB a prompt) and its
+#: logits (10 GB a prompt in bfloat16) take most of the card; eight decode
+#: rows, decode_32k's 128 over the 16 ranks of ``data`` of the production
+#: mesh; the position past three quarters of the 32 768 slots
+SERVE_SPLIT_PREFILL_BATCH = 1
+SERVE_SPLIT_DECODE_BATCH = 8
+SERVE_SPLIT_INDEX = 3 * 32768 // 4
+
+
+def serve_split_steps(dev, mesh):
+    """The four steps of the "serve split" phase on ``mesh`` (rank 0's
+    steps; a (1, 16) mesh of a fake world) and on one rank: {label: (kind,
+    build, meta_args, real_args)} as ``dry_step`` takes them, the prefill
+    and decode shapes, and the config. Tokens from a numpy seed."""
+    import numpy as np
+    import torch
+
+    from repro_torch.config import SHAPES, ShapeConfig
+    from repro_torch.core import prng
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.specs import (build_decode, build_prefill,
+                                          cache_specs, input_specs)
+    from repro_torch.models.model import Model
+    from repro_torch.parallel import kvcache
+
+    cfg = split_cfg()
+    shapes = {
+        "prefill": ShapeConfig(
+            f"prefill_32k cut to a batch of {SERVE_SPLIT_PREFILL_BATCH}",
+            "prefill", SHAPES["prefill_32k"].seq_len,
+            SERVE_SPLIT_PREFILL_BATCH),
+        "decode": ShapeConfig(
+            f"decode_32k cut to a batch of {SERVE_SPLIT_DECODE_BATCH}",
+            "decode", SHAPES["decode_32k"].seq_len,
+            SERVE_SPLIT_DECODE_BATCH)}
+    rng = np.random.default_rng(0)
+    pre, dec = shapes["prefill"], shapes["decode"]
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (pre.global_batch, pre.seq_len), dtype=np.int32))
+    tok = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (dec.global_batch, 1), dtype=np.int32))
+    model = Model(cfg, dev)
+
+    def at(args):
+        # the decode step's host position in place of the builder's 0
+        return args[:3] + (SERVE_SPLIT_INDEX,) + args[4:]
+
+    def split_build(builder, shape):
+        def build():
+            fn, meta, shs, _ = builder(cfg, shape, mesh)
+            return fn, meta, shs
+        return build
+
+    def split_real(shape, batch):
+        def real(meta, shs):
+            params = kvcache.place(Model(cfg, dev).init(prng.key(0)),
+                                   shs[0])
+            caches = kvcache.init_blocks(cfg, shape.global_batch,
+                                         shape.seq_len, shs[2], dev)
+            args = (params, kvcache.place(batch(), shs[1]), caches, 0)
+            return at(args) if shape.kind == "decode" else args[:3]
+        return real
+
+    def plain_prefill(params, batch, caches):
+        with torch.no_grad():
+            return model.prefill(params, batch, caches)[:2]
+
+    def plain_decode(params, tok, caches, index):
+        with torch.no_grad():
+            return model.decode_step(params, {"tokens": tok}, caches, index)
+
+    def plain_build(fn, shape):
+        def build():
+            inputs = ({"tokens": input_specs(cfg, shape)["tokens"]}
+                      if shape.kind == "prefill" else tok.to("meta"))
+            return fn, (model.shapes(), inputs, cache_specs(
+                cfg, shape.global_batch, shape.seq_len), 0), None
+        return build
+
+    def plain_meta(kind):
+        def meta_args(meta, shs):
+            args = tuple(dryrun.meta_blocks(a, None) for a in meta)
+            return at(args) if kind == "decode" else args[:3]
+        return meta_args
+
+    def plain_real(shape, batch):
+        def real(meta, shs):
+            args = (Model(cfg, dev).init(prng.key(0)), batch(),
+                    model.init_caches(shape.global_batch, shape.seq_len), 0)
+            return at(args) if shape.kind == "decode" else args[:3]
+        return real
+
+    steps = {
+        "prefill split": ("prefill", split_build(build_prefill, pre),
+                          lambda m, s: dryrun.step_args("prefill", m, s),
+                          split_real(pre, lambda: {"tokens": tokens.to(dev)})),
+        "prefill plain": ("prefill", plain_build(plain_prefill, pre),
+                          plain_meta("prefill"),
+                          plain_real(pre, lambda: {"tokens": tokens.to(dev)})),
+        "decode split": ("decode", split_build(build_decode, dec),
+                         lambda m, s: at(dryrun.step_args("decode", m, s)),
+                         split_real(dec, lambda: tok.to(dev))),
+        "decode plain": ("decode", plain_build(plain_decode, dec),
+                         plain_meta("decode"),
+                         plain_real(dec, lambda: tok.to(dev))),
+    }
+    return steps, shapes, cfg
+
+
+def serve_split_reckoning(cfg, shape) -> str:
+    """The plain prefill's bytes, reckoned from the config: the float32
+    parameters, the bfloat16 casts of one layer and of the unembedding
+    table, one kv block's float32 scores of the blockwise attention (every
+    query head against ``kv_block`` = 1 024 keys) and the logits."""
+    from repro_torch.models.layers import dtype_of
+    from repro_torch.models.model import Model
+    from repro_torch.tree import tree_leaves
+
+    leaves = tree_leaves(Model(cfg, "cpu").shapes())
+    params = sum(t.numel() for t in leaves)
+    act = dtype_of(cfg.dtype).itemsize
+    table = cfg.padded_vocab * cfg.d_model
+    layer = (params - table * (1 if cfg.tie_embeddings else 2)) // \
+        cfg.num_layers
+    b, s = shape.global_batch, shape.seq_len
+    scores = b * cfg.num_heads * s * min(1024, s) * 4
+    logits = b * s * cfg.padded_vocab * act
+    parts = {"float32 parameters": params * 4,
+             f"{cfg.dtype} casts of a layer": layer * act,
+             f"{cfg.dtype} cast of the unembedding table": table * act,
+             "float32 scores of one kv block": scores,
+             f"{cfg.dtype} logits ({b} x {s} x {cfg.padded_vocab})": logits}
+    return ", ".join(f"{k} {v / 2**30:.2f} GiB" for k, v in parts.items())
+
+
+def serve_split_child() -> None:
+    """The "serve split" phase's subprocess (docstring): one card, and no
+    process group running, so that it can start the fake world."""
+    import torch
+
+    from repro_torch.launch.mesh import fake_world, make_mesh
+    from repro_torch.parallel import sharding
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    n = math.prod(SPLIT_MESH)
+    res = {}
+    with fake_world(n):
+        mesh = make_mesh(SPLIT_MESH, ("data", "model"), "cuda")
+        steps, shapes, cfg = serve_split_steps(dev, mesh)
+        print(f"serve split: {cfg.name} at full width cut to "
+              f"{cfg.num_layers} layers; {shapes['prefill'].name} "
+              f"({shapes['prefill'].seq_len} positions), "
+              f"{shapes['decode'].name} ({shapes['decode'].seq_len} slots, "
+              f"position {SERVE_SPLIT_INDEX}); the plain prefill reckoned: "
+              f"{serve_split_reckoning(cfg, shapes['prefill'])}", flush=True)
+        with sharding.use_mesh(mesh, sharding.act_rules_for(cfg, mesh)):
+            for label, (kind, build, meta_args, real_args) in steps.items():
+                where = (f"rank 0 of {SPLIT_MESH} on a fake world of {n}"
+                         if label.endswith("split") else "one rank")
+                res[label] = dry_step(
+                    f"{cfg.name} {cfg.num_layers}-layer {kind} step, "
+                    f"{where}", build, meta_args, real_args, dev, card,
+                    timed=1)
+                gc.collect()
+                torch.cuda.empty_cache()
+    for kind in ("prefill", "decode"):
+        split, plain = res[f"{kind} split"], res[f"{kind} plain"]
+        ratio = split["flops"] / plain["flops"]
+        print(f"serve split {kind}: rank 0 of {SPLIT_MESH}: "
+              f"{split['flops']} FLOPs, step {split['ms'][0]:.1f} ms (host "
+              f"clock, after a warm-up step), peak "
+              f"{split['peak'] / 2**30:.3f} GiB, logits block "
+              f"{split['first_shape']}; the plain step: {plain['flops']} "
+              f"FLOPs, step {plain['ms'][0]:.1f} ms, peak "
+              f"{plain['peak'] / 2**30:.3f} GiB, logits "
+              f"{plain['first_shape']}; the rank's FLOPs x {n} over the "
+              f"plain step's {ratio * n:.4f}, step ms ratio "
+              f"{split['ms'][0] / plain['ms'][0]:.4f}, peak ratio "
+              f"{split['peak'] / plain['peak']:.4f}; {card}", flush=True)
+        check(1 / n <= ratio <= SPLIT_FLOPS_MAX / n,
+              f"serve split {kind}: the rank computes {ratio:.5f} of the "
+              f"plain step's FLOPs, outside [1/{n}, {SPLIT_FLOPS_MAX}/{n}]")
+
+
+def check_serve_split(dev, card: str) -> None:
+    """The "serve split" phase (docstring), in a subprocess that sees the
+    card (``serve_split_child``)."""
+    run_child_phase("serve split", "serve_split_child", dev, card)
+
+
+def run_child_phase(name: str, child: str, dev, card: str) -> None:
+    """Phase ``name``: ``chip_smoke.<child>()`` in a subprocess that sees
+    the card, its output printed; fails where the child does."""
     import torch
 
     t0 = time.perf_counter()
     gc.collect()
     torch.cuda.empty_cache()
-    print(f"model split: this process holds "
+    print(f"{name}: this process holds "
           f"{torch.cuda.memory_allocated(dev)} B allocated, "
           f"{torch.cuda.memory_reserved(dev)} B reserved", flush=True)
     code = ("import sys\n"
             "import chip_smoke\n"
             "try:\n"
-            "    chip_smoke.model_split_child()\n"
+            f"    chip_smoke.{child}()\n"
             "except chip_smoke.PhaseError as e:\n"
-            "    print(f'model split: FAILED: {e}', flush=True)\n"
+            f"    print(f'{name}: FAILED: {{e}}', flush=True)\n"
             "    sys.exit(1)\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
                          capture_output=True, text=True, timeout=900)
     print(res.stdout, end="", flush=True)
     check(res.returncode == 0,
-          f"model split: the subprocess failed ({res.returncode}): "
+          f"{name}: the subprocess failed ({res.returncode}): "
           f"{res.stdout[-1500:]} {res.stderr[-3000:]}")
-    print(f"model split phase: wall {time.perf_counter() - t0:.1f} s; "
-          f"{card}", flush=True)
+    print(f"{name} phase: wall {time.perf_counter() - t0:.1f} s; {card}",
+          flush=True)
 
 
 def check_oom_classification(dev) -> None:
@@ -5937,6 +6170,9 @@ def main() -> int:
 
     phase("model split")
     check_model_split(dev, card)
+
+    phase("serve split")
+    check_serve_split(dev, card)
 
     print(f"chip_smoke wall: {time.perf_counter() - t_all:.1f} s")
     print(card)

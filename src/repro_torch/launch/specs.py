@@ -10,7 +10,8 @@ device (``Model.shapes()``, ``cache_specs``), where the reference uses
 tensors, their shardings and ``{"out_shardings": ...}``; the reference's
 ``donate_argnums`` has no counterpart, because the port's steps update
 their parameters, optimizer state and caches in place. The serving steps
-run each rank on its blocks of the caches (``parallel.kvcache``).
+run each rank on its blocks of the caches and, like the train step, split
+their dense products over ``model`` (``parallel.kvcache``).
 """
 from __future__ import annotations
 
@@ -172,7 +173,8 @@ def build_train(arch_cfg: ModelConfig, shape: ShapeConfig, mesh,
     columns and the vocab, and the residual's sequence; MLA, MoE, SSD and
     RG-LRU segments compute in full on their sequence blocks. The audio
     enc-dec keeps whole products (its encoder and cross-attention are not
-    split yet).
+    split yet). The serving builders split the same products
+    (``build_prefill``, ``build_decode``).
     """
     batch = input_specs(arch_cfg, shape)
     batch_sh = batch_shardings(batch, mesh)
@@ -211,7 +213,9 @@ def _serve_setup(arch_cfg: ModelConfig, b: int, max_len: int, mesh):
     the caches' rows: the batch entry of every cache leaf's spec, the rows
     each rank's caches hold and its steps compute) of a serving step.
     Where those rows split the batch, an MoE FFN routes over every rank's
-    rows, as the reference routes the whole batch (``kvcache.serving``)."""
+    rows, as the reference routes the whole batch; the rows never take
+    ``model``, over which the step splits its products wherever it has more
+    than one rank, but for the enc-dec model (``kvcache.serving``)."""
     rows = build_spec((b,), ("batch",), mesh, DECODE_RULES)[0]
     model = Model(arch_cfg, _model_device(mesh))
     params = model.shapes()
@@ -233,7 +237,16 @@ def build_decode(arch_cfg: ModelConfig, shape: ShapeConfig, mesh):
     states and their positions, ``min(seq_len, 4096)`` of them) are each
     rank's blocks (``parallel.kvcache.place`` / ``init_blocks``); the caches
     are written in place (the reference donates them); the logits come
-    back as the rows of the token's split, marked with their spec."""
+    back as the rows of the token's split, marked with their spec.
+
+    On a mesh whose ``model`` has more than one rank the step splits its
+    products over it, as the reference's GSPMD step does: this rank's GQA
+    heads (q of every head gathered for split-KV over its cache slots, the
+    combined output reduce-scattered back to its heads), its MLP columns
+    and its vocab block of the embedding and the logits, which it gathers
+    (rows x vocab). The token's one position does not split, so the
+    residual is whole on every rank (``fsdp.residual``). MLA, MoE, SSD and
+    RG-LRU segments compute whole; the enc-dec model takes no split."""
     b, max_len = shape.global_batch, shape.seq_len
     tok_spec = build_spec((b, 1), ("batch", None), mesh, ACT_RULES)
     model, params, param_sh, caches, caches_sh, rows = _serve_setup(
@@ -255,8 +268,10 @@ def build_decode(arch_cfg: ModelConfig, shape: ShapeConfig, mesh):
                                            mesh, ACT_RULES))),)
     rules = current_act_rules()
 
+    split = not arch_cfg.is_encoder_decoder
+
     def serve_step(params, tok, caches, index, enc_out=None):
-        with kvcache.serving(mesh, rules, rows):
+        with kvcache.serving(mesh, rules, rows, split):
             extras = None if enc_out is None else {"enc_out": tuple(
                 kvcache.to_rows(t, rows) for t in enc_out)}
             logits, caches = model.decode_step(
@@ -282,24 +297,39 @@ def build_prefill(arch_cfg: ModelConfig, shape: ShapeConfig, mesh):
     Under ``DP_ACT_RULES`` the batch's entries split the batch over
     ``model`` too, more finely than the caches' rows: the step gathers each
     entry's rows over the axes the caches do not split (an all-gather of
-    the prompt's tokens), computes the caches' rows, and hands back the
-    logits as the rows of the tokens' split (a slice), marked with their
-    spec."""
+    the prompt's tokens) and computes the caches' rows.
+
+    On a mesh whose ``model`` has more than one rank the step splits its
+    products over it, as the reference's GSPMD step does: this rank's GQA
+    heads (the kv heads repeated where ``model`` does not divide them),
+    its MLP columns and its vocab block of the embedding, and, where
+    ``model`` divides the prompt's positions, the residual in sequence
+    blocks. The logits then leave the step in those blocks, each rank
+    unembedding its own positions with the whole table, marked ``(rows,
+    "model", None)``: the caches' rows, nothing gathered. Otherwise they
+    come back whole as the rows of the tokens' split (a slice), marked
+    with their spec. A rank writes every kv head of its own cache slots,
+    projected on those slots' positions. MLA, MoE, SSD and RG-LRU segments
+    compute whole; the enc-dec model takes no split."""
     b, s = shape.global_batch, shape.seq_len
     batch = input_specs(arch_cfg, shape)
     batch_sh = batch_shardings(batch, mesh)
     tok_rows = batch_sh["tokens"].spec[0]
     model, params, param_sh, caches, caches_sh, rows = _serve_setup(
         arch_cfg, b, s, mesh)
-    logits_sh = NamedSharding(mesh, (tok_rows, None, None))
     rules = current_act_rules()
+    split = not arch_cfg.is_encoder_decoder
+    seq = kvcache.prefill_seq_axis(mesh, rules, rows, s, split)
+    logits_sh = NamedSharding(mesh, (rows, seq, None) if seq
+                              else (tok_rows, None, None))
 
     def prefill_step(params, batch, caches):
-        with kvcache.serving(mesh, rules, rows):
+        with kvcache.serving(mesh, rules, rows, split):
             logits, caches, _ = model.prefill(
                 params, {k: kvcache.to_rows(v, rows)
                          for k, v in batch.items()}, caches)
-            return kvcache.from_rows(logits, rows, batch["tokens"]), caches
+            return kvcache.from_rows(logits, rows, batch["tokens"],
+                                     seq), caches
 
     return (prefill_step, (params, batch, caches),
             (param_sh, batch_sh, caches_sh),

@@ -16,16 +16,24 @@ forward also keeps the log-sum-exp, and its backward is the reference's
 ``_flash_bwd``, which recomputes each block's scores instead of keeping the
 (Sq x Skv) probabilities autograd would save. Where no input takes a
 gradient, ``apply`` runs the forward alone and records nothing.
-Under a train step that splits its products over ``model``
-(``parallel.fsdp``), ``gqa_attention`` computes this rank's heads only:
-wq and wo arrive as their ``model`` blocks, and wk and wv too where
-``model`` divides the kv heads. Where it does not (8 kv heads on 16
-ranks), the reference repeats the kv heads to the full head count
-(``_maybe_repeat_kv``, called where the reference calls it) and shards the
-repeat by heads; the port projects only the kv heads this rank's q heads
-read, repeats them, and takes its own heads of the repeat: the same
-values. ``wo``'s product is then this rank's partial sum, which the
-segment reduce-scatters (``models.transformer``).
+Under a step that splits its products over ``model`` (``parallel.fsdp``:
+the train step and the serving steps), ``gqa_attention`` computes this
+rank's heads only: wq and wo arrive as their ``model`` blocks, and wk and
+wv too where ``model`` divides the kv heads. Where it does not (8 kv heads
+on 16 ranks), the reference repeats the kv heads to the full head count
+(``_maybe_repeat_kv``, called where the reference calls it: the cache-less
+forward and the bulk prefill) and shards the repeat by heads; the port
+projects only the kv heads this rank's q heads read, repeats them, and
+takes its own heads of the repeat: the same values. ``wo``'s product is
+then this rank's partial sum, which the segment reduce-scatters or sums
+(``models.transformer``). A split step's cache meets the layout of
+``parallel.kvcache``, where a rank's block holds every kv head of its
+slots: a bulk prefill also projects every kv head, with wk and wv
+gathered whole, on the positions of this rank's slots only; a decode or
+append step gathers the new token's kv heads over ``model`` before the
+write, and, where the slots split over ``model``, every rank's q heads,
+so that it attends with every head over its own slots and keeps its own
+heads of the combined output (``kvcache.combine_heads``).
 
 A cache's ``index`` (the tokens written so far) is a Python int, the same
 for every layer of a stacked cache: it picks the slots a step writes, which
@@ -381,6 +389,15 @@ def _maybe_repeat_kv(k, v, num_heads: int, heads=None,
     return k, v
 
 
+def _kv_range(cfg: ModelConfig, idx: int, n: int):
+    """(the first q head of rank ``idx`` of the ``n`` that split the heads,
+    their count, and the kv heads [kv0, kv1) they read: q head i reads kv
+    head i // g, as ``_grouped`` groups them)."""
+    hl = cfg.num_heads // n
+    first, g = idx * hl, cfg.num_heads // cfg.num_kv_heads
+    return first, hl, first // g, (first + hl - 1) // g + 1
+
+
 def _split_kv(params, cfg: ModelConfig):
     """(wk, wv, heads) of this rank under a step that splits the heads:
     where wk and wv arrive whole (``model`` does not divide the kv heads),
@@ -392,10 +409,41 @@ def _split_kv(params, cfg: ModelConfig):
             or not fsdp.splits("heads", cfg.num_heads)):
         return wk, wv, None
     n, idx = fsdp.split_rank()
-    hl = cfg.num_heads // n
-    first, g = idx * hl, cfg.num_heads // cfg.num_kv_heads
-    kv0, kv1 = first // g, (first + hl - 1) // g + 1
+    first, hl, kv0, kv1 = _kv_range(cfg, idx, n)
     return wk[:, kv0:kv1], wv[:, kv0:kv1], (first, hl)
+
+
+def _rank_kv(k, v, cfg: ModelConfig):
+    """Of ``k``, ``v`` (B, S, Hkv, Dh) holding every kv head, those this
+    rank's q heads read under a step that splits the heads, in
+    ``_grouped``'s order: the kv heads [kv0, kv1), repeated where
+    ``model`` does not divide them (``_maybe_repeat_kv``)."""
+    n, idx = fsdp.split_rank()
+    first, hl, kv0, kv1 = _kv_range(cfg, idx, n)
+    k, v = k[:, :, kv0:kv1], v[:, :, kv0:kv1]
+    if cfg.num_kv_heads % n:
+        k, v = _maybe_repeat_kv(k, v, cfg.num_heads, (first, hl),
+                                cfg.num_kv_heads)
+    return k, v
+
+
+def _all_kv_heads(t, cfg: ModelConfig):
+    """(B, S, Hkv, Dh): every kv head of ``t``, this rank's kv heads
+    [kv0, kv1) (``_kv_range``) under a step that splits the heads, from one
+    all-gather over the split axis. Where ``model`` does not divide the kv
+    heads, ranks share a kv head (their ranges may differ in width): each
+    rank's range is padded to the widest and each kv head taken from the
+    first rank that holds it."""
+    n, _ = fsdp.split_rank()
+    ranges = [_kv_range(cfg, r, n)[2:] for r in range(n)]
+    pad = max(b - a for a, b in ranges) - t.shape[2]
+    if pad:
+        t = torch.nn.functional.pad(t, (0, 0, 0, pad))
+    parts = fsdp.split_gather(t[None], 0)           # (n, B, S, width, Dh)
+    owner = [next(r for r, (a, b) in enumerate(ranges) if a <= j < b)
+             for j in range(cfg.num_kv_heads)]
+    return torch.stack([parts[r, :, :, j - ranges[r][0]]
+                        for j, r in enumerate(owner)], dim=2)
 
 
 class KVCache(NamedTuple):
@@ -430,15 +478,18 @@ def _project(x, w):
 
 def gqa_attention(params, x, positions, cfg: ModelConfig, *,
                   causal: bool = True, window: int = 0,
-                  cache: Optional[KVCache] = None):
+                  cache: Optional[KVCache] = None, whole_kv=None):
     """x: (B,S,D); positions: (B,S). cache -> (out, new_cache_entry).
 
     A cache is written in place (its k, v and pos tensors, which may be
-    views of a stacked cache) and returned with its new index.
+    views of a stacked cache) and returned with its new index. Under a
+    step that splits the heads, ``whole_kv()`` gives (wk, wv) whole, for a
+    bulk prefill's write of every kv head (module docstring).
     """
     b, sq, d = x.shape
     dh = cfg.resolved_head_dim
     wk, wv, heads = _split_kv(params, cfg)
+    split = params["wq"].shape[1] != cfg.num_heads
     q = _project(x, params["wq"])
     k = _project(x, wk)
     v = _project(x, wv)
@@ -466,19 +517,28 @@ def gqa_attention(params, x, positions, cfg: ModelConfig, *,
         if sq >= smax:
             # bulk prefill: attend over the fresh k/v (identical to the
             # cache contents); keep the last S_max tokens in the cache
-            out = flash_attention(q, k, v, positions, positions,
+            kr, vr = (k, v) if heads is None else _maybe_repeat_kv(
+                k, v, cfg.num_heads, heads, cfg.num_kv_heads)
+            out = flash_attention(q, kr, vr, positions, positions,
                                   causal=causal, window=window,
                                   logit_cap=cfg.attn_logit_softcap)
-            kvcache.write_slots(cache.k, k[:, sq - smax:], 0, 1)
-            kvcache.write_slots(cache.v, v[:, sq - smax:], 0, 1)
-            kvcache.write_slots(cache.pos, positions[0, sq - smax:], 0, 0,
-                                rows=False)
+            if split:
+                _write_split_prefill(cache, x, positions, params, whole_kv,
+                                     cfg, sq - smax)
+            else:
+                kvcache.write_slots(cache.k, k[:, sq - smax:], 0, 1)
+                kvcache.write_slots(cache.v, v[:, sq - smax:], 0, 1)
+                kvcache.write_slots(cache.pos, positions[0, sq - smax:], 0,
+                                    0, rows=False)
         else:
             # decode/append: write k,v at slot index % S_max (ring buffer
             # for windowed caches; plain append while index < S_max). The
             # reference's dynamic_update_slice clamps the start so that the
             # update fits: a write past the end lands at S_max - sq
             write = min(index % smax, smax - sq)
+            if split:
+                # the rank that owns the write's slots writes every kv head
+                k, v = _all_kv_heads(k, cfg), _all_kv_heads(v, cfg)
             kvcache.write_slots(cache.k, k.to(cache.k.dtype), write, 1)
             kvcache.write_slots(cache.v, v.to(cache.v.dtype), write, 1)
             kvcache.write_slots(cache.pos, index + torch.arange(
@@ -487,16 +547,56 @@ def gqa_attention(params, x, positions, cfg: ModelConfig, *,
             kc = kvcache.read(cache.k, (0, 1))
             vc = kvcache.read(cache.v, (0, 1))
             kv_pos = cache.pos[None].expand(b, kc.shape[1])
-            out = cache_attention(q, kc.to(q.dtype), vc.to(q.dtype),
-                                  positions, kv_pos, slots.axes,
-                                  causal=causal, window=window,
-                                  logit_cap=cfg.attn_logit_softcap,
-                                  kv_valid=kv_pos >= 0)
+            kw = dict(causal=causal, window=window,
+                      logit_cap=cfg.attn_logit_softcap, kv_valid=kv_pos >= 0)
+            if not split:
+                out = cache_attention(q, kc.to(q.dtype), vc.to(q.dtype),
+                                      positions, kv_pos, slots.axes, **kw)
+            elif slots.axes:
+                # split-KV with every q head, keeping this rank's heads
+                axis = fsdp.split_axis()
+                if slots.axes != (axis,):
+                    raise ValueError(
+                        f"the cache's slots split over {slots.axes}, the "
+                        f"heads over {axis!r}: a split step attends over "
+                        "slots split over the heads' axis only")
+                o, lse = attention_state(fsdp.split_gather(q, 2),
+                                         kc.to(q.dtype), vc.to(q.dtype),
+                                         positions, kv_pos, **kw)
+                out = kvcache.combine_heads(o, lse, axis).to(q.dtype)
+            else:
+                kl, vl = _rank_kv(kc, vc, cfg)
+                out = flash_attention(q, kl.to(q.dtype), vl.to(q.dtype),
+                                      positions, kv_pos, **kw)
         new_cache = cache._replace(index=index + sq)
 
     wo = params["wo"]
     out = torch.matmul(out.flatten(-2), wo.to(x.dtype).reshape(-1, d))
     return out, new_cache
+
+
+def _write_split_prefill(cache: KVCache, x, positions, params, whole_kv,
+                         cfg: ModelConfig, start: int) -> None:
+    """A split bulk prefill's cache write: slot j holds position ``start``
+    + j, and this rank's block (its slots, and its kv heads where the cache
+    splits them) is all it writes, so it projects k and v with wk and wv
+    gathered whole (``whole_kv``, or as they arrived where ``model`` does
+    not divide the kv heads) on the positions of its slots only, for the
+    kv heads of its block."""
+    slots, kvh = kvcache.split(cache.k, 1), kvcache.split(cache.k, 2)
+    n, nh = cache.k.shape[1], cache.k.shape[2]
+    wk, wv = ((params["wk"], params["wv"])
+              if params["wk"].shape[1] == cfg.num_kv_heads else whole_kv())
+    lo = start + slots.lo
+    xs, ps = x[:, lo:lo + n], positions[:, lo:lo + n]
+    k = _project(xs, wk[:, kvh.lo:kvh.lo + nh])
+    v = _project(xs, wv[:, kvh.lo:kvh.lo + nh])
+    if cfg.qk_norm:
+        k = rmsnorm(k, params["k_norm"])
+    k = apply_rope(k, *rope_table(ps, cfg.resolved_head_dim, cfg.rope_theta))
+    cache.k.copy_(k)
+    cache.v.copy_(v)
+    cache.pos.copy_(ps[0])
 
 
 # ---------------------------------------------------------------------------

@@ -3,12 +3,15 @@
 Weights are float32 and are cast to the activations' dtype at each use, as
 the reference's ``params[...].astype(x.dtype)`` does; elementwise math runs
 in the reference's dtypes. Where the reference places a ``logical(...)``
-sharding constraint, a train step that splits its products over ``model``
-(``parallel.fsdp``) hands these functions blocks: ``apply_mlp`` gets the
-column blocks of ``w_up`` / ``w_gate`` and the row block of ``w_down``,
-so its output is this rank's partial sum, and ``embed`` gets the table's
-vocab block, so a token outside it reads zeros and the sum over the ranks
-has one nonzero term.
+sharding constraint, a step that splits its products over ``model``
+(``parallel.fsdp``: the train step and the serving steps) hands these
+functions blocks: ``apply_mlp`` gets the column blocks of ``w_up`` /
+``w_gate`` and the row block of ``w_down``, so its output is this rank's
+partial sum; ``embed`` gets the table's vocab block, so a token outside it
+reads zeros and the sum over the ranks has one nonzero term; and
+``unembed`` (a decode step's logits) gets it too, so its output is this
+rank's vocab columns, masked on their global indices. None of them holds
+a gradient rule or a train layout of its own.
 """
 from __future__ import annotations
 
@@ -163,11 +166,16 @@ def embed(params, tokens, cfg: ModelConfig):
 
 
 def unembed(params, x, cfg: ModelConfig):
+    """The logits of ``x`` against the table; a table of fewer rows than
+    the padded vocab is this rank's vocab block (module docstring), whose
+    columns the padding mask takes at their global indices."""
+    rows = params["table"].shape[0]
+    first = 0 if rows == cfg.padded_vocab else fsdp.split_rank()[1] * rows
     logits = torch.matmul(x, params["table"].to(x.dtype).t())
     logits = softcap(logits, cfg.final_logit_softcap)
     if cfg.padded_vocab != cfg.vocab_size:
         # vocab-padding rows never win: mask to a large negative
-        viota = torch.arange(logits.shape[-1], device=logits.device)
+        viota = torch.arange(first, first + rows, device=logits.device)
         logits = torch.where(viota < cfg.vocab_size, logits,
                              torch.full((), -1e9, dtype=logits.dtype,
                                         device=logits.device))

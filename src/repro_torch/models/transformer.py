@@ -27,13 +27,17 @@ identity outside a sharded train step): a layer's segments gather their
 own parameters, so a sharded step gathers one layer at a time, and again
 where a remat segment recomputes it.
 
-A train step that splits its products over ``model`` (``fsdp.Layout
-.split``) carries the residual stream as this rank's block of the
-sequence (``_on_block``): each segment normalises its block, gathers the
-sequence, and either reduce-scatters its partial sums (GQA and MLP
-segments whose heads or columns split) or keeps its own block of a whole
-result (MLA, MoE, SSD, RG-LRU, cross-attention). The embedding ends in the
-same reduce-scatter, and the final norm runs on the block.
+A step that splits its products over ``model`` (``fsdp.Layout.split``:
+the train step, and the serving steps but the enc-dec's) carries the
+residual stream as this rank's block of the sequence (``_on_block``):
+each segment normalises its block, gathers the sequence, and either
+reduce-scatters its partial sums (GQA and MLP segments whose heads or
+columns split) or keeps its own block of a whole result (MLA, MoE, SSD,
+RG-LRU, cross-attention). The embedding ends in the same reduce-scatter,
+and the final norm runs on the block. Where a serving step's positions do
+not split (a decode step's one), the residual is whole on every rank: a
+split segment's partial sums are all-reduced and any other segment keeps
+its whole output (``fsdp.residual``).
 """
 from __future__ import annotations
 
@@ -156,10 +160,21 @@ def _on_block(x, ln, cfg: ModelConfig, fn, split: bool):
     the normalised ``x``. Under a split step ``x`` is this rank's sequence
     block: it is normalised, the sequence gathered, and ``fn``'s ``out``
     either reduce-scattered (``split``: it is this rank's partial sum) or
-    cut to this rank's block (``fn`` computed the whole of it)."""
+    cut to this rank's block (``fn`` computed the whole of it). Where the
+    residual is whole on every rank (``fsdp.whole_seq``), a partial sum is
+    all-reduced and a whole result kept as it is."""
+    if fsdp.whole_seq():
+        out, extra = fn(L.apply_norm(ln, x, cfg.norm_kind))
+        return (fsdp.model_sum(out) if split else out), extra
     h = fsdp.seq_gather(L.apply_norm(ln, x, cfg.norm_kind))
     out, extra = fn(h)
     return (fsdp.seq_scatter(out) if split else fsdp.seq_block(out)), extra
+
+
+def _whole_kv(mix):
+    """A GQA segment's wk and wv gathered whole, on demand (a split bulk
+    prefill writes every kv head of its cache block)."""
+    return lambda: gathered((mix["wk"], mix["wv"]))
 
 
 def _mlp_segment(ln, mlp, x, cfg: ModelConfig, d_ff: int):
@@ -188,7 +203,8 @@ def _griffin_group(p, x, positions, cfg: ModelConfig, stack: Stack, cache,
                     return rglru_mod.apply_rglru(mix, h, cfg, sub)
                 return attn.gqa_attention(mix, h, positions, cfg,
                                           causal=True, window=cfg.window_size,
-                                          cache=sub)
+                                          cache=sub,
+                                          whole_kv=_whole_kv(p[f"g{j}_mix"]))
 
             return _on_block(x, ln, cfg, fn, split)
 
@@ -228,7 +244,8 @@ def apply_block(p, x, positions, cfg: ModelConfig, stack: Stack,
             if stack.mixer == "gqa":
                 return attn.gqa_attention(mix, h, positions, cfg,
                                           causal=True, window=window,
-                                          cache=sub)
+                                          cache=sub,
+                                          whole_kv=_whole_kv(p["mix"]))
             if stack.mixer == "mla":
                 return attn.mla_attention(mix, h, positions, cfg, cache=sub)
             return ssm_mod.apply_ssm(mix, h, cfg, cache=sub)
@@ -402,12 +419,18 @@ def positions_for(b: int, s: int, start_index, device) -> torch.Tensor:
 
 
 def logits_of(params, x, cfg: ModelConfig):
-    if fsdp.split_axis() is not None:
-        raise ValueError("a step that splits its products over model "
-                         "returns features (features_only=True); its loss "
-                         "is vocab-parallel (models.model.chunked_lm_loss)")
+    """The logits of the final features ``x``. Under a step that splits
+    over ``model``, as the reference places them: where the residual is in
+    sequence blocks, ``seq`` takes ``model`` and ``vocab`` does not, so a
+    rank unembeds its own block with the whole table and the logits stay
+    in sequence blocks; where it is whole (decode), ``vocab`` takes
+    ``model``: a rank computes its vocab columns (``L.unembed`` on its
+    table block) and gathers every rank's."""
     table = (params["embed"]["table"] if cfg.tie_embeddings
              else params["unembed"]["table"])
+    if fsdp.whole_seq() and fsdp.splits("vocab", cfg.padded_vocab):
+        return fsdp.split_gather(L.unembed(
+            {"table": gathered(table, keep=True)}, x, cfg), -1)
     return L.unembed({"table": gathered(table)}, x, cfg)
 
 
@@ -421,8 +444,11 @@ def lm_forward(params, tokens, cfg: ModelConfig, *, caches=None,
     start_index: the cache fill (a host int). features_only: return final
     hidden states instead of logits.
     Returns (logits_or_features, new_caches, aux). Under a step that
-    splits its products over ``model`` the features are this rank's block
-    of the sequence (module docstring).
+    splits its products over ``model`` the embedding is vocab-parallel and
+    the features are this rank's block of the sequence, or, where a
+    serving step's positions do not split, the whole sequence on every
+    rank (module docstring); so are the logits, but for a whole residual's,
+    which are gathered from every rank's vocab block (``logits_of``).
     """
     split = fsdp.splits("vocab", cfg.padded_vocab)
     x = L.embed(gathered(params["embed"], keep=split), tokens, cfg)
@@ -435,15 +461,18 @@ def lm_forward(params, tokens, cfg: ModelConfig, *, caches=None,
     b, s, _ = x.shape
     if positions is None:
         positions = positions_for(b, s, start_index, x.device)
-    if fsdp.residual_split(s):
-        x = fsdp.seq_scatter(x) if split else fsdp.seq_block(x)
-    x, new_caches, aux = run_stacks(params, x, positions, cfg, caches=caches,
-                                    cross_kv=cross_kv,
-                                    enc_positions=enc_positions)
-    x = L.apply_norm(gathered(params["final_norm"]), x, cfg.norm_kind)
-    if features_only:
-        return x, new_caches, aux
-    return logits_of(params, x, cfg), new_caches, aux
+    with fsdp.residual(s) as seq_split:
+        if seq_split:
+            x = fsdp.seq_scatter(x) if split else fsdp.seq_block(x)
+        elif split:
+            x = fsdp.model_sum(x)
+        x, new_caches, aux = run_stacks(params, x, positions, cfg,
+                                        caches=caches, cross_kv=cross_kv,
+                                        enc_positions=enc_positions)
+        x = L.apply_norm(gathered(params["final_norm"]), x, cfg.norm_kind)
+        if features_only:
+            return x, new_caches, aux
+        return logits_of(params, x, cfg), new_caches, aux
 
 
 # ---------------------------------------------------------------------------

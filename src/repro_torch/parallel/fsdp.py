@@ -1,6 +1,7 @@
-"""Sharded parameters for the train step: explicit local blocks, gathered
-where the model reads them, gradients reduce-scattered (FSDP); and the
-products split over ``model`` (tensor and sequence parallelism).
+"""Sharded parameters for the train and serving steps: explicit local
+blocks, gathered where the model reads them, gradients reduce-scattered
+(FSDP); and the products split over ``model`` (tensor and sequence
+parallelism).
 
 The reference lets GSPMD partition its step from the parameters'
 ``NamedSharding``s. Here a sharded parameter is this rank's block of the
@@ -22,25 +23,37 @@ all-reduce of the block over the batch axes that split none of its dims
 (under ZeRO-1 the parameters are whole over ``data``, so their gradients
 take this all-reduce and the step then cuts the optimizer's block).
 
-The split over ``model`` (``Layout.split``: a train step's layout, where
-``model`` splits no batch; ``train.train_step``). The residual stream
-between segments, and so what remat keeps of it, is this rank's block of
-the sequence (the reference's ``seq`` over ``model``). A segment
-normalises its block, gathers the sequence (``seq_gather``) and ends in
-one of two ways. A split segment (GQA heads, MLP columns, where
-``splits`` says the step's act rules give the dim ``model``) reads its
-parameters' ``model`` blocks (``gathered(..., keep=True)``), computes
-its heads or columns only, and reduce-scatters its partial sums over the
-sequence (``seq_scatter``). Any other segment
-computes in full, as the unsplit step does, and keeps its own block of the
-result (``seq_block``). The embedding is vocab-parallel (a rank's vocab
-block, a reduce-scatter of one nonzero term a token) and so is the loss
-(``model_sum``, ``model_max``). A kept block's gradient is exactly the
-block's, so it is summed over the batch axes only; every other leaf's
-gradient on a rank is the part that rank's sequence block, heads or
-columns produced, so ``model`` joins the axes it is summed over. A scalar
-that every ``model`` rank computes whole (an MoE aux) passes through
-``model_share``, so that sum counts it once.
+The split over ``model`` (``Layout.split``: wherever ``model`` has more
+than one rank and splits no batch; a train step's layout,
+``train.train_step``, and a serving step's, ``parallel.kvcache.serving``,
+whose batch axes are the caches' rows). The residual stream between
+segments, and so what remat keeps of it, is this rank's block of the
+sequence (the reference's ``seq`` over ``model``). A segment normalises
+its block, gathers the sequence (``seq_gather``) and ends in one of two
+ways. A split segment (GQA heads, MLP columns, where ``splits`` says the
+step's act rules give the dim ``model``) reads its parameters' ``model``
+blocks (``gathered(..., keep=True)``), computes its heads or columns
+only, and reduce-scatters its partial sums over the sequence
+(``seq_scatter``). Any other segment computes in full, as the unsplit
+step does, and keeps its own block of the result (``seq_block``). The
+embedding is vocab-parallel (a rank's vocab block, a reduce-scatter of
+one nonzero term a token) and so is the loss (``model_sum``,
+``model_max``).
+
+A serving step's positions need not split: a decode step has one, and a
+prompt may have a length ``model`` does not divide. The reference's
+divisibility fallback then leaves ``seq`` whole, and so does a serving
+layout (``Layout.seq_fallback``): ``residual`` gives such a forward a
+layout whose residual is whole on every rank of ``model``
+(``Layout.whole_seq``), where a split segment's partial sums are
+all-reduced (``model_sum``) and any other segment keeps its whole
+output. A train step's layout has no fallback: its sequence must split.
+
+A kept block's gradient is exactly the block's, so it is summed over the
+batch axes only; every other leaf's gradient on a rank is the part that
+rank's sequence block, heads or columns produced, so ``model`` joins the
+axes it is summed over. A scalar that every ``model`` rank computes whole
+(an MoE aux) passes through ``model_share``, so that sum counts it once.
 
 A statistic of the whole batch (an MoE FFN's expert counts and aux, a
 masked loss's mask sum) is read through the layout as well:
@@ -48,9 +61,8 @@ masked loss's mask sum) is read through the layout as well:
 order, and ``Layout.whole_batch`` sums a rank's share over the batch
 ranks with ``batch_n`` times the share's gradient, which the step's mean
 over those ranks turns into the whole batch's gradient. The serving
-steps' layout takes the caches' rows as its batch axes
-(``parallel.kvcache.serving``), so both paths use these two; it never
-splits over ``model``.
+steps' layout takes the caches' rows as its batch axes, so both paths
+use these two.
 
 Collectives run only over axes of more than one rank, and a leaf is
 gathered only where its spec, the batch or the split has such an axis, so
@@ -59,6 +71,7 @@ plain step's bits.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
@@ -152,8 +165,9 @@ def extra_spec(param_spec, grad_spec, ndim: int) -> tuple:
 
 class Layout(NamedTuple):
     """The mesh of a sharded step, its axis sizes, the axes (of more than
-    one rank) that split its batch and their product, and the axis that
-    splits its products, if any (``make_layout``)."""
+    one rank) that split its batch and their product, the axis that
+    splits its products, if any, and how its residual stream meets a
+    sequence that axis does not divide (``make_layout``)."""
 
     mesh: object
     sizes: Dict[str, int]
@@ -163,6 +177,13 @@ class Layout(NamedTuple):
     needs: Dict[tuple, bool]
     #: ``model`` where the step splits its products over it, else None
     split: Optional[str] = None
+    #: a serving step's: a residual whose positions do not split over
+    #: ``split`` stays whole (the reference's divisibility fallback); a
+    #: train step's layout raises there instead (``residual``)
+    seq_fallback: bool = False
+    #: set by ``residual`` for one forward: the residual stream is whole on
+    #: every rank of ``split`` (its positions did not split)
+    whole_seq: bool = False
 
     def sum_over(self, t: torch.Tensor, axes) -> torch.Tensor:
         for a in axes:
@@ -273,15 +294,18 @@ def layout_of(params, batch, split: bool = False) -> Optional[Layout]:
     return make_layout(mesh, S.spec_axes(bspec[0]) if bspec else (), split)
 
 
-def make_layout(mesh, batch_axes, split: bool = False) -> Layout:
+def make_layout(mesh, batch_axes, split: bool = False,
+                seq_fallback: bool = False) -> Layout:
     """``split``: the products split over ``model`` wherever it has more
-    than one rank and splits no batch (else the layout splits nothing)."""
+    than one rank and splits no batch (else the layout splits nothing).
+    ``seq_fallback``: a serving step's layout, whose residual stays whole
+    where its positions do not split (``residual``)."""
     sizes = S.mesh_shape(mesh)
     axes = tuple(a for a in batch_axes if sizes[a] > 1)
     tp = ("model" if split and sizes.get("model", 1) > 1
           and "model" not in axes else None)
     return Layout(mesh, sizes, axes, math.prod(sizes[a] for a in axes), {},
-                  tp)
+                  tp, seq_fallback)
 
 
 def _reduce_scatter_dim(t: torch.Tensor, dim: int, mesh,
@@ -436,20 +460,46 @@ def split_rank() -> Tuple[int, int]:
             layout.mesh.get_local_rank(layout.split))
 
 
-def residual_split(seq: int) -> bool:
-    """Whether the residual stream of a ``seq``-position step is split over
-    the sequence: wherever the step splits its products. Raises where the
-    act rules do not split ``seq`` there: the step never falls back to
-    whole products."""
-    if split_axis() is None:
-        return False
-    if not splits("seq", seq):
-        n, _ = split_rank()
+@contextlib.contextmanager
+def residual(seq: int):
+    """Context of a forward whose residual stream has ``seq`` positions;
+    yields whether the stream is split over the sequence: wherever the step
+    splits its products and the act rules split ``seq`` there. Where they
+    do not, a serving layout (``Layout.seq_fallback``) leaves the stream
+    whole on every rank of the split axis (``whole_seq`` inside the
+    context), as the reference's divisibility fallback does; a train
+    step's layout raises: it never falls back to whole products."""
+    layout = current_layout()
+    if layout is None or layout.split is None:
+        yield False
+    elif splits("seq", seq):
+        yield True
+    elif not layout.seq_fallback:
         raise ValueError(
-            f"the step splits its products over {n} ranks of "
-            f"{split_axis()!r}, but its residual's {seq} positions do not "
-            "split over them")
-    return True
+            f"the step splits its products over "
+            f"{layout.sizes[layout.split]} ranks of {layout.split!r}, but "
+            f"its residual's {seq} positions do not split over them")
+    else:
+        with use_layout(layout._replace(whole_seq=True)):
+            yield False
+
+
+def whole_seq() -> bool:
+    """Whether the current step splits its products over an axis on whose
+    every rank the residual stream is whole (``residual``)."""
+    layout = current_layout()
+    return layout is not None and layout.split is not None and \
+        layout.whole_seq
+
+
+def split_gather(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """Every rank's ``t`` of the split axis, concatenated along ``dim`` in
+    the axis's order (one all-gather; no gradient: serving's q heads, new
+    kv heads and vocab columns)."""
+    layout = current_layout()
+    if layout is None or layout.split is None:
+        return t
+    return S._gather_dim(t.detach(), dim, layout.mesh, layout.split)
 
 
 class _SeqGather(torch.autograd.Function):

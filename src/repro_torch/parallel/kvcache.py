@@ -2,7 +2,7 @@
 caches (``launch.specs.cache_shardings`` under ``DECODE_RULES``) and the
 serving steps compute on them. The reference lets GSPMD partition its
 sharded serving steps; this is the port's own mechanism, the sibling of
-``parallel.fsdp`` (which places the parameters).
+``parallel.fsdp`` (which places the parameters and splits the products).
 
 Placing. ``place`` cuts each leaf's block from a full tensor and marks it
 with its spec (``fsdp.place``); ``init_blocks`` allocates only the
@@ -19,6 +19,15 @@ split (``DP_ACT_RULES`` split a prompt's batch over ``model`` too), and
 rows' axes are the step's batch axes (``serving``), so an MoE FFN routes
 over every rank's rows, the whole batch, as the reference does.
 
+Products. The rows never take ``model`` under ``DECODE_RULES``, so on a
+mesh whose ``model`` has more than one rank the serving layout splits the
+dense products over it as the train step's does (``fsdp``): GQA heads, MLP
+columns, the embedding's vocab, and a prompt's residual in sequence
+blocks where ``model`` divides its length (else the residual is whole on
+every rank: a decode step's one position). A prefill's logits then stay
+in those sequence blocks (``from_rows(..., seq=)``); a decode step's are
+computed a vocab block a rank and gathered.
+
 Slots. A KV cache's ``kv_seq`` dim (GQA's k, v and pos; MLA's c_kv and
 k_rope) splits over ``model``: the rank at index r along it holds slots
 [r n, r n + n) of the S_max slots, in the single-device layout. The ring
@@ -30,16 +39,21 @@ split slots is split-KV: each rank attends over its own slots
 (``attention.attention_state``: the output normalised over them and its
 log-sum-exp), and ``combine`` merges the partials over the axes that split
 the slots by log-sum-exp, per query head: an all-reduce of the max, then
-one of the rescaled outputs and weights. No block of a KV cache moves
-between ranks.
+one of the rescaled outputs and weights. Where the heads split over the
+same axis, every rank attends with every query head (q gathered, a few kB
+a token) and ``combine_heads`` reduce-scatters the second sum by heads, so
+each rank keeps its own heads. No block of a KV cache moves between
+ranks: a split prefill projects the k and v of every kv head on the
+positions of its own slots only, and a split decode step gathers the new
+token's kv heads (``models.attention``).
 
 Other split dims. Where a leaf splits a dim other than its rows and its
 slots (the SSM state's heads, the conv windows' and the RG-LRU state's
 channels over ``model``; a KV cache's kv heads where its slots do not
 divide), ``read`` gathers the leaf where a layer reads it and
 ``write_block`` / ``write_slots`` write back this rank's block of the new
-value. Those states are a few MB a layer, and the ranks on ``model``
-compute the same full products, as under ``parallel.fsdp``.
+value. Those states are a few MB a layer; the MLA, SSD and RG-LRU
+segments that read them compute whole on every rank of ``model``.
 
 Collectives run only over axes of more than one rank, so on a mesh of size
 1 every function here is the identity or the plain write, and a serving
@@ -141,14 +155,36 @@ def combine(out: torch.Tensor, lse: torch.Tensor, axes) -> torch.Tensor:
     scores -> the output over every rank's keys of ``axes``. A rank whose
     keys are all masked has an lse near the mask's -2e38 and weighs 0."""
     mesh = S.current_mesh()
+    pack = _rescaled(out, lse, axes, mesh)
+    for a in axes:
+        dist.all_reduce(pack, group=mesh.get_group(a))
+    return pack[..., :-1] / pack[..., -1:]
+
+
+def _rescaled(out, lse, axes, mesh) -> torch.Tensor:
+    """(..., D + 1): ``out`` and its weight exp(lse - the max of ``lse``
+    over ``axes``) side by side, the output scaled by the weight, for a
+    sum over the ranks of ``axes``."""
     top = lse.clone()
     for a in axes:
         dist.all_reduce(top, op=dist.ReduceOp.MAX, group=mesh.get_group(a))
     w = torch.exp(lse - top)
-    pack = torch.cat([out * w[..., None], w[..., None]], dim=-1)
-    for a in axes:
-        dist.all_reduce(pack, group=mesh.get_group(a))
-    return pack[..., :-1] / pack[..., -1:]
+    return torch.cat([out * w[..., None], w[..., None]], dim=-1)
+
+
+def combine_heads(out: torch.Tensor, lse: torch.Tensor,
+                  axis: str) -> torch.Tensor:
+    """``combine`` over the slots of ``axis`` (every rank's ``out``
+    (B, Hkv, G, Sq, D) holds every query head), ending in this rank's
+    block of the query heads (q head kv * G + g, the blocks in ``axis``'s
+    order): (B, Sq, H / n, D) float32. The second sum is a reduce-scatter
+    by heads, 1 / n of ``combine``'s all-reduce."""
+    mesh = S.current_mesh()
+    pack = _rescaled(out, lse, (axis,), mesh)
+    b, hkv, g, sq, d = pack.shape
+    pack = fsdp._reduce_scatter_dim(pack.reshape(b, hkv * g, sq, d), 1,
+                                    mesh, axis)
+    return (pack[..., :-1] / pack[..., -1:]).transpose(1, 2)
 
 
 # ---------------------------------------------------------------------------
@@ -186,26 +222,54 @@ def to_rows(t: torch.Tensor, rows) -> torch.Tensor:
     return _rebatch(t, _rows_of(t), rows, mesh)
 
 
-def from_rows(t: torch.Tensor, rows, like: torch.Tensor) -> torch.Tensor:
+def from_rows(t: torch.Tensor, rows, like: torch.Tensor,
+              seq=None) -> torch.Tensor:
     """A step output ``t`` computed on the caches' ``rows`` as the rows of
-    ``like``'s split (the step input it answers), marked with that spec."""
+    ``like``'s split (the step input it answers), marked with that spec.
+    ``seq``: ``t`` is this rank's block of the sequence (dim 1) over that
+    axis; it keeps the caches' rows and is marked ``(rows, seq, ...)``,
+    nothing moved."""
     mesh = S.current_mesh()
     if mesh is None:
         return t
+    if seq is not None:
+        return fsdp.mark(t, (rows, seq) + (None,) * (t.dim() - 2))
     want = _rows_of(like)
     out = _rebatch(t, rows, want, mesh)
     return fsdp.mark(out, (want,) + (None,) * (t.dim() - 1))
 
 
+def serving_layout(mesh, rows, split: bool = True) -> fsdp.Layout:
+    """The layout of a serving step on ``mesh`` that computes the caches'
+    ``rows`` (a spec entry): the rows' axes are its batch axes, and with
+    ``split`` (all but the enc-dec model) it splits the products over
+    ``model`` wherever ``model`` has more than one rank and is not one of
+    those axes, its residual whole where the positions do not split
+    (``fsdp.make_layout``)."""
+    return fsdp.make_layout(mesh, S.spec_axes(rows), split,
+                            seq_fallback=True)
+
+
+def prefill_seq_axis(mesh, rules, rows, seq: int, split: bool = True):
+    """The axis over which a ``seq``-position prefill under ``rules``
+    leaves its residual, and so its logits, in sequence blocks, or None
+    (``serving_layout`` and ``fsdp.residual``'s decision, made before the
+    step)."""
+    axis = serving_layout(mesh, rows, split).split
+    spec = S.build_spec((seq,), ("seq",), mesh, rules)
+    return axis if axis in S.spec_axes(spec[0]) else None
+
+
 @contextlib.contextmanager
-def serving(mesh, act_rules, rows=None):
+def serving(mesh, act_rules, rows=None, split: bool = True):
     """Context of a serving step on ``mesh`` that computes the caches'
     ``rows`` (a spec entry): no gradient, the mesh and its activation rules
     current, the parameters gathered where the model reads them
-    (``fsdp.gathered``), and the rows' axes as the layout's batch axes, so
-    that an MoE FFN routes over the whole batch (``models.moe``)."""
+    (``fsdp.gathered``), and ``serving_layout``: the rows' axes as the
+    layout's batch axes, so that an MoE FFN routes over the whole batch
+    (``models.moe``), and the products split over ``model`` (``split``)."""
     with torch.no_grad(), S.use_mesh(mesh, act_rules), \
-            fsdp.use_layout(fsdp.make_layout(mesh, S.spec_axes(rows))):
+            fsdp.use_layout(serving_layout(mesh, rows, split)):
         yield
 
 

@@ -252,6 +252,17 @@ def lm_bf16_grad_atol_frac(num_layers: int) -> float:
 LM_BF16_SPLIT_RTOL = 2.0 ** -10
 LM_BF16_SPLIT_ATOL_FRAC = 2.0 ** -6
 
+#: the serving steps in bfloat16 whose products split over ``model``
+#: against the reference's sharded bfloat16 serving steps: the logits and
+#: each float cache leaf as a fraction of their max. The reference's own
+#: gap between its sharded and single-device steps plus the port's
+#: one-device gap to the single-device steps, measured worst over
+#: ``tests/test_torch_serve_mesh.py``'s bfloat16 cases (the sharded-step
+#: config and gemma2-2b smoke on (4, 2) and (2, 4), seeded decode tokens),
+#: rounded up to a power of two: 1.045e-2 + 9.766e-3 (both the
+#: sharded-step config's, on (2, 4) and on either mesh)
+LM_BF16_SERVE_SPLIT_ATOL_FRAC = 2.0 ** -5
+
 
 #: the dry run's FLOPs at one device (``launch.op_cost``, FlopCounterMode's
 #: count of the eager step) against the reference's trip-count-aware count

@@ -16,9 +16,8 @@ still hold.
       ``index`` argument, host ints in the port: the difference is their
       bytes, exactly.
   (b) FLOPs at one device (GSPMD splits over ``model`` more than the
-      port does: its serving steps, and the MLA, MoE, SSD and RG-LRU
-      segments of its train steps, so per-rank FLOPs agree only there):
-      within
+      port does: the MLA, MoE, SSD and RG-LRU segments of its train and
+      serving steps, so per-rank FLOPs agree only there): within
       ``parity.DRYRUN_FLOPS_RTOL``, but for the gaps ``FLOPS_GAPS`` records,
       each held to its exact count.
   (c) collectives: the plain sharded train step and a decode step issue,
@@ -32,8 +31,9 @@ still hold.
       with its expert-FFN slots a rank against the reference's share;
       ``long_500k`` is ``skipped`` outside ``LONG_OK`` and runs inside it;
       nemotron-4-15b's ``train_4k`` at 256 ranks splits every product
-      (replicated compute 1), and the MoE cells' replicated compute is
-      pinned (``REPLICATED``).
+      (replicated compute 1), so do qwen3-32b's ``prefill_32k`` and
+      ``decode_32k`` (the serving builders' split), and the MoE cells'
+      replicated compute is pinned (``REPLICATED``).
 """
 import json
 import math
@@ -270,10 +270,12 @@ def test_gemma2_decode_32k_at_256_ranks_matches_its_reckoning():
     tok = shape.global_batch // rows * 4            # (rows, 1) int32
     assert (params, cache) == (118_511_424, 1_745_043_456)
     assert got["memory"]["argument_size_in_bytes"] == params + cache + tok
-    # the serving builders keep whole products over `model`, but for the
-    # split-KV attention over the cache slots: 256 x rank 0's FLOPs over
-    # the one-rank step's
-    assert got["n_devices"] == 256 and got["replicated_compute"] == 6.6
+    # the decode step splits its MLP columns and vocab over `model`, but
+    # not the 8 heads, which 16 ranks do not divide: each rank attends
+    # with every head over its own 1 / 16 of the slots, and computes the
+    # q, k, v and o projections whole: 256 x rank 0's FLOPs over the
+    # one-rank step's
+    assert got["n_devices"] == 256 and got["replicated_compute"] == 2.0
     assert got["flops"] > 0 and got["collectives"]["total_bytes"] > 0
 
 
@@ -296,12 +298,15 @@ def _split_slots(arch, shape_name, multi_pod):
 #: replicated compute (n x rank 0's FLOPs over the one-rank step's) of
 #: cells of ``test_cell_status``: an MoE cell's MoE layers compute whole
 #: on every rank of ``model``, each expert at min(capacity, the rank's
-#: tokens) (ROADMAP items 22(c) and 23); a dense train step's products all
-#: split (ROADMAP item 22(a))
+#: tokens) (ROADMAP items 22(c) and 23), while its serving steps split the
+#: GQA heads, dense MLP and vocab (item 22(b): 47.4 and 12.9 before it);
+#: a dense train step's products all split (item 22(a)), and so do a
+#: dense serving step's (item 22(b))
 REPLICATED = {("deepseek-moe-16b", "train_4k", False): 72.4,
-              ("deepseek-v2-236b", "decode_32k", True): 12.9,
-              ("deepseek-moe-16b", "prefill_32k", True): 47.4,
-              ("nemotron-4-15b", "train_4k", False): 1.0}
+              ("deepseek-v2-236b", "decode_32k", True): 12.8,
+              ("deepseek-moe-16b", "prefill_32k", True): 37.4,
+              ("nemotron-4-15b", "train_4k", False): 1.0,
+              ("qwen3-32b", "decode_32k", True): 1.0}
 
 
 @pytest.mark.parametrize("arch, shape_name, multi_pod, status", [
@@ -312,6 +317,7 @@ REPLICATED = {("deepseek-moe-16b", "train_4k", False): 72.4,
     ("qwen3-32b", "long_500k", True, "skipped"),
     ("mamba2-780m", "long_500k", False, "ok"),
     ("nemotron-4-15b", "train_4k", False, "ok"),
+    ("qwen3-32b", "decode_32k", True, "ok"),
 ])
 def test_cell_status(tmp_path, arch, shape_name, multi_pod, status):
     r = dryrun.run_cell(arch, shape_name, multi_pod, out_dir=tmp_path)

@@ -43,11 +43,15 @@ import torch
 from repro_torch import config as tconfig
 from repro_torch.core import prng
 from repro_torch.data.tokens import make_batch, to_device
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import fake_world, make_mesh
 from repro_torch.launch.specs import build_decode, build_prefill
 from repro_torch.models.encdec import encode
 from repro_torch.models.model import Model as TModel
 from repro_torch.models.moe import _capacity
 from repro_torch.optim.adamw import init_opt_state
+from repro_torch.parallel import fsdp
+from repro_torch.parallel import sharding as tsharding
 from repro_torch.testing import parity
 from repro_torch.testing.ranks import run_ranks
 from repro_torch.train.train_step import make_train_step
@@ -63,6 +67,10 @@ torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parent.parent
 NAMES = list(R.CASES)
+#: the float32 cases (greedy tokens, ``parity.LM_ATOL_FRAC``) and the
+#: bfloat16 ones (seeded tokens, ``parity.LM_BF16_SERVE_SPLIT_ATOL_FRAC``)
+F32 = [n for n in NAMES if R.CASES[n].dtype == "float32"]
+BF16 = [n for n in NAMES if R.CASES[n].dtype == "bfloat16"]
 
 REF_SCRIPT = r"""
 import os, sys
@@ -95,13 +103,27 @@ def tree_of(prefix):
     return out
 
 
+def f32(a):
+    # a bfloat16 array widened (exactly) to float32, any other as it is
+    a = np.asarray(a)
+    return a.astype(np.float32) if a.dtype.name == "bfloat16" else a
+
+
 def flat(tree, prefix):
     res = {}
     for path, v in jax.tree_util.tree_flatten_with_path(tree)[0]:
         key = "/".join(str(getattr(p, "name", getattr(p, "key", p)))
                        for p in path)
-        res[prefix + key] = np.asarray(v)
+        res[prefix + key] = f32(v)
     return res
+
+
+def next_token(name, logits, i):
+    # the seeded token of a bfloat16 case, else the greedy one
+    forced = inputs.get(name + "/decode_tokens")
+    if forced is not None:
+        return jnp.asarray(forced[:, i:i + 1])
+    return jnp.argmax(logits[:, -1], axis=-1).astype(jnp.int32)[:, None]
 
 
 def auto_mesh(dims):
@@ -137,16 +159,17 @@ def single_device(name, c, cfg):
              for k, v in inputs.items() if k.startswith(name + "/batch/")}
     caches = model.init_caches(c["batch"], c["max_len"])
     logits, caches, extras = jax.jit(model.prefill)(params, batch, caches)
-    res[name + ".single.prefill_logits"] = np.asarray(logits)
-    tok = jnp.argmax(logits[:, -1], axis=-1).astype(jnp.int32)[:, None]
+    res[name + ".single.prefill_logits"] = f32(logits)
+    tok = next_token(name, logits, 0)
     toks, outs = [np.asarray(tok)], []
     dec = jax.jit(model.decode_step)
     for i in range(steps):
         logits, caches = dec(params, {"tokens": tok}, caches,
                              jnp.int32(c["prompt"] + i), extras)
-        outs.append(np.asarray(logits))
-        tok = jnp.argmax(logits[:, -1], axis=-1).astype(jnp.int32)[:, None]
-        toks.append(np.asarray(tok))
+        outs.append(f32(logits))
+        if i + 1 < steps or c["dtype"] == "float32":
+            tok = next_token(name, logits, i + 1)
+            toks.append(np.asarray(tok))
     res[name + ".single.decode_logits"] = np.stack(outs)
     res[name + ".single.tokens"] = np.concatenate(toks, axis=1)
     res.update(flat(caches, name + ".single.cache/"))
@@ -158,12 +181,13 @@ def single_device(name, c, cfg):
 
 res = {}
 for name, c in cases.items():
-    cfg = dataclasses.replace(C.get_config(c["arch"], smoke=True),
-                              dtype="float32")
+    base = (C.ModelConfig(**step_cfg["cfgs"]["step"]) if c["arch"] == "step"
+            else C.get_config(c["arch"], smoke=True))
+    cfg = dataclasses.replace(base, dtype=c["dtype"])
     if c["capacity"] is not None:
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
             cfg.moe, capacity_factor=c["capacity"]))
-    if c["single"]:
+    if c["single"] or c["dtype"] != "float32":
         single_device(name, c, cfg)
     mesh = auto_mesh(c["mesh"])
     rules = S.DP_ACT_RULES if c["dp"] else S.act_rules_for(cfg, mesh)
@@ -181,8 +205,8 @@ for name, c in cases.items():
         pstep = jax.jit(pre, in_shardings=(psh[0], psh[1], dsh[2]),
                         out_shardings=(None, dsh[2]))
         logits, caches = pstep(params, batch, caches)
-        res[name + ".prefill_logits"] = np.asarray(logits)
-        tok = jnp.argmax(logits[:, -1], axis=-1).astype(jnp.int32)[:, None]
+        res[name + ".prefill_logits"] = f32(logits)
+        tok = next_token(name, logits, 0)
         toks, outs = [np.asarray(tok)], []
         extra = ()
         if cfg.is_encoder_decoder:
@@ -195,10 +219,10 @@ for name, c in cases.items():
             logits, caches = dstep(params, jax.device_put(tok, dsh[1]),
                                    caches, jnp.int32(c["prompt"] + i),
                                    *extra)
-            outs.append(np.asarray(logits))
-            tok = jnp.argmax(logits[:, -1], axis=-1).astype(
-                jnp.int32)[:, None]
-            toks.append(np.asarray(tok))
+            outs.append(f32(logits))
+            if i + 1 < steps or c["dtype"] == "float32":
+                tok = next_token(name, logits, i + 1)
+                toks.append(np.asarray(tok))
         res[name + ".decode_logits"] = np.stack(outs)
         res[name + ".tokens"] = np.concatenate(toks, axis=1)
         res.update(flat(caches, name + ".cache/"))
@@ -243,26 +267,36 @@ np.savez(out_dir + "/ref.npz", **res)
 """
 
 
+def _case_inputs(name):
+    """Case ``name``'s parameters (the port's draw from ``prng.key(0)``),
+    prompt, a bfloat16 case's decode tokens and, for the enc-dec case, the
+    encoder's states over its ``enc_embeds``, by their keys in the inputs
+    file."""
+    case = R.CASES[name]
+    cfg = case.cfg()
+    params = TModel(cfg, "cpu").init(prng.key(0))
+    out = {f"{name}/param/{key.replace('/', '.')}": leaf.numpy()
+           for key, leaf in tree_items(params)}
+    for key, value in R.case_inputs(name, case).items():
+        out[f"{name}/batch/{key}"] = value
+    forced = R.decode_tokens(name, case)
+    if forced is not None:
+        out[f"{name}/decode_tokens"] = forced
+    if cfg.is_encoder_decoder:
+        with torch.no_grad():
+            states, positions = encode(params, torch.from_numpy(
+                out[f"{name}/batch/enc_embeds"]), cfg)
+        out[f"{name}/enc_states"] = states.numpy()
+        out[f"{name}/enc_positions"] = positions.contiguous().numpy()
+    return out
+
+
 def _inputs():
-    """Every case's parameters (the port's draw from ``prng.key(0)``),
-    prompt and, for the enc-dec case, the encoder's states over its
-    ``enc_embeds``; and ``PR.STEP_CFG``'s parameters for the train
-    step."""
+    """Every case's inputs (``_case_inputs``), and ``PR.STEP_CFG``'s
+    parameters for the train step."""
     out = {}
-    for name, case in R.CASES.items():
-        cfg = case.cfg()
-        model = TModel(cfg, "cpu")
-        params = model.init(prng.key(0))
-        for key, leaf in tree_items(params):
-            out[f"{name}/param/{key.replace('/', '.')}"] = leaf.numpy()
-        for key, value in R.case_inputs(name, case).items():
-            out[f"{name}/batch/{key}"] = value
-        if cfg.is_encoder_decoder:
-            with torch.no_grad():
-                states, positions = encode(params, torch.from_numpy(
-                    out[f"{name}/batch/enc_embeds"]), cfg)
-            out[f"{name}/enc_states"] = states.numpy()
-            out[f"{name}/enc_positions"] = positions.contiguous().numpy()
+    for name in R.CASES:
+        out.update(_case_inputs(name))
     for name, cfg in PR.STEP_CFGS.items():
         train = TModel(cfg, "cpu").init(prng.key(0))
         for key, leaf in tree_items(train):
@@ -279,7 +313,7 @@ def runs(tmp_path_factory):
     cases = {name: {"arch": c.arch, "mesh": list(c.mesh), "batch": c.batch,
                     "prompt": c.prompt, "max_len": c.max_len,
                     "dp": c.dp_rules, "single": c.single,
-                    "capacity": c.capacity}
+                    "capacity": c.capacity, "dtype": c.dtype}
              for name, c in R.CASES.items()}
     step_cfg = {"cfgs": {name: {f.name: getattr(cfg, f.name)
                                 for f in dataclasses.fields(cfg)}
@@ -319,7 +353,7 @@ def _close(got, want, what):
     return err / max(float(np.max(np.abs(want))), 1e-30)
 
 
-@pytest.mark.parametrize("name", NAMES)
+@pytest.mark.parametrize("name", F32)
 def test_logits_and_tokens_match_reference(runs, name):
     """The prefill's and every decode step's logits within
     ``parity.LM_ATOL_FRAC`` of max|logit| (the vocabulary's, not the
@@ -340,7 +374,7 @@ def test_logits_and_tokens_match_reference(runs, name):
     np.testing.assert_array_equal(got[f"{name}.tokens"], ref["tokens"])
 
 
-@pytest.mark.parametrize("name", NAMES)
+@pytest.mark.parametrize("name", F32)
 def test_gathered_caches_match_reference(runs, name):
     """The caches gathered from the ranks after the last step equal the
     reference's: floats within the logits' rule, ``pos`` and ``index``
@@ -371,6 +405,161 @@ def test_each_rank_holds_only_its_blocks(runs, name):
     held = [int(r[f"{name}.cache_bytes"]) for r in ranks]
     print(f"{name}: each rank holds {held[0]} of {whole} cache bytes")
     assert all(h == held[0] for h in held) and held[0] < whole
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_prefill_logits_stay_in_sequence_blocks(runs, name):
+    """Where the step splits its products over ``model`` and ``model``
+    divides the prompt's positions, each rank's prefill logits are its
+    block of the sequence, 1 / ``model`` of them, on the caches' rows,
+    never gathered in the step; elsewhere (the enc-dec model, a prompt of
+    15 positions on 2 ranks) they come back whole on the tokens' rows."""
+    _, ranks = runs
+    case = R.CASES[name]
+    data, model = case.mesh
+    vocab = case.cfg().padded_vocab
+    splits = model > 1 and case.prompt % model == 0 and \
+        not case.cfg().is_encoder_decoder
+    rows = case.batch // data
+    if case.dp_rules and not splits:
+        rows = case.batch // (data * model)
+    want = ((rows, case.prompt // model, vocab) if splits
+            else (rows, case.prompt, vocab))
+    for r in ranks:
+        assert tuple(r[f"{name}.prefill_block_shape"]) == want
+
+
+@pytest.mark.parametrize("name", ["dense.2x4", "step.bf16.2x4",
+                                  "gemma2.bf16.2x4"])
+def test_bulk_prefill_repeats_the_kv_heads(runs, name):
+    """On (2, 4) ``model`` does not divide the 2 kv heads: the bulk
+    prefill of every layer repeats them (``_maybe_repeat_kv``), as the
+    reference's bulk prefill does."""
+    _, ranks = runs
+    assert R.CASES[name].mesh == (2, 4)
+    layers = R.CASES[name].cfg().num_layers
+    assert int(ranks[0][f"{name}.prefill_repeats"]) == layers
+
+
+@functools.lru_cache(maxsize=None)
+def _plain_serve(name):
+    """Case ``name`` through the port's plain ``Model.prefill`` /
+    ``decode_step`` on one device (no mesh), from the case's parameters,
+    prompt and tokens (greedy, or a bfloat16 case's seeded ones): results
+    by key suffix, as ``R.serve_case`` gives them."""
+    from repro_torch.interop import caches_to_numpy, model_params_from_numpy
+
+    case = R.CASES[name]
+    inputs = _case_inputs(name)
+    model = TModel(case.cfg(), "cpu")
+    params = model.load_params(model_params_from_numpy(
+        R.unflatten(inputs, f"{name}/param/"), "cpu"))
+    batch = {k: torch.from_numpy(v) for k, v in
+             R.case_inputs(name, case).items()}
+    forced = R.decode_tokens(name, case)
+
+    def next_token(logits, i):
+        if forced is not None:
+            return torch.from_numpy(forced[:, i:i + 1].copy())
+        return torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+
+    caches = model.init_caches(case.batch, case.max_len)
+    with torch.no_grad():
+        logits, caches, extras = model.prefill(params, batch, caches)
+        out = {"prefill_logits": logits.float().numpy()}
+        tok = next_token(logits, 0)
+        toks, steps = [tok], []
+        for i in range(R.DECODE_STEPS):
+            logits, caches = model.decode_step(
+                params, {"tokens": tok}, caches, case.prompt + i, extras)
+            steps.append(logits.float().numpy())
+            if i + 1 < R.DECODE_STEPS or forced is None:
+                tok = next_token(logits, i + 1)
+                toks.append(tok)
+    out["decode_logits"] = np.stack(steps)
+    out["tokens"] = torch.cat(toks, dim=1).numpy()
+    out.update({"cache/" + k: v for k, v in
+                tree_items(caches_to_numpy(caches))})
+    return out
+
+
+def _serve_gap(got, want, vocab):
+    """The worst gap between two bfloat16 runs of a case (dicts by key
+    suffix): the logits' as a fraction of max|want| over the vocabulary,
+    each float cache leaf's as a fraction of its max|want|."""
+    gaps = [float(np.max(np.abs(got[k][..., :vocab] - want[k][..., :vocab])))
+            / float(np.max(np.abs(want[k][..., :vocab])))
+            for k in ("prefill_logits", "decode_logits")]
+    for k in want:
+        if k.startswith("cache/") and not k.endswith(("/pos", "/index")):
+            gaps.append(float(np.max(np.abs(got[k] - want[k])))
+                        / max(float(np.max(np.abs(want[k]))), 1e-30))
+    return max(gaps)
+
+
+@pytest.mark.parametrize("name", BF16)
+def test_bf16_serving_matches_reference_sharded_steps(runs, name):
+    """A bfloat16 case (the sharded-step config and gemma2-2b smoke on
+    (4, 2) and (2, 4), seeded decode tokens) through the split serving
+    steps against the reference's sharded bfloat16 serving steps: the
+    prefill's and every decode step's logits and the gathered caches
+    within ``parity.LM_BF16_SERVE_SPLIT_ATOL_FRAC``, ``pos`` and
+    ``index`` exactly. The reference's own sharded steps meet the rule
+    against its single-device steps, and the port's one-device steps
+    against those (the readings the rule was set from)."""
+    refs, ranks = runs
+    vocab = R.CASES[name].cfg().vocab_size
+    got = {k[len(name) + 1:]: v for k, v in ranks[0].items()
+           if k.startswith(name + ".")}
+    want = {k[len(name) + 1:]: v for k, v in refs.items()
+            if k.startswith(name + ".")
+            and not k.startswith(name + ".single.")}
+    single = {k[len(name) + 8:]: v for k, v in refs.items()
+              if k.startswith(name + ".single.")}
+    for key in want:
+        if key.endswith(("/pos", "/index")):
+            np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+    one = _plain_serve(name)
+    gaps = {"port split - ref sharded": _serve_gap(got, want, vocab),
+            "ref sharded - ref single": _serve_gap(want, single, vocab),
+            "port one rank - ref single": _serve_gap(one, single, vocab),
+            "port split - port one rank": _serve_gap(got, one, vocab)}
+    for what, gap in gaps.items():
+        print(f"{name}: {what}: {gap:.3e} of max|value|")
+    for what in ("port split - ref sharded", "ref sharded - ref single",
+                 "port one rank - ref single"):
+        assert gaps[what] <= parity.LM_BF16_SERVE_SPLIT_ATOL_FRAC, (
+            what, gaps[what])
+
+
+#: cases served on a (1, 1) mesh beside the plain path: a bulk prefill,
+#: a prompt of 15 positions, and bfloat16
+ONE_RANK = ["dense", "dense.heads", "gemma2.bf16.4x2"]
+
+
+@pytest.fixture(scope="module")
+def one_rank(tmp_path_factory):
+    """The ``ONE_RANK`` cases through the serving builders on one gloo
+    rank, a (1, 1) mesh."""
+    tmp = tmp_path_factory.mktemp("serve_one_rank")
+    inputs = {}
+    for name in ONE_RANK:
+        inputs.update(_case_inputs(name))
+    np.savez(tmp / "inputs.npz", **inputs)
+    (got,) = run_ranks(R.serve_one_rank, 1, (1, 1), "gloo", tmp,
+                       str(tmp / "inputs.npz"), ONE_RANK)
+    return got
+
+
+@pytest.mark.parametrize("name", ONE_RANK)
+def test_one_rank_mesh_gives_the_plain_bits(one_rank, name):
+    """On a (1, 1) mesh every split, collective and slice of the serving
+    steps is skipped: ``build_prefill`` / ``build_decode`` give the plain
+    path's logits, tokens and caches bit for bit."""
+    want = _plain_serve(name)
+    for key, value in want.items():
+        np.testing.assert_array_equal(one_rank[f"{name}.{key}"], value,
+                                      err_msg=key)
 
 
 def test_sharded_train_step_matches_reference_sharded_step(runs):
@@ -464,6 +653,61 @@ def test_bf16_sharded_train_step_matches_reference_sharded_step(runs, tag,
         scal, par = gaps[what]
         assert scal <= parity.LM_BF16_SPLIT_RTOL, (what, scal)
         assert par <= parity.LM_BF16_SPLIT_ATOL_FRAC, (what, par)
+
+
+@pytest.mark.parametrize("kind", ["prefill", "decode"])
+@pytest.mark.parametrize("m", [2, 4])
+@pytest.mark.parametrize("arch", ["qwen3-32b", "nemotron-4-15b",
+                                  "stablelm-12b", "gemma2-2b"])
+def test_serving_rank_computes_its_share(arch, m, kind):
+    """Rank 0 of a (1, m) mesh on a fake world: ``build_prefill``'s and
+    ``build_decode``'s steps on a dense smoke config (batch 2, 32 positions
+    or cache slots) compute their share of the one-rank step's FLOPs
+    (``launch.dryrun.measure``, op_cost on meta tensors). The reckoning:
+    every product splits over ``model`` but two. A bulk prefill also
+    projects every kv head on the positions of its own 1 / m of the slots
+    (1 / m of the kv projection more), and where ``model`` does not divide
+    the 2 kv heads (m = 4) a rank projects a whole kv head for its one q
+    head, in both steps. At smoke widths the kv projection is 10 % of a
+    layer's FLOPs (8 192 of 81 920 a position for swiglu, 8 192 of 65 536
+    for gelu and squared-relu), so the rank's share is at most 1.25 / m;
+    at full width it is 1-2 % of a decode layer (ROADMAP item 22(b))."""
+    cfg = tconfig.get_config(arch, smoke=True)
+    shape = tconfig.ShapeConfig(kind[0], kind, 32, 2)
+    with fake_world(m):
+        got = dryrun.measure(cfg, shape, make_mesh((1, m),
+                                                   ("data", "model")))
+    share = got["flops"] / got["flops_one_rank"]
+    print(f"{arch} smoke {kind} on (1, {m}): rank 0 computes {share:.4f} "
+          f"of the one-rank step's {got['flops_one_rank']} FLOPs (x{m}: "
+          f"{share * m:.4f})")
+    assert 1 / m <= share <= 1.25 / m
+    assert got["replicated_compute"] <= 1.25
+
+
+@pytest.mark.parametrize("fallback", [False, True],
+                         ids=["train layout", "serving layout"])
+def test_a_residual_that_does_not_split(fallback):
+    """A forward of 15 positions on 2 ranks of ``model`` (``fsdp.residual``):
+    a serving layout (``seq_fallback``) leaves its residual whole on both
+    ranks (``whole_seq`` inside the forward, and only there), as the
+    reference's divisibility fallback does; a train layout raises rather
+    than fall back to whole products. 16 positions split under both."""
+    with fake_world(2):
+        mesh = make_mesh((1, 2), ("data", "model"))
+        layout = fsdp.make_layout(mesh, (), split=True,
+                                  seq_fallback=fallback)
+        with tsharding.use_mesh(mesh), fsdp.use_layout(layout):
+            if fallback:
+                with fsdp.residual(15) as split:
+                    assert not split and fsdp.whole_seq()
+                assert not fsdp.whole_seq()
+            else:
+                with pytest.raises(ValueError, match="do not split"):
+                    with fsdp.residual(15):
+                        pass
+            with fsdp.residual(16) as split:
+                assert split and not fsdp.whole_seq()
 
 
 class _StandIn:

@@ -4,10 +4,14 @@ arrays. They live here, importable without JAX, because spawn imports a
 rank function's module anew in every child.
 
 ``CASES`` is shared with the test's reference subprocess: every case is a
-smoke config in float32 served through ``build_prefill`` and
-``build_decode`` on one mesh of the 8 ranks (the first prefill's caches
-sized by the decode shape's ``seq_len``, ``max_len``), then
-``DECODE_STEPS`` greedy tokens.
+smoke config (or the reference's sharded-step config, ``"step"``) in
+float32 or bfloat16 served through ``build_prefill`` and ``build_decode``
+on one mesh of the 8 ranks (the first prefill's caches sized by the decode
+shape's ``seq_len``, ``max_len``), then ``DECODE_STEPS`` tokens: greedy in
+float32, the seeded ``decode_tokens`` in bfloat16 (both packages then
+decode the same tokens, so a near-tie that rounds apart moves no later
+step). On a mesh whose ``model`` has more than one rank the steps split
+their dense products over it (``parallel.kvcache``).
 """
 from __future__ import annotations
 
@@ -21,6 +25,7 @@ from torch.distributed.device_mesh import DeviceMesh
 from repro_torch.config import (OptimizerConfig, ShapeConfig, get_config)
 from repro_torch.interop import caches_to_numpy, model_params_from_numpy
 from repro_torch.launch.specs import build_decode, build_prefill, build_train
+from repro_torch.models import attention
 from repro_torch.optim.adamw import init_opt_state
 from repro_torch.parallel import fsdp, kvcache
 from repro_torch.parallel import sharding as S
@@ -67,10 +72,13 @@ class Case(NamedTuple):
     single: bool = False
     #: an MoE config's capacity factor, where not the config's
     capacity: Optional[float] = None
+    #: the activations' dtype; a bfloat16 case decodes ``decode_tokens``
+    dtype: str = "float32"
 
     def cfg(self):
-        cfg = dataclasses.replace(get_config(self.arch, smoke=True),
-                                  dtype="float32")
+        base = (PR.STEP_CFG if self.arch == "step"
+                else get_config(self.arch, smoke=True))
+        cfg = dataclasses.replace(base, dtype=self.dtype)
         if self.capacity is not None:
             cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
                 cfg.moe, capacity_factor=self.capacity))
@@ -86,12 +94,17 @@ class Case(NamedTuple):
 #: hold the prompt's positions only); "dense.append" fills 32 slots with a
 #: 12-token prompt (the engine's prefill, split-KV over the blockwise
 #: form); "dense.heads" has 15 slots, which `model` does not divide, so
-#: the KV caches split their kv heads instead (gathered where read);
+#: the KV caches split their kv heads instead (gathered where read), and a
+#: 15-token prompt, so the residual stays whole and the prefill's logits
+#: are gathered from vocab blocks; "dense.2x4" is a bulk prefill on 4 ranks
+#: of ``model``, which do not divide the 2 kv heads (``_maybe_repeat_kv``);
 #: "dense.dp" splits the prompt's batch over ("data", "model") and
-#: the caches' over "data" only. "mla" fills its 16 slots with the prompt,
-#: so each decode step writes past the cache's end, where the write's
-#: start is clamped to the last slot (``dynamic_update_slice``); the
-#: reference's partitioned write drops it instead, so that case is held
+#: the caches' over "data" only. The bfloat16 cases ("*.bf16.*") run the
+#: sharded-step config and gemma2-2b's on (4, 2) and (2, 4). "mla" fills
+#: its 16 slots with the prompt, so each decode step writes past the
+#: cache's end, where the write's start is clamped to the last slot
+#: (``dynamic_update_slice``); the reference's partitioned write drops it
+#: instead, so that case is held
 #: against the reference's single-device steps, and "mla.append" (a
 #: 12-token prompt into 32 slots) against its sharded ones. "moe.rows" and
 #: "mla.rows" split their 32 rows over the 4 ranks of ``data`` at capacity
@@ -102,6 +115,7 @@ CASES: Dict[str, Case] = {
     "dense": Case("gemma2-2b", (4, 2), 4, 16, 16, False),
     "dense.append": Case("gemma2-2b", (2, 4), 4, 12, 32, False),
     "dense.heads": Case("gemma2-2b", (4, 2), 4, 15, 15, False),
+    "dense.2x4": Case("gemma2-2b", (2, 4), 4, 16, 16, False),
     "dense.dp": Case("gemma2-2b", (4, 2), 8, 16, 16, True),
     "vlm": Case("internvl2-1b", (4, 2), 4, 16, 16, False),
     "ssm.4x2": Case("mamba2-780m", (4, 2), 4, 16, 16, False),
@@ -116,6 +130,14 @@ CASES: Dict[str, Case] = {
     "mla.rows": Case("deepseek-v2-236b", (4, 2), 32, 12, 24, False, True,
                      0.5),
     "encdec": Case("seamless-m4t-large-v2", (4, 2), 4, 16, 16, False),
+    "step.bf16.4x2": Case("step", (4, 2), 4, 16, 16, False,
+                          dtype="bfloat16"),
+    "step.bf16.2x4": Case("step", (2, 4), 4, 16, 16, False,
+                          dtype="bfloat16"),
+    "gemma2.bf16.4x2": Case("gemma2-2b", (4, 2), 4, 16, 16, False,
+                            dtype="bfloat16"),
+    "gemma2.bf16.2x4": Case("gemma2-2b", (2, 4), 4, 16, 16, False,
+                            dtype="bfloat16"),
 }
 
 
@@ -139,6 +161,16 @@ def case_inputs(name: str, case: Case) -> Dict[str, np.ndarray]:
             out["enc_embeds"] = (rng.standard_normal(
                 (b, s, cfg.d_model)) * 0.02).astype(np.float32)
     return out
+
+
+def decode_tokens(name: str, case: Case) -> Optional[np.ndarray]:
+    """(B, DECODE_STEPS) int32 tokens a bfloat16 case decodes, from a numpy
+    seed; None for a float32 case (greedy)."""
+    if case.dtype == "float32":
+        return None
+    rng = np.random.default_rng(sum(map(ord, name)) + 1)
+    return rng.integers(0, case.cfg().vocab_size,
+                        (case.batch, DECODE_STEPS), dtype=np.int32)
 
 
 def unflatten(flat, prefix: str):
@@ -170,13 +202,28 @@ def _shapes_ok(tree, meta, shardings) -> bool:
     return all(ok)
 
 
+def _counting_repeats(count):
+    """``attention._maybe_repeat_kv``, counting in ``count[0]`` the calls
+    that repeated the kv heads."""
+    inner = attention._maybe_repeat_kv
+
+    def counted(k, v, *args, **kw):
+        out = inner(k, v, *args, **kw)
+        count[0] += out[0] is not k
+        return out
+
+    return counted
+
+
 def serve_case(name: str, case: Case, mesh, inputs) -> Dict[str, np.ndarray]:
     """``case`` through the port's sharded steps on ``mesh``: the prefill's
-    and every decode step's full logits, the greedy tokens, the caches
-    gathered from the ranks, and whether every block holds its local
-    shape."""
+    and every decode step's full logits, the decoded tokens, the caches
+    gathered from the ranks, whether every block holds its local shape,
+    the shape of the rank's own block of the prefill's logits and how many
+    of the prefill's calls repeated the kv heads."""
     cfg = case.cfg()
     out = {}
+    forced = inputs.get(f"{name}/decode_tokens")
     with S.use_mesh(mesh, case.rules(mesh)):
         pre, (pmeta, _, _), (psh, bsh, _), pre_out = build_prefill(
             cfg, ShapeConfig("p", "prefill", case.prompt, case.batch), mesh)
@@ -193,11 +240,25 @@ def serve_case(name: str, case: Case, mesh, inputs) -> Dict[str, np.ndarray]:
         ok = (_shapes_ok(params, pmeta, psh)
               and _shapes_ok(caches, dmeta[2], csh))
 
-        logits, caches = pre(params, batch, caches)
+        repeats = [0]
+        plain_repeat = attention._maybe_repeat_kv
+        attention._maybe_repeat_kv = _counting_repeats(repeats)
+        try:
+            logits, caches = pre(params, batch, caches)
+        finally:
+            attention._maybe_repeat_kv = plain_repeat
+        out["prefill_repeats"] = np.int64(repeats[0])
+        out["prefill_block_shape"] = np.asarray(logits.shape)
         ok &= fsdp.spec_of(logits) == pre_out["out_shardings"][0].spec
         full = pre_out["out_shardings"][0].gather(logits)
-        out["prefill_logits"] = full.numpy()
-        tok = torch.argmax(full[:, -1], dim=-1).to(torch.int32)[:, None]
+        out["prefill_logits"] = full.float().numpy()
+
+        def next_token(full, i):
+            if forced is not None:
+                return torch.from_numpy(forced[:, i:i + 1].copy())
+            return torch.argmax(full[:, -1], dim=-1).to(torch.int32)[:, None]
+
+        tok = next_token(full, 0)
         toks, steps = [tok], []
         extra = ()
         if cfg.is_encoder_decoder:
@@ -209,9 +270,10 @@ def serve_case(name: str, case: Case, mesh, inputs) -> Dict[str, np.ndarray]:
             logits, caches = dec(params, kvcache.place(tok, dsh[1]), caches,
                                  case.prompt + i, *extra)
             full = dec_out["out_shardings"][0].gather(logits)
-            steps.append(full.numpy())
-            tok = torch.argmax(full[:, -1], dim=-1).to(torch.int32)[:, None]
-            toks.append(tok)
+            steps.append(full.float().numpy())
+            if i + 1 < DECODE_STEPS or forced is None:
+                tok = next_token(full, i + 1)
+                toks.append(tok)
         ok &= _shapes_ok(caches, dmeta[2], csh)
         out["decode_logits"] = np.stack(steps)
         out["tokens"] = torch.cat(toks, dim=1).numpy()
@@ -223,6 +285,17 @@ def serve_case(name: str, case: Case, mesh, inputs) -> Dict[str, np.ndarray]:
             out["cache/" + key] = leaf
     out["shapes_ok"] = np.bool_(ok)
     return {f"{name}.{k}": v for k, v in out.items()}
+
+
+def serve_one_rank(mesh, inputs_path: str, names) -> Dict[str, np.ndarray]:
+    """Every case of ``names`` on this spawn's mesh (one rank: (1, 1)),
+    whatever mesh the case names."""
+    with np.load(inputs_path) as f:
+        inputs = {k: f[k] for k in f.files}
+    out = {}
+    for name in names:
+        out.update(serve_case(name, CASES[name], mesh, inputs))
+    return out
 
 
 def sharded_train(mesh, inputs, tag: str, name: str, dtype: str,
@@ -280,5 +353,6 @@ def serve_all(mesh, inputs_path: str, names) -> Dict[str, np.ndarray]:
                                      eps))
     if torch.distributed.get_rank() != 0:
         out = {k: v for k, v in out.items()
-               if k.endswith((".shapes_ok", ".cache_bytes"))}
+               if k.endswith((".shapes_ok", ".cache_bytes",
+                              ".prefill_block_shape"))}
     return out
