@@ -350,8 +350,9 @@ Phases (any failure exits non-zero before the result line):
                 reset_peak_memory_stats, above what was held before the
                 arguments), both printed with their ratio. Then
                 DRY_CELLS, four production cells on a fake world of 256
-                and 512 ranks, in a subprocess that sees no card
-                (CUDA_VISIBLE_DEVICES empty): each ok, its per-rank
+                and 512 ranks, one subprocess a cell, all started
+                together, none seeing the card (CUDA_VISIBLE_DEVICES
+                empty): each ok, its per-rank
                 numbers printed, qwen3-32b's train_4k cell, whose
                 products split over ``model``, at replicated compute 1,
                 and its prefill_32k cell at most SPLIT_FLOPS_MAX.
@@ -402,12 +403,42 @@ Phases (any failure exits non-zero before the result line):
                 their ratios and the rank's logits' shape (a sequence
                 block in the prefill) beside the card's name and power
                 limit. No kernel launches; the phase's wall time
- 22. summary  : one JSON line {"kernels": [...]} (with each kernel's
+ 22. moe split : the MoE family's products split over ``model`` (ROADMAP
+                item 22(c): routed experts, shared-expert columns, MLA
+                heads), in a subprocess that sees the card, built as the
+                model and serve split phases are. MOE_SPLIT_TRAIN_ARCH
+                (deepseek-moe-16b) at full width cut to MOE_SPLIT_LAYERS
+                layers (the dense layer and one MoE layer): build_train's
+                step on train_4k's 4 096 positions at batch SPLIT_BATCH
+                as rank 0 of SPLIT_MESH (1, 16) on a fake world of 16
+                (4 of the 64 experts a rank), beside the plain one-rank
+                step. MOE_SPLIT_SERVE_ARCH (deepseek-v2-236b, MLA) cut
+                the same way: build_prefill on prefill_32k's 32 768
+                positions at batch 1 and build_decode's step on
+                decode_32k's 32 768-slot caches at batch 8 at position
+                SERVE_SPLIT_INDEX, as rank 0 of SPLIT_MESH (8 of the 128
+                heads, 10 of the 160 experts a rank), beside the plain
+                decode step. Its plain train step is not run: about
+                22 GB of float32 parameters, times four with their
+                gradient and AdamW's moments, exceed the card. Nor is
+                its plain prefill: op_cost predicts about 100 GiB of
+                arguments + temp (the blockwise attention's float32
+                scores of 128 heads, 16 GiB a kv block, held several
+                times), which the phase checks exceeds the card, and its
+                FLOPs are op_cost's (equal to FlopCounterMode's in every
+                step run here). Checks, for each step run: FLOPs == the
+                prediction exactly, the peak within DRY_PEAK_RTOL of the
+                predicted argument + temp bytes; and each rank's FLOPs
+                between 1 / 16 and SPLIT_FLOPS_MAX / 16 of its plain
+                step's. Prints each step's ms, FLOPs and peak beside the
+                card's name and power limit. No kernel launches; the
+                phase's wall time
+ 23. summary  : one JSON line {"kernels": [...]} (with each kernel's
                 launches over the clean streams, stream_launches, while
                 tuning, tune_launches, over the pool events and stream,
                 pool_launches, and over the distributed recon runs,
                 dist_launches)
- 23. result   : last line {"ok": true, "device": {...}}
+ 24. result   : last line {"ok": true, "device": {...}}
 
 The on-card checks live here rather than in pytest because the machine with
 the card has no JAX, which the repository's test configuration imports.
@@ -5053,7 +5084,10 @@ def dry_step(label, build, meta_args, real_args, dev, card,
     (its warm-up), each timed on the host clock to a synchronize. Returns
     {"flops", "peak" (bytes above what was held), "predicted" (argument +
     temp bytes), "ms" (the timed steps'), "first_shape" (the shape of the
-    step's first output where that is a tensor, else None)}."""
+    step's first output where that is a tensor, else None)}. ``real_args``
+    None: a step whose predicted arguments + temp exceed the card's
+    memory, which is checked, is predicted only (the FLOPs op_cost's,
+    "peak" None)."""
     import gc
 
     import torch
@@ -5065,6 +5099,18 @@ def dry_step(label, build, meta_args, real_args, dev, card,
     t0 = time.perf_counter()
     _, pred = op_cost.analyze(fn, meta_args(meta, shs))
     predict_s = time.perf_counter() - t0
+    if real_args is None:
+        mem = pred["memory"]
+        want = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+        total = torch.cuda.get_device_properties(dev).total_memory
+        print(f"dry run {label}: FLOPs predicted {pred['flops']} (meta "
+              f"tensors, {predict_s:.1f} s); arguments + temp {want} "
+              f"({want / 2**30:.3f} GiB) against the card's {total} B: not "
+              f"run; {card}", flush=True)
+        check(want > total, f"dry run {label}: predicted to fit the card "
+              f"({want} of {total} B), but not run")
+        return {"flops": pred["flops"], "peak": None, "predicted": want,
+                "ms": [], "first_shape": None}
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.synchronize(dev)
@@ -5115,29 +5161,39 @@ def dry_step(label, build, meta_args, real_args, dev, card,
 
 
 def dry_cells() -> None:
-    """DRY_CELLS through launch.dryrun.run_cell in one subprocess that sees
-    no card; each must be ok."""
+    """DRY_CELLS through launch.dryrun.run_cell, one subprocess a cell,
+    all started together, none seeing the card; each must be ok."""
     code = ("import json, sys\n"
             "from repro_torch.launch import dryrun\n"
-            "out = sys.argv[1]\n"
-            "for arch, shape, pod2 in json.loads(sys.argv[2]):\n"
-            "    r = dryrun.run_cell(arch, shape, pod2, force=True, "
-            "out_dir=out)\n"
-            "    print(dryrun.summary(r), flush=True)\n"
-            "    r.pop('traceback', None)\n"
-            "    print('CELL ' + json.dumps(r), flush=True)\n")
+            "arch, shape, pod2 = json.loads(sys.argv[2])\n"
+            "r = dryrun.run_cell(arch, shape, pod2, force=True, "
+            "out_dir=sys.argv[1])\n"
+            "print(dryrun.summary(r), flush=True)\n"
+            "r.pop('traceback', None)\n"
+            "print('CELL ' + json.dumps(r), flush=True)\n")
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
                PYTHONPATH=str(ROOT / "src"))
     with tempfile.TemporaryDirectory(prefix="chip_smoke_dry_") as tmp:
         t0 = time.perf_counter()
-        res = subprocess.run([sys.executable, "-c", code, tmp,
-                              json.dumps(DRY_CELLS)], env=env, cwd=ROOT,
-                             capture_output=True, text=True, timeout=600)
-    cells = [json.loads(line[5:]) for line in res.stdout.splitlines()
-             if line.startswith("CELL ")]
-    check(res.returncode == 0 and len(cells) == len(DRY_CELLS),
-          f"dry run cells: the subprocess failed ({res.returncode}): "
-          f"{res.stdout[-2000:]} {res.stderr[-2000:]}")
+        procs = [subprocess.Popen([sys.executable, "-c", code, tmp,
+                                   json.dumps(cell)], env=env, cwd=ROOT,
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for cell in DRY_CELLS]
+        try:
+            outs = [p.communicate(timeout=600) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+    cells = [json.loads(line[5:]) for out, _ in outs
+             for line in out.splitlines() if line.startswith("CELL ")]
+    check(all(p.returncode == 0 for p in procs)
+          and len(cells) == len(DRY_CELLS),
+          "dry run cells: a subprocess failed "
+          f"({[p.returncode for p in procs]}): "
+          + " ".join(f"{out[-1000:]} {err[-1500:]}" for out, err in outs))
     for r in cells:
         check(r["status"] == "ok", f"dry run {r['cell']}: {r['status']} "
               f"{r.get('error', r.get('reason'))}")
@@ -5335,9 +5391,11 @@ def split_shape():
                        SHAPES["train_4k"].seq_len, SPLIT_BATCH)
 
 
-def model_split_child() -> None:
-    """The "model split" phase's subprocess (docstring): one card, and no
-    process group running, so that it can start the fake world."""
+def split_train_pair(name: str, cfg, shape, dev, card: str) -> None:
+    """Phase ``name``'s train steps: ``cfg`` at ``shape``, build_train's
+    step as rank 0 of SPLIT_MESH on a fake world, then the plain one-rank
+    step, each through ``dry_step``; checks the rank's FLOPs between 1 / n
+    and SPLIT_FLOPS_MAX / n of the plain step's."""
     import torch
 
     from repro_torch.config import OptimizerConfig
@@ -5352,23 +5410,22 @@ def model_split_child() -> None:
     from repro_torch.train.train_step import make_train_step
     from repro_torch.tree import tree_leaves
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
-    dev = torch.device("cuda", 0)
-    card = card_line()
-    cfg, shape = split_cfg(), split_shape()
     opt = OptimizerConfig(lr=TRAIN_LR, warmup_steps=2, total_steps=3)
     batch = make_batch(cfg, shape, 0, 0)
     n = math.prod(SPLIT_MESH)
     model = Model(cfg, dev)
     params = sum(t.numel() for t in tree_leaves(model.shapes()))
-    print(f"model split: {cfg.name} at full width (d_model {cfg.d_model}, "
+    print(f"{name}: {cfg.name} at full width (d_model {cfg.d_model}, "
           f"{cfg.num_heads} heads, {cfg.num_kv_heads} kv heads, d_ff "
-          f"{cfg.d_ff}, vocab {cfg.vocab_size}) cut to {cfg.num_layers} "
-          f"layers, {params} parameters; {shape.name} ({shape.seq_len} "
-          f"positions); the plain step reckoned at {SPLIT_BYTES_A_PARAM} B "
-          f"a parameter, {params * SPLIT_BYTES_A_PARAM / 2**30:.2f} GiB, "
-          "plus its activations (op_cost's temp below)", flush=True)
+          f"{cfg.d_ff}, vocab {cfg.vocab_size}"
+          + ("" if cfg.moe is None else
+             f", {cfg.moe.num_experts} experts of {cfg.moe.expert_ff}, "
+             f"top {cfg.moe.top_k}, {cfg.moe.num_shared} shared")
+          + f") cut to {cfg.num_layers} layers, {params} parameters; "
+          f"{shape.name} ({shape.seq_len} positions); the plain step "
+          f"reckoned at {SPLIT_BYTES_A_PARAM} B a parameter, "
+          f"{params * SPLIT_BYTES_A_PARAM / 2**30:.2f} GiB, plus its "
+          "activations (op_cost's temp below)", flush=True)
 
     with fake_world(n):
         mesh = make_mesh(SPLIT_MESH, ("data", "model"), "cuda")
@@ -5408,7 +5465,7 @@ def model_split_child() -> None:
                      "(one rank)", build_plain, plain_meta, plain_real, dev,
                      card, timed=1)
     ratio = split["flops"] / plain["flops"]
-    print(f"model split: rank 0 of {SPLIT_MESH}: {split['flops']} FLOPs, "
+    print(f"{name}: rank 0 of {SPLIT_MESH}: {split['flops']} FLOPs, "
           f"step {split['ms'][0]:.1f} ms (host clock, after a warm-up step), "
           f"peak {split['peak'] / 2**30:.3f} GiB; the plain step: "
           f"{plain['flops']} FLOPs, step {plain['ms'][0]:.1f} ms, peak "
@@ -5417,8 +5474,19 @@ def model_split_child() -> None:
           f"{split['ms'][0] / plain['ms'][0]:.4f}, peak ratio "
           f"{split['peak'] / plain['peak']:.4f}; {card}", flush=True)
     check(1 / n <= ratio <= SPLIT_FLOPS_MAX / n,
-          f"model split: the rank computes {ratio:.5f} of the plain step's "
+          f"{name}: the rank computes {ratio:.5f} of the plain step's "
           f"FLOPs, outside [1/{n}, {SPLIT_FLOPS_MAX}/{n}]")
+
+
+def model_split_child() -> None:
+    """The "model split" phase's subprocess (docstring): one card, and no
+    process group running, so that it can start the fake world."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    split_train_pair("model split", split_cfg(), split_shape(),
+                     torch.device("cuda", 0), card_line())
 
 
 def check_model_split(dev, card: str) -> None:
@@ -5438,11 +5506,13 @@ SERVE_SPLIT_DECODE_BATCH = 8
 SERVE_SPLIT_INDEX = 3 * 32768 // 4
 
 
-def serve_split_steps(dev, mesh):
-    """The four steps of the "serve split" phase on ``mesh`` (rank 0's
-    steps; a (1, 16) mesh of a fake world) and on one rank: {label: (kind,
-    build, meta_args, real_args)} as ``dry_step`` takes them, the prefill
-    and decode shapes, and the config. Tokens from a numpy seed."""
+def serve_split_steps(dev, mesh, cfg, plain_prefill: bool = True):
+    """The four steps of a serving split phase of ``cfg`` on ``mesh``
+    (rank 0's steps; a (1, 16) mesh of a fake world) and on one rank:
+    {label: (kind, build, meta_args, real_args)} as ``dry_step`` takes
+    them, and the prefill and decode shapes. Tokens from a numpy seed.
+    ``plain_prefill`` False: the plain prefill is predicted only (its
+    real_args None)."""
     import numpy as np
     import torch
 
@@ -5454,7 +5524,6 @@ def serve_split_steps(dev, mesh):
     from repro_torch.models.model import Model
     from repro_torch.parallel import kvcache
 
-    cfg = split_cfg()
     shapes = {
         "prefill": ShapeConfig(
             f"prefill_32k cut to a batch of {SERVE_SPLIT_PREFILL_BATCH}",
@@ -5492,7 +5561,7 @@ def serve_split_steps(dev, mesh):
             return at(args) if shape.kind == "decode" else args[:3]
         return real
 
-    def plain_prefill(params, batch, caches):
+    def plain_prefill_step(params, batch, caches):
         with torch.no_grad():
             return model.prefill(params, batch, caches)[:2]
 
@@ -5525,9 +5594,10 @@ def serve_split_steps(dev, mesh):
         "prefill split": ("prefill", split_build(build_prefill, pre),
                           lambda m, s: dryrun.step_args("prefill", m, s),
                           split_real(pre, lambda: {"tokens": tokens.to(dev)})),
-        "prefill plain": ("prefill", plain_build(plain_prefill, pre),
+        "prefill plain": ("prefill", plain_build(plain_prefill_step, pre),
                           plain_meta("prefill"),
-                          plain_real(pre, lambda: {"tokens": tokens.to(dev)})),
+                          plain_real(pre, lambda: {"tokens": tokens.to(dev)})
+                          if plain_prefill else None),
         "decode split": ("decode", split_build(build_decode, dec),
                          lambda m, s: at(dryrun.step_args("decode", m, s)),
                          split_real(dec, lambda: tok.to(dev))),
@@ -5535,7 +5605,7 @@ def serve_split_steps(dev, mesh):
                          plain_meta("decode"),
                          plain_real(dec, lambda: tok.to(dev))),
     }
-    return steps, shapes, cfg
+    return steps, shapes
 
 
 def serve_split_reckoning(cfg, shape) -> str:
@@ -5564,24 +5634,22 @@ def serve_split_reckoning(cfg, shape) -> str:
     return ", ".join(f"{k} {v / 2**30:.2f} GiB" for k, v in parts.items())
 
 
-def serve_split_child() -> None:
-    """The "serve split" phase's subprocess (docstring): one card, and no
-    process group running, so that it can start the fake world."""
+def split_serve_pairs(name: str, cfg, dev, card: str,
+                      plain_prefill: bool = True) -> None:
+    """Phase ``name``'s serving steps of ``cfg`` (``serve_split_steps``),
+    each through ``dry_step``; checks each split step's FLOPs between 1 / n
+    and SPLIT_FLOPS_MAX / n of its plain step's."""
     import torch
 
     from repro_torch.launch.mesh import fake_world, make_mesh
     from repro_torch.parallel import sharding
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
-    dev = torch.device("cuda", 0)
-    card = card_line()
     n = math.prod(SPLIT_MESH)
     res = {}
     with fake_world(n):
         mesh = make_mesh(SPLIT_MESH, ("data", "model"), "cuda")
-        steps, shapes, cfg = serve_split_steps(dev, mesh)
-        print(f"serve split: {cfg.name} at full width cut to "
+        steps, shapes = serve_split_steps(dev, mesh, cfg, plain_prefill)
+        print(f"{name}: {cfg.name} at full width cut to "
               f"{cfg.num_layers} layers; {shapes['prefill'].name} "
               f"({shapes['prefill'].seq_len} positions), "
               f"{shapes['decode'].name} ({shapes['decode'].seq_len} slots, "
@@ -5600,26 +5668,84 @@ def serve_split_child() -> None:
     for kind in ("prefill", "decode"):
         split, plain = res[f"{kind} split"], res[f"{kind} plain"]
         ratio = split["flops"] / plain["flops"]
-        print(f"serve split {kind}: rank 0 of {SPLIT_MESH}: "
+        if plain["peak"] is None:
+            versus = (f"the plain step (predicted only): {plain['flops']} "
+                      f"FLOPs, arguments + temp "
+                      f"{plain['predicted'] / 2**30:.3f} GiB")
+        else:
+            versus = (f"the plain step: {plain['flops']} FLOPs, step "
+                      f"{plain['ms'][0]:.1f} ms, peak "
+                      f"{plain['peak'] / 2**30:.3f} GiB, logits "
+                      f"{plain['first_shape']}; step ms ratio "
+                      f"{split['ms'][0] / plain['ms'][0]:.4f}, peak ratio "
+                      f"{split['peak'] / plain['peak']:.4f}")
+        print(f"{name} {kind}: rank 0 of {SPLIT_MESH}: "
               f"{split['flops']} FLOPs, step {split['ms'][0]:.1f} ms (host "
               f"clock, after a warm-up step), peak "
               f"{split['peak'] / 2**30:.3f} GiB, logits block "
-              f"{split['first_shape']}; the plain step: {plain['flops']} "
-              f"FLOPs, step {plain['ms'][0]:.1f} ms, peak "
-              f"{plain['peak'] / 2**30:.3f} GiB, logits "
-              f"{plain['first_shape']}; the rank's FLOPs x {n} over the "
-              f"plain step's {ratio * n:.4f}, step ms ratio "
-              f"{split['ms'][0] / plain['ms'][0]:.4f}, peak ratio "
-              f"{split['peak'] / plain['peak']:.4f}; {card}", flush=True)
+              f"{split['first_shape']}; {versus}; the rank's FLOPs x {n} "
+              f"over the plain step's {ratio * n:.4f}; {card}", flush=True)
         check(1 / n <= ratio <= SPLIT_FLOPS_MAX / n,
-              f"serve split {kind}: the rank computes {ratio:.5f} of the "
+              f"{name} {kind}: the rank computes {ratio:.5f} of the "
               f"plain step's FLOPs, outside [1/{n}, {SPLIT_FLOPS_MAX}/{n}]")
+
+
+def serve_split_child() -> None:
+    """The "serve split" phase's subprocess (docstring): one card, and no
+    process group running, so that it can start the fake world."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    split_serve_pairs("serve split", split_cfg(), torch.device("cuda", 0),
+                      card_line())
 
 
 def check_serve_split(dev, card: str) -> None:
     """The "serve split" phase (docstring), in a subprocess that sees the
     card (``serve_split_child``)."""
     run_child_phase("serve split", "serve_split_child", dev, card)
+
+
+#: the "moe split" phase (docstring): the MoE family at full width cut to
+#: MOE_SPLIT_LAYERS layers (a dense layer and an MoE layer): the train
+#: step of MOE_SPLIT_TRAIN_ARCH, the serving steps of
+#: MOE_SPLIT_SERVE_ARCH (MLA), each as rank 0 of SPLIT_MESH beside the
+#: plain one-rank step
+MOE_SPLIT_LAYERS = 2
+MOE_SPLIT_TRAIN_ARCH = "deepseek-moe-16b"
+MOE_SPLIT_SERVE_ARCH = "deepseek-v2-236b"
+
+
+def moe_split_cfg(arch: str):
+    from repro_torch.config import get_config
+
+    return dataclasses.replace(get_config(arch), num_layers=MOE_SPLIT_LAYERS)
+
+
+def moe_split_child() -> None:
+    """The "moe split" phase's subprocess (docstring): one card, and no
+    process group running, so that it can start the fake world."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    dev, card = torch.device("cuda", 0), card_line()
+    t0 = time.perf_counter()
+    split_train_pair("moe split", moe_split_cfg(MOE_SPLIT_TRAIN_ARCH),
+                     split_shape(), dev, card)
+    print(f"moe split: the train steps' wall {time.perf_counter() - t0:.1f} "
+          "s", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    split_serve_pairs("moe split", moe_split_cfg(MOE_SPLIT_SERVE_ARCH), dev,
+                      card, plain_prefill=False)
+
+
+def check_moe_split(dev, card: str) -> None:
+    """The "moe split" phase (docstring), in a subprocess that sees the
+    card (``moe_split_child``)."""
+    run_child_phase("moe split", "moe_split_child", dev, card)
 
 
 def run_child_phase(name: str, child: str, dev, card: str) -> None:
@@ -6173,6 +6299,9 @@ def main() -> int:
 
     phase("serve split")
     check_serve_split(dev, card)
+
+    phase("moe split")
+    check_moe_split(dev, card)
 
     print(f"chip_smoke wall: {time.perf_counter() - t_all:.1f} s")
     print(card)

@@ -67,9 +67,8 @@ from repro_torch.configs import ARCH_IDS
 from repro_torch.launch import op_cost
 from repro_torch.launch.mesh import (MULTI_POD, SINGLE_POD, fake_world,
                                      make_production_mesh)
-from repro_torch.launch.specs import (batch_ranks, build_decode,
-                                      build_prefill, build_train)
-from repro_torch.models.moe import _capacity
+from repro_torch.launch.specs import build_decode, build_prefill, build_train
+from repro_torch.models.moe import _capacity, expert_buffer, moe_splits
 from repro_torch.parallel import fsdp
 from repro_torch.parallel.sharding import (ACT_RULES, act_rules_for,
                                            build_spec, local_shape,
@@ -134,9 +133,7 @@ def measure(cfg, shape, mesh, rules=None) -> Dict[str, Any]:
                replicated_compute=round(n * cost["flops"] / one, 1),
                trace_s=round(time.perf_counter() - t0, 3))
     if cfg.moe is not None:
-        computed = batch_ranks(shape, mesh, rules if shape.kind == "train"
-                               else None)
-        out["expert_slots"] = expert_slots(cfg, shape, mesh, computed)
+        out["expert_slots"] = expert_slots(cfg, shape, mesh, rules)
     return out
 
 
@@ -168,25 +165,35 @@ def one_rank(device_type: str, names) -> DeviceMesh:
                       mesh_dim_names=names)
 
 
-def expert_slots(cfg, shape, mesh, split: int) -> Dict[str, Any]:
+def expert_slots(cfg, shape, mesh, rules) -> Dict[str, Any]:
     """The expert-FFN slots (one token through one expert's three
     products) a rank computes in one MoE layer of ``cfg``'s step at
-    ``shape``, its batch split over ``split`` ranks: the port's, every
-    expert at min(capacity, the rank's tokens) on a split batch
-    (``models.moe``) and at the capacity on a whole one; the reference's
-    share, E x capacity over the ranks that split its experts
-    (``ACT_RULES["experts"]``); and the port's over the reference's."""
+    ``shape`` on ``mesh`` under the act rules ``rules``: the port's, the
+    dispatch's own buffer (``models.moe.expert_buffer``: the experts the
+    rank runs, E / n where the step splits them over ``model``
+    (``moe_splits``), times the slots of each, min(capacity, the rank's
+    tokens) on a split batch and the capacity on a whole one), read under
+    the step's layout (its batch axes as ``batch_ranks`` places the
+    batch, the split over ``model``); the reference's share, E x capacity
+    over the ranks that split its experts (``ACT_RULES["experts"]``); and
+    the port's over the reference's."""
     m = cfg.moe
     e = m.num_experts
     tokens = shape.global_batch * (1 if shape.kind == "decode"
                                    else shape.seq_len)
     cap = _capacity(tokens, e, m.top_k, m.capacity_factor)
-    port = e * (min(cap, tokens // split) if split > 1 else cap)
+    batch = build_spec((shape.global_batch,), ("batch",), mesh,
+                       rules if shape.kind == "train" else ACT_RULES)[0]
+    layout = fsdp.make_layout(mesh, spec_axes(batch),
+                              split=not cfg.is_encoder_decoder)
+    with use_mesh(mesh, rules), fsdp.use_layout(layout):
+        split = fsdp.split_rank()[0] if moe_splits(cfg) else 1
+    run, slots = expert_buffer(tokens // layout.batch_n, tokens, m, split)
     sizes = mesh_shape(mesh)
     entry = build_spec((e,), ("experts",), mesh, ACT_RULES)[0]
     reference = e * cap / math.prod(sizes[a] for a in spec_axes(entry))
-    return {"capacity": cap, "port": port, "reference": reference,
-            "ratio": round(port / reference, 4)}
+    return {"capacity": cap, "port": run * slots, "reference": reference,
+            "ratio": round(run * slots / reference, 4)}
 
 
 def run_cell(arch_id: str, shape_name: str, multi_pod: bool,

@@ -170,8 +170,9 @@ def build_train(arch_cfg: ModelConfig, shape: ShapeConfig, mesh,
 
     Where ``model`` splits no batch, the step splits its products over it
     as the reference's GSPMD step does (``parallel.fsdp``): GQA heads, MLP
-    columns and the vocab, and the residual's sequence; MLA, MoE, SSD and
-    RG-LRU segments compute in full on their sequence blocks. The audio
+    columns, MLA heads, an MoE layer's experts (and its shared experts'
+    columns) and the vocab, and the residual's sequence; SSD and RG-LRU
+    segments compute in full on their sequence blocks. The audio
     enc-dec keeps whole products (its encoder and cross-attention are not
     split yet). The serving builders split the same products
     (``build_prefill``, ``build_decode``).
@@ -245,8 +246,10 @@ def build_decode(arch_cfg: ModelConfig, shape: ShapeConfig, mesh):
     combined output reduce-scattered back to its heads), its MLP columns
     and its vocab block of the embedding and the logits, which it gathers
     (rows x vocab). The token's one position does not split, so the
-    residual is whole on every rank (``fsdp.residual``). MLA, MoE, SSD and
-    RG-LRU segments compute whole; the enc-dec model takes no split."""
+    residual is whole on every rank (``fsdp.residual``). MLA splits its
+    heads as GQA does, and an MoE layer its experts and shared columns;
+    SSD and RG-LRU segments compute whole; the enc-dec model takes no
+    split."""
     b, max_len = shape.global_batch, shape.seq_len
     tok_spec = build_spec((b, 1), ("batch", None), mesh, ACT_RULES)
     model, params, param_sh, caches, caches_sh, rows = _serve_setup(
@@ -309,8 +312,10 @@ def build_prefill(arch_cfg: ModelConfig, shape: ShapeConfig, mesh):
     "model", None)``: the caches' rows, nothing gathered. Otherwise they
     come back whole as the rows of the tokens' split (a slice), marked
     with their spec. A rank writes every kv head of its own cache slots,
-    projected on those slots' positions. MLA, MoE, SSD and RG-LRU segments
-    compute whole; the enc-dec model takes no split."""
+    projected on those slots' positions. MLA splits its heads (its
+    latent cache has no head dim: a rank writes its slots of the whole
+    latent), an MoE layer its experts and shared columns; SSD and RG-LRU
+    segments compute whole; the enc-dec model takes no split."""
     b, s = shape.global_batch, shape.seq_len
     batch = input_specs(arch_cfg, shape)
     batch_sh = batch_shardings(batch, mesh)

@@ -34,6 +34,8 @@ append step gathers the new token's kv heads over ``model`` before the
 write, and, where the slots split over ``model``, every rank's q heads,
 so that it attends with every head over its own slots and keeps its own
 heads of the combined output (``kvcache.combine_heads``).
+``mla_attention`` splits its heads the same way; its latent and rope key
+have no head dim, so every rank computes and writes them whole.
 
 A cache's ``index`` (the tokens written so far) is a Python int, the same
 for every layer of a stacked cache: it picks the slots a step writes, which
@@ -700,10 +702,11 @@ def _latent_up(c_kv, w):
 
 
 def _mla_expanded(params, x, qn, qr, kr, c_kv, positions, cfg: ModelConfig):
-    """Expanded (training/prefill) MLA attention: (B,S,H,dv)."""
+    """Expanded (training/prefill) MLA attention: (B,S,H,dv) of the heads
+    ``qn`` holds (this rank's under a step that splits them)."""
     m: MLAConfig = cfg.mla
     b, sq = x.shape[0], x.shape[1]
-    h = cfg.num_heads
+    h = qn.shape[2]
     dn, dr, dv = m.nope_head_dim, m.rope_head_dim, m.v_head_dim
     kn = _latent_up(c_kv, params["w_uk"])
     v = _latent_up(c_kv, params["w_uv"])
@@ -724,7 +727,18 @@ def mla_attention(params, x, positions, cfg: ModelConfig, *,
     latents; any shorter write (decode, and the engine's prefill) runs the
     absorbed form over the compressed cache, written in place at
     ``index`` (clamped so that the write fits, as ``dynamic_update_slice``
-    clamps its start)."""
+    clamps its start).
+
+    Under a step that splits the heads over ``model`` (``fsdp.splits``),
+    ``wq``, ``w_uk``, ``w_uv`` and ``wo`` arrive as this rank's heads and
+    ``w_dkv``, ``kv_norm`` and ``w_kr`` whole: ``c_kv`` and the shared
+    rope key are computed whole on every rank (and written as the
+    single-device cache is), every product with a head dim on the rank's
+    heads only, and ``wo``'s product is this rank's partial sum. Where the
+    cache's slots split over the same axis, the absorbed form gathers
+    every rank's q heads, attends with them over the rank's slots and
+    keeps its own heads of the combined output
+    (``kvcache.combine_heads``), as GQA does."""
     m: MLAConfig = cfg.mla
     b, sq, d = x.shape
     dn, dr = m.nope_head_dim, m.rope_head_dim
@@ -775,9 +789,23 @@ def mla_attention(params, x, positions, cfg: ModelConfig, *,
         # 0-d tensor of that dtype does the same
         rescale = torch.full((), ((dc + dr) ** 0.5) * ((dn + dr) ** -0.5),
                              dtype=q_cat.dtype, device=x.device)
-        out_lat = cache_attention(q_cat * rescale, k_cat, v_lat, positions,
-                                  kv_pos, slots.axes, causal=True,
-                                  kv_valid=kv_pos < new_index)[..., :dc]
+        kw = dict(causal=True, kv_valid=kv_pos < new_index)
+        if slots.axes and params["wq"].shape[1] != cfg.num_heads:
+            # split-KV with every q head, keeping this rank's heads
+            axis = fsdp.split_axis()
+            if slots.axes != (axis,):
+                raise ValueError(
+                    f"the cache's slots split over {slots.axes}, the heads "
+                    f"over {axis!r}: a split step attends over slots split "
+                    "over the heads' axis only")
+            o, lse = attention_state(fsdp.split_gather(q_cat * rescale, 2),
+                                     k_cat, v_lat, positions, kv_pos, **kw)
+            out_lat = kvcache.combine_heads(o, lse, axis).to(
+                q_cat.dtype)[..., :dc]
+        else:
+            out_lat = cache_attention(q_cat * rescale, k_cat, v_lat,
+                                      positions, kv_pos, slots.axes,
+                                      **kw)[..., :dc]
         out = _heads_out(out_lat, params["w_uv"])
         new_cache = cache._replace(index=new_index)
 

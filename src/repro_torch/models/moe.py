@@ -34,8 +34,22 @@ aux loss over every token (``_split_routing``: one all-gather of the
 ranks' (E,) counts, one all-reduce of their probability sums). Each rank
 then runs the expert FFN on its own kept pairs, in a buffer of
 ``min(capacity, local tokens)`` slots an expert (no pair of its rows can
-need more). Without a layout, or on one batch rank, nothing of this
-runs.
+need more: ``expert_buffer``). Without a layout, or on one batch rank,
+nothing of this runs.
+
+A step that splits its products over ``model`` (``fsdp.Layout.split``)
+splits the experts over it as the reference's ``"experts": "model"``
+does, where its act rules give ``experts`` and ``mlp`` that axis
+(``moe_splits``): every rank of ``model`` holds the same tokens (the
+gathered sequence), so it routes them whole and alike, then gathers,
+runs and scatters back the pairs of its own E / n experts only, with
+those experts' block of ``w_gate`` / ``w_up`` / ``w_down`` (its buffer:
+``expert_buffer``); the shared experts run this rank's block of their
+columns. The output is this rank's partial sum, which the segment
+reduce-scatters or sums (``models.transformer``); the aux is whole on
+every rank. Where ``model`` does not divide the experts (the reference's
+divisibility fallback) the layer computes whole, as the unsplit step
+does.
 
 ``routing_log()`` records each call's routing for tests and for the
 dropped-pair counts ``chip_smoke.py`` prints; it costs nothing when off.
@@ -81,6 +95,30 @@ def _capacity(tokens: int, num_experts: int, top_k: int,
               factor: float = 1.25) -> int:
     cap = int(tokens * top_k / num_experts * factor) + 1
     return max(8, (cap + 7) // 8 * 8)
+
+
+def expert_buffer(tokens: int, total: int, m: MoEConfig,
+                  split: int = 1) -> Tuple[int, int]:
+    """(the experts a rank runs, the slots of each): the dispatch's buffer
+    (``_dispatch``) of an MoE call of ``total`` tokens, ``tokens`` of them
+    on the rank (``tokens == total``: the batch is whole there), its
+    experts split over ``split`` ranks. The slots are the capacity of
+    every token of the call, and on a split batch at most the rank's own
+    tokens (no pair of its rows can need more). The dry run counts the
+    same buffer (``launch.dryrun.expert_slots``)."""
+    cap = _capacity(total, m.num_experts, m.top_k, m.capacity_factor)
+    return (m.num_experts // split,
+            cap if tokens == total else min(cap, tokens))
+
+
+def moe_splits(cfg: ModelConfig) -> bool:
+    """Whether the current step splits the layer over its split axis: the
+    routed experts, and the shared experts' columns with them, where the
+    act rules give both ``experts`` and ``mlp`` the axis. Where either
+    does not divide (6 experts on 4 ranks), the layer computes whole."""
+    m: MoEConfig = cfg.moe
+    return fsdp.splits("experts", m.num_experts) and (
+        not m.num_shared or fsdp.splits("mlp", m.expert_ff * m.num_shared))
 
 
 @contextlib.contextmanager
@@ -135,12 +173,20 @@ def apply_moe(params, x, cfg: ModelConfig) -> Tuple[torch.Tensor,
     whose batch is split over ranks (``parallel.fsdp``: a sharded train
     step, or a serving step on the caches' rows), ``x`` is this rank's rows
     and the routing is the whole batch's (``_split_routing``); the expert
-    FFN runs on this rank's kept pairs."""
+    FFN runs on this rank's kept pairs. Under a step that splits the
+    experts over ``model`` (``moe_splits``), ``params`` holds this rank's
+    experts and shared columns and ``out`` is its partial sum."""
     m: MoEConfig = cfg.moe
     b, s, d = x.shape
     t = b * s
     e, k = m.num_experts, m.top_k
     xf = x.reshape(t, d)
+    # this rank's experts: all, or its E / n block of a split over n ranks
+    run = params["w_gate"].shape[0]
+    n, idx = (1, 0) if run == e else fsdp.split_rank()
+    if run * n != e:
+        raise ValueError(f"{run} of the {e} experts arrived on a rank of "
+                         f"{n} that split them")
 
     # --- route ---
     probs, weights, ids = route(params["router"], xf, k)
@@ -149,7 +195,8 @@ def apply_moe(params, x, cfg: ModelConfig) -> Tuple[torch.Tensor,
     if layout is not None and layout.batch_n > 1:
         order, counts = _sort_pairs(ids, e)
         kept, cap, aux = _split_routing(layout, probs, ids, counts, t, m)
-        limit, slots = torch.minimum(counts, kept), min(cap, t)
+        limit = torch.minimum(counts, kept)
+        slots = expert_buffer(t, t * layout.batch_n, m, n)[1]
     else:
         # --- aux load-balance loss (switch-style) ---
         # mean(one_hot(ids[:, 0])): the count of each first choice over
@@ -159,12 +206,13 @@ def apply_moe(params, x, cfg: ModelConfig) -> Tuple[torch.Tensor,
         density_prob = torch.mean(probs, dim=0)
         aux = torch.sum(density * density_prob) * e * m.router_aux_weight
         order, counts = _sort_pairs(ids, e)
-        kept = cap = _capacity(t, e, k, m.capacity_factor)
-        limit, slots = counts, cap
+        kept = slots = expert_buffer(t, t, m, n)[1]
+        limit = counts
     if _LOG is not None:
         _LOG.append({"probs": probs, "ids": ids, "counts": counts,
                      "cap": kept})
-    out = _dispatch(params, xf, weights, ids, order, counts, limit, slots)
+    out = _dispatch(params, xf, weights, ids, order, counts, limit, slots,
+                    idx * run)
     out = out.reshape(b, s, d)
     if m.num_shared:
         out = out + apply_mlp(params["shared"], x, cfg.mlp_kind)
@@ -182,23 +230,25 @@ def _sort_pairs(ids, e: int):
     return order, counts
 
 
-def _dispatch(params, xf, weights, ids, order, counts, kept, slots: int):
-    """The routed experts' output (T, D) of tokens ``xf``: each expert
-    gathers the first ``kept`` (E,) pairs of its run into a buffer of
-    ``slots``, runs its FFN on them, and the weighted outputs are scattered
-    back to their tokens."""
+def _dispatch(params, xf, weights, ids, order, counts, kept, slots: int,
+              lo: int = 0):
+    """The routed experts' output (T, D) of tokens ``xf``: each expert this
+    rank runs (``params``' experts, from expert ``lo`` on) gathers the
+    first ``kept`` (E,) pairs of its run into a buffer of ``slots``, runs
+    its FFN on them, and the weighted outputs are scattered back to their
+    tokens."""
     t, d = xf.shape
     k = ids.shape[1]
-    e = counts.shape[0]
+    e = params["w_gate"].shape[0]
     flat_t = torch.arange(t, dtype=torch.int64,
                           device=xf.device)[:, None].expand(t, k).reshape(-1)
     st, sw = flat_t[order], weights.reshape(-1)[order]
 
-    # --- per-expert capacity gather indices ---
-    starts = torch.cumsum(counts, dim=0) - counts
+    # --- per-expert capacity gather indices (this rank's experts) ---
+    starts = (torch.cumsum(counts, dim=0) - counts)[lo:lo + e]
     iota = torch.arange(slots, dtype=torch.int64, device=xf.device)
     pos = starts[:, None] + iota[None, :]                        # (E,C)
-    in_run = iota[None, :] < kept[:, None]
+    in_run = iota[None, :] < kept[lo:lo + e, None]
     pos_c = torch.clamp_max(pos, t * k - 1)
     tok_idx = torch.where(in_run, st[pos_c], 0)                  # (E,C)
     tok_w = torch.where(in_run, sw[pos_c], 0.0)

@@ -31,9 +31,11 @@ A step that splits its products over ``model`` (``fsdp.Layout.split``:
 the train step, and the serving steps but the enc-dec's) carries the
 residual stream as this rank's block of the sequence (``_on_block``):
 each segment normalises its block, gathers the sequence, and either
-reduce-scatters its partial sums (GQA and MLP segments whose heads or
-columns split) or keeps its own block of a whole result (MLA, MoE, SSD,
-RG-LRU, cross-attention). The embedding ends in the same reduce-scatter,
+reduce-scatters its partial sums (GQA and MLA segments whose heads split,
+MLP segments whose columns split, MoE segments whose routed experts
+split, with the shared experts' columns) or keeps its own block of a
+whole result (SSD, RG-LRU, cross-attention, and any segment whose dim
+``model`` does not divide). The embedding ends in the same reduce-scatter,
 and the final norm runs on the block. Where a serving step's positions do
 not split (a decode step's one), the residual is whole on every rank: a
 split segment's partial sums are all-reduced and any other segment keeps
@@ -186,6 +188,17 @@ def _mlp_segment(ln, mlp, x, cfg: ModelConfig, d_ff: int):
                      split)[0]
 
 
+def _moe_segment(ln, moe_p, x, cfg: ModelConfig):
+    """An MoE segment, its experts and the shared experts' columns split
+    where the step splits them (``moe.moe_splits``); the router is read
+    whole, so every rank routes alike. Returns (out, aux)."""
+    split = moe_mod.moe_splits(cfg)
+    fp = {k: gathered(v, keep=split and k != "router")
+          for k, v in moe_p.items()}
+    return _on_block(x, gathered(ln), cfg,
+                     lambda h: moe_mod.apply_moe(fp, h, cfg), split)
+
+
 def _griffin_group(p, x, positions, cfg: ModelConfig, stack: Stack, cache,
                    selective: bool):
     new_cache: Dict[str, Any] = {}
@@ -236,8 +249,8 @@ def apply_block(p, x, positions, cfg: ModelConfig, stack: Stack,
     sub = cache.get(key) if cache else None
 
     def mixer(x):
-        split = stack.mixer == "gqa" and fsdp.splits("heads",
-                                                      cfg.num_heads)
+        split = stack.mixer in ("gqa", "mla") and fsdp.splits(
+            "heads", cfg.num_heads)
         ln, mix = gathered(p["ln_mix"]), gathered(p["mix"], keep=split)
 
         def fn(h):
@@ -262,9 +275,7 @@ def apply_block(p, x, positions, cfg: ModelConfig, stack: Stack,
         if stack.ffn == "mlp":
             return _mlp_segment(p["ln_ffn"], p["ffn"], x, cfg,
                                 stack.d_ff), None
-        ln, fp = gathered((p["ln_ffn"], p["ffn"]))
-        out, aux_l = _on_block(x, ln, cfg,
-                               lambda h: moe_mod.apply_moe(fp, h, cfg), False)
+        out, aux_l = _moe_segment(p["ln_ffn"], p["ffn"], x, cfg)
         # every rank of the split computed the whole sequence's aux
         return out, fsdp.model_share(aux_l)
 

@@ -30,12 +30,14 @@ whose batch axes are the caches' rows). The residual stream between
 segments, and so what remat keeps of it, is this rank's block of the
 sequence (the reference's ``seq`` over ``model``). A segment normalises
 its block, gathers the sequence (``seq_gather``) and ends in one of two
-ways. A split segment (GQA heads, MLP columns, where ``splits`` says the
-step's act rules give the dim ``model``) reads its parameters' ``model``
-blocks (``gathered(..., keep=True)``), computes its heads or columns
-only, and reduce-scatters its partial sums over the sequence
-(``seq_scatter``). Any other segment computes in full, as the unsplit
-step does, and keeps its own block of the result (``seq_block``). The
+ways. A split segment (GQA and MLA heads, MLP columns, an MoE layer's
+routed experts with its shared experts' columns, where ``splits`` says
+the step's act rules give the dim ``model``) reads its parameters'
+``model`` blocks (``gathered(..., keep=True)``), computes its heads,
+columns or experts only, and reduce-scatters its partial sums over the
+sequence (``seq_scatter``). Any other segment computes in full, as the
+unsplit step does, and keeps its own block of the result (``seq_block``).
+The
 embedding is vocab-parallel (a rank's vocab block, a reduce-scatter of
 one nonzero term a token) and so is the loss (``model_sum``,
 ``model_max``).
@@ -51,9 +53,14 @@ output. A train step's layout has no fallback: its sequence must split.
 
 A kept block's gradient is exactly the block's, so it is summed over the
 batch axes only; every other leaf's gradient on a rank is the part that
-rank's sequence block, heads or columns produced, so ``model`` joins the
-axes it is summed over. A scalar that every ``model`` rank computes whole
-(an MoE aux) passes through ``model_share``, so that sum counts it once.
+rank's sequence block, heads, columns or experts produced, so ``model``
+joins the axes it is summed over. That holds for a leaf a split segment
+reads whole: MLA's ``w_dkv``, ``kv_norm`` and ``w_kr`` reach the loss
+through this rank's heads only, and an MoE router through this rank's
+experts' outputs (its routing weights) and the aux, so each rank's
+gradient of them is a partial sum. A scalar that every ``model`` rank
+computes whole (an MoE aux) passes through ``model_share``, so that sum
+counts it once.
 
 A statistic of the whole batch (an MoE FFN's expert counts and aux, a
 masked loss's mask sum) is read through the layout as well:

@@ -21,8 +21,9 @@ over every rank's rows, the whole batch, as the reference does.
 
 Products. The rows never take ``model`` under ``DECODE_RULES``, so on a
 mesh whose ``model`` has more than one rank the serving layout splits the
-dense products over it as the train step's does (``fsdp``): GQA heads, MLP
-columns, the embedding's vocab, and a prompt's residual in sequence
+products over it as the train step's does (``fsdp``): GQA and MLA heads,
+MLP columns, an MoE layer's experts, the embedding's vocab, and a
+prompt's residual in sequence
 blocks where ``model`` divides its length (else the residual is whole on
 every rank: a decode step's one position). A prefill's logits then stay
 in those sequence blocks (``from_rows(..., seq=)``); a decode step's are
@@ -52,8 +53,12 @@ slots (the SSM state's heads, the conv windows' and the RG-LRU state's
 channels over ``model``; a KV cache's kv heads where its slots do not
 divide), ``read`` gathers the leaf where a layer reads it and
 ``write_block`` / ``write_slots`` write back this rank's block of the new
-value. Those states are a few MB a layer; the MLA, SSD and RG-LRU
-segments that read them compute whole on every rank of ``model``.
+value. Those states are a few MB a layer; the SSD and RG-LRU segments
+that read them compute whole on every rank of ``model``. MLA splits its
+heads as GQA does: its cache has no head dim, so every rank computes the
+new latent and rope key whole, writes the part that falls in its slots,
+and attends with every gathered q head over its own slots
+(``combine_heads``).
 
 Collectives run only over axes of more than one rank, so on a mesh of size
 1 every function here is the identity or the plain write, and a serving

@@ -32,8 +32,9 @@ its block of those rows (``data.tokens.shard_batch(..., microbatches=n)``),
 which the step checks.
 
 Where ``model`` splits no batch, the products are split over it as
-well (``parallel.fsdp``): heads, MLP columns and the vocab, the
-residual's sequence (not for an encoder-decoder model, whose encoder and
+well (``parallel.fsdp``): GQA and MLA heads, MLP columns, an MoE
+layer's experts and shared columns, the vocab, the residual's sequence
+(not for an encoder-decoder model, whose encoder and
 cross-attention take no split yet). Each rank's loss is still its rows'
 whole loss, and its gradients come back as its blocks, summed over the
 batch ranks and, for a leaf that every rank of ``model`` reads whole,

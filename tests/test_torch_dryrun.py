@@ -16,8 +16,8 @@ still hold.
       ``index`` argument, host ints in the port: the difference is their
       bytes, exactly.
   (b) FLOPs at one device (GSPMD splits over ``model`` more than the
-      port does: the MLA, MoE, SSD and RG-LRU segments of its train and
-      serving steps, so per-rank FLOPs agree only there): within
+      port does: the SSD and RG-LRU segments of its train and serving
+      steps, so per-rank FLOPs agree only there): within
       ``parity.DRYRUN_FLOPS_RTOL``, but for the gaps ``FLOPS_GAPS`` records,
       each held to its exact count.
   (c) collectives: the plain sharded train step and a decode step issue,
@@ -28,7 +28,8 @@ still hold.
       ``cache_specs`` and ``local_shape``.
   (e) statuses: the MoE cells of the production meshes are ``ok`` (their
       batch split over 16 or 32 ranks, the routing the whole batch's), each
-      with its expert-FFN slots a rank against the reference's share;
+      with its expert-FFN slots a rank against the reference's share (at
+      most 1: a rank runs its E / 16 experts);
       ``long_500k`` is ``skipped`` outside ``LONG_OK`` and runs inside it;
       nemotron-4-15b's ``train_4k`` at 256 ranks splits every product
       (replicated compute 1), so do qwen3-32b's ``prefill_32k`` and
@@ -296,15 +297,16 @@ def _split_slots(arch, shape_name, multi_pod):
 
 
 #: replicated compute (n x rank 0's FLOPs over the one-rank step's) of
-#: cells of ``test_cell_status``: an MoE cell's MoE layers compute whole
-#: on every rank of ``model``, each expert at min(capacity, the rank's
-#: tokens) (ROADMAP items 22(c) and 23), while its serving steps split the
-#: GQA heads, dense MLP and vocab (item 22(b): 47.4 and 12.9 before it);
-#: a dense train step's products all split (item 22(a)), and so do a
-#: dense serving step's (item 22(b))
-REPLICATED = {("deepseek-moe-16b", "train_4k", False): 72.4,
-              ("deepseek-v2-236b", "decode_32k", True): 12.8,
-              ("deepseek-moe-16b", "prefill_32k", True): 37.4,
+#: cells of ``test_cell_status``: an MoE cell splits its experts, shared
+#: columns and MLA heads over ``model`` (ROADMAP item 22(c)), but a rank
+#: runs its E / 16 experts on min(capacity, its tokens) slots each, more
+#: than its kept pairs fill, and the 16 ranks of ``data`` together hold
+#: more slots than the one-rank step's E x capacity (item 23; 72.4, 12.8
+#: and 37.4 before the split); a dense train step's products all split
+#: (item 22(a)), and so do a dense serving step's (item 22(b))
+REPLICATED = {("deepseek-moe-16b", "train_4k", False): 4.9,
+              ("deepseek-v2-236b", "decode_32k", True): 1.7,
+              ("deepseek-moe-16b", "prefill_32k", True): 3.0,
               ("nemotron-4-15b", "train_4k", False): 1.0,
               ("qwen3-32b", "decode_32k", True): 1.0}
 
@@ -326,14 +328,16 @@ def test_cell_status(tmp_path, arch, shape_name, multi_pod, status):
         assert r["replicated_compute"] == REPLICATED[arch, shape_name,
                                                      multi_pod]
     if arch.startswith("deepseek"):
-        # every expert at min(capacity, the rank's tokens), against the
-        # reference's E x capacity over the 16 ranks of `model`
+        # the rank's E / 16 experts (split over `model`) at min(capacity,
+        # the rank's tokens), against the reference's E x capacity over
+        # the 16 ranks of `model`: at most the reference's share
         local, cap, experts = _split_slots(arch, shape_name, multi_pod)
         e = get_config(arch).moe.num_experts
         slots = r["expert_slots"]
         assert slots["capacity"] == cap
-        assert slots["port"] == e * min(cap, local)
+        assert slots["port"] == e // experts * min(cap, local)
         assert slots["reference"] == e * cap / experts
+        assert slots["ratio"] <= 1.0
     if status == "skipped":
         assert arch not in dryrun.LONG_OK
     if status == "ok":
