@@ -433,12 +433,41 @@ Phases (any failure exits non-zero before the result line):
                 step's. Prints each step's ms, FLOPs and peak beside the
                 card's name and power limit. No kernel launches; the
                 phase's wall time
- 23. summary  : one JSON line {"kernels": [...]} (with each kernel's
+ 23. recurrent split : SSD heads, RG-LRU channels and the audio enc-dec
+                split over ``model`` (ROADMAP item 22(d)), in a
+                subprocess that sees the card, built as the model, serve
+                and moe split phases are, after the card libraries'
+                workspaces are allocated (``warm_workspaces``: they are
+                held before every step, as op_cost's prediction leaves
+                them out). RECURRENT_SPLIT: mamba2-780m at full width cut
+                to 2 layers, build_train's step on train_4k's 4 096
+                positions at batch SPLIT_BATCH and build_prefill /
+                build_decode's steps at the serve split phase's shapes;
+                recurrentgemma-2b cut to 3 layers (one recurrent,
+                recurrent, attention group), its prefill and decode
+                steps; seamless-m4t-large-v2 cut to 2 encoder and 2
+                decoder layers, its train step. Each as rank 0 of
+                SPLIT_MESH (1, 16) on a fake world of 16 beside the plain
+                one-rank step. Checks, for each step: FLOPs == the
+                prediction exactly, the peak within DRY_PEAK_RTOL of the
+                predicted argument + temp bytes; the rank's FLOPs between
+                1 / 16 and SPLIT_FLOPS_MAX / 16 of its plain step's, but
+                recurrentgemma-2b's, whose 10 attention heads 16 ranks do
+                not divide: every rank computes its attention layer whole,
+                so its bound over 16 is ``split_bound``: 16 times that
+                layer's share of the plain step's FLOPs (op_cost's count
+                on meta tensors, ``whole_attention_flops``) plus
+                SPLIT_FLOPS_MAX times the rest (x16 3.8819 for the prefill
+                and 1.6753 for the decode step, against 3.6765 and 1.2504
+                predicted). Prints each step's ms, FLOPs and peak beside
+                the card's name and power limit. No kernel launches; the
+                phase's wall time
+ 24. summary  : one JSON line {"kernels": [...]} (with each kernel's
                 launches over the clean streams, stream_launches, while
                 tuning, tune_launches, over the pool events and stream,
                 pool_launches, and over the distributed recon runs,
                 dist_launches)
- 24. result   : last line {"ok": true, "device": {...}}
+ 25. result   : last line {"ok": true, "device": {...}}
 
 The on-card checks live here rather than in pytest because the machine with
 the card has no JAX, which the repository's test configuration imports.
@@ -5391,6 +5420,14 @@ def split_shape():
                        SHAPES["train_4k"].seq_len, SPLIT_BATCH)
 
 
+def split_bound(n: int, whole: int, plain: int) -> float:
+    """The most a rank of n may compute of a plain step's ``plain`` FLOPs,
+    times n, where ``whole`` of them every rank computes whole (op_cost's
+    count): n whole / plain, plus SPLIT_FLOPS_MAX of the rest."""
+    share = whole / plain
+    return n * share + SPLIT_FLOPS_MAX * (1 - share)
+
+
 def split_train_pair(name: str, cfg, shape, dev, card: str) -> None:
     """Phase ``name``'s train steps: ``cfg`` at ``shape``, build_train's
     step as rank 0 of SPLIT_MESH on a fake world, then the plain one-rank
@@ -5635,10 +5672,12 @@ def serve_split_reckoning(cfg, shape) -> str:
 
 
 def split_serve_pairs(name: str, cfg, dev, card: str,
-                      plain_prefill: bool = True) -> None:
+                      plain_prefill: bool = True, whole=None) -> None:
     """Phase ``name``'s serving steps of ``cfg`` (``serve_split_steps``),
     each through ``dry_step``; checks each split step's FLOPs between 1 / n
-    and SPLIT_FLOPS_MAX / n of its plain step's."""
+    and SPLIT_FLOPS_MAX / n of its plain step's, or, with ``whole`` (a
+    function of the step's kind and shape: the FLOPs of it that every rank
+    computes whole), ``split_bound`` / n."""
     import torch
 
     from repro_torch.launch.mesh import fake_world, make_mesh
@@ -5668,6 +5707,13 @@ def split_serve_pairs(name: str, cfg, dev, card: str,
     for kind in ("prefill", "decode"):
         split, plain = res[f"{kind} split"], res[f"{kind} plain"]
         ratio = split["flops"] / plain["flops"]
+        most = SPLIT_FLOPS_MAX
+        if whole is not None:
+            counted = whole(kind, shapes[kind])
+            most = split_bound(n, counted, plain["flops"])
+            print(f"{name} {kind}: every rank computes {counted} of the "
+                  f"plain step's {plain['flops']} FLOPs whole (op_cost): "
+                  f"the rank's bound x{n} {most:.4f}", flush=True)
         if plain["peak"] is None:
             versus = (f"the plain step (predicted only): {plain['flops']} "
                       f"FLOPs, arguments + temp "
@@ -5685,9 +5731,9 @@ def split_serve_pairs(name: str, cfg, dev, card: str,
               f"{split['peak'] / 2**30:.3f} GiB, logits block "
               f"{split['first_shape']}; {versus}; the rank's FLOPs x {n} "
               f"over the plain step's {ratio * n:.4f}; {card}", flush=True)
-        check(1 / n <= ratio <= SPLIT_FLOPS_MAX / n,
+        check(1 / n <= ratio <= most / n,
               f"{name} {kind}: the rank computes {ratio:.5f} of the "
-              f"plain step's FLOPs, outside [1/{n}, {SPLIT_FLOPS_MAX}/{n}]")
+              f"plain step's FLOPs, outside [1/{n}, {most:.4f}/{n}]")
 
 
 def serve_split_child() -> None:
@@ -5746,6 +5792,118 @@ def check_moe_split(dev, card: str) -> None:
     """The "moe split" phase (docstring), in a subprocess that sees the
     card (``moe_split_child``)."""
     run_child_phase("moe split", "moe_split_child", dev, card)
+
+
+#: the "recurrent split" phase (docstring): each arch at full width cut
+#: in depth (seamless's encoder too), with the shapes its steps run
+RECURRENT_SPLIT = (("mamba2-780m", 2, ("train", "serve")),
+                   ("recurrentgemma-2b", 3, ("serve",)),
+                   ("seamless-m4t-large-v2", 2, ("train",)))
+
+
+def recurrent_split_cfg(arch: str, layers: int):
+    from repro_torch.config import get_config
+
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+    if cfg.is_encoder_decoder:
+        cfg = dataclasses.replace(cfg, num_encoder_layers=layers)
+    return cfg
+
+
+def whole_attention_flops(cfg):
+    """recurrentgemma-2b's bound: a function of a serving step's kind and
+    shape giving op_cost's FLOPs (meta tensors) of the step's local MQA
+    attention layers on one rank, Model.prefill's bulk prefill into a
+    window of slots, or a decode step at SERVE_SPLIT_INDEX. Its 10 heads
+    do not divide 16, so every rank computes those layers whole (its
+    slots split in a decode step, so that bound is loose there)."""
+    import torch
+
+    from repro_torch.launch import op_cost
+    from repro_torch.models import attention as attn
+    from repro_torch.models.layers import dtype_of
+    from repro_torch.models.params import param_shapes
+    from repro_torch.models.transformer import layer_slice, positions_for
+
+    layers = sum(kind == "attention" for kind in
+                 (cfg.rglru.block_pattern * cfg.num_layers)[:cfg.num_layers])
+
+    def count(kind, shape):
+        b = shape.global_batch
+        sq = shape.seq_len if kind == "prefill" else 1
+        start = 0 if kind == "prefill" else SERVE_SPLIT_INDEX
+        params = param_shapes(lambda make: attn.make_gqa(make, "mix", cfg),
+                              dtype=dtype_of(cfg.param_dtype))
+        x = torch.empty((b, sq, cfg.d_model), dtype=dtype_of(cfg.dtype),
+                        device="meta")
+        cache = layer_slice(attn.init_kv_cache(
+            cfg, b, min(shape.seq_len, cfg.window_size), 1,
+            dtype_of(cfg.dtype), "meta"), 0)._replace(index=start)
+
+        def layer(params, x, cache):
+            return attn.gqa_attention(
+                params, x, positions_for(b, sq, start, "meta"), cfg,
+                causal=True, window=cfg.window_size, cache=cache)
+
+        with torch.no_grad():
+            flops = op_cost.analyze(layer, (params, x, cache))[1]["flops"]
+        return layers * flops
+
+    return count
+
+
+def warm_workspaces(dev) -> int:
+    """Allocate the card libraries' workspaces (cuBLAS and cuBLASLt, held
+    for the process once the first products run, one for each thread that
+    runs them: this one and autograd's device thread) with a few small
+    products of each dtype, forward and backward, so that ``dry_step``
+    counts them as held before its step: its prediction is the step's own
+    tensors. Returns the bytes they took."""
+    import torch
+
+    before = torch.cuda.memory_allocated(dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        a = torch.ones((4, 64, 64), dtype=dtype, device=dev,
+                       requires_grad=True)
+        out = (a @ a).sum() + (a[0] @ a[0]).sum() + torch.addmm(
+            a[0], a[0], a[0]).sum()
+        torch.autograd.grad(out, a)
+    torch.cuda.synchronize(dev)
+    return torch.cuda.memory_allocated(dev) - before
+
+
+def recurrent_split_child() -> None:
+    """The "recurrent split" phase's subprocess (docstring): one card, and
+    no process group running, so that it can start the fake world."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    dev, card = torch.device("cuda", 0), card_line()
+    print(f"recurrent split: the libraries' workspaces take "
+          f"{warm_workspaces(dev)} B, held before every step", flush=True)
+    for arch, layers, kinds in RECURRENT_SPLIT:
+        t0 = time.perf_counter()
+        cfg = recurrent_split_cfg(arch, layers)
+        if "train" in kinds:
+            split_train_pair("recurrent split", cfg, split_shape(), dev, card)
+            gc.collect()
+            torch.cuda.empty_cache()
+        if "serve" in kinds:
+            whole = (whole_attention_flops(cfg) if cfg.rglru is not None
+                     else None)
+            split_serve_pairs("recurrent split", cfg, dev, card,
+                              whole=whole)
+            gc.collect()
+            torch.cuda.empty_cache()
+        print(f"recurrent split: {arch} wall "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def check_recurrent_split(dev, card: str) -> None:
+    """The "recurrent split" phase (docstring), in a subprocess that sees
+    the card (``recurrent_split_child``)."""
+    run_child_phase("recurrent split", "recurrent_split_child", dev, card)
 
 
 def run_child_phase(name: str, child: str, dev, card: str) -> None:
@@ -6302,6 +6460,9 @@ def main() -> int:
 
     phase("moe split")
     check_moe_split(dev, card)
+
+    phase("recurrent split")
+    check_recurrent_split(dev, card)
 
     print(f"chip_smoke wall: {time.perf_counter() - t_all:.1f} s")
     print(card)

@@ -184,8 +184,7 @@ def expert_slots(cfg, shape, mesh, rules) -> Dict[str, Any]:
     cap = _capacity(tokens, e, m.top_k, m.capacity_factor)
     batch = build_spec((shape.global_batch,), ("batch",), mesh,
                        rules if shape.kind == "train" else ACT_RULES)[0]
-    layout = fsdp.make_layout(mesh, spec_axes(batch),
-                              split=not cfg.is_encoder_decoder)
+    layout = fsdp.make_layout(mesh, spec_axes(batch), split=True)
     with use_mesh(mesh, rules), fsdp.use_layout(layout):
         split = fsdp.split_rank()[0] if moe_splits(cfg) else 1
     run, slots = expert_buffer(tokens // layout.batch_n, tokens, m, split)

@@ -11,7 +11,7 @@ tensors, their shardings and ``{"out_shardings": ...}``; the reference's
 ``donate_argnums`` has no counterpart, because the port's steps update
 their parameters, optimizer state and caches in place. The serving steps
 run each rank on its blocks of the caches and, like the train step, split
-their dense products over ``model`` (``parallel.kvcache``).
+their products over ``model`` (``parallel.kvcache``).
 """
 from __future__ import annotations
 
@@ -171,10 +171,10 @@ def build_train(arch_cfg: ModelConfig, shape: ShapeConfig, mesh,
     Where ``model`` splits no batch, the step splits its products over it
     as the reference's GSPMD step does (``parallel.fsdp``): GQA heads, MLP
     columns, MLA heads, an MoE layer's experts (and its shared experts'
-    columns) and the vocab, and the residual's sequence; SSD and RG-LRU
-    segments compute in full on their sequence blocks. The audio
-    enc-dec keeps whole products (its encoder and cross-attention are not
-    split yet). The serving builders split the same products
+    columns), SSD heads, RG-LRU channels, the audio enc-dec's encoder and
+    cross-attention heads, the vocab, and the residual's sequence; a
+    segment whose dim the act rules leave whole computes in full on its
+    sequence blocks. The serving builders split the same products
     (``build_prefill``, ``build_decode``).
     """
     batch = input_specs(arch_cfg, shape)
@@ -216,7 +216,7 @@ def _serve_setup(arch_cfg: ModelConfig, b: int, max_len: int, mesh):
     Where those rows split the batch, an MoE FFN routes over every rank's
     rows, as the reference routes the whole batch; the rows never take
     ``model``, over which the step splits its products wherever it has more
-    than one rank, but for the enc-dec model (``kvcache.serving``)."""
+    than one rank (``kvcache.serving``)."""
     rows = build_spec((b,), ("batch",), mesh, DECODE_RULES)[0]
     model = Model(arch_cfg, _model_device(mesh))
     params = model.shapes()
@@ -247,9 +247,11 @@ def build_decode(arch_cfg: ModelConfig, shape: ShapeConfig, mesh):
     and its vocab block of the embedding and the logits, which it gathers
     (rows x vocab). The token's one position does not split, so the
     residual is whole on every rank (``fsdp.residual``). MLA splits its
-    heads as GQA does, and an MoE layer its experts and shared columns;
-    SSD and RG-LRU segments compute whole; the enc-dec model takes no
-    split."""
+    heads as GQA does, an MoE layer its experts and shared columns, an SSD
+    layer its heads and an RG-LRU layer its channels (each rank reads and
+    writes its part of their states), and the enc-dec's cross-attention
+    its heads over the whole ``enc_out``, ending in a sum over
+    ``model``."""
     b, max_len = shape.global_batch, shape.seq_len
     tok_spec = build_spec((b, 1), ("batch", None), mesh, ACT_RULES)
     model, params, param_sh, caches, caches_sh, rows = _serve_setup(
@@ -271,10 +273,8 @@ def build_decode(arch_cfg: ModelConfig, shape: ShapeConfig, mesh):
                                            mesh, ACT_RULES))),)
     rules = current_act_rules()
 
-    split = not arch_cfg.is_encoder_decoder
-
     def serve_step(params, tok, caches, index, enc_out=None):
-        with kvcache.serving(mesh, rules, rows, split):
+        with kvcache.serving(mesh, rules, rows):
             extras = None if enc_out is None else {"enc_out": tuple(
                 kvcache.to_rows(t, rows) for t in enc_out)}
             logits, caches = model.decode_step(
@@ -314,8 +314,9 @@ def build_prefill(arch_cfg: ModelConfig, shape: ShapeConfig, mesh):
     with their spec. A rank writes every kv head of its own cache slots,
     projected on those slots' positions. MLA splits its heads (its
     latent cache has no head dim: a rank writes its slots of the whole
-    latent), an MoE layer its experts and shared columns; SSD and RG-LRU
-    segments compute whole; the enc-dec model takes no split."""
+    latent), an MoE layer its experts and shared columns, an SSD layer its
+    heads, an RG-LRU layer its channels, and the enc-dec its encoder (in
+    sequence blocks) and cross-attention heads."""
     b, s = shape.global_batch, shape.seq_len
     batch = input_specs(arch_cfg, shape)
     batch_sh = batch_shardings(batch, mesh)
@@ -323,13 +324,12 @@ def build_prefill(arch_cfg: ModelConfig, shape: ShapeConfig, mesh):
     model, params, param_sh, caches, caches_sh, rows = _serve_setup(
         arch_cfg, b, s, mesh)
     rules = current_act_rules()
-    split = not arch_cfg.is_encoder_decoder
-    seq = kvcache.prefill_seq_axis(mesh, rules, rows, s, split)
+    seq = kvcache.prefill_seq_axis(mesh, rules, rows, s)
     logits_sh = NamedSharding(mesh, (rows, seq, None) if seq
                               else (tok_rows, None, None))
 
     def prefill_step(params, batch, caches):
-        with kvcache.serving(mesh, rules, rows, split):
+        with kvcache.serving(mesh, rules, rows):
             logits, caches, _ = model.prefill(
                 params, {k: kvcache.to_rows(v, rows)
                          for k, v in batch.items()}, caches)

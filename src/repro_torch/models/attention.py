@@ -607,7 +607,10 @@ def _write_split_prefill(cache: KVCache, x, positions, params, whole_kv,
 
 def cross_attention(params, x, enc_kv, positions_q, positions_kv,
                     cfg: ModelConfig):
-    """enc_kv: precomputed (k, v) from encoder output (B,Senc,Hkv,Dh)."""
+    """enc_kv: precomputed (k, v) from encoder output (B,Senc,Hkv,Dh).
+    Under a step that splits the heads, wq and wo arrive as this rank's
+    blocks and ``enc_kv`` holds the kv heads its q heads read
+    (``encode_cross_kv``): the output is its partial sum."""
     k, v = enc_kv
     q = _project(x, params["wq"])
     if cfg.qk_norm:
@@ -620,10 +623,19 @@ def cross_attention(params, x, enc_kv, positions_q, positions_kv,
 
 
 def encode_cross_kv(params, enc_out, cfg: ModelConfig):
-    k = _project(enc_out, params["wk"])
-    v = _project(enc_out, params["wv"])
+    """The cross-attention (k, v) of the whole encoder states ``enc_out``.
+    Under a step that splits the heads, those of this rank's q heads: wk
+    and wv arrive as its blocks where ``model`` divides the kv heads, else
+    whole, and then the kv heads its q heads read are projected and
+    repeated (``_split_kv``, ``_maybe_repeat_kv``), as a split GQA layer
+    takes them."""
+    wk, wv, heads = _split_kv(params, cfg)
+    k = _project(enc_out, wk)
+    v = _project(enc_out, wv)
     if cfg.qk_norm:
         k = rmsnorm(k, params["k_norm"])
+    if heads is not None:
+        k, v = _maybe_repeat_kv(k, v, cfg.num_heads, heads, cfg.num_kv_heads)
     return k, v
 
 

@@ -19,6 +19,21 @@ jitted one does not). The port takes every one of them through
 ``_FusedMulAdd``, whose forward is ``fma_f32``, so ``_lru_scan`` equals the
 jitted reference bit for bit; its backward is the derivative of
 ``a * b + c`` (``fma_f32`` works on bit views, which carry no gradient).
+
+Under a step that splits its products over ``model`` (``parallel.fsdp``)
+where the act rules split the LRU width (``rglru_splits``), a rank
+computes its own channels: ``y_gate`` and ``xi`` from its columns of
+``w_y`` and ``w_x``, their depthwise conv, ``lam``, the scan and the
+output gate, and ``w_out``'s rows end the segment as its partial sum.
+The gates contract over every channel: a rank holds a block of
+``w_a``'s and ``w_i``'s rows, takes the partial product of its channels
+with them, and reduce-scatters it over the channel dim
+(``fsdp.channel_scatter``), so it keeps the sums of its own channels;
+nothing of ``w_a`` or ``w_i`` is gathered over ``model``. The scan and
+its FMAs act per channel, so the split leaves them as they are. A
+cache's ``h`` and ``conv`` split their channels as the step does and are
+read and written as the rank's part (``kvcache.read_part`` /
+``write_part``).
 """
 from __future__ import annotations
 
@@ -31,7 +46,7 @@ from repro_torch.config import ModelConfig, RGLRUConfig
 from repro_torch.core.fluctuate import _FusedMulAdd
 from repro_torch.models.layers import causal_conv1d
 from repro_torch.models.ssm import softplus
-from repro_torch.parallel import kvcache
+from repro_torch.parallel import fsdp, kvcache
 
 _C = 8.0
 
@@ -51,6 +66,12 @@ def make_rglru(make, path: str, cfg: ModelConfig):
         "lam": make(f"{path}.lam", (w,), ("mlp",), init="uniform_angle"),
         "w_out": make(f"{path}.w_out", (w, d), ("mlp", "embed"), w ** -0.5),
     }
+
+
+def rglru_splits(cfg: ModelConfig) -> bool:
+    """Whether the current step splits the LRU width's channels over its
+    split axis (``fsdp.splits``, the step's act rules)."""
+    return fsdp.splits("mlp", cfg.rglru.lru_width or cfg.d_model)
 
 
 class RGLRUCache(NamedTuple):
@@ -120,21 +141,35 @@ def apply_rglru(params, x, cfg: ModelConfig,
                 ) -> Tuple[torch.Tensor, Optional[RGLRUCache]]:
     """Griffin recurrent block. x (B,S,D) -> (B,S,D). With a cache: a
     prompt scans from the cached state, one token takes one step; the cache
-    is written in place."""
+    is written in place. Where the step splits the channels
+    (``rglru_splits``), ``params`` are the rank's ``model`` blocks and the
+    output is its partial sum (module docstring)."""
     bsz, s, d = x.shape
+    split = rglru_splits(cfg)
     # jax.nn.gelu defaults to the tanh approximation
     y_gate = F.gelu(torch.matmul(x, params["w_y"].to(x.dtype)),
                     approximate="tanh")
     xi = torch.matmul(x, params["w_x"].to(x.dtype))
     # under a mesh a cache leaf is this rank's block: its split states are
     # gathered here and each rank writes back its block (parallel.kvcache)
-    xi, new_conv = causal_conv1d(xi, params["conv_w"],
-                                 kvcache.read(cache.conv)
-                                 if cache is not None else None)
+    window = None
+    if cache is not None:
+        window = (kvcache.read_part(cache.conv, 2) if split
+                  else kvcache.read(cache.conv))
+    xi, new_conv = causal_conv1d(xi, params["conv_w"], window)
 
     xf = xi.float()
-    r = torch.sigmoid(torch.matmul(xf, params["w_a"].float()))
-    i = torch.sigmoid(torch.matmul(xf, params["w_i"].float()))
+    if split:
+        # both gates' partial sums over this rank's rows, one
+        # reduce-scatter to this rank's channels
+        w = params["w_a"].shape[1]
+        gates = torch.matmul(xf, torch.cat([params["w_a"].float(),
+                                            params["w_i"].float()], dim=1))
+        gates = fsdp.channel_scatter(gates.unflatten(-1, (2, w)))
+        r, i = torch.sigmoid(gates[..., 0, :]), torch.sigmoid(gates[..., 1, :])
+    else:
+        r = torch.sigmoid(torch.matmul(xf, params["w_a"].float()))
+        i = torch.sigmoid(torch.matmul(xf, params["w_i"].float()))
     log_a = -_C * softplus(params["lam"].float()) * r
     a = torch.exp(log_a)
     gated = torch.sqrt(torch.clamp_min(1.0 - a * a, 1e-12)) * (i * xf)
@@ -143,13 +178,18 @@ def apply_rglru(params, x, cfg: ModelConfig,
         h = _lru_scan(a, gated)
         new_cache = None
     else:
-        h0 = kvcache.read(cache.h)
+        h0 = (kvcache.read_part(cache.h, 1) if split
+              else kvcache.read(cache.h))
         if s == 1:
             h = _FusedMulAdd.apply(a[:, 0], h0, gated[:, 0])[:, None]
         else:
             h = _lru_scan(a, gated, h0)
-        kvcache.write_block(cache.h, h[:, -1])
-        kvcache.write_block(cache.conv, new_conv)
+        if split:
+            kvcache.write_part(cache.h, h[:, -1], 1)
+            kvcache.write_part(cache.conv, new_conv, 2)
+        else:
+            kvcache.write_block(cache.h, h[:, -1])
+            kvcache.write_block(cache.conv, new_conv)
         new_cache = cache
 
     out = h.to(x.dtype) * y_gate

@@ -11,6 +11,26 @@ of pairwise products in a stated order (``ssd_chunked``). With one B/C
 group the C.B product is the same for every head and is taken once.
 ``jax.nn.softplus`` is ``logaddexp(x, 0)``: ``F.softplus`` switches to
 ``x`` above 20, so ``torch.logaddexp`` is used.
+
+Under a step that splits its products over ``model`` (``parallel.fsdp``)
+where the act rules split the SSD heads (``ssm_splits``), a rank computes
+its own heads: their ``z`` and ``x`` channels, ``dt``, the depthwise conv
+of its ``x`` channels, the scan, the skip term and the gate; B and C (one
+group, read by every head) and their conv channels it computes whole.
+``w_in`` fuses ``[z | x | B | C | dt]``, so its ``model`` block would cut
+across the five parts: it is read whole (``gathered`` without ``keep``),
+and so is ``conv_w`` (``[x | B | C]``), and the rank takes its columns of
+them; their gradients are then partial sums over ``model``. ``norm`` and
+``w_out``'s rows are head-major, and ``a_log``, ``dt_bias`` and
+``d_skip`` are per head: those arrive as the rank's blocks (``KEPT``).
+The gated RMSNorm takes its sum of squares over every channel, so a rank
+adds its own over ``model`` (``split_rmsnorm``), and ``w_out``'s product
+is the rank's partial sum, which the segment reduce-scatters or sums. In
+a cache, the state's heads align with the rank's and are read and
+written as its part (``kvcache.read_part`` / ``write_part``); the conv
+window's ``model`` block cuts across x, B and C, so the rank reads the
+whole window, and gathers its new x channels over ``model`` before it
+writes its block of the new window.
 """
 from __future__ import annotations
 
@@ -21,7 +41,11 @@ import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig, SSMConfig
 from repro_torch.models.layers import causal_conv1d, rmsnorm
-from repro_torch.parallel import kvcache
+from repro_torch.parallel import fsdp, kvcache
+
+#: the leaves a rank that splits the SSD heads reads as its ``model``
+#: blocks: per head, or head-major channels (module docstring)
+KEPT = ("a_log", "dt_bias", "d_skip", "norm", "w_out")
 
 
 def softplus(x):
@@ -51,6 +75,38 @@ def make_ssm(make, path: str, cfg: ModelConfig):
         "w_out": make(f"{path}.w_out", (d_in, d), ("mlp", "embed"),
                       d_in ** -0.5),
     }
+
+
+def _heads(cfg: ModelConfig) -> int:
+    return cfg.ssm.expand * cfg.d_model // cfg.ssm.head_dim
+
+
+def ssm_splits(cfg: ModelConfig) -> bool:
+    """Whether the current step splits the SSD heads over its split axis
+    (``fsdp.splits``, the step's act rules with their divisibility
+    fallback)."""
+    return fsdp.splits("heads", _heads(cfg))
+
+
+def gathered_ssm(params, split: bool):
+    """An SSD layer's parameters as ``apply_ssm`` reads them: the ``KEPT``
+    leaves as their ``model`` blocks where ``split``, every other leaf
+    whole."""
+    return {k: fsdp.gathered(v, keep=split and k in KEPT)
+            for k, v in params.items()}
+
+
+def split_rmsnorm(x, scale, width: int, eps: float = 1e-6):
+    """``layers.rmsnorm`` of a ``width``-channel row of which ``x`` holds
+    this rank's channels (``scale`` their block): the sum of squares is
+    summed over the split axis, forward and backward
+    (``fsdp.model_sum_shared``: a rank's gradient of it comes from its own
+    channels only)."""
+    dt = x.dtype
+    x = x.float()
+    total = fsdp.model_sum_shared(torch.sum(x * x, dim=-1, keepdim=True))
+    out = x * torch.rsqrt(total / width + eps) * (1.0 + scale.float())
+    return out.to(dt)
 
 
 class SSMCache(NamedTuple):
@@ -175,37 +231,56 @@ def apply_ssm(params, x, cfg: ModelConfig,
               ) -> Tuple[torch.Tensor, Optional[SSMCache]]:
     """Mamba-2 block. x (B,S,D) -> (B,S,D). With a cache: a prompt of S > 1
     runs the chunked scan from the cached state, one token the recurrent
-    step; the cache is written in place."""
+    step; the cache is written in place. Where the step splits the heads
+    (``ssm_splits``) the output is this rank's partial sum (module
+    docstring); ``params`` then come from ``gathered_ssm``."""
     c: SSMConfig = cfg.ssm
     bsz, s, d = x.shape
     d_in = c.expand * d
     h = d_in // c.head_dim
     g, n = 1, c.state_dim
+    split = ssm_splits(cfg)
+    w_in, conv_w = params["w_in"], params["conv_w"]
+    if split:
+        # this rank's heads [idx hl, (idx + 1) hl), channels [lo, lo + cl)
+        m, idx = fsdp.split_rank()
+        hl = h // m
+        cl = hl * c.head_dim
+        lo = idx * cl
+        cols = ((lo, cl), (d_in + lo, cl), (2 * d_in, 2 * g * n),
+                (2 * d_in + 2 * g * n + idx * hl, hl))
+        w_in = torch.cat([w_in[:, a:a + k] for a, k in cols], dim=1)
+        conv_w = torch.cat([conv_w[:, lo:lo + cl], conv_w[:, d_in:]], dim=1)
+    else:
+        hl, cl = h, d_in
 
-    zxbcdt = torch.matmul(x, params["w_in"].to(x.dtype))
+    zxbcdt = torch.matmul(x, w_in.to(x.dtype))
     z, xb, bc, dt_raw = torch.split(
-        zxbcdt, [d_in, d_in, 2 * g * n, h], dim=-1)
+        zxbcdt, [cl, cl, 2 * g * n, hl], dim=-1)
     # conv over [x, B, C] jointly (mamba2 convention)
-    conv_in = torch.cat([xb, bc], dim=-1)           # (B,S,d_in+2gn)
+    conv_in = torch.cat([xb, bc], dim=-1)           # (B,S,cl+2gn)
     # under a mesh a cache leaf is this rank's block: its split states are
     # gathered here and each rank writes back its block (parallel.kvcache)
-    conv_out, new_conv = causal_conv1d(
-        conv_in, params["conv_w"],
-        kvcache.read(cache.conv) if cache is not None else None)
+    window = None if cache is None else kvcache.read(cache.conv)
+    if split and window is not None:
+        window = torch.cat([window[..., lo:lo + cl], window[..., d_in:]],
+                           dim=-1)
+    conv_out, new_conv = causal_conv1d(conv_in, conv_w, window)
     conv_out = F.silu(conv_out)
-    xc = conv_out[..., :d_in]
-    b_mat = conv_out[..., d_in:d_in + g * n].reshape(bsz, s, g, n).float()
-    c_mat = conv_out[..., d_in + g * n:].reshape(bsz, s, g, n).float()
+    xc = conv_out[..., :cl]
+    b_mat = conv_out[..., cl:cl + g * n].reshape(bsz, s, g, n).float()
+    c_mat = conv_out[..., cl + g * n:].reshape(bsz, s, g, n).float()
 
     a = -torch.exp(params["a_log"].float())
     dt = softplus(dt_raw.float() + params["dt_bias"].float())
-    xh = xc.reshape(bsz, s, h, c.head_dim)
+    xh = xc.reshape(bsz, s, hl, c.head_dim)
 
     if cache is None:
         y, _ = ssd_chunked(xh.float(), dt, a, b_mat, c_mat, min(c.chunk, s))
         new_cache = None
     else:
-        state = kvcache.read(cache.state)
+        state = (kvcache.read_part(cache.state, 1) if split
+                 else kvcache.read(cache.state))
         if s > 1:
             # prefill-into-cache: chunked SSD carrying the recurrent state
             y, new_state = ssd_chunked(xh.float(), dt, a, b_mat, c_mat,
@@ -214,13 +289,20 @@ def apply_ssm(params, x, cfg: ModelConfig,
         else:
             y, new_state = ssd_decode_step(xh.float(), dt, a, b_mat, c_mat,
                                            state)
-        kvcache.write_block(cache.state, new_state)
+        if split:
+            kvcache.write_part(cache.state, new_state, 1)
+            # every rank's x channels of the new window, then B and C
+            new_conv = torch.cat([fsdp.split_gather(new_conv[..., :cl], -1),
+                                  new_conv[..., cl:]], dim=-1)
+        else:
+            kvcache.write_block(cache.state, new_state)
         kvcache.write_block(cache.conv, new_conv)
         new_cache = cache
 
     y = y + params["d_skip"].float()[None, None, :, None] * xh.float()
-    y = y.reshape(bsz, s, d_in).to(x.dtype)
+    y = y.reshape(bsz, s, cl).to(x.dtype)
     y = y * F.silu(z)
-    y = rmsnorm(y, params["norm"])
+    y = (split_rmsnorm(y, params["norm"], d_in) if split
+         else rmsnorm(y, params["norm"]))
     out = torch.matmul(y, params["w_out"].to(x.dtype))
     return out, new_cache

@@ -28,15 +28,17 @@ own parameters, so a sharded step gathers one layer at a time, and again
 where a remat segment recomputes it.
 
 A step that splits its products over ``model`` (``fsdp.Layout.split``:
-the train step, and the serving steps but the enc-dec's) carries the
-residual stream as this rank's block of the sequence (``_on_block``):
-each segment normalises its block, gathers the sequence, and either
-reduce-scatters its partial sums (GQA and MLA segments whose heads split,
-MLP segments whose columns split, MoE segments whose routed experts
-split, with the shared experts' columns) or keeps its own block of a
-whole result (SSD, RG-LRU, cross-attention, and any segment whose dim
-``model`` does not divide). The embedding ends in the same reduce-scatter,
-and the final norm runs on the block. Where a serving step's positions do
+the train step and the serving steps) carries the residual stream as
+this rank's block of the sequence (``_on_block``): each segment
+normalises its block, gathers the sequence, and either reduce-scatters
+its partial sums (GQA, MLA and cross-attention segments whose heads
+split, MLP segments whose columns split, MoE segments whose routed
+experts split, with the shared experts' columns, SSD segments whose heads
+split, RG-LRU segments whose channels split) or keeps its own block of a
+whole result (any segment whose dim the act rules leave whole, as
+``model`` = 16 leaves recurrentgemma-2b's 10 attention heads). The
+embedding ends in the same reduce-scatter, and the final norm runs on
+the block. Where a serving step's positions do
 not split (a decode step's one), the residual is whole on every rank: a
 split segment's partial sums are all-reduced and any other segment keeps
 its whole output (``fsdp.residual``).
@@ -206,8 +208,8 @@ def _griffin_group(p, x, positions, cfg: ModelConfig, stack: Stack, cache,
         sub = cache.get(f"g{j}") if cache else None
 
         def mixer(x, j=j, kind=kind, sub=sub):
-            split = (kind != "recurrent"
-                     and fsdp.splits("heads", cfg.num_heads))
+            split = (rglru_mod.rglru_splits(cfg) if kind == "recurrent"
+                     else fsdp.splits("heads", cfg.num_heads))
             ln = gathered(p[f"g{j}_ln_mix"])
             mix = gathered(p[f"g{j}_mix"], keep=split)
 
@@ -249,9 +251,13 @@ def apply_block(p, x, positions, cfg: ModelConfig, stack: Stack,
     sub = cache.get(key) if cache else None
 
     def mixer(x):
-        split = stack.mixer in ("gqa", "mla") and fsdp.splits(
-            "heads", cfg.num_heads)
-        ln, mix = gathered(p["ln_mix"]), gathered(p["mix"], keep=split)
+        ln = gathered(p["ln_mix"])
+        if stack.mixer == "ssm":
+            split = ssm_mod.ssm_splits(cfg)
+            mix = ssm_mod.gathered_ssm(p["mix"], split)
+        else:
+            split = fsdp.splits("heads", cfg.num_heads)
+            mix = gathered(p["mix"], keep=split)
 
         def fn(h):
             if stack.mixer == "gqa":
@@ -266,10 +272,11 @@ def apply_block(p, x, positions, cfg: ModelConfig, stack: Stack,
         return _on_block(x, ln, cfg, fn, split)
 
     def cross(x):
-        ln, cp = gathered((p["ln_cross"], p["cross"]))
+        split = fsdp.splits("heads", cfg.num_heads)
+        ln, cp = gathered(p["ln_cross"]), gathered(p["cross"], keep=split)
         return _on_block(x, ln, cfg, lambda h: (attn.cross_attention(
             cp, h, cross_kv, positions, enc_positions, cfg), None),
-            False)[0]
+            split)[0]
 
     def ffn(x):
         if stack.ffn == "mlp":

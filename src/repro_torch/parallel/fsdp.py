@@ -31,16 +31,22 @@ segments, and so what remat keeps of it, is this rank's block of the
 sequence (the reference's ``seq`` over ``model``). A segment normalises
 its block, gathers the sequence (``seq_gather``) and ends in one of two
 ways. A split segment (GQA and MLA heads, MLP columns, an MoE layer's
-routed experts with its shared experts' columns, where ``splits`` says
-the step's act rules give the dim ``model``) reads its parameters'
-``model`` blocks (``gathered(..., keep=True)``), computes its heads,
-columns or experts only, and reduce-scatters its partial sums over the
-sequence (``seq_scatter``). Any other segment computes in full, as the
-unsplit step does, and keeps its own block of the result (``seq_block``).
-The
-embedding is vocab-parallel (a rank's vocab block, a reduce-scatter of
-one nonzero term a token) and so is the loss (``model_sum``,
-``model_max``).
+routed experts with its shared experts' columns, SSD heads, RG-LRU
+channels, the enc-dec's encoder and cross-attention heads, where
+``splits`` says the step's act rules give the dim ``model``) reads its
+parameters' ``model`` blocks (``gathered(..., keep=True)``), computes its
+heads, columns, channels or experts only, and reduce-scatters its partial
+sums over the sequence (``seq_scatter``). Any other segment (one whose
+dim the act rules leave whole: recurrentgemma-2b's 10 attention heads on
+16 ranks) computes in full, as the unsplit step does, and keeps its own
+block of the result (``seq_block``). Inside a split segment, a product
+that contracts the split dim and is kept for the rank's own channels
+(RG-LRU's gates) is reduce-scattered over that dim
+(``channel_scatter``), and a sum over every channel that each rank
+applies to its own (the SSD's gated RMSNorm) is all-reduced forward and
+backward (``model_sum_shared``). The embedding is vocab-parallel (a
+rank's vocab block, a reduce-scatter of one nonzero term a token) and so
+is the loss (``model_sum``, ``model_max``).
 
 A serving step's positions need not split: a decode step has one, and a
 prompt may have a length ``model`` does not divide. The reference's
@@ -56,11 +62,12 @@ batch axes only; every other leaf's gradient on a rank is the part that
 rank's sequence block, heads, columns or experts produced, so ``model``
 joins the axes it is summed over. That holds for a leaf a split segment
 reads whole: MLA's ``w_dkv``, ``kv_norm`` and ``w_kr`` reach the loss
-through this rank's heads only, and an MoE router through this rank's
-experts' outputs (its routing weights) and the aux, so each rank's
-gradient of them is a partial sum. A scalar that every ``model`` rank
-computes whole (an MoE aux) passes through ``model_share``, so that sum
-counts it once.
+through this rank's heads only, an MoE router through this rank's
+experts' outputs (its routing weights) and the aux, and the SSD's fused
+``w_in`` and ``conv_w`` through this rank's heads' columns and B and C,
+so each rank's gradient of them is a partial sum. A scalar that every
+``model`` rank computes whole (an MoE aux) passes through
+``model_share``, so that sum counts it once.
 
 A statistic of the whole batch (an MoE FFN's expert counts and aux, a
 masked loss's mask sum) is read through the layout as well:
@@ -525,34 +532,40 @@ class _SeqGather(torch.autograd.Function):
                                     ctx.layout.split), None)
 
 
-class _SeqScatter(torch.autograd.Function):
-    """(B, S, ...) partial sums -> this rank's (B, S / n, ...) block of
-    their sum over the split axis; backward all-gathers the blocks'
-    gradients (each rank's partial sum takes the whole gradient)."""
+class _SplitScatter(torch.autograd.Function):
+    """Partial sums -> this rank's block along ``dim`` of their sum over
+    the split axis ((B, S, ...) -> (B, S / n, ...) at dim 1); backward
+    all-gathers the blocks' gradients (each rank's partial sum takes the
+    whole gradient)."""
 
     @staticmethod
-    def forward(ctx, x, layout):
-        ctx.layout = layout
-        return _reduce_scatter_dim(x, 1, layout.mesh, layout.split)
+    def forward(ctx, x, layout, dim):
+        ctx.layout, ctx.dim = layout, dim
+        return _reduce_scatter_dim(x, dim, layout.mesh, layout.split)
 
     @staticmethod
     def backward(ctx, grad):
-        return (S._gather_dim(grad.contiguous(), 1, ctx.layout.mesh,
-                              ctx.layout.split), None)
+        return (S._gather_dim(grad.contiguous(), ctx.dim, ctx.layout.mesh,
+                              ctx.layout.split), None, None)
 
 
 class _ModelSum(torch.autograd.Function):
-    """Forward: ``t`` summed over the split axis; backward: the gradient as
-    it is (every rank holds the whole sum's gradient, which is each
-    term's)."""
+    """Forward: ``t`` summed over the split axis. Backward: the gradient as
+    it is (``shared`` False: every rank holds the whole sum's gradient,
+    which is each term's), or summed over the axis too (``shared``: each
+    rank's gradient of the sum is the part its own use of it gives)."""
 
     @staticmethod
-    def forward(ctx, t, layout):
+    def forward(ctx, t, layout, shared):
+        ctx.layout, ctx.shared = layout, shared
         return layout.sum_over(t.contiguous().clone(), (layout.split,))
 
     @staticmethod
     def backward(ctx, grad):
-        return grad, None
+        if ctx.shared:
+            grad = ctx.layout.sum_over(grad.contiguous().clone(),
+                                       (ctx.layout.split,))
+        return grad, None, None
 
 
 def seq_gather(x: torch.Tensor) -> torch.Tensor:
@@ -570,7 +583,19 @@ def seq_scatter(x: torch.Tensor) -> torch.Tensor:
     layout = current_layout()
     if layout is None or layout.split is None:
         return x
-    return _SeqScatter.apply(x, layout)
+    return _SplitScatter.apply(x, layout, 1)
+
+
+def channel_scatter(x: torch.Tensor) -> torch.Tensor:
+    """This rank's block along the last dim of the sum over the split axis
+    of every rank's partial ``x`` (the identity without a split): a
+    product that contracts a split dim (RG-LRU's gates, ``w_a`` and
+    ``w_i`` read as row blocks) kept for this rank's own channels; its
+    backward all-gathers."""
+    layout = current_layout()
+    if layout is None or layout.split is None:
+        return x
+    return _SplitScatter.apply(x, layout, x.dim() - 1)
 
 
 def seq_block(x: torch.Tensor) -> torch.Tensor:
@@ -589,7 +614,18 @@ def model_sum(t: torch.Tensor) -> torch.Tensor:
     layout = current_layout()
     if layout is None or layout.split is None:
         return t
-    return _ModelSum.apply(t, layout)
+    return _ModelSum.apply(t, layout, False)
+
+
+def model_sum_shared(t: torch.Tensor) -> torch.Tensor:
+    """``t`` summed over the split axis where each rank uses the sum for
+    its own part only (the split gated RMSNorm's sum of squares, which a
+    rank applies to its own channels): the backward sums the ranks'
+    gradients over the axis too, so each term takes the whole sum's."""
+    layout = current_layout()
+    if layout is None or layout.split is None:
+        return t
+    return _ModelSum.apply(t, layout, True)
 
 
 def model_max(t: torch.Tensor) -> torch.Tensor:

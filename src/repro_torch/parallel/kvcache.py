@@ -22,7 +22,8 @@ over every rank's rows, the whole batch, as the reference does.
 Products. The rows never take ``model`` under ``DECODE_RULES``, so on a
 mesh whose ``model`` has more than one rank the serving layout splits the
 products over it as the train step's does (``fsdp``): GQA and MLA heads,
-MLP columns, an MoE layer's experts, the embedding's vocab, and a
+MLP columns, an MoE layer's experts, SSD heads, RG-LRU channels, the
+enc-dec's encoder and cross-attention heads, the embedding's vocab, and a
 prompt's residual in sequence
 blocks where ``model`` divides its length (else the residual is whole on
 every rank: a decode step's one position). A prefill's logits then stay
@@ -53,8 +54,11 @@ slots (the SSM state's heads, the conv windows' and the RG-LRU state's
 channels over ``model``; a KV cache's kv heads where its slots do not
 divide), ``read`` gathers the leaf where a layer reads it and
 ``write_block`` / ``write_slots`` write back this rank's block of the new
-value. Those states are a few MB a layer; the SSD and RG-LRU segments
-that read them compute whole on every rank of ``model``. MLA splits its
+value. Where the step splits the SSD heads or the RG-LRU channels as the
+leaf does, a layer reads and writes its own part only (``read_part`` /
+``write_part``); the SSM conv window's ``model`` block cuts across its
+x, B and C channels, so a split SSD layer reads it whole and gathers its
+new x channels before it writes its block (``models.ssm``). MLA splits its
 heads as GQA does: its cache has no head dim, so every rank computes the
 new latent and rope key whole, writes the part that falls in its slots,
 and attends with every gathered q head over its own slots
@@ -131,6 +135,35 @@ def write_block(dst: torch.Tensor, full: torch.Tensor) -> None:
     if spec is not None and mesh is not None:
         full = S.shard_of(full, _but(spec, (0,)), mesh)
     dst.copy_(full)
+
+
+def _check_part(t: torch.Tensor, dim: int) -> None:
+    """Raise unless ``t``'s block along ``dim`` is this rank's part of the
+    split axis (``fsdp.split_rank``): a cache placed by ``cache_shardings``
+    splits the SSM state's heads and the RG-LRU channels over ``model``
+    wherever the step's act rules split them."""
+    n, idx = fsdp.split_rank()
+    sp = split(t, dim)
+    if sp.lo != idx * (sp.full // n) or t.shape[dim] != sp.full // n:
+        raise ValueError(
+            f"a cache leaf's block [{sp.lo}, {sp.lo + t.shape[dim]}) of "
+            f"{sp.full} along dim {dim} is not this rank's part of the "
+            f"{n} ranks that split it (place it by cache_shardings)")
+
+
+def read_part(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """This rank's part along ``dim`` of the split axis of a cache leaf
+    (the SSM state's heads, an RG-LRU state's channels, under a step that
+    splits them), on its rows: its block, which must be that part."""
+    _check_part(t, dim)
+    return read(t, (0, dim))
+
+
+def write_part(dst: torch.Tensor, part: torch.Tensor, dim: int) -> None:
+    """Write ``part``, the new value of this rank's part along ``dim`` of
+    the split axis (``read_part``), into its block ``dst``."""
+    _check_part(dst, dim)
+    dst.copy_(part)
 
 
 def write_slots(dst: torch.Tensor, src: torch.Tensor, start: int, dim: int,
@@ -244,37 +277,36 @@ def from_rows(t: torch.Tensor, rows, like: torch.Tensor,
     return fsdp.mark(out, (want,) + (None,) * (t.dim() - 1))
 
 
-def serving_layout(mesh, rows, split: bool = True) -> fsdp.Layout:
+def serving_layout(mesh, rows) -> fsdp.Layout:
     """The layout of a serving step on ``mesh`` that computes the caches'
-    ``rows`` (a spec entry): the rows' axes are its batch axes, and with
-    ``split`` (all but the enc-dec model) it splits the products over
-    ``model`` wherever ``model`` has more than one rank and is not one of
-    those axes, its residual whole where the positions do not split
-    (``fsdp.make_layout``)."""
-    return fsdp.make_layout(mesh, S.spec_axes(rows), split,
+    ``rows`` (a spec entry): the rows' axes are its batch axes, and it
+    splits the products over ``model`` wherever ``model`` has more than
+    one rank and is not one of those axes, its residual whole where the
+    positions do not split (``fsdp.make_layout``)."""
+    return fsdp.make_layout(mesh, S.spec_axes(rows), True,
                             seq_fallback=True)
 
 
-def prefill_seq_axis(mesh, rules, rows, seq: int, split: bool = True):
+def prefill_seq_axis(mesh, rules, rows, seq: int):
     """The axis over which a ``seq``-position prefill under ``rules``
     leaves its residual, and so its logits, in sequence blocks, or None
     (``serving_layout`` and ``fsdp.residual``'s decision, made before the
     step)."""
-    axis = serving_layout(mesh, rows, split).split
+    axis = serving_layout(mesh, rows).split
     spec = S.build_spec((seq,), ("seq",), mesh, rules)
     return axis if axis in S.spec_axes(spec[0]) else None
 
 
 @contextlib.contextmanager
-def serving(mesh, act_rules, rows=None, split: bool = True):
+def serving(mesh, act_rules, rows=None):
     """Context of a serving step on ``mesh`` that computes the caches'
     ``rows`` (a spec entry): no gradient, the mesh and its activation rules
     current, the parameters gathered where the model reads them
     (``fsdp.gathered``), and ``serving_layout``: the rows' axes as the
     layout's batch axes, so that an MoE FFN routes over the whole batch
-    (``models.moe``), and the products split over ``model`` (``split``)."""
+    (``models.moe``), and the products split over ``model``."""
     with torch.no_grad(), S.use_mesh(mesh, act_rules), \
-            fsdp.use_layout(serving_layout(mesh, rows, split)):
+            fsdp.use_layout(serving_layout(mesh, rows)):
         yield
 
 

@@ -33,10 +33,9 @@ which the step checks.
 
 Where ``model`` splits no batch, the products are split over it as
 well (``parallel.fsdp``): GQA and MLA heads, MLP columns, an MoE
-layer's experts and shared columns, the vocab, the residual's sequence
-(not for an encoder-decoder model, whose encoder and
-cross-attention take no split yet). Each rank's loss is still its rows'
-whole loss, and its gradients come back as its blocks, summed over the
+layer's experts and shared columns, SSD heads, RG-LRU channels, the
+enc-dec's encoder and cross-attention, the vocab, the residual's
+sequence. Each rank's loss is still its rows' whole loss, and its gradients come back as its blocks, summed over the
 batch ranks and, for a leaf that every rank of ``model`` reads whole,
 over ``model``.
 
@@ -133,15 +132,14 @@ def make_train_step(model: Model, opt_cfg: OptimizerConfig,
     structure) to which each microbatch's gradients are cut; with ZeRO-1
     (parameters whole over ``data``) the optimizer's placements.
     On sharded parameters the step splits its products over ``model``
-    (``parallel.fsdp``), but for an encoder-decoder model."""
+    (``parallel.fsdp``)."""
     loss_fn = make_loss_fn(model)
     micro = parallel.microbatches if parallel else 1
-    split = not model.cfg.is_encoder_decoder
     gsh = None if grad_shardings is None else tree_leaves(grad_shardings)
 
     def train_step(params, opt_state: OptState, batch):
         leaves = tree_leaves(params)
-        layout = fsdp.layout_of(params, batch, split)
+        layout = fsdp.layout_of(params, batch, split=True)
         check_placement(batch, micro, layout)
         # the gradient sums' count: microbatches x ranks splitting the batch
         count = micro * (layout.batch_n if layout is not None else 1)

@@ -303,8 +303,11 @@ def _split_slots(arch, shape_name, multi_pod):
 #: than its kept pairs fill, and the 16 ranks of ``data`` together hold
 #: more slots than the one-rank step's E x capacity (item 23; 72.4, 12.8
 #: and 37.4 before the split); a dense train step's products all split
-#: (item 22(a)), and so do a dense serving step's (item 22(b))
+#: (item 22(a)), and so do a dense serving step's (item 22(b)); mamba2-780m's
+#: SSD heads split (item 22(d); x232.7 before), its B and C projection
+#: whole on every rank, its one row repeated over the 16 ranks of ``data``
 REPLICATED = {("deepseek-moe-16b", "train_4k", False): 4.9,
+              ("mamba2-780m", "long_500k", False): 21.7,
               ("deepseek-v2-236b", "decode_32k", True): 1.7,
               ("deepseek-moe-16b", "prefill_32k", True): 3.0,
               ("nemotron-4-15b", "train_4k", False): 1.0,

@@ -412,14 +412,14 @@ def test_prefill_logits_stay_in_sequence_blocks(runs, name):
     """Where the step splits its products over ``model`` and ``model``
     divides the prompt's positions, each rank's prefill logits are its
     block of the sequence, 1 / ``model`` of them, on the caches' rows,
-    never gathered in the step; elsewhere (the enc-dec model, a prompt of
-    15 positions on 2 ranks) they come back whole on the tokens' rows."""
+    never gathered in the step, the enc-dec model's too; elsewhere (a
+    prompt of 15 positions on 2 ranks) they come back whole on the tokens'
+    rows."""
     _, ranks = runs
     case = R.CASES[name]
     data, model = case.mesh
     vocab = case.cfg().padded_vocab
-    splits = model > 1 and case.prompt % model == 0 and \
-        not case.cfg().is_encoder_decoder
+    splits = model > 1 and case.prompt % model == 0
     rows = case.batch // data
     if case.dp_rules and not splits:
         rows = case.batch // (data * model)
