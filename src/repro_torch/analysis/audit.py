@@ -94,15 +94,15 @@ KNOWN_HOST_SYNCS = {
         "the two threefry key words of a host key, as Python ints"),
     "kernels/fused_sim/ops.py:_seeds:37": (
         "the fused kernels' seed words, read from host keys"),
-    "kernels/scatter_add/ops.py:bin_depos_to_tiles:116": (
+    "kernels/scatter_add/ops.py:bin_depos_to_tiles:124": (
         "the dense tile binning's masked write: two boolean-mask reads"),
-    "kernels/scatter_add/ops.py:bin_depos_to_tiles_compact:133": (
+    "kernels/scatter_add/ops.py:bin_depos_to_tiles_compact:142": (
         "the compact tile binning's masked list write: two mask reads"),
-    "kernels/scatter_add/ops.py:bin_depos_to_tiles_compact:136": (
+    "kernels/scatter_add/ops.py:bin_depos_to_tiles_compact:146": (
         "the compact tile binning's masked slot write: two mask reads"),
-    "kernels/scatter_add/ops.py:compact_n_cap:164": (
+    "kernels/scatter_add/ops.py:compact_n_cap:179": (
         "the compact layout's occupancy, one read for all rows"),
-    "core/batch.py:simulate_events:253": (
+    "core/batch.py:simulate_events:256": (
         "the valid depo counts of a batch, a host tensor"),
 }
 

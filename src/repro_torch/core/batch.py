@@ -29,6 +29,7 @@ from typing import List, NamedTuple, Optional, Sequence
 import torch
 import torch.nn.functional as F
 
+from repro_torch import spans
 from repro_torch.config import LArTPCConfig
 from repro_torch.core import prng
 from repro_torch.core.depo import DepoSet
@@ -185,7 +186,9 @@ def _host_events(events) -> List:
     if not leaves:
         return []
     flat = torch.cat([x.detach().reshape(-1).to(torch.float32)
-                      for x in leaves]).cpu().numpy()
+                      for x in leaves])
+    with spans.wait("sim.validate.copy", reads=1):
+        flat = flat.cpu().numpy()
     out, off = [], 0
     for ev in events:
         arrays = []

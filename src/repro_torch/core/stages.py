@@ -31,7 +31,9 @@ of the fused strategies hands every (event, plane) row to the fused kernel
 in ceil(rows / 16) launches. Every other stage runs one event (and within
 it one plane) at a time, so each event equals ``run`` on the same padded
 row, bit for bit. ``n_valid`` gives a padded row's valid depo count, so
-the tile binning does not count its padding as dropped.
+the tile binning does not count its padding as dropped. Each stage of a
+batch runs in a ``sim.stage.<name>`` span (``repro_torch.spans``), with
+CUDA events at its entry and exit on the card.
 
 ``cfg.check_finite`` turns on the reference's sentinel: after each float
 stage the graph ANDs ``isfinite(...).all()`` of the stage's output into
@@ -47,6 +49,7 @@ from typing import (Callable, Dict, List, NamedTuple, Optional, Sequence,
 import torch
 from torch import nn
 
+from repro_torch import spans
 from repro_torch.config import LArTPCConfig, PlaneSpec, plane_specs
 from repro_torch.core import prng
 from repro_torch.core.depo import DepoSet
@@ -127,6 +130,7 @@ class Stage(nn.Module):
                                              List[SimState]]] = None):
         super().__init__()
         self.name = name
+        self.span_name = spans.STAGE + name
         self.fn = fn
         self.op = op
         self.batch_fn = batch_fn
@@ -226,7 +230,8 @@ class SimGraph(nn.Module):
         states = [self.init_state(k, d, n)
                   for k, d, n in zip(keys, rows, n_valid)]
         for stage in self.stages:
-            states = stage.run_rows(states)
+            with spans.span(stage.span_name, device=self.device):
+                states = stage.run_rows(states)
         return join_outputs([self.output(s) for s in states])
 
     def timed(self, key: torch.Tensor, depos, *, warmup: int = 1,

@@ -15,7 +15,9 @@ Two layouts:
 
 Entries past ``k_max`` (or past ``n_cap`` occupied tiles) do not fit; the
 reference drops them silently, the port drops them too and returns their
-count so the caller can insist on 0. A padded row (``repro_torch.core.batch``)
+count so the caller can insist on 0. The binning's boolean-mask writes and
+the compact occupancy read wait for the card: each runs in a
+``sim.bin.mask`` wait span. A padded row (``repro_torch.core.batch``)
 gives its valid depo count ``n_valid``: only the entries of depos below it
 count as dropped. Padding depos sit at wire 0, tick 0 and have the highest
 ids, so the stable sort puts them after every real depo of the corner tile
@@ -26,6 +28,11 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+
+from repro_torch import spans
+
+#: the wait span of the binning's host reads (``repro_torch.spans``)
+BIN_WAIT = "sim.bin.mask"
 
 
 def next_pow2(n: int, lo: int = 8) -> int:
@@ -113,7 +120,8 @@ def bin_depos_to_tiles(w0, t0, pw_pad: int, pt_pad: int, num_wires: int,
                        torch.full_like(rank, n_tiles * k_max))
     ids = torch.full((n_tiles * k_max + 1,), -1, dtype=torch.int32,
                      device=w0.device)
-    ids[slot[valid]] = depo_s[valid].to(torch.int32)
+    with spans.wait(BIN_WAIT, reads=2):
+        ids[slot[valid]] = depo_s[valid].to(torch.int32)
     return ids[:-1], n_tiles, _dropped(real, valid, depo_s, n_valid)
 
 
@@ -130,10 +138,12 @@ def bin_depos_to_tiles_compact(w0, t0, pw_pad: int, pt_pad: int,
     valid = real & (rank < k_max) & (seg_id < n_cap)
     ids = torch.full((n_cap * k_max,), -1, dtype=torch.int32,
                      device=w0.device)
-    ids[(seg_id * k_max + rank)[valid]] = depo_s[valid].to(torch.int32)
+    with spans.wait(BIN_WAIT, reads=2):
+        ids[(seg_id * k_max + rank)[valid]] = depo_s[valid].to(torch.int32)
     head = is_first & real & (seg_id < n_cap)
     active = torch.full((n_cap,), -1, dtype=torch.int32, device=w0.device)
-    active[seg_id[head]] = tile_s[head].to(torch.int32)
+    with spans.wait(BIN_WAIT, reads=2):
+        active[seg_id[head]] = tile_s[head].to(torch.int32)
     return active, ids, _dropped(real, valid, depo_s, n_valid)
 
 
@@ -161,10 +171,12 @@ def compact_n_cap(n_active: int | None, w0s, t0s, pw_pad: int, pt_pad: int,
     ONE host read for all rows, bucketed; never more than the tile count."""
     n_tiles = tile_counts(num_wires, num_ticks, tw, tt)[2]
     if n_active is None:
-        n_active = int(torch.stack([count_active_tiles(
+        most = torch.stack([count_active_tiles(
             w0, t0, pw_pad=pw_pad, pt_pad=pt_pad, num_wires=num_wires,
             num_ticks=num_ticks, tw=tw, tt=tt)
-            for w0, t0 in zip(w0s, t0s)]).max())
+            for w0, t0 in zip(w0s, t0s)]).max()
+        with spans.wait(BIN_WAIT, reads=1):
+            n_active = int(most)
     return min(n_tiles, next_pow2(n_active))
 
 

@@ -9,6 +9,7 @@
                                      [--device cuda|cpu] [--tune] [--retune]
                                      [--strategy <scatter>]
                                      [--pipeline fig3|fig4]
+                                     [--profile PATH]
                                      [--set key=value ...]
 
 The launcher streams batches of E events (``--batch-events``, default 1)
@@ -49,10 +50,20 @@ batches (``--max-retries``), others fail fast, ``--journal`` records every
 finished batch and ``--resume`` skips them, ``--check-finite`` turns on the
 device-side finite sentinel, and ``--inject-faults`` schedules faults
 (``repro_torch.testing.faults``). Runs on the card unless ``--device cpu``.
+
+``--profile PATH`` streams under ``torch.profiler`` (host and, on the card,
+device activity) and writes its Chrome trace to PATH: the program's spans
+(``repro_torch.spans``: ``sim.generate``, ``sim.validate``, ``sim.pack``,
+``sim.dispatch``, a ``sim.stage.<name>`` a stage, ``sim.finish``, and the
+waits ``sim.validate.copy``, ``sim.bin.mask``, ``sim.finish.*``) beside the
+card's kernels. The run ends with the spans' table: each span's calls, ms
+a batch in all and of its own, and the blocking host reads a batch, then
+the waits and the card's ms a batch by stage and between batches.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import hashlib
 import time
 import warnings
@@ -60,6 +71,7 @@ from typing import Callable, Optional
 
 import torch
 
+from repro_torch import spans
 from repro_torch.config import (LArTPCConfig, apply_overrides, get_config,
                                 plane_specs)
 from repro_torch.core import prng
@@ -199,8 +211,17 @@ def stream_simulate(cfg: LArTPCConfig, num_events: int, batch_events: int = 1,
     Host reads per batch: the validation copy; the occupancy count of the
     compact layouts (one for all rows of a fused batch); the tile binning's
     masked writes, which wait for the card twice per (event, plane) row
-    for the dense lists and four times for the compact ones; and the
-    finished batch's flags; plus what ``on_batch`` and the journal read.
+    for the dense lists and four times for the compact ones; the finished
+    batch's flags; with ``recon``, its count of stored hits; plus what
+    ``on_batch`` and the journal read.
+
+    Spans (``repro_torch.spans``; they record under ``torch.profiler`` or
+    ``spans.enabled()``): ``sim.generate``, ``sim.validate`` (its copy a
+    ``sim.validate.copy`` wait), ``sim.pack`` and ``sim.dispatch`` for
+    batch b, then ``sim.finish`` for batch b-1, which holds the waits
+    ``sim.finish.flags``, ``sim.finish.hits`` and ``sim.finish.journal``
+    and the ``sim.on_batch`` callback; inside the executor, a
+    ``sim.stage.<name>`` span a stage and ``sim.bin.mask`` waits.
     """
     if batch_events < 1:
         raise ValueError(f"batch_events must be >= 1, got {batch_events}")
@@ -233,19 +254,24 @@ def stream_simulate(cfg: LArTPCConfig, num_events: int, batch_events: int = 1,
         continue past ``num_events``."""
         ids = list(range(b * batch_events,
                          min((b + 1) * batch_events, num_events)))
-        events = [gen(prng.fold_in(key, ev), cfg, device=dev) for ev in ids]
+        with spans.span("sim.generate", batch=b):
+            events = [gen(prng.fold_in(key, ev), cfg, device=dev)
+                      for ev in ids]
         if faults is not None:
             events = [faults.corrupt_event(ev, d)
                       for ev, d in zip(ids, events)]
         if validate:
-            events, ids, _ = screen_events(events, ids, cfg, pad_to=pad_to,
-                                           batch=b, health=health)
-        n_valid = len(ids)
-        rows = events + [empty_event(planes=cfg.num_planes, device=dev)] * (
-            batch_events - n_valid)
-        row_ids = ids + list(range(
-            num_events + b * batch_events,
-            num_events + b * batch_events + batch_events - n_valid))
+            with spans.span("sim.validate", batch=b):
+                events, ids, _ = screen_events(events, ids, cfg,
+                                               pad_to=pad_to, batch=b,
+                                               health=health)
+        with spans.span("sim.pack", batch=b):
+            n_valid = len(ids)
+            pad = [empty_event(planes=cfg.num_planes, device=dev)]
+            rows = events + pad * (batch_events - n_valid)
+            row_ids = ids + list(range(
+                num_events + b * batch_events,
+                num_events + b * batch_events + batch_events - n_valid))
         return rows, row_ids, n_valid
 
     def launch_rows(b: int, rows, row_ids) -> SimOutput:
@@ -253,7 +279,11 @@ def stream_simulate(cfg: LArTPCConfig, num_events: int, batch_events: int = 1,
         packed batch every time)."""
         if faults is not None:
             faults.before_dispatch(b)
-        return sim(event_keys(key, row_ids), pack_events(rows, pad_to=pad_to))
+        with spans.span("sim.pack", batch=b):
+            keys = event_keys(key, row_ids)
+            batch = pack_events(rows, pad_to=pad_to)
+        with spans.span(spans.DISPATCH, batch=b):
+            return sim(keys, batch)
 
     def run_degraded(b: int, rows, row_ids, first_exc: BaseException):
         """Bounded retry with degradation: halve the event count per
@@ -290,12 +320,20 @@ def stream_simulate(cfg: LArTPCConfig, num_events: int, batch_events: int = 1,
 
     def read_flags(out: SimOutput):
         """The batch's per-event ``dropped`` and ``finite_ok`` on the host
-        (None where the output has none): the batch's wait for the card."""
-        return tuple(None if x is None else x.tolist()
-                     for x in (out.dropped, out.finite_ok))
+        (None where the output has none): the batch's wait for the card.
+        The card has then passed the batch's stage events: they resolve."""
+        flags = (out.dropped, out.finite_ok)
+        with spans.wait("sim.finish.flags", reads=(out.dropped is not None)
+                        + (out.finite_ok is not None)):
+            flags = tuple(None if x is None else x.tolist() for x in flags)
+        spans.resolve()
+        return flags
 
     def finish(entry):
-        b, rows, row_ids, n_valid, n_depos, t0, out = entry
+        with spans.span(spans.FINISH, batch=entry[0]):
+            _finish(*entry)
+
+    def _finish(b, rows, row_ids, n_valid, n_depos, t0, out):
         try:
             dropped, finite = read_flags(out)
         except Exception as e:  # noqa: BLE001 — run_degraded classifies
@@ -319,9 +357,13 @@ def stream_simulate(cfg: LArTPCConfig, num_events: int, batch_events: int = 1,
             rec["nonfinite"] = bad
             health.nonfinite_events += bad
         if recon and out.hits is not None:
-            rec["hits"] = int(out.hits.mask[:n_valid].sum())
+            stored = out.hits.mask[:n_valid].sum()
+            with spans.wait("sim.finish.hits", reads=1):
+                rec["hits"] = int(stored)
         if jrn is not None:
-            adc = out.adc[:n_valid].contiguous().cpu().numpy()
+            adc = out.adc[:n_valid].contiguous()
+            with spans.wait("sim.finish.journal", reads=1):
+                adc = adc.cpu().numpy()
             jrec = dict(rec, ids=[int(i) for i in row_ids[:n_valid]],
                         adc_sha=hashlib.sha256(adc.tobytes()).hexdigest(),
                         quarantined=sum(
@@ -332,7 +374,8 @@ def stream_simulate(cfg: LArTPCConfig, num_events: int, batch_events: int = 1,
         stats["batches"].append(rec)
         if on_batch is not None:
             try:
-                on_batch(b, n_valid, n_depos, dt, out)
+                with spans.span("sim.on_batch", batch=b):
+                    on_batch(b, n_valid, n_depos, dt, out)
             except Exception as e:  # noqa: BLE001 — user code, not ours
                 health.callback_errors += 1
                 warnings.warn(
@@ -488,6 +531,9 @@ def main(argv=None):
                          "repro_torch.tune; 'auto' resolves via the tuning "
                          "cache)")
     ap.add_argument("--pipeline", choices=["fig3", "fig4"], default=None)
+    ap.add_argument("--profile", default=None, metavar="PATH",
+                    help="stream under torch.profiler, write its Chrome "
+                         "trace to PATH and print the spans' table")
     ap.add_argument("--set", nargs="*", default=[])
     args = ap.parse_args(argv)
 
@@ -533,7 +579,7 @@ def main(argv=None):
         if args.recon:
             raise SystemExit("--recon needs the batched fig4 pipeline "
                              "(drop --pipeline fig3)")
-        for flag in ("journal", "resume", "inject_faults"):
+        for flag in ("journal", "resume", "inject_faults", "profile"):
             if getattr(args, flag):
                 raise SystemExit(f"--{flag.replace('_', '-')} needs the "
                                  "batched fig4 pipeline (drop "
@@ -574,14 +620,22 @@ def main(argv=None):
                   f"deg): max dev {max_dev(adc[:, p], cfg)}"
                   f"{hit_text(plane_hits)}")
 
+    profiler = contextlib.nullcontext()
+    if args.profile:
+        from torch.profiler import ProfilerActivity, profile
+
+        profiler = profile(activities=[ProfilerActivity.CPU] + (
+            [ProfilerActivity.CUDA] if device.type == "cuda" else []))
+        spans.reset()
     try:
-        stats = stream_simulate(cfg, args.events, args.batch_events,
-                                seed=args.seed, on_batch=report,
-                                recon=args.recon, journal=args.journal,
-                                resume=args.resume,
-                                validate=not args.no_validate,
-                                max_retries=args.max_retries, faults=faults,
-                                device=device)
+        with profiler:
+            stats = stream_simulate(cfg, args.events, args.batch_events,
+                                    seed=args.seed, on_batch=report,
+                                    recon=args.recon, journal=args.journal,
+                                    resume=args.resume,
+                                    validate=not args.no_validate,
+                                    max_retries=args.max_retries,
+                                    faults=faults, device=device)
     except SimBatchError as e:
         raise SystemExit(
             f"stream failed: {e}" + ("" if not args.journal else
@@ -600,6 +654,10 @@ def main(argv=None):
         for d in health.get("dead_letters", []):
             print(f"  dead-letter event {d['event']} (batch {d['batch']}): "
                   + "; ".join(d["reasons"]))
+    if args.profile:
+        profiler.export_chrome_trace(args.profile)
+        print(spans.table())
+        print(f"profile: Chrome trace written to {args.profile}")
 
 
 if __name__ == "__main__":

@@ -435,7 +435,7 @@ class TestBaselineCoverage:
         assert c["p3/recon_kernels"]["kernels"] == {
             "fused_rasterize_scatter_multiplane": 1, "hitfind_pallas": 3}
         assert c["p1/unfused_pallas_compact"]["host_syncs"][
-            "kernels/scatter_add/ops.py:bin_depos_to_tiles_compact:133"] \
+            "kernels/scatter_add/ops.py:bin_depos_to_tiles_compact:142"] \
             == {"index@cpu": 2}
 
     def test_stacked_distributed_contract_matches_single_plane(self):
