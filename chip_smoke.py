@@ -42,6 +42,12 @@ Phases (any failure exits non-zero before the result line):
                 Rasterize (row 8) at 100k depos (padded to 100 096), with
                 fluctuation on and off: kernel == plain bit for bit, two
                 runs bit-identical, zero padding
+                Noise spectrum (row 9) at the benchmark's width, 3 planes
+                x 2400 wires x 4801 bins (9600 ticks), and at edge shapes
+                (odd ticks, 17 planes: two launches, one bin a row):
+                kernel == plain bit for bit, shaped and as unit normals,
+                two runs bit-identical; the batched inverse transform over
+                the planes == the per-plane ones bit for bit
   5. main     : the launcher's event loop (launch counters reset just
                 before and read just after each run): 4 full-width events
                 with charge_grid_strategy=fused_pallas, then
@@ -126,7 +132,9 @@ Phases (any failure exits non-zero before the result line):
   8. fit      : the calibration path (repro_torch.core.fit) at full width:
                 the self-calibration contract, every fittable field's
                 gradient, a central difference, a short fit and the fit
-                launcher's gates; no kernel launched
+                launcher's gates; no charge-grid, scatter-add, hit-scan or
+                rasterize kernel launched (the noise kernel draws the unit
+                normals whose shaping the fit differentiates)
   9. fig3 and pool : the per-depo fig3 baseline on the first 2 000 depos
                 of a full-width event (after a warm-up) beside fig4
                 (unfused + pallas) on the same depos and on all 100 000:
@@ -168,7 +176,8 @@ Phases (any failure exits non-zero before the result line):
                 wait the card reports sits at a census site with as many
                 reads of card tensors there; launches == the committed
                 AUDIT_torch_contracts.json's kernels (the stream: ceil(rows
-                / 16) fused launches a batch), collectives too; the two
+                / 16) fused launches a batch, one noise launch an event),
+                collectives too; the two
                 calls have one census; host reads only at
                 KNOWN_HOST_SYNCS; float64 only at ALLOWED_F64, its bytes
                 an event printed per site; each host-read site printed as
@@ -231,7 +240,8 @@ Phases (any failure exits non-zero before the result line):
                 enqueueing, so the events read the card's time alone, and
                 the host's enqueue time per call) and its plain version
                 (3 calls; the three-plane plain
-                versions 2 calls, hit scan and rasterize 1 call) timed with
+                versions 2 calls, hit scan, rasterize and noise 1 call)
+                timed with
                 CUDA events at the main path's shapes (hit scan: one plane;
                 each plane's time is printed too; compact scatter-add: the
                 grid written in place, as the main path calls it),
@@ -513,6 +523,22 @@ OPS_PER_RASTER_PIXEL = 2 + 7 + 4 + 3 + 3
 #: operations per hit-scan sample (compare, two selects, mul, two adds,
 #: max, the run bookkeeping)
 OPS_PER_HIT_SAMPLE = 10
+#: H100 SXM 32-bit integer operations/s: 132 SMs x 64 INT32 lanes x 1.98
+#: GHz, the top SM clock of the float32 peak above
+PEAK_INT32_OPS_S = 132 * 64 * 1.98e9
+#: integer operations of one threefry2x32 of the noise kernel: 2 key adds,
+#: 20 rounds of add, funnel shift and xor, 5 injections of 2 adds, the
+#: parity's 2 xors, the fold's xor, and the uniform's shift and or
+OPS_PER_THREEFRY = 2 + 20 * 3 + 5 * 2 + 2 + 1 + 2
+#: float operations of one noise normal past its bits: sub, fma, max,
+#: erfinvf (counted as one), mul; and the shaping's two products
+OPS_PER_NOISE_NORMAL = 5 + 2
+#: the noise spectrum's shapes: the benchmark's planes, wires and ticks
+NOISE_SHAPE = (3, 2400, 9600)
+#: (planes, rows, ticks) edge cases of the noise kernel: odd ticks (no
+#: Nyquist bin, no multiple of a thread's 4 elements), more planes than one
+#: launch takes, one bin a row
+NOISE_EDGES = ((1, 7, 63), (17, 5, 10), (2, 1, 1))
 EVENTS = 4
 #: full-width single-plane events per scatter-add strategy
 SCATTER_EVENTS = 2
@@ -1293,6 +1319,100 @@ class RasterCase:
             nbytes += 2 * 4 * pixels
             ops += (OPS_PER_RASTER_PIXEL - 2) * pixels
         return bound_of(nbytes, ops)
+
+
+class NoiseCase:
+    """The noise-spectrum kernel's problem: ``planes`` planes of ``rows``
+    rows of ``ticks // 2 + 1`` bins under the plane keys of
+    ``fold_in(key(7), p)``, the amplitude of ``noise_spectrum``."""
+
+    def __init__(self, device, planes: int, rows: int, ticks: int):
+        import dataclasses as dc
+
+        import torch
+
+        from repro_torch.config import get_config
+        from repro_torch.core import noise, prng
+
+        self.shape = (planes, rows, ticks)
+        self.device = device
+        cfg = dc.replace(get_config("lartpc-uboone"), num_wires=rows,
+                         num_ticks=ticks)
+        self.amp = noise.noise_spectrum(cfg, device)
+        self.words = [noise.plane_key_words(prng.fold_in(prng.key(7), p))
+                      for p in range(planes)]
+        torch.cuda.synchronize()
+
+    def kernel(self):
+        from repro_torch.kernels.noise import kernel
+
+        return kernel.noise_spectrum(self.words, self.shape[1], self.amp,
+                                     self.shape[2])
+
+    def unit(self):
+        from repro_torch.kernels.noise import kernel
+
+        return kernel.draw(self.words, self.shape[1], None, self.shape[2],
+                            self.device)
+
+    def plain(self, amp: bool = True):
+        from repro_torch.kernels.noise import ref
+
+        return ref.noise_spectrum_ref(self.words, self.shape[1],
+                                      self.amp if amp else None,
+                                      self.shape[2], self.device)
+
+    def bound(self):
+        """Bytes: the spectra written once, the amplitude read once;
+        operations: two threefry draws a bin on the integer lanes, or the
+        normals' and the shaping's float operations: the larger time."""
+        planes, rows, ticks = self.shape
+        bins = planes * rows * (ticks // 2 + 1)
+        t_bytes = (8 * bins + 4 * (ticks // 2 + 1)) / PEAK_BYTES_S * 1e3
+        t_int = 2 * bins * OPS_PER_THREEFRY / PEAK_INT32_OPS_S * 1e3
+        t_f32 = 2 * bins * OPS_PER_NOISE_NORMAL / PEAK_F32_OPS_S * 1e3
+        return max((t_bytes, "bytes"), (t_int, "integer operations"),
+                   (t_f32, "operations"))
+
+
+def check_noise(dev) -> float:
+    """The noise-spectrum kernel against its plain version at the
+    benchmark's shape and at the edge cases; returns the largest |kernel -
+    plain| (0: bit for bit, which is checked)."""
+    import torch
+
+    err = 0.0
+    for shape in (NOISE_SHAPE, *NOISE_EDGES):
+        case = NoiseCase(dev, *shape)
+        got, again = case.kernel(), case.kernel()
+        want = case.plain()
+        unit, unit_plain = case.unit(), case.plain(amp=False)
+        torch.cuda.synchronize()
+        g, w = torch.view_as_real(got), torch.view_as_real(want)
+        e = float((g - w).abs().max())
+        same = float((g == w).float().mean())
+        print(f"noise_spectrum {shape[0]} x {shape[1]} x "
+              f"{shape[2] // 2 + 1} bins ({shape[2]} ticks): max |kernel - "
+              f"plain| = {e:.6g}, bitwise-equal share {same}; max |re| "
+              f"{float(w[..., 0].abs().max()):.6g}", flush=True)
+        check(torch.equal(g, w), f"noise_spectrum {shape}: kernel != plain "
+              "version")
+        check(torch.equal(g, torch.view_as_real(again)),
+              f"noise_spectrum {shape}: not bit-identical run to run")
+        check(torch.equal(torch.view_as_real(unit),
+                          torch.view_as_real(unit_plain)),
+              f"noise_spectrum {shape}: unit normals != plain version")
+        if shape == NOISE_SHAPE:
+            ticks = shape[2]
+            batched = torch.fft.irfft(got, n=ticks, dim=-1)
+            check(all(torch.equal(batched[p], torch.fft.irfft(
+                got[p], n=ticks, dim=-1)) for p in range(shape[0])),
+                "noise: the batched inverse transform != the per-plane ones")
+            print("noise: the inverse transform over the planes == one a "
+                  "plane, bit for bit", flush=True)
+        err = max(err, e)
+        del got, again, want, unit, unit_plain
+    return err
 
 
 def hit_edge_grids(device, t: int):
@@ -2384,8 +2504,10 @@ def check_fit(full, dev, counters, card: str):
     default strategies for the targets, fluctuation and noise on,
     ``FIT_EVENTS`` events. Checks the self-calibration contract, the
     gradient of every fittable field, a central difference, a short Adam
-    fit and the launcher's own gates; every kernel's launch counter stays
-    0 (the fit graph runs the differentiable fallbacks)."""
+    fit and the launcher's own gates; the launch counters of
+    ``counters`` stay 0 (the fit graph runs the differentiable fallbacks;
+    the noise kernel, not among them, draws the unit normals the fit
+    shapes)."""
     import torch
 
     from repro_torch.core import fit, prng
@@ -2515,7 +2637,8 @@ def check_fit(full, dev, counters, card: str):
     wall = time.perf_counter() - t_phase
     print(f"fit phase: peak device memory {peak / 2**30:.2f} GiB above the "
           f"{held / 2**30:.2f} GiB earlier phases still hold, wall "
-          f"{wall:.1f} s, no kernel launched; {card}", flush=True)
+          f"{wall:.1f} s, no charge-grid, scatter-add, hit-scan or rasterize "
+          f"kernel launched; {card}", flush=True)
 
 
 #: the fig3 cut: the per-depo loop on this many of the event's depos (the
@@ -2989,7 +3112,8 @@ def check_audit(dev, card: str) -> None:
     ``Census``: (a) every wait the card reports sits at a census site with
     the census's count of card-tensor reads there; (b) the launches equal
     the committed baseline's ``kernels`` of the program (the stream: one
-    fused launch per ceil(rows / 16) a batch, nothing else), the two calls
+    fused launch per ceil(rows / 16) a batch and one noise launch an
+    event, nothing else), the two calls
     of a program have one census, and a program reads the host only at
     ``KNOWN_HOST_SYNCS``; (c) float64 only at ``ALLOWED_F64``, its bytes
     an event printed per site; (d) the phase's wall time. Prints every
@@ -3045,10 +3169,12 @@ def check_audit(dev, card: str) -> None:
                                                device=dev),
                        events, runs, problems)
     batches = -(-events // per_batch)
-    want = {"fused_rasterize_scatter": batches * -(-per_batch // 16)}
+    want = {"fused_rasterize_scatter": batches * -(-per_batch // 16),
+            "noise_spectrum": events}
     if dict(census.kernels) != want:
         problems.append(f"stream: launches {dict(census.kernels)} != "
-                        f"ceil(rows / 16) a batch: {want}")
+                        f"ceil(rows / 16) fused a batch and one noise an "
+                        f"event: {want}")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_audit_") as tmp:
         torch.cuda.set_device(dev)
         dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
@@ -5986,6 +6112,7 @@ def main() -> int:
     from repro_torch.kernels.fused_sim import kernel
     from repro_torch.kernels.hitfind import kernel as hit_kernel
     from repro_torch.kernels.hitfind import ref as hit_ref
+    from repro_torch.kernels.noise import kernel as noise_kernel
     from repro_torch.kernels.rasterize import kernel as raster_kernel
     from repro_torch.kernels.rasterize.ops import rasterize_depos
     from repro_torch.kernels.scatter_add import kernel as scatter_kernel
@@ -6091,6 +6218,9 @@ def main() -> int:
               f"rasterize fluctuate={fluct}: negative or empty patches")
         raster_err = max(raster_err, err)
         del got, again, want
+
+    noise_err = check_noise(dev)
+    noise_case = NoiseCase(dev, *NOISE_SHAPE)
 
     phase("main path")
     adcs = {}
@@ -6211,14 +6341,16 @@ def main() -> int:
     recon_cfg = dataclasses.replace(full3,
                                     charge_grid_strategy=MULTI_STRATEGIES[0])
     recon_adcs, launches["recon"], sim, recon0 = run_main(
-        recon_cfg, "recon", EVENTS, dev, [kernel, hit_kernel], recon=True,
-        card=card)
+        recon_cfg, "recon", EVENTS, dev, [kernel, hit_kernel, noise_kernel],
+        recon=True, card=card)
     print_stages("recon", sim, key0, generate_physical_depos(
         key0, full3, device=dev))
     check(launches["recon"]["hitfind_pallas"] == PLANES * EVENTS,
           f"recon: hit-scan launches {launches['recon']} != planes x events")
     check(launches["recon"]["fused_rasterize_scatter_multiplane"] == EVENTS,
           f"recon: charge-grid launches {launches['recon']}")
+    check(launches["recon"]["noise_spectrum"] == EVENTS,
+          f"recon: noise launches {launches['recon']} != events")
     for ev in range(EVENTS):
         check(torch.equal(recon_adcs[ev], adcs[MULTI_STRATEGIES[0]][ev]),
               f"event {ev}: the recon graph's ADC differs from the sim-only "
@@ -6263,7 +6395,8 @@ def main() -> int:
 
     phase("stream")
     stream_launches = check_streams(full, dev, [kernel, scatter_kernel,
-                                                hit_kernel], card)
+                                                hit_kernel, noise_kernel],
+                                    card)
     on_path = ("fused_rasterize_scatter", "fused_rasterize_scatter_compact",
                "fused_rasterize_scatter_multiplane",
                "fused_rasterize_scatter_multiplane_compact",
@@ -6356,7 +6489,11 @@ def main() -> int:
         ("rasterize_pallas", raster_case.kernel, raster_case.plain, 1,
          raster_case.bound(), None, "src/repro_torch/csrc/rasterize.cu",
          "src/repro/kernels/rasterize/kernel.py:78", "rasterize",
-         raster_err))
+         raster_err),
+        ("noise_spectrum", noise_case.kernel, noise_case.plain, 1,
+         noise_case.bound(), None, "src/repro_torch/csrc/noise.cu",
+         "none (the reference's jax.random draw, src/repro/core/noise.py)",
+         "recon", noise_err))
     # the fused rows' bound over every in-support pixel, as earlier
     # versions of this script counted it (rows compare across versions)
     support_bounds = {

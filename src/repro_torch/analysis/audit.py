@@ -10,7 +10,7 @@ against the committed ``AUDIT_torch_contracts.json``. Per-program fields:
   dtypes          : every dtype an op wrote (``f64`` only at ALLOWED_F64)
   scatter_dtypes  : dtypes of the accumulating writes (bf16/f16 = fail)
   host_syncs      : host reads and copies by site, ``{site: {"op@dev": n}}``
-  kernels         : launches of the eight kernel wrappers (PERF §6 rows 1-8)
+  kernels         : launches of the kernel wrappers (PERF §6 rows 1-9)
   float_divisions : ``tensor / number`` with an inexact reciprocal, by site
   f64_bytes       : float64 bytes written, by site
   repeat_drift    : the fields whose second-call census differs from the

@@ -18,8 +18,8 @@ divisor of ``t / 2.5``) over the calls inside it, and records:
                     reads wait for the card, ``cpu`` ones do not on the card
   collectives     : c10d ops per kind, in the reference's vocabulary
   collective_bytes: their operand bytes per kind (``operand_bytes``)
-  kernels         : launches of the eight kernel wrappers (PERF §6 rows
-                    1-8): on the card the wrappers' ``LAUNCHES`` deltas, on
+  kernels         : launches of the kernel wrappers (PERF §6 rows
+                    1-9): on the card the wrappers' ``LAUNCHES`` deltas, on
                     the CPU the plain-version runs that stand for them
   float_divisions : ``tensor / number`` with a Python divisor whose
                     reciprocal is inexact, by site (torch on the card
@@ -86,11 +86,12 @@ C10D_KINDS = {
     "_allgather_base_": "all-gather", "allgather_": "all-gather",
     "allgather_into_tensor_coalesced_": "all-gather"}
 
-#: the kernel wrappers' launch counters (PERF §6 rows 1-8)
+#: the kernel wrappers' launch counters (PERF §6 rows 1-9)
 LAUNCH_MODULES = ("repro_torch.kernels.fused_sim.kernel",
                   "repro_torch.kernels.scatter_add.kernel",
                   "repro_torch.kernels.hitfind.kernel",
-                  "repro_torch.kernels.rasterize.kernel")
+                  "repro_torch.kernels.rasterize.kernel",
+                  "repro_torch.kernels.noise.kernel")
 
 #: Tensor methods the function mode records as host reads
 HOST_READS = ("tolist", "cpu", "numpy", "item", "__int__", "__float__",

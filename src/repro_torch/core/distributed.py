@@ -56,7 +56,7 @@ from repro_torch.core import fluctuate as fl
 from repro_torch.core import prng
 from repro_torch.core.depo import DepoSet
 from repro_torch.core.hitfind import HitSet, find_hits, stack_hits
-from repro_torch.core.noise import noise_spectrum, sample_noise_rows
+from repro_torch.core.noise import noise_spectrum, sample_noise_planes
 from repro_torch.core.rasterize import rasterize
 from repro_torch.core.scatter import scatter_add
 from repro_torch.core.stages import (SimOutput, SimState, build_sim_graph,
@@ -461,12 +461,11 @@ def make_distributed_sim(mesh, cfg: LArTPCConfig, resp,
 
     def dist_noise(state: SimState) -> SimState:
         kn = prng.fold_in(state.key, NOISE_FOLD + me)
+        keys = [prng.fold_in(kn, spec.index) for spec in specs] if multi \
+            else [kn]
+        noise = sample_noise_planes(keys, w_shard, namp, t_len)
         if not multi:
-            noise = sample_noise_rows(kn, w_shard, namp, t_len)
-        else:
-            noise = torch.stack([
-                sample_noise_rows(prng.fold_in(kn, spec.index), w_shard,
-                                  namp, t_len) for spec in specs])
+            noise = noise[0]
         denom = torch.clamp_min(scalar(cfg.adc_per_electron, noise), 1e-30)
         return state._replace(signal=state.signal + noise / denom)
 

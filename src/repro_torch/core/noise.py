@@ -3,15 +3,20 @@
 A synthetic 1/f-plus-plateau amplitude spectrum with random Gaussian
 phases, inverse-FFT'd per wire. ``noise_spectrum`` scales it so the expected
 time-domain RMS is ``cfg.noise_rms_adc`` (Parseval, with the self-conjugate
-DC and even-n Nyquist bins carrying no imaginary part).
+DC and even-n Nyquist bins carrying no imaginary part). The spectra of
+every plane of an event are drawn by one launch of ``kernels/noise``
+(``csrc/noise.cu``) on the card, by its plain version on the CPU.
 """
 from __future__ import annotations
+
+from typing import Sequence, Tuple
 
 import torch
 
 from repro_torch.config import LArTPCConfig
 from repro_torch.core import prng
 from repro_torch.device import resolve_device, scalar
+from repro_torch.kernels.noise import kernel as noise_kernel
 
 
 def _parseval_weights(num_ticks: int, device) -> torch.Tensor:
@@ -40,24 +45,34 @@ def noise_spectrum(cfg: LArTPCConfig, device="cuda") -> torch.Tensor:
     return amp * norm
 
 
-def sample_noise_rows(k: torch.Tensor, n_rows: int, amp: torch.Tensor,
-                      num_ticks: int) -> torch.Tensor:
-    """(n_rows, num_ticks) realisations of the amplitude spectrum ``amp``."""
-    nfreq = num_ticks // 2 + 1
-    k1, k2 = prng.split(k)
-    re = prng.normal(k1, (n_rows, nfreq), amp.device)
-    im = prng.normal(k2, (n_rows, nfreq), amp.device)
-    # a Hermitian spectrum has real DC (and, for even n, Nyquist) bins
-    im[:, 0] = 0.0
-    if num_ticks % 2 == 0:
-        im[:, -1] = 0.0
-    scale = 0.7071067811865476
-    spec = torch.complex(re * amp[None, :] * scale, im * amp[None, :] * scale)
-    return torch.fft.irfft(spec, n=num_ticks, dim=-1).to(torch.float32)
+def plane_key_words(k: torch.Tensor) -> Tuple[int, int, int, int]:
+    """The key words a plane's spectrum is drawn with: ``split(k)``'s first
+    key for the real parts, its second for the imaginary parts."""
+    k1, k2 = prng.split_words(k)
+    return k1 + k2
+
+
+def sample_noise_planes(keys: Sequence[torch.Tensor], n_rows: int,
+                        amp: torch.Tensor, num_ticks: int) -> torch.Tensor:
+    """(len(keys), n_rows, num_ticks) realisations of the amplitude spectrum
+    ``amp``, one a key: every plane's spectrum in one launch of the
+    noise-spectrum kernel on the card (the plain version on the CPU), then
+    one inverse transform over all planes (on the card, the bits of one
+    transform a plane)."""
+    spec = noise_kernel.noise_spectrum([plane_key_words(k) for k in keys],
+                                       n_rows, amp, num_ticks)
+    return torch.fft.irfft(spec, n=num_ticks, dim=-1)
+
+
+def simulate_noise_planes(keys: Sequence[torch.Tensor], cfg: LArTPCConfig,
+                          device="cuda") -> torch.Tensor:
+    """(len(keys), num_wires, num_ticks) correlated noise, one realisation a
+    key."""
+    return sample_noise_planes(keys, cfg.num_wires,
+                               noise_spectrum(cfg, device), cfg.num_ticks)
 
 
 def simulate_noise(k: torch.Tensor, cfg: LArTPCConfig,
                    device="cuda") -> torch.Tensor:
     """(num_wires, num_ticks) correlated noise realisation."""
-    return sample_noise_rows(k, cfg.num_wires, noise_spectrum(cfg, device),
-                             cfg.num_ticks)
+    return simulate_noise_planes([k], cfg, device)[0]

@@ -193,3 +193,13 @@ def normal(k: torch.Tensor, shape: Sequence[int], device,
         return normal_bf16_wide(k, shape, device, offset).to(torch.bfloat16)
     u = uniform(k, shape, NORMAL_LO, 1.0, device, dtype, offset)
     return torch.erfinv(u) * SQRT2_F32
+
+
+def split_words(k: torch.Tensor, num: int = 2) -> Tuple[Tuple[int, int], ...]:
+    """The words of ``split(k, num)``'s keys as Python ints, computed with
+    Python integers: a handful of keys without split's ~130 small tensor
+    ops on the host. A key lives on the host, so reading it waits for no
+    device."""
+    k0, k1 = _words(k)
+    return tuple(threefry2x32(k0, k1, i >> 32, i & MASK32)
+                 for i in range(num))

@@ -56,7 +56,7 @@ from repro_torch.core.depo import DepoSet
 from repro_torch.core.fft_conv import digitize, fft_convolve, \
     resolve_spectrum_strategy
 from repro_torch.core.fluctuate import make_pool
-from repro_torch.core.noise import simulate_noise
+from repro_torch.core.noise import simulate_noise_planes
 from repro_torch.core.rasterize import patch_dtype
 from repro_torch.core.response import DetectorResponse, make_response
 from repro_torch.device import resolve_device, scalar
@@ -501,17 +501,17 @@ def convolve_stage(cfg: LArTPCConfig, resp,
 def noise_stage(cfg: LArTPCConfig,
                 planes: Optional[Tuple[int, ...]] = None) -> Stage:
     """Add frequency-shaped electronics noise to the signal (multi-plane:
-    an independent realisation per plane from the plane-folded subkeys)."""
+    an independent realisation per plane from the plane-folded subkeys,
+    every plane's spectrum drawn by one kernel launch)."""
     specs = _selected_specs(cfg, planes)
     multi = cfg.num_planes > 1
 
     def fn(state: SimState) -> SimState:
         dev = state.signal.device
+        keys = _plane_keys(state.kn, specs) if multi else [state.kn]
+        noise = simulate_noise_planes(keys, cfg, device=dev)
         if not multi:
-            noise = simulate_noise(state.kn, cfg, device=dev)
-        else:
-            noise = torch.stack([simulate_noise(k, cfg, device=dev)
-                                 for k in _plane_keys(state.kn, specs)])
+            noise = noise[0]
         denom = torch.clamp_min(scalar(cfg.adc_per_electron, noise), 1e-30)
         return state._replace(signal=state.signal + noise / denom)
 

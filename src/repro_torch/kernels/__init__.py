@@ -28,7 +28,8 @@ BUILD_DIR = _PKG / "_build"
 
 #: library name -> CUDA source under csrc/
 SOURCES = {"fused_sim": "fused_sim.cu", "scatter_add": "scatter_add.cu",
-           "hitfind": "hitfind.cu", "rasterize": "rasterize.cu"}
+           "hitfind": "hitfind.cu", "rasterize": "rasterize.cu",
+           "noise": "noise.cu"}
 
 #: no --use_fast_math and no --fmad=false (see the sources' headers)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

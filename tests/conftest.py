@@ -16,6 +16,10 @@ def pytest_configure(config):
         "(slow; CI runs these in a dedicated job via '-m subprocess' and "
         "keeps them out of the per-version matrix with '-m \"not "
         "subprocess\"')")
+    config.addinivalue_line(
+        "markers",
+        "card: needs a CUDA card and skips without one; such files import "
+        "no JAX and run on the card with '--noconftest'")
 
 
 @pytest.fixture(scope="session")

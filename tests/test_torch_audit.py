@@ -426,14 +426,16 @@ class TestBaselineCoverage:
 
     def test_port_programs_pin_their_kernels(self):
         c = audit.load_baseline(str(BASELINE))
+        # one noise-spectrum launch an event, every plane in it
         assert c["p1/single_fused"]["kernels"] == {
-            "fused_rasterize_scatter": 1}
+            "fused_rasterize_scatter": 1, "noise_spectrum": 1}
         assert c["p3/single_fused"]["kernels"] == {
-            "fused_rasterize_scatter_multiplane": 1}
+            "fused_rasterize_scatter_multiplane": 1, "noise_spectrum": 1}
         assert c["p1/unfused_pallas_compact"]["kernels"] == {
-            "scatter_add_pallas_compact": 1}
+            "scatter_add_pallas_compact": 1, "noise_spectrum": 1}
         assert c["p3/recon_kernels"]["kernels"] == {
-            "fused_rasterize_scatter_multiplane": 1, "hitfind_pallas": 3}
+            "fused_rasterize_scatter_multiplane": 1, "hitfind_pallas": 3,
+            "noise_spectrum": 1}
         assert c["p1/unfused_pallas_compact"]["host_syncs"][
             "kernels/scatter_add/ops.py:bin_depos_to_tiles_compact:142"] \
             == {"index@cpu": 2}

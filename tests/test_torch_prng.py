@@ -42,6 +42,18 @@ def test_split(seed, num):
     np.testing.assert_array_equal(prng.split(prng.key(seed), num).numpy(), ref)
 
 
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("num", [1, 2, 5])
+def test_split_words(seed, num):
+    """The host-integer split the noise stage's plane keys take: the words
+    of ``jax.random.split``'s keys, as ``split`` gives them."""
+    ref = _data(jax.random.split(jax.random.key(seed), num))
+    k = prng.key(seed)
+    assert prng.split_words(k, num) == tuple(map(tuple, ref.tolist()))
+    assert prng.split_words(k, num) == tuple(map(tuple, prng.split(
+        k, num).tolist()))
+
+
 @pytest.mark.parametrize("data", [0, 1, 3, 1000, 2**32 - 1])
 def test_fold_in(data):
     ref = _data(jax.random.fold_in(jax.random.key(7), np.uint32(data)))
